@@ -2,19 +2,32 @@
 
     python3 chip_smoke.py [--values N] [--groups G]
 
-Builds the port's CUDA kernels and its snappy library from the sources
-in this checkout, holds every kernel against its plain PyTorch version
-on the card (bit for bit), writes the NYC-Taxi-shaped config-2 file of
-``bench.py`` (seed 42, 8 row groups, 50,000,000 values by default) with
-the port's writer, reads it back through ``read_row_groups_device`` on
-the card and checks every value, def level and mask against the
-generator, then times each kernel at the main path's shapes.
+1. Builds the port's eight CUDA kernels (K1-K8) and its C host helpers
+   (snappy, bit packing, lane planes) from the sources in this checkout.
+2. Holds every kernel against its plain PyTorch version on the card, bit
+   for bit.
+3. Writes the NYC-Taxi-shaped config-2 file of ``bench.py`` (seed 42, 8
+   row groups, 50,000,000 values by default) with the port's writer and
+   reads it through ``read_row_groups_device`` on the card with the
+   default PLAIN wire transports (byte planes, delta lanes, snappy
+   tokens), then again with ``TPQ_DEVICE_SNAPPY/PLANES/DELTA=0`` (no
+   transport).  Each read checks every value, def level and mask against
+   the generator, row group 0 against the CPU run buffer for buffer, and
+   the routing counters; each is timed best of 3.
+   3b. Does the same for the transport mix, a file on which every route
+   engages (snappy tokens with and without levels, delta lanes at widths
+   7 and 39, byte planes), with the default transports.
+4. Times each kernel at the main paths' page shapes with CUDA events,
+   beside its memory/operation bound, its plain version and, where one
+   PyTorch call computes the core of the function, that call.
 
+Every kernel must have launched on the paths of phases 3 and 3b; the
+counts are set to 0 just before each path's read and read just after.
 Exits non-zero, printing no result, when CUDA is unavailable or any
 phase fails.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists the kernels with their launches on the main
-path, times and bounds.
+paths, times and bounds.
 """
 
 from __future__ import annotations
@@ -22,6 +35,7 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -30,10 +44,11 @@ import numpy as np
 import torch
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, and the float32 rate outside the
-# tensor cores (the listed rate closest to the kernels' 32-bit integer
-# work)
+# tensor cores (the listed rate closest to the kernels' integer work)
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+
+TRANSPORT_ENV = ("TPQ_DEVICE_SNAPPY", "TPQ_DEVICE_PLANES", "TPQ_DEVICE_DELTA")
 
 SCHEMA = """message taxi {
     required int64 pickup_ts;
@@ -43,16 +58,31 @@ SCHEMA = """message taxi {
     optional int32 payment_type;
 }"""
 
+MIX_SCHEMA = """message mix {
+    required int64 tok;
+    optional int64 tok_opt;
+    required int32 seq32;
+    required int64 wide_delta;
+    required int64 lanes_raw;
+}"""
+
+
+def _write(schema: str, groups, optional: str) -> bytes:
+    from tpuparquet_torch.format.metadata import CompressionCodec
+    from tpuparquet_torch.io.writer import FileWriter
+
+    buf = io.BytesIO()
+    w = FileWriter(buf, schema, codec=CompressionCodec.SNAPPY)
+    for cols, mask in groups:
+        w.write_columns(cols, masks={optional: mask})
+    w.close()
+    return buf.getvalue()
+
 
 def build_config2(n_values: int, n_groups: int, seed: int = 42):
     """The config-2 file of bench.py (build_config2), written with the
     port's writer.  Returns (file bytes, [(columns, payment mask)])."""
-    from tpuparquet_torch.format.metadata import CompressionCodec
-    from tpuparquet_torch.io.writer import FileWriter
-
     rng = np.random.default_rng(seed)
-    buf = io.BytesIO()
-    w = FileWriter(buf, SCHEMA, codec=CompressionCodec.SNAPPY)
     per = n_values // 5 // n_groups
     base_ts = 1_700_000_000_000
     groups = []
@@ -67,10 +97,38 @@ def build_config2(n_values: int, n_groups: int, seed: int = 42):
             "payment_type": rng.integers(
                 0, 5, size=int(pay_mask.sum()), dtype=np.int32),
         }
-        w.write_columns(cols, masks={"payment_type": pay_mask})
         groups.append((cols, pay_mask))
-    w.close()
-    return buf.getvalue(), groups
+    return _write(SCHEMA, groups, "payment_type"), groups
+
+
+def build_mix(n_values: int, n_groups: int, seed: int = 11):
+    """The transport mix, SNAPPY, written with the port's writer:
+    ``tok`` (blocks of 64 random int64 in [-2^62, 2^62), each block
+    repeated 4 times: snappy tokens), ``tok_opt`` (the same under a
+    5%-null mask: tokens from a byte offset past the levels), ``seq32``
+    (a slow int32 sequence: delta lanes at width 7), ``wide_delta``
+    (delta lanes at width 39, the three-word unpack) and ``lanes_raw``
+    (a random low word under a slowly stepping high word: byte planes).
+    Returns (file bytes, [(columns, tok_opt mask)])."""
+    rng = np.random.default_rng(seed)
+    rows = n_values // 5 // n_groups
+    groups = []
+    for _ in range(n_groups):
+        blocks = rng.integers(-2**62, 2**62, size=(-(-rows // 256), 64))
+        tok = np.repeat(blocks, 4, axis=0).reshape(-1)[:rows]
+        mask = rng.random(rows) >= 0.05
+        cols = {
+            "tok": tok,
+            "tok_opt": tok[mask],
+            "seq32": (rng.integers(0, 100, size=rows).cumsum() - 2**31
+                      + 5).astype(np.int32),
+            "wide_delta": rng.integers(0, 2**39, size=rows).cumsum()
+            - 2**60,
+            "lanes_raw": rng.integers(0, 2**32, size=rows)
+            + ((np.arange(rows) // 100_000) << 32),
+        }
+        groups.append((cols, mask))
+    return _write(MIX_SCHEMA, groups, "tok_opt"), groups
 
 
 def _u32(t: torch.Tensor) -> np.ndarray:
@@ -125,6 +183,150 @@ def _runny(rng, n: int, width: int) -> np.ndarray:
         a = int(rng.integers(0, n))
         v[a : a + int(rng.integers(8, 200))] = rng.integers(0, hi + 1)
     return v
+
+
+def _t(a: np.ndarray, dev) -> torch.Tensor:
+    """A numpy array as a 1-D tensor on ``dev`` (4-byte dtypes as int32
+    bits, bytes as uint8)."""
+    a = np.ascontiguousarray(a).reshape(-1)
+    a = a.view(np.uint8 if a.dtype.itemsize == 1 else np.int32)
+    return torch.from_numpy(a.copy()).to(dev)
+
+
+def _run_table(rng, count: int, n_runs: int, dtype):
+    """A bucket-padded run table, as the plane planner stages it: int32
+    ends (padding = count) and values (padding = 0)."""
+    from tpuparquet_torch.kernels.decode import bucket
+
+    cuts = np.sort(rng.choice(np.arange(1, count), size=n_runs - 1,
+                              replace=False)).astype(np.int32)
+    cap = bucket(n_runs)
+    ends = np.full(cap, count, dtype=np.int32)
+    ends[: n_runs - 1] = cuts
+    vals = np.zeros(cap, dtype=dtype)
+    vals[:n_runs] = rng.integers(0, np.iinfo(dtype).max, size=n_runs,
+                                 endpoint=True, dtype=dtype)
+    return ends, vals, cap
+
+
+def _check_planes(rng, dev) -> None:
+    from tpuparquet_torch.kernels.decode import planes_to_words, \
+        planes_to_words_plain
+
+    count = 5003
+    raw32 = rng.integers(0, 2**32, size=2 * count, dtype=np.uint32)
+    raw8 = rng.integers(0, 256, size=3 * count, dtype=np.uint8)
+    e32a, v32a, c32a = _run_table(rng, count, 7, np.uint32)
+    e32b, v32b, c32b = _run_table(rng, count, 40, np.uint32)
+    e8a, v8a, c8a = _run_table(rng, count, 3, np.uint8)
+    e8b, v8b, c8b = _run_table(rng, count, 300, np.uint8)
+    bufs = [raw32, np.concatenate([e32a, e32b]), np.concatenate([v32a, v32b]),
+            raw8, np.concatenate([e8a, e8b]), np.concatenate([v8a, v8b])]
+    r32a, r32b = ("rle32", 0, c32a), ("rle32", c32a, c32b)
+    r8a, r8b = ("rle8", 0, c8a), ("rle8", c8a, c8b)
+    specs = [
+        (1, (("raw32", 1),)),
+        (1, (r32b,)),
+        (1, (("bytes", ("raw8", 2), r8a, ("raw8", 0), r8b),)),
+        (2, (r32a, ("raw32", 0))),
+        (2, (("bytes", r8b, ("raw8", 1), r8a, r8a), r32b)),
+        (2, (("raw32", 1), ("bytes", ("raw8", 0), ("raw8", 1), ("raw8", 2),
+                             r8b))),
+    ]
+    dbufs = [_t(b, dev) for b in bufs]
+    cbufs = [b.cpu() for b in dbufs]
+    for lanes, spec in specs:
+        _same(f"K5 {spec}", planes_to_words(*dbufs, spec, count, lanes),
+              planes_to_words_plain(*cbufs, spec, count, lanes))
+
+
+def _check_unpack_u64(rng, dev) -> None:
+    from tpuparquet_torch.cpu.bitpack import pack
+    from tpuparquet_torch.kernels.bitunpack import pad_to_words, \
+        unpack_u64, unpack_u64_plain
+
+    for n in (10_007, 45):
+        for w in range(65):
+            vals = (rng.integers(0, 2**63, size=n, dtype=np.uint64) * 2
+                    + rng.integers(0, 2, size=n, dtype=np.uint64))
+            if w < 64:
+                vals &= np.uint64((1 << w) - 1)
+            words = _t(pad_to_words(np.frombuffer(pack(vals, w), np.uint8),
+                                    max(w, 1), n), dev)
+            lo, hi = unpack_u64(words, w, n)
+            plo, phi = unpack_u64_plain(words.cpu(), w, n)
+            _same(f"K6 width {w} n {n} lo", lo, plo)
+            _same(f"K6 width {w} n {n} hi", hi, phi)
+            got = (_u32(lo).astype(np.uint64)
+                   | (_u32(hi).astype(np.uint64) << np.uint64(32)))
+            if not np.array_equal(got, vals):
+                raise AssertionError(f"K6 width {w}: wrong values")
+
+
+def _check_delta_scan(rng, dev) -> None:
+    from tpuparquet_torch.kernels.decode import delta_scan, delta_scan_plain
+
+    for total in (1, 2, 1025, (1 << 21) + 3):
+        n = total - 1
+        for wide in (False, True):
+            for bs in (max(n, 1), 128):
+                nb = -(-max(n, 1) // bs)
+                d = _t(rng.integers(0, 2**32, size=2 * n, dtype=np.uint32),
+                       dev)
+                md = rng.integers(-2**63, 0, size=nb, dtype=np.int64)
+                md_u = md.view(np.uint64)
+                md_lo = _t((md_u & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                           dev)
+                md_hi = _t((md_u >> np.uint64(32)).astype(np.uint32), dev)
+                dlo, dhi = d[:n], (d[n:] if wide else None)
+                mhi = md_hi if wide else None
+                first = int(rng.integers(-2**63, 2**63 - 1))
+                got = delta_scan(dlo, dhi, md_lo, mhi, bs, first, total)
+                want = delta_scan_plain(
+                    dlo.cpu(), None if dhi is None else dhi.cpu(),
+                    md_lo.cpu(), None if mhi is None else mhi.cpu(), bs,
+                    first, total)
+                _same(f"K7 total {total} wide {wide} block {bs}", got, want)
+
+
+def _check_tokens(rng, dev) -> None:
+    from tpuparquet_torch.compress import compress_block
+    from tpuparquet_torch.format.metadata import CompressionCodec
+    from tpuparquet_torch.kernels.snappy import expand_tokens, \
+        expand_tokens_plain, expand_tokens_words, \
+        expand_tokens_words_plain, plan_tokens
+
+    blocks = {
+        "random": rng.integers(0, 256, size=100_003, dtype=np.uint8),
+        "runs at offset 1": np.concatenate([
+            np.full(70_000, 7, np.uint8),
+            rng.integers(0, 256, size=999, dtype=np.uint8),
+            np.full(5_001, 200, np.uint8)]),
+        "repeated blocks": np.repeat(
+            rng.integers(-2**62, 2**62, size=(800, 64)), 4,
+            axis=0).reshape(-1).view(np.uint8),
+    }
+    for name, data in blocks.items():
+        comp = compress_block(CompressionCodec.SNAPPY, data)
+        te, ts, lp, out_cap, steps, out_len = plan_tokens(comp, data.size)
+        dte, dts, dlp = _t(te, dev), _t(ts, dev), _t(lp, dev)
+        cte, cts, clp = dte.cpu(), dts.cpu(), dlp.cpu()
+        blob = expand_tokens(dte, dts, dlp, out_cap, steps)
+        _same(f"K8 {name} blob", blob,
+              expand_tokens_plain(cte, cts, clp, out_cap, steps))
+        if not np.array_equal(blob[:out_len].cpu().numpy(), data):
+            raise AssertionError(f"K8 {name}: wrong bytes")
+        for off in (0, 3):
+            nw = (out_len - off) // 4
+            words = expand_tokens_words(dte, dts, dlp, out_cap, steps, off,
+                                        nw)
+            _same(f"K8 {name} words at {off}", words,
+                  expand_tokens_words_plain(cte, cts, clp, out_cap, steps,
+                                            off, nw))
+            want = data[off : off + 4 * nw].view("<u4")
+            if not np.array_equal(words.cpu().numpy().view(np.uint32),
+                                  want):
+                raise AssertionError(f"K8 {name} at {off}: wrong words")
 
 
 def check_kernels(dev) -> None:
@@ -184,6 +386,10 @@ def check_kernels(dev) -> None:
         pm, pp = levels_to_validity_plain(dl, 2)
         _same(f"K4 mask {size}", m, pm)
         _same(f"K4 positions {size}", p, pp)
+    _check_planes(rng, dev)
+    _check_unpack_u64(rng, dev)
+    _check_delta_scan(rng, dev)
+    _check_tokens(rng, dev)
     if dev.type == "cuda":  # a fault during a run surfaces here
         torch.cuda.synchronize(dev)
 
@@ -216,39 +422,54 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> int:
         if x.size else 0
 
 
-def time_kernels(groups, dev, launches) -> list:
-    """Phase 4: each kernel at the main path's page shapes."""
+def _stage(arrays, dev):
+    return [_t(a, dev) for a in arrays]
+
+
+def time_kernels(groups, mix_groups, dev, launches) -> list:
+    """Phase 4: each kernel at the main paths' page shapes."""
+    from tpuparquet_torch.compress import compress_block
     from tpuparquet_torch.cpu.hybrid import encode_hybrid, scan_hybrid
+    from tpuparquet_torch.format.metadata import CompressionCodec
     from tpuparquet_torch.io.chunk import build_dictionary
-    from tpuparquet_torch.kernels.bitunpack import unpack_u32, \
-        unpack_u32_plain
-    from tpuparquet_torch.kernels.decode import levels_to_validity, \
-        levels_to_validity_plain, page_dict_fixed, page_dict_fixed_plain
+    from tpuparquet_torch.kernels.bitunpack import pad_to_words, \
+        unpack_u32, unpack_u32_plain, unpack_u64, unpack_u64_plain
+    from tpuparquet_torch.kernels.decode import delta_scan, \
+        delta_scan_plain, levels_to_validity, levels_to_validity_plain, \
+        page_dict_fixed, page_dict_fixed_plain, planes_to_words_plain
+    from tpuparquet_torch.kernels.device import _plan_plane_words, \
+        _put_all, _Stager
     from tpuparquet_torch.kernels.hybrid import expand_hybrid, \
         expand_hybrid_plain, plan_stream_args
+    from tpuparquet_torch.kernels.snappy import expand_tokens_words, \
+        expand_tokens_words_plain, plan_tokens
+    from tpuparquet_torch.native import pack_native
 
     cols, pay_mask = groups[0]
     n = pay_mask.size
     out = []
 
-    def stage(args):
-        return [torch.from_numpy(np.ascontiguousarray(a).reshape(-1)
-                                 .view(np.int32)).to(dev) for a in args]
-
-    def row(name, source, replaces, fn, plain, n_bytes, n_ops):
+    def row(name, source, replaces, fn, plain, n_bytes, n_ops,
+            library=None):
         got, want = fn(), plain()
         if isinstance(got, tuple):
             err = max(_max_err(g, w) for g, w in zip(got, want))
         else:
             err = _max_err(got, want)
+        if err != 0:
+            raise AssertionError(f"{name}: kernel disagrees with its plain "
+                                 f"version at the page shape (max abs diff "
+                                 f"{err})")
         bound, by = _bound_ms(n_bytes, n_ops)
         ms, plain_ms = _time_ms(fn), _time_ms(plain, reps=5)
+        lib_ms = None if library is None else _time_ms(library)
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound, "bound_by": by, "library_ms": None})
+                    "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
+        lib = "" if lib_ms is None else f"; library {lib_ms:.4f} ms"
         print(f"{name}: {ms:.4f} ms (bound {bound:.4f} ms by {by}; plain "
-              f"{plain_ms:.4f} ms; max_abs_err {err})", flush=True)
+              f"{plain_ms:.4f} ms{lib}; max_abs_err {err})", flush=True)
 
     # K1: payment_type's def-level stream, which the planner re-packs as
     # one bit-packed run (width 1, 2^21 slots)
@@ -256,7 +477,7 @@ def time_kernels(groups, dev, launches) -> list:
     sc = scan_hybrid(encode_hybrid(dl, 1), n, 1)
     (bp, _tbl), cnt, _nbp, single = plan_stream_args(sc, n, 1)
     assert single
-    (bp_d,) = stage([bp])
+    (bp_d,) = _stage([bp], dev)
     row("unpack_u32", "tpuparquet_torch/csrc/unpack_u32.cu",
         "tpuparquet/kernels/bitunpack.py:208",
         lambda: unpack_u32(bp_d, 1, cnt),
@@ -268,20 +489,18 @@ def time_kernels(groups, dev, launches) -> list:
     sc = scan_hybrid(encode_hybrid(idx.astype(np.uint32), 3), n, 3)
     (bp, tbl), cnt, nbp, single = plan_stream_args(sc, n, 3)
     assert not single
-    bp_d, tbl_d = stage([bp, tbl])
-    R = tbl.shape[1]
-    search = 2 * max(R - 1, 1).bit_length()
+    bp_d, tbl_d = _stage([bp, tbl], dev)
     row("expand_hybrid", "tpuparquet_torch/csrc/expand_hybrid.cu",
         "tpuparquet/kernels/hybrid.py:181",
         lambda: expand_hybrid(bp_d, tbl_d, cnt, 3, nbp),
         lambda: expand_hybrid_plain(bp_d, tbl_d, cnt, 3, nbp),
-        bp.nbytes + tbl.nbytes + 4 * cnt, (search + 10) * cnt)
+        bp.nbytes + tbl.nbytes + 4 * cnt, 8 * cnt)
     # the dictionary as staged: first-occurrence order, zero-padded to
     # its bucket; K3 gathers from the indices K2 expanded (a run of
     # width 32), the launch the main path makes for this page
     dictionary = np.zeros(32, dtype=np.int32)
     dictionary[: dvals.size] = dvals
-    (dict_d,) = stage([dictionary])
+    (dict_d,) = _stage([dictionary], dev)
     idx_d = expand_hybrid(bp_d, tbl_d, cnt, 3, nbp)
     row("page_dict_fixed", "tpuparquet_torch/csrc/page_dict_fixed.cu",
         "tpuparquet/kernels/decode.py:311",
@@ -289,15 +508,196 @@ def time_kernels(groups, dev, launches) -> list:
         lambda: page_dict_fixed_plain(dict_d, idx_d, None, cnt, 32, cnt, 1,
                                       True),
         dict_d.numel() * 4 + 4 * cnt + 4 * cnt, 8 * cnt)
-    # K4: payment_type's expanded def levels (2^21 slots)
+    # K4: payment_type's expanded def levels (2^21 slots); one PyTorch
+    # call computes its core, the running count of the mask
     levels = torch.zeros(cnt, dtype=torch.int32, device=dev)
     levels[:n] = torch.from_numpy(dl.astype(np.int32)).to(dev)
+    mask_d = levels == 1
     row("levels_to_validity", "tpuparquet_torch/csrc/levels_to_validity.cu",
         "tpuparquet/kernels/decode.py:185",
         lambda: levels_to_validity(levels, 1),
         lambda: levels_to_validity_plain(levels, 1),
-        4 * cnt + cnt + 4 * cnt, 12 * cnt)
+        4 * cnt + cnt + 4 * cnt, 12 * cnt,
+        library=lambda: torch.cumsum(mask_d, 0, dtype=torch.int32))
+
+    # K5: trip_distance_mm's page through the port's plane planner
+    seg = np.ascontiguousarray(cols["trip_distance_mm"]).view(np.uint8)
+    stg = _Stager()
+    planned = _plan_plane_words(seg, n, 2, stg)
+    assert planned is not None, "trip_distance_mm: planes rejected"
+    wire, words_fn, spec = planned
+    (staged,), _slab = _put_all([stg], dev)
+    _sync(dev)
+    cpu_staged = [t.cpu() for t in staged]
+    row("planes_to_words", "tpuparquet_torch/csrc/planes_to_words.cu",
+        "tpuparquet/kernels/decode.py:127",
+        lambda: words_fn(staged),
+        lambda: planes_to_words_plain(*cpu_staged, spec, n, 2),
+        wire + 8 * n, 2 * n * 8)
+    print(f"K5 page: spec {spec}, wire {wire} bytes", flush=True)
+
+    # K6: wide_delta's page, its deltas' offsets packed at width 39
+    mix_cols, _ = mix_groups[0]
+    m = mix_cols["wide_delta"].size
+    v = mix_cols["wide_delta"].view(np.uint64)
+    d = (v[1:] - v[:-1]).view(np.int64)
+    off = (d - d.min()).view(np.uint64)
+    w = int(off.max()).bit_length()
+    n_pad = -(-(m - 1) // 32768) * 32768
+    off_p = np.zeros(n_pad, np.uint64)
+    off_p[: m - 1] = off
+    words = pad_to_words(pack_native().pack(off_p, w), w, n_pad)
+    (words_d,) = _stage([words], dev)
+    words_c = words_d.cpu()
+    row("unpack_u64", "tpuparquet_torch/csrc/unpack_u64.cu",
+        "tpuparquet/kernels/bitunpack.py:143",
+        lambda: unpack_u64(words_d, w, n_pad),
+        lambda: unpack_u64_plain(words_c, w, n_pad),
+        words.nbytes + 8 * n_pad, 20 * n_pad)
+    print(f"K6 page: width {w}, {n_pad} values", flush=True)
+
+    # K7: pickup_ts's page: the placed delta offsets and min_delta, the
+    # scan that rebuilds the values; one PyTorch call computes its core,
+    # the running sum of the int64 deltas
+    v = cols["pickup_ts"].view(np.uint64)
+    d = (v[1:] - v[:-1]).view(np.int64)
+    md = int(d.min())
+    off = (d - md).view(np.uint64)
+    dlo, dhi = _stage([(off & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                       (off >> np.uint64(32)).astype(np.uint32)], dev)
+    md_u = np.uint64(md & 0xFFFFFFFFFFFFFFFF)
+    md_lo, md_hi = _stage([np.array([md_u & np.uint64(0xFFFFFFFF)], np.uint32),
+                           np.array([md_u >> np.uint64(32)], np.uint32)], dev)
+    first = int(v[0])
+    cpu_args = [t.cpu() for t in (dlo, dhi, md_lo, md_hi)]
+    deltas64 = torch.from_numpy(d.copy()).to(dev)
+    nd = n - 1
+    row("delta_scan", "tpuparquet_torch/csrc/delta_scan.cu",
+        "tpuparquet/kernels/decode.py:572",
+        lambda: delta_scan(dlo, dhi, md_lo, md_hi, nd, first, n),
+        lambda: delta_scan_plain(*cpu_args, nd, first, n),
+        8 * nd + 8 + 8 * n, 4 * nd,
+        library=lambda: torch.cumsum(deltas64, 0))
+    got = delta_scan(dlo, dhi, md_lo, md_hi, nd, first, n)
+    if not np.array_equal(got.cpu().numpy().view(np.int64),
+                          cols["pickup_ts"]):
+        raise AssertionError("K7 pickup_ts page: wrong values")
+
+    # K8: tok's page (its PLAIN values, snappy-compressed as the writer
+    # does), resolved into the page's u32 words.  The function reads the
+    # token tables and literals once, writes the words once, and does
+    # about one operation per output byte; the search and the doubling
+    # rounds are the design's, not the function's
+    page = np.ascontiguousarray(mix_cols["tok"]).view(np.uint8)
+    comp = compress_block(CompressionCodec.SNAPPY, page)
+    te, ts, lp, out_cap, steps, out_len = plan_tokens(comp, page.size)
+    te_d, ts_d, lp_d = _stage([te, ts, lp], dev)
+    cpu_tok = [t.cpu() for t in (te_d, ts_d, lp_d)]
+    nw = out_len // 4
+    row("expand_tokens", "tpuparquet_torch/csrc/snappy_expand.cu",
+        "tpuparquet/kernels/snappy.py:96",
+        lambda: expand_tokens_words(te_d, ts_d, lp_d, out_cap, steps, 0, nw),
+        lambda: expand_tokens_words_plain(*cpu_tok, out_cap, steps, 0, nw),
+        te.nbytes + ts.nbytes + lp.nbytes + 4 * nw, 4 * nw)
+    print(f"K8 page: {te.size} tokens, {lp.size} literal bytes, out_cap "
+          f"{out_cap}, {steps} rounds", flush=True)
     return out
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _set_transports(on: bool) -> None:
+    for k in TRANSPORT_ENV:
+        if on:
+            os.environ.pop(k, None)  # the defaults: every transport on
+        else:
+            os.environ[k] = "0"
+
+
+def _drive(reader, dev, wrappers):
+    """Read every row group on the card, the kernel counts set to 0 just
+    before; returns (outputs, launches, stats)."""
+    from tpuparquet_torch.kernels.device import read_row_groups_device
+    from tpuparquet_torch.stats import collect_stats
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    with collect_stats() as st:
+        got = list(read_row_groups_device(reader, device=dev))
+        _sync(dev)
+    return got, {k: fn.launches for k, fn in wrappers.items()}, st
+
+
+def _check_read(label, reader, got, groups, optional) -> int:
+    """Every value, def level and mask against the generator; row group
+    0 against the CPU run buffer for buffer.  Returns the value count."""
+    from tpuparquet_torch.kernels.device import read_row_group_device
+
+    for (rg, out), (cols, mask) in zip(got, groups):
+        for name, col in out.items():
+            vals, _rep, dl = col.to_numpy()
+            if not np.array_equal(vals, cols[name]):
+                raise AssertionError(f"{label} row group {rg} {name}: "
+                                     "values differ")
+            opt = name == optional
+            want_dl = (mask.astype(np.int32) if opt
+                       else np.zeros(mask.size, np.int32))
+            if not np.array_equal(dl, want_dl):
+                raise AssertionError(f"{label} row group {rg} {name}: "
+                                     "def levels")
+            want_mask = mask if opt else np.ones(mask.size, bool)
+            if not np.array_equal(col.mask.cpu().numpy(), want_mask):
+                raise AssertionError(f"{label} row group {rg} {name}: mask")
+    cpu = read_row_group_device(reader, 0, device="cpu")
+    for name, col in got[0][1].items():
+        a, b = col.padded_buffers(), cpu[name].padded_buffers()
+        if a.keys() != b.keys() or not all(
+                a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+                for k in a):
+            raise AssertionError(f"{label} row group 0 {name}: cuda and cpu "
+                                 "buffers differ")
+    n_values = sum(cc.meta_data.num_values for rg in reader.meta.row_groups
+                   for cc in rg.columns)
+    print(f"{label}: {n_values} values match the generator; row group 0 "
+          "matches the cpu run buffer for buffer", flush=True)
+    return n_values
+
+
+def _routing(label, st, want: dict) -> None:
+    got = {k: getattr(st, k) for k in want}
+    print(f"{label} routing: {got}", flush=True)
+    if got != want:
+        raise AssertionError(f"{label}: routing {got}, expected {want}")
+
+
+def _best_of(label, reader, dev, n_values, reps: int = 3):
+    from tpuparquet_torch.kernels.device import read_row_groups_device
+    from tpuparquet_torch.stats import collect_stats
+
+    best, phases = float("inf"), None
+    for _ in range(reps):
+        with collect_stats() as st:
+            t0 = time.perf_counter()
+            outs = [out for _, out in read_row_groups_device(reader,
+                                                             device=dev)]
+            _sync(dev)
+            dt = time.perf_counter() - t0
+        del outs
+        if dt < best:
+            best, phases = dt, st
+    print(f"{label} best of {reps}: {best:.4f} s, {n_values / best:.4e} "
+          f"values/s; plan_s {phases.plan_s:.4f}, transfer_s "
+          f"{phases.transfer_s:.4f}, dispatch_s {phases.dispatch_s:.4f}, "
+          f"bytes_staged {phases.bytes_staged}", flush=True)
+
+
+def _need(label, launches, names) -> None:
+    missing = [k for k in names if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{label} launched no {missing}")
 
 
 def main(argv=None) -> int:
@@ -311,11 +711,9 @@ def main(argv=None) -> int:
 
     from tpuparquet_torch.compress import _snappy
     from tpuparquet_torch.io.reader import FileReader
-    from tpuparquet_torch.kernels import bitunpack, decode, hybrid
+    from tpuparquet_torch.kernels import bitunpack, decode, hybrid, snappy
     from tpuparquet_torch.kernels._lib import build_kernels
-    from tpuparquet_torch.kernels.device import read_row_group_device, \
-        read_row_groups_device
-    from tpuparquet_torch.stats import collect_stats
+    from tpuparquet_torch.native import pack_native, plane_native
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -333,75 +731,77 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build_s = build_kernels()
     _snappy()
-    print(f"build: kernels {build_s:.2f} s, with snappy "
+    pack_native()
+    plane_native()
+    print(f"build: kernels {build_s:.2f} s, with the C host helpers "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # phase 2: each kernel against its plain version
-    check_kernels(dev)
-    print("kernels: bit-exact against their plain versions", flush=True)
-
-    # phase 3: the main path
     t0 = time.perf_counter()
-    blob, groups = build_config2(args.values, args.groups)
-    print(f"config 2: {args.groups} row groups, {len(blob)} bytes, written "
-          f"in {time.perf_counter() - t0:.2f} s", flush=True)
-    reader = FileReader(blob)
+    check_kernels(dev)
+    print(f"kernels: bit-exact against their plain versions "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+
     wrappers = {"unpack_u32": bitunpack.unpack_u32,
                 "expand_hybrid": hybrid.expand_hybrid,
                 "page_dict_fixed": decode.page_dict_fixed,
-                "levels_to_validity": decode.levels_to_validity}
-    for fn in wrappers.values():
-        fn.launches = 0
-    first = list(read_row_groups_device(reader))
-    torch.cuda.synchronize(dev)
-    launches = {k: fn.launches for k, fn in wrappers.items()}
-    print(f"main path launches: {launches}", flush=True)
-    n_values = sum(cc.meta_data.num_values for rg in reader.meta.row_groups
-                   for cc in rg.columns)
-    for (rg, out), (cols, pay_mask) in zip(first, groups):
-        for name, col in out.items():
-            vals, _rep, dl = col.to_numpy()
-            if not np.array_equal(vals, cols[name]):
-                raise AssertionError(f"row group {rg} {name}: values differ")
-            want_dl = (pay_mask.astype(np.int32) if name == "payment_type"
-                       else np.zeros(pay_mask.size, np.int32))
-            if not np.array_equal(dl, want_dl):
-                raise AssertionError(f"row group {rg} {name}: def levels")
-            want_mask = (pay_mask if name == "payment_type"
-                         else np.ones(pay_mask.size, bool))
-            if not np.array_equal(col.mask.cpu().numpy(), want_mask):
-                raise AssertionError(f"row group {rg} {name}: mask")
-    cpu = read_row_group_device(reader, 0, device="cpu")
-    for name, col in first[0][1].items():
-        a, b = col.padded_buffers(), cpu[name].padded_buffers()
-        if a.keys() != b.keys() or not all(
-                a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
-                for k in a):
-            raise AssertionError(f"row group 0 {name}: cuda and cpu "
-                                 "buffers differ")
-    print(f"main path: {n_values} values match the generator; row group 0 "
-          "matches the cpu run buffer for buffer", flush=True)
-    del first, cpu
-    best, phases = float("inf"), None
-    for _ in range(3):
-        with collect_stats() as st:
-            t0 = time.perf_counter()
-            outs = [out for _, out in read_row_groups_device(reader)]
-            torch.cuda.synchronize(dev)
-            dt = time.perf_counter() - t0
-        del outs
-        if dt < best:
-            best, phases = dt, st
-    print(f"main path best of 3: {best:.4f} s, {n_values / best:.4e} "
-          f"values/s; plan_s {phases.plan_s:.4f}, transfer_s "
-          f"{phases.transfer_s:.4f}, dispatch_s {phases.dispatch_s:.4f}, "
-          f"bytes_staged {phases.bytes_staged}", flush=True)
+                "levels_to_validity": decode.levels_to_validity,
+                "planes_to_words": decode.planes_to_words,
+                "unpack_u64": bitunpack.unpack_u64,
+                "delta_scan": decode.delta_scan,
+                "expand_tokens": snappy.expand_tokens}
+    total_launches = dict.fromkeys(wrappers, 0)
+    g = args.groups
 
-    # phase 4: kernel times at the main path's shapes
-    kernels = time_kernels(groups, dev, launches)
-    missing = [k for k in wrappers if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"main path launched no {missing}")
+    # phase 3: config 2, default transports, then none
+    t0 = time.perf_counter()
+    blob, groups = build_config2(args.values, g)
+    print(f"config 2: {g} row groups, {len(blob)} bytes, written in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    reader = FileReader(blob)
+    for on, label in ((True, "config 2 transports"),
+                      (False, "config 2 no transports")):
+        _set_transports(on)
+        got, launches, st = _drive(reader, dev, wrappers)
+        print(f"{label} launches: {launches}", flush=True)
+        n_values = _check_read(label, reader, got, groups, "payment_type")
+        del got
+        _routing(label, st, {"pages_device_delta_lanes": g if on else 0,
+                             "pages_device_planes": g if on else 0,
+                             "pages_device_snappy": 0})
+        _need(label, launches, ["unpack_u32", "expand_hybrid",
+                                "page_dict_fixed", "levels_to_validity"]
+              + (["planes_to_words", "delta_scan"] if on else []))
+        for k, c in launches.items():
+            total_launches[k] += c
+        _best_of(label, reader, dev, n_values)
+    _set_transports(True)
+
+    # phase 3b: the transport mix, default transports
+    t0 = time.perf_counter()
+    mix_blob, mix_groups = build_mix(args.values, g)
+    print(f"transport mix: {g} row groups, {len(mix_blob)} bytes, written "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    mix_reader = FileReader(mix_blob)
+    got, launches, st = _drive(mix_reader, dev, wrappers)
+    print(f"transport mix launches: {launches}", flush=True)
+    n_mix = _check_read("transport mix", mix_reader, got, mix_groups,
+                        "tok_opt")
+    del got
+    _routing("transport mix", st, {"pages_device_snappy": 2 * g,
+                                   "pages_device_delta_lanes": 2 * g,
+                                   "pages_device_planes": g})
+    _need("transport mix", launches,
+          ["unpack_u32", "levels_to_validity", "planes_to_words",
+           "unpack_u64", "delta_scan", "expand_tokens"])
+    for k, c in launches.items():
+        total_launches[k] += c
+    _best_of("transport mix", mix_reader, dev, n_mix)
+    print(f"launches over the three reads: {total_launches}", flush=True)
+
+    # phase 4: kernel times at the main paths' shapes
+    kernels = time_kernels(groups, mix_groups, dev, total_launches)
+    _need("the main paths", total_launches, list(wrappers))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

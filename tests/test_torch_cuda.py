@@ -18,11 +18,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
 from tpuparquet_torch.io.reader import FileReader  # noqa: E402
-from tpuparquet_torch.kernels import bitunpack, decode, hybrid  # noqa: E402
+from tpuparquet_torch.kernels import (  # noqa: E402
+    bitunpack,
+    decode,
+    hybrid,
+    snappy,
+)
 from tpuparquet_torch.kernels.device import (  # noqa: E402
     read_row_group_device,
     read_row_groups_device,
 )
+from tpuparquet_torch.stats import collect_stats  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -35,12 +41,79 @@ def cuda():
 
 
 def test_kernels_match_plain_versions(cuda):
-    """K1-K4 against their plain versions, bit for bit (the checks of
+    """K1-K8 against their plain versions, bit for bit (the checks of
     chip_smoke.py's phase 2)."""
     chip_smoke.check_kernels(cuda)
 
 
-def test_read_on_card_matches_cpu_buffer_for_buffer(cuda):
+@pytest.mark.parametrize("check", ["_check_planes", "_check_unpack_u64",
+                                   "_check_delta_scan", "_check_tokens"])
+def test_transport_kernel_matches_plain_version(cuda, check):
+    """K5 (planes_to_words), K6 (unpack_u64), K7 (delta_scan) and K8
+    (expand_tokens, as bytes and as words from any offset) one by one."""
+    getattr(chip_smoke, check)(np.random.default_rng(1), cuda)
+    torch.cuda.synchronize(cuda)
+
+
+def _same_buffers(reader, out, groups):
+    for rg, cols_out in out:
+        cpu = read_row_group_device(reader, rg, device="cpu")
+        cols = groups[rg][0]
+        for name, col in cols_out.items():
+            assert col.device.type == "cuda"
+            a, b = col.padded_buffers(), cpu[name].padded_buffers()
+            assert a.keys() == b.keys()
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=name)
+            np.testing.assert_array_equal(col.to_numpy()[0], cols[name])
+
+
+def _launches(names):
+    fns = {"K5": decode.planes_to_words, "K6": bitunpack.unpack_u64,
+           "K7": decode.delta_scan, "K8": snappy.expand_tokens}
+    return {k: fns[k].launches for k in names}
+
+
+def test_transports_on_card_match_cpu_buffer_for_buffer(cuda, monkeypatch):
+    """Config 2 with the default transports at 200,000 rows a group
+    (enough distinct values that ``trip_distance_mm`` is PLAIN): planes
+    (K5) and delta lanes (K1 then K7) on the card, buffer for buffer
+    with the CPU run."""
+    for k in chip_smoke.TRANSPORT_ENV:
+        monkeypatch.delenv(k, raising=False)
+    blob, groups = chip_smoke.build_config2(2_000_000, 2)
+    reader = FileReader(io.BytesIO(blob))
+    before = _launches(["K5", "K7"])
+    with collect_stats() as st:
+        out = list(read_row_groups_device(reader))
+    after = _launches(["K5", "K7"])
+    _same_buffers(reader, out, groups)
+    assert (st.pages_device_planes, st.pages_device_delta_lanes) == (2, 2)
+    assert all(after[k] > before[k] for k in after)
+
+
+def test_transport_mix_on_card(cuda, monkeypatch):
+    """Every route on the card: tokens (K8), delta lanes at width 39
+    (K6, K7), planes (K5)."""
+    for k in chip_smoke.TRANSPORT_ENV:
+        monkeypatch.delenv(k, raising=False)
+    blob, groups = chip_smoke.build_mix(2_000_000, 2)
+    reader = FileReader(io.BytesIO(blob))
+    before = _launches(["K5", "K6", "K7", "K8"])
+    with collect_stats() as st:
+        out = list(read_row_groups_device(reader))
+    after = _launches(["K5", "K6", "K7", "K8"])
+    _same_buffers(reader, out, groups)
+    assert (st.pages_device_snappy, st.pages_device_delta_lanes,
+            st.pages_device_planes) == (4, 4, 2)
+    assert all(after[k] > before[k] for k in after)
+
+
+def test_read_on_card_matches_cpu_buffer_for_buffer(cuda, monkeypatch):
+    """The no-transport configuration (``TPQ_DEVICE_*=0``): PLAIN pages
+    ship their words, so the launches are K1-K4's alone."""
+    for k in chip_smoke.TRANSPORT_ENV:
+        monkeypatch.setenv(k, "0")
     blob, groups = chip_smoke.build_config2(400_000, 2)
     reader = FileReader(io.BytesIO(blob))
     wrappers = (bitunpack.unpack_u32, hybrid.expand_hybrid,

@@ -5,12 +5,17 @@ A config-2-shaped file (bench.py's NYC-Taxi generator at 2 x 34,000 rows,
 so ``pickup_ts`` holds more than MAX_DICT_ENTRIES distinct values and is
 written PLAIN, while the small-range columns are dictionary-encoded and
 ``payment_type`` is optional) is read by ``read_row_groups_device`` of
-both packages.  The JAX side runs in its no-wire-transport configuration
-(``TPQ_DEVICE_SNAPPY/PLANES/DELTA=0``), which this slice ports; its
-default transports are lossless routing over the same values.
+both packages, in the JAX package's no-wire-transport configuration
+(``TPQ_DEVICE_SNAPPY/PLANES/DELTA=0``) and in its default one, where
+PLAIN pages take the byte-plane, delta-lane and snappy-token transports.
+With the transports on, the routing counters and the staged bytes must
+match too.  The transport mix (``chip_smoke.build_mix``, 200,000 rows in
+one row group) is a file on which every route engages.
 """
 
 import io
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -20,6 +25,9 @@ from tpuparquet import FileWriter as JaxFileWriter
 from tpuparquet.io.reader import FileReader as JaxFileReader
 from tpuparquet.kernels.device import read_row_groups_device as \
     jax_read_row_groups_device
+from tpuparquet.native import pack_native as jax_pack_native
+from tpuparquet.native import snappy_native as jax_snappy_native
+from tpuparquet.stats import collect_stats as jax_collect_stats
 from tpuparquet_torch.cpu.hybrid import encode_hybrid
 from tpuparquet_torch.errors import CorruptChunkError, CorruptPageError
 from tpuparquet_torch.format.compact import CompactReader
@@ -31,6 +39,13 @@ from tpuparquet_torch.io.writer import FileWriter
 from tpuparquet_torch.kernels.device import device_column_from_jax_numpy, \
     read_row_group_device, read_row_groups_device
 from tpuparquet_torch.stats import collect_stats
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
+
+TRANSPORT_ENV = chip_smoke.TRANSPORT_ENV
+COUNTERS = ("pages_device_snappy", "pages_device_delta_lanes",
+            "pages_device_planes")
 
 TAXI = """message taxi {
     required int64 pickup_ts;
@@ -80,8 +95,15 @@ def taxi():
 
 @pytest.fixture
 def no_transports(monkeypatch):
-    for k in ("TPQ_DEVICE_SNAPPY", "TPQ_DEVICE_PLANES", "TPQ_DEVICE_DELTA"):
+    for k in TRANSPORT_ENV:
         monkeypatch.setenv(k, "0")
+
+
+@pytest.fixture
+def transports(monkeypatch):
+    """The JAX package's defaults: every transport on."""
+    for k in TRANSPORT_ENV:
+        monkeypatch.delenv(k, raising=False)
 
 
 def _jax_buffers(col) -> dict:
@@ -118,6 +140,95 @@ def test_buffers_match_jax_device_read(taxi, no_transports, writer):
             _assert_same_column(
                 col, device_column_from_jax_numpy(
                     _jax_buffers(theirs[rg][name])), f"rg {rg} {name}")
+
+
+def _read_both(blob):
+    """Both packages' device reads of ``blob`` (the port's on the CPU),
+    each under a stats collector."""
+    with jax_collect_stats() as jst:
+        theirs = dict(jax_read_row_groups_device(
+            JaxFileReader(io.BytesIO(blob))))
+    with collect_stats() as st:
+        ours = dict(read_row_groups_device(FileReader(blob), device="cpu"))
+    assert ours.keys() == theirs.keys()
+    for rg in ours:
+        assert ours[rg].keys() == theirs[rg].keys()
+        for name, col in ours[rg].items():
+            _assert_same_column(
+                col, device_column_from_jax_numpy(
+                    _jax_buffers(theirs[rg][name])), f"rg {rg} {name}")
+    return ours, st, jst
+
+
+def _natives_present() -> bool:
+    return jax_pack_native() is not None and jax_snappy_native() is not None
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_buffers_match_jax_device_read_with_transports(taxi, transports,
+                                                       writer):
+    """The default configuration: ``pickup_ts``, the one PLAIN column at
+    this size, takes a transport in each row group (the planes, at 34,000
+    rows a page), and every buffer, the routing and the staged bytes
+    agree."""
+    _, files = taxi
+    ours, st, jst = _read_both(files[writer])
+    assert ours.keys() == {0, 1}
+    if _natives_present():
+        assert {k: getattr(st, k) for k in COUNTERS} == \
+            {k: getattr(jst, k) for k in COUNTERS}
+        assert st.bytes_staged == jst.bytes_staged
+    assert sum(getattr(st, k) for k in COUNTERS) == 2
+
+
+@pytest.fixture(scope="module")
+def mix():
+    blob, groups = chip_smoke.build_mix(1_000_000, 1)
+    return blob, groups
+
+
+def test_transport_mix_matches_jax(mix, transports):
+    """Every route engages: tokens for ``tok`` and (past its levels)
+    ``tok_opt``, delta lanes for ``seq32`` (width 7) and ``wide_delta``
+    (width 39), planes for ``lanes_raw``.  The JAX package reads the
+    port-written bytes and routes them the same way."""
+    blob, groups = mix
+    ours, st, jst = _read_both(blob)
+    cols, mask = groups[0]
+    assert mask.size == 200_000
+    for name, col in ours[0].items():
+        vals, _rep, dl = col.to_numpy()
+        np.testing.assert_array_equal(vals, cols[name], err_msg=name)
+        if name == "tok_opt":
+            np.testing.assert_array_equal(dl, mask.astype(np.int32))
+    routing = {k: getattr(st, k) for k in COUNTERS}
+    assert routing == {"pages_device_snappy": 2,
+                       "pages_device_delta_lanes": 2,
+                       "pages_device_planes": 1}
+    if not _natives_present():
+        pytest.skip("the JAX package's C helpers are not built here, so "
+                    "its routing differs")
+    assert routing == {k: getattr(jst, k) for k in COUNTERS}
+    assert st.bytes_staged == jst.bytes_staged
+
+
+def test_transport_switches_read_per_plan(mix, monkeypatch):
+    """The switches are read at each plan, as in the JAX package: one
+    process reads the mix with each transport off in turn, and the
+    values stay the same."""
+    blob, groups = mix
+    cols, _ = groups[0]
+    reader = FileReader(blob)
+    for off, counter in (("TPQ_DEVICE_SNAPPY", "pages_device_snappy"),
+                         ("TPQ_DEVICE_DELTA", "pages_device_delta_lanes"),
+                         ("TPQ_DEVICE_PLANES", "pages_device_planes")):
+        for k in TRANSPORT_ENV:
+            monkeypatch.setenv(k, "0" if k == off else "1")
+        with collect_stats() as st:
+            out = read_row_group_device(reader, 0, device="cpu")
+        assert getattr(st, counter) == 0
+        for name, col in out.items():
+            np.testing.assert_array_equal(col.to_numpy()[0], cols[name])
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])
@@ -165,6 +276,18 @@ def test_multi_page_chunks_match_jax(no_transports):
     for name, col in ours[0].items():
         _assert_same_column(col, device_column_from_jax_numpy(
             _jax_buffers(theirs[0][name])), name)
+
+
+def test_multi_page_chunks_match_jax_with_transports(transports):
+    """Several PLAIN pages per chunk, each competing on its own: the
+    page parts the transports rebuild merge as in the JAX package."""
+    groups = _taxi_groups(rows=5000, n_groups=1, seed=3)
+    blob = _write(JaxFileWriter, JaxCodec.SNAPPY, groups, page_rows=1500)
+    _, st, jst = _read_both(blob)
+    assert sum(getattr(st, k) for k in COUNTERS) > 0
+    if _natives_present():
+        assert {k: getattr(st, k) for k in COUNTERS} == \
+            {k: getattr(jst, k) for k in COUNTERS}
 
 
 def test_stats_phases_counted(taxi):

@@ -1,7 +1,9 @@
 """Block codecs of the read and write path: UNCOMPRESSED and SNAPPY.
 
 SNAPPY runs in C (``csrc/snappy.c``), compiled with the host C compiler
-at first use and loaded with ctypes.  There is no pure-Python fallback:
+at first use and loaded with ctypes; the same library scans a block's
+tags into the token tables of the device decompressor
+(:func:`snappy_scan_tokens`).  There is no pure-Python fallback:
 without a compiler, SNAPPY raises.  Any other codec raises
 :class:`NotImplementedError` naming it.
 """
@@ -15,8 +17,10 @@ import threading
 import numpy as np
 
 from .format.metadata import CompressionCodec
+from .varint import read_uvarint
 
-__all__ = ["compress_block", "decompress_block"]
+__all__ = ["compress_block", "decompress_block", "snappy_scan_tokens",
+           "snappy_single_literal_view"]
 
 # the format's shortest copy; the JAX package's writer uses the same
 # floor, which keeps numeric pages' 4..7-byte matches
@@ -52,6 +56,12 @@ def _snappy():
             lib.tpq_snappy_max_compressed_length.restype = ctypes.c_uint64
             lib.tpq_snappy_max_compressed_length.argtypes = [
                 ctypes.c_uint64]
+            lib.tpq_snappy_scan_tokens.restype = ctypes.c_int
+            lib.tpq_snappy_scan_tokens.argtypes = [
+                ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_size_t, ctypes.POINTER(ctypes.c_int64), size_t_p,
+                ctypes.POINTER(ctypes.c_uint64)]
             _lib = lib
         return _lib
 
@@ -97,6 +107,63 @@ def decompress_block(codec, payload, uncompressed_size: int) -> np.ndarray:
             f"snappy: block holds {produced.value} bytes, header says "
             f"{uncompressed_size}")
     return out[:uncompressed_size]
+
+
+def snappy_scan_tokens(block):
+    """Parse a snappy block's tag stream without decompressing it:
+    ``(tok_out_end, tok_src, literals, out_len)``.  Token ``i`` covers
+    output bytes ``[tok_out_end[i-1], tok_out_end[i])``; ``tok_src[i]``
+    is ``-(literal offset + 1)`` for a literal, else the output position
+    its copy reads from.  Raises ValueError on a corrupt block."""
+    lib = _snappy()
+    buf = _u8(block)
+    cap = max(buf.size, 1)  # every token takes at least one input byte
+    tok_end = np.empty(cap, dtype=np.int64)
+    tok_src = np.empty(cap, dtype=np.int64)
+    lits = np.empty(cap, dtype=np.uint8)
+    n_tok = ctypes.c_int64()
+    lit_len = ctypes.c_size_t()
+    out_len = ctypes.c_uint64()
+    rc = lib.tpq_snappy_scan_tokens(
+        buf.ctypes.data, buf.size, tok_end.ctypes.data, tok_src.ctypes.data,
+        cap, lits.ctypes.data, lits.size, ctypes.byref(n_tok),
+        ctypes.byref(lit_len), ctypes.byref(out_len))
+    if rc != 0:
+        raise ValueError(f"snappy: corrupt block (code {rc})")
+    t = int(n_tok.value)
+    return (tok_end[:t], tok_src[:t], lits[: lit_len.value],
+            int(out_len.value))
+
+
+def snappy_single_literal_view(block) -> np.ndarray | None:
+    """The payload of a snappy block that is one literal token covering
+    the whole block (an incompressible page: the payload IS the
+    decompressed bytes), as a zero-copy view; None for any other
+    block."""
+    buf = _u8(block)
+    try:
+        total, pos = read_uvarint(buf, 0)
+    except ValueError:
+        return None
+    if pos >= buf.size:
+        return None
+    tag = int(buf[pos])
+    pos += 1
+    if tag & 3:
+        return None  # first token is a copy
+    ln = tag >> 2
+    if ln >= 60:
+        extra = ln - 59
+        if pos + extra > buf.size:
+            return None
+        ln = 0
+        for i in range(extra):
+            ln |= int(buf[pos + i]) << (8 * i)
+        pos += extra
+    ln += 1
+    if ln != total or pos + ln != buf.size:
+        return None  # not a single literal covering the whole block
+    return buf[pos : pos + ln]
 
 
 def compress_block(codec, data) -> bytes:

@@ -33,20 +33,22 @@ __device__ __forceinline__ uint32_t unpack_lane(
 
 // Inclusive prefix sum of `x` over the block (blockDim.x a multiple of 32,
 // at most 1024).  Every thread of the block must call it.  `smem` holds 32
-// ints.
-__device__ __forceinline__ int block_inclusive_scan(int x, int* smem) {
+// values of T (int for counts; unsigned long long for the sums mod 2^64 of
+// the delta scan, whose unsigned adds wrap as the reference's lane adds).
+template <typename T>
+__device__ __forceinline__ T block_inclusive_scan(T x, T* smem) {
   const int lane = threadIdx.x & 31;
   const int wid = threadIdx.x >> 5;
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    const T y = __shfl_up_sync(0xffffffffu, x, o);
     if (lane >= o) x += y;
   }
   if (lane == 31) smem[wid] = x;
   __syncthreads();
   if (wid == 0) {
-    int s = lane < static_cast<int>(blockDim.x >> 5) ? smem[lane] : 0;
+    T s = lane < static_cast<int>(blockDim.x >> 5) ? smem[lane] : T(0);
     for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, s, o);
+      const T y = __shfl_up_sync(0xffffffffu, s, o);
       if (lane >= o) s += y;
     }
     smem[lane] = s;

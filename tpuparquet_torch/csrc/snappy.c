@@ -350,3 +350,80 @@ int tpq_snappy_compress(const uint8_t *in, size_t n, uint8_t *out,
                         size_t out_cap, size_t *produced) {
   return tpq_snappy_compress_opt(in, n, out, out_cap, produced, 8);
 }
+
+/* ------------------------------------------------------------------ */
+/* Token scan for the device (CUDA) decompressor: parse the tag stream
+ * into a token table + concatenated literal bytes WITHOUT materializing
+ * the output.  Host work is O(#tokens + literal bytes); the copy
+ * resolution runs on device as log2(n) pointer-doubling gathers.
+ * Token i covers output [tok_out_end[i-1], tok_out_end[i]); tok_src[i]
+ * is -(literal_offset+1) for literals, or the absolute output position
+ * the copy reads from (strictly before its own start + within). */
+
+int tpq_snappy_scan_tokens(const uint8_t *in, size_t n,
+                           int64_t *tok_out_end, int64_t *tok_src,
+                           int64_t cap_tokens,
+                           uint8_t *lit_out, size_t lit_cap,
+                           int64_t *n_tokens, size_t *lit_len,
+                           uint64_t *out_len) {
+  size_t pos = 0;
+  uint64_t total;
+  int rc = read_uvarint(in, n, &pos, &total);
+  if (rc != TPQ_OK) return rc;
+
+  size_t op = 0, lp = 0;
+  int64_t t = 0;
+  while (pos < n) {
+    uint8_t tag = in[pos++];
+    uint32_t kind = tag & 3;
+    size_t len, off;
+    if (t >= cap_tokens) return TPQ_ERR_BUFFER;
+    if (kind == 0) {
+      len = tag >> 2;
+      if (len >= 60) {
+        size_t extra = len - 59;
+        if (pos + extra > n) return TPQ_ERR_CORRUPT;
+        len = 0;
+        for (size_t i = 0; i < extra; i++)
+          len |= (size_t)in[pos + i] << (8 * i);
+        pos += extra;
+      }
+      len += 1;
+      if (pos + len > n || op + len > total) return TPQ_ERR_CORRUPT;
+      if (lp + len > lit_cap) return TPQ_ERR_BUFFER;
+      memcpy(lit_out + lp, in + pos, len);
+      tok_src[t] = -((int64_t)lp + 1);
+      lp += len;
+      pos += len;
+      op += len;
+      tok_out_end[t++] = (int64_t)op;
+      continue;
+    }
+    if (kind == 1) {
+      if (pos >= n) return TPQ_ERR_CORRUPT;
+      len = ((tag >> 2) & 0x7) + 4;
+      off = ((size_t)(tag >> 5) << 8) | in[pos];
+      pos += 1;
+    } else if (kind == 2) {
+      if (pos + 2 > n) return TPQ_ERR_CORRUPT;
+      len = (tag >> 2) + 1;
+      off = (size_t)in[pos] | ((size_t)in[pos + 1] << 8);
+      pos += 2;
+    } else {
+      if (pos + 4 > n) return TPQ_ERR_CORRUPT;
+      len = (tag >> 2) + 1;
+      off = (size_t)in[pos] | ((size_t)in[pos + 1] << 8) |
+            ((size_t)in[pos + 2] << 16) | ((size_t)in[pos + 3] << 24);
+      pos += 4;
+    }
+    if (off == 0 || off > op || op + len > total) return TPQ_ERR_CORRUPT;
+    tok_src[t] = (int64_t)(op - off);
+    op += len;
+    tok_out_end[t++] = (int64_t)op;
+  }
+  if (op != total) return TPQ_ERR_CORRUPT;
+  *n_tokens = t;
+  *lit_len = lp;
+  *out_len = total;
+  return TPQ_OK;
+}

@@ -15,12 +15,14 @@ import time
 
 import torch
 
-__all__ = ["KERNELS", "build_kernels", "check_tensor", "i64_to_u32_bits",
-           "launch", "stream_of", "u32_to_i64"]
+__all__ = ["KERNELS", "build_kernels", "check_tensor", "i64_to_lanes",
+           "i64_to_u32_bits", "lanes_to_i64", "launch", "stream_of",
+           "u32_to_i64"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_U64 = ctypes.c_uint64
 
 # source stem -> argtypes of its exported tpq_<stem>
 KERNELS = {
@@ -28,6 +30,11 @@ KERNELS = {
     "expand_hybrid": [_P, _P, _I, _P, _L, _I, _L, _P],
     "page_dict_fixed": [_P, _L, _I, _P, _I, _P, _L, _P],
     "levels_to_validity": [_P, _L, _I, _P, _P, _P, _P],
+    "planes_to_words": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P],
+    "unpack_u64": [_P, _P, _P, _L, _I, _P],
+    "delta_scan": [_P, _P, _P, _P, _I, _L, _L, _U64, _P, _P, _P],
+    "snappy_expand": [_P, _P, _I, _P, _L, ctypes.c_int32, _I, _P, _P, _L,
+                      _L, _P, _P],
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -99,3 +106,17 @@ def u32_to_i64(t):
 def i64_to_u32_bits(v):
     """int64 values in [0, 2^32) -> the int32 tensor with the same bits."""
     return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+# 64-bit lanes: (lo, hi) u32 pairs <-> int64 two's complement.  Sums of
+# int64 tensors wrap mod 2^64, as the reference's carry arithmetic does.
+
+def lanes_to_i64(lo, hi):
+    """(lo, hi) u32 lanes (int32 tensors) -> int64 with the same bits."""
+    return hi.to(torch.int64) * (1 << 32) + u32_to_i64(lo)
+
+
+def i64_to_lanes(v):
+    """int64 -> its (lo, hi) u32 lanes as int32 tensors."""
+    return (i64_to_u32_bits(v & 0xFFFFFFFF),
+            i64_to_u32_bits((v >> 32) & 0xFFFFFFFF))

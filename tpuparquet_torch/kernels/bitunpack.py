@@ -1,14 +1,17 @@
-"""K1: unpack LSB-first ``width``-bit values to u32 lanes.
+"""K1 and K6: unpack LSB-first ``width``-bit values to u32 lanes.
 
 The port of ``tpuparquet/kernels/bitunpack.py`` ``unpack_u32`` and its
-Pallas twin ``unpack_u32_pallas``: a block of 32 consecutive values
-occupies exactly ``width`` u32 words, so value ``i`` starts at bit
-``i * width`` of the flat word stream.  The CUDA kernel is
-``csrc/unpack_u32.cu``; :func:`unpack_u32_plain` is the same function in
-plain PyTorch, which the wrapper runs for CPU tensors.
+Pallas twin ``unpack_u32_pallas`` (K1, ``csrc/unpack_u32.cu``), and of
+``unpack_u64`` (K6, ``csrc/unpack_u64.cu``, widths 33..64 as ``(lo, hi)``
+lanes): a block of 32 consecutive values occupies exactly ``width`` u32
+words, so value ``i`` starts at bit ``i * width`` of the flat word
+stream.  Each ``*_plain`` function is the same function in plain
+PyTorch, which the wrapper runs for CPU tensors.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -16,7 +19,8 @@ import torch
 from ._lib import check_tensor, i64_to_u32_bits, launch, stream_of, \
     u32_to_i64
 
-__all__ = ["pad_to_words", "unpack_u32", "unpack_u32_plain"]
+__all__ = ["pad_to_words", "plan_tables64", "unpack_u32", "unpack_u32_plain",
+           "unpack_u64", "unpack_u64_plain"]
 
 
 def pad_to_words(data, width: int, count: int) -> np.ndarray:
@@ -81,3 +85,88 @@ def unpack_u32(words: torch.Tensor, width: int, count: int) -> torch.Tensor:
 
 
 unpack_u32.launches = 0
+
+
+# ----------------------------------------------------------------------
+# K6: widths up to 64, as (lo, hi) u32 lanes
+# ----------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def plan_tables64(width: int):
+    """Static ``(widx, widx2, widx3, shift)`` tables of a 32-value block
+    of ``width``-bit values: value ``j`` starts at bit ``j * width``, so
+    its 64 bits live in up to three consecutive words; the second and
+    third index are clamped to the block's last word."""
+    bit = np.arange(32) * width
+    widx = bit // 32
+    return (tuple(widx.tolist()),
+            tuple(np.minimum(widx + 1, width - 1).tolist()),
+            tuple(np.minimum(widx + 2, width - 1).tolist()),
+            tuple((bit % 32).tolist()))
+
+
+def _chunk32(w_lo, w_hi, shift):
+    """32 bits starting ``shift`` bits into ``w_lo`` (int64 holding u32;
+    the shift by 32 that shift == 0 would take is gated off)."""
+    hi_part = torch.where(shift > 0, (w_hi << (32 - shift)) & 0xFFFFFFFF,
+                          torch.zeros_like(w_hi))
+    return (w_lo >> shift) | hi_part
+
+
+def _check_words64(words, width: int, count: int) -> None:
+    if not 0 <= width <= 64:
+        raise ValueError(f"bit width {width} out of range 0..64")
+    need = (count + 31) // 32 * width
+    if words.numel() < need:
+        raise ValueError(f"{count} lanes of width {width} need {need} "
+                         f"words, got {words.numel()}")
+
+
+def unpack_u64_plain(words: torch.Tensor, width: int, count: int):
+    """Plain PyTorch version of :func:`unpack_u64`."""
+    dev = words.device
+    if width == 0:
+        z = torch.zeros(count, dtype=torch.int32, device=dev)
+        return z, z.clone()
+    if width <= 32:
+        return (unpack_u32_plain(words, width, count),
+                torch.zeros(count, dtype=torch.int32, device=dev))
+    n_blocks = (count + 31) // 32
+    w = u32_to_i64(words[: n_blocks * width]).reshape(n_blocks, width)
+    widx, widx2, widx3, shift = (torch.tensor(t, dtype=torch.int64,
+                                              device=dev)
+                                 for t in plan_tables64(width))
+    lo = _chunk32(w[:, widx], w[:, widx2], shift)
+    hi = _chunk32(w[:, widx2], w[:, widx3], shift)
+    if width < 64:
+        hi = hi & ((1 << (width - 32)) - 1)
+    return (i64_to_u32_bits(lo.reshape(-1)[:count]),
+            i64_to_u32_bits(hi.reshape(-1)[:count]))
+
+
+def unpack_u64(words: torch.Tensor, width: int, count: int):
+    """Unpack ``count`` LSB-first ``width``-bit values (0 <= width <= 64)
+    into ``(lo, hi)`` u32 lanes (int32 tensors).  Width 0 gives zeros and
+    widths up to 32 are K1 plus a zero hi lane, as in the JAX function;
+    wider values launch K6 on a CUDA tensor.  CPU tensors take the plain
+    version."""
+    _check_words64(words, width, count)
+    if words.device.type == "cpu":
+        return unpack_u64_plain(words, width, count)
+    if words.device.type != "cuda":
+        raise ValueError(f"unsupported device {words.device}")
+    dev = words.device
+    if width <= 32:
+        lo = (unpack_u32(words, width, count) if width else
+              torch.zeros(count, dtype=torch.int32, device=dev))
+        return lo, torch.zeros(count, dtype=torch.int32, device=dev)
+    check_tensor(words, "words", torch.int32, dev)
+    lo = torch.empty(count, dtype=torch.int32, device=dev)
+    hi = torch.empty(count, dtype=torch.int32, device=dev)
+    launch("unpack_u64", words.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+           count, width, stream_of(lo))
+    unpack_u64.launches += 1
+    return lo, hi
+
+
+unpack_u64.launches = 0

@@ -1,4 +1,6 @@
-"""Device value decode: PLAIN staging, dictionary pages (K3), validity (K4).
+"""Device value decode: PLAIN staging, dictionary pages (K3), validity
+(K4), and the PLAIN wire transports' rebuilds: byte planes (K5) and
+delta lanes (K7, after K1 or K6).
 
 Hosts stage padded, fixed-shape buffers (page words, run tables); the
 device expands them.  Output sizes are padded to power-of-two buckets
@@ -13,8 +15,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._lib import check_tensor, launch, stream_of, u32_to_i64
-from .bitunpack import _check_words, unpack_u32_plain
+from ._lib import check_tensor, i64_to_lanes, i64_to_u32_bits, \
+    lanes_to_i64, launch, stream_of, u32_to_i64
+from .bitunpack import _check_words, unpack_u32, unpack_u32_plain, \
+    unpack_u64
 from .hybrid import _check_table, expand_hybrid, expand_hybrid_plain
 
 __all__ = [
@@ -22,6 +26,10 @@ __all__ = [
     "page_dict_fixed", "page_dict_fixed_plain",
     "page_dict_fixed_levels_tbl", "page_plain_fixed_levels_tbl",
     "levels_to_validity", "levels_to_validity_plain",
+    "planes_to_words", "planes_to_words_plain",
+    "DeltaPlan", "delta_scan", "delta_scan_plain",
+    "expand_delta_i32", "expand_delta_i64",
+    "u8_to_u32_words_at",
 ]
 
 
@@ -169,3 +177,287 @@ def levels_to_validity(def_levels: torch.Tensor, max_def: int):
 
 
 levels_to_validity.launches = 0
+
+
+# ----------------------------------------------------------------------
+# Bytes on the device -> u32 words (the plain last pass of K8)
+# ----------------------------------------------------------------------
+
+def u8_to_u32_words_at(b: torch.Tensor, off: int,
+                       n_words: int) -> torch.Tensor:
+    """Little-endian u32 words (an int32 tensor) from ``n_words * 4``
+    bytes of the u8 tensor ``b`` at byte offset ``off`` (any offset).
+    Plain PyTorch, for CPU tensors: on the card the words come straight
+    out of K8's last pass (:func:`~tpuparquet_torch.kernels.snappy.
+    expand_tokens_words`), which reads them from the resolved copy
+    graph without materialising the byte blob."""
+    if b.device.type != "cpu":
+        raise ValueError("u8_to_u32_words_at runs on CPU tensors; on the "
+                         "card use snappy.expand_tokens_words (K8)")
+    if off < 0 or off + 4 * n_words > b.numel():
+        raise ValueError(f"{n_words} words at byte {off} overrun a "
+                         f"{b.numel()}-byte buffer")
+    w = b[off : off + 4 * n_words].to(torch.int64).reshape(-1, 4)
+    return i64_to_u32_bits(w[:, 0] | (w[:, 1] << 8) | (w[:, 2] << 16)
+                           | (w[:, 3] << 24))
+
+
+# ----------------------------------------------------------------------
+# K5: lane / byte-plane transport -> lane words
+# ----------------------------------------------------------------------
+
+_KIND = {"raw32": 0, "rle32": 1, "bytes": 2, "raw8": 3, "rle8": 4}
+
+
+def _rle_expand(ends, vals, start: int, n_runs: int, count: int):
+    """Run table slice -> per-position values: the run of position ``i``
+    is the number of run ends ``<= i``, clamped to ``n_runs - 1``."""
+    e = ends[start : start + n_runs]
+    i = torch.arange(count, dtype=torch.int32, device=ends.device)
+    idx = torch.clamp(torch.searchsorted(e, i, right=True), max=n_runs - 1)
+    return vals[start + idx]
+
+
+def planes_to_words_plain(raw32, rle32_ends, rle32_vals, raw8, rle8_ends,
+                          rle8_vals, spec: tuple, count: int,
+                          lanes: int) -> torch.Tensor:
+    """Plain PyTorch version of K5."""
+    words = []
+    for entry in spec:
+        if entry[0] == "raw32":
+            j = entry[1]
+            words.append(u32_to_i64(raw32[j * count : (j + 1) * count]))
+        elif entry[0] == "rle32":
+            words.append(u32_to_i64(_rle_expand(rle32_ends, rle32_vals,
+                                                 entry[1], entry[2], count)))
+        else:  # "bytes": four byte-plane sub-entries
+            w = torch.zeros(count, dtype=torch.int64, device=raw32.device)
+            for t, sub in enumerate(entry[1:]):
+                if sub[0] == "raw8":
+                    j = sub[1]
+                    b = raw8[j * count : (j + 1) * count]
+                else:
+                    b = _rle_expand(rle8_ends, rle8_vals, sub[1], sub[2],
+                                    count)
+                w |= b.to(torch.int64) << (8 * t)
+            words.append(w)
+    return i64_to_u32_bits(torch.stack(words, dim=1).reshape(-1))
+
+
+def _spec_array(spec: tuple, lanes: int) -> np.ndarray:
+    """The static spec as K5's descriptor: per lane ``kind, a, b`` then
+    ``sub_kind[4], sub_a[4], sub_b[4]``."""
+    if len(spec) != lanes or not 1 <= lanes <= 4:
+        raise ValueError(f"spec has {len(spec)} entries for {lanes} lanes")
+    out = np.zeros((lanes, 15), dtype=np.int32)
+    for lane, entry in enumerate(spec):
+        out[lane, 0] = _KIND[entry[0]]
+        if entry[0] == "bytes":
+            for t, sub in enumerate(entry[1:]):
+                out[lane, 3 + t] = _KIND[sub[0]]
+                out[lane, 7 + t] = sub[1]
+                out[lane, 11 + t] = sub[2] if sub[0] == "rle8" else 0
+        else:
+            out[lane, 1] = entry[1]
+            out[lane, 2] = entry[2] if entry[0] == "rle32" else 0
+    return out.reshape(-1)
+
+
+def planes_to_words(raw32: torch.Tensor, rle32_ends: torch.Tensor,
+                    rle32_vals: torch.Tensor, raw8: torch.Tensor,
+                    rle8_ends: torch.Tensor, rle8_vals: torch.Tensor,
+                    spec: tuple, count: int, lanes: int) -> torch.Tensor:
+    """Lane / byte-plane wire transport -> flat ``(count * lanes,)`` u32
+    lane words (an int32 tensor).
+
+    ``spec`` has one entry per lane: ``("raw32", slab)`` (lane ``slab``
+    of ``raw32``), ``("rle32", start, n_runs)`` (a slice of the u32 run
+    table), or ``("bytes", e0, e1, e2, e3)`` with byte-plane entries
+    ``("raw8", slab)`` / ``("rle8", start, n_runs)``.  Run ends are
+    int32; ``raw8`` and ``rle8_vals`` are uint8, the rest int32 holding
+    u32 bits.  CUDA tensors launch K5; CPU tensors take the plain
+    version."""
+    dev = raw32.device
+    if dev.type == "cpu":
+        return planes_to_words_plain(raw32, rle32_ends, rle32_vals, raw8,
+                                     rle8_ends, rle8_vals, spec, count,
+                                     lanes)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    desc = _spec_array(spec, lanes)
+    for name, t, dtype in (("raw32", raw32, torch.int32),
+                           ("rle32_ends", rle32_ends, torch.int32),
+                           ("rle32_vals", rle32_vals, torch.int32),
+                           ("raw8", raw8, torch.uint8),
+                           ("rle8_ends", rle8_ends, torch.int32),
+                           ("rle8_vals", rle8_vals, torch.uint8)):
+        check_tensor(t, name, dtype, dev)
+    for entry in spec:  # every slab and table slice must lie in its buffer
+        subs = entry[1:] if entry[0] == "bytes" else (entry,)
+        for sub in subs:
+            kind = sub[0]
+            if kind in ("raw32", "raw8"):
+                buf = raw32 if kind == "raw32" else raw8
+                end = (sub[1] + 1) * count
+            else:
+                buf = rle32_ends if kind == "rle32" else rle8_ends
+                end = sub[1] + sub[2]
+                if sub[2] < 1 or (rle32_vals if kind == "rle32"
+                                  else rle8_vals).numel() < end:
+                    raise ValueError(f"{kind} table slice {sub[1:]} out "
+                                     "of range")
+            if sub[1] < 0 or buf.numel() < end:
+                raise ValueError(f"{kind} entry {sub[1:]} overruns its "
+                                 f"{buf.numel()}-element buffer")
+    out = torch.empty(count * lanes, dtype=torch.int32, device=dev)
+    launch("planes_to_words", raw32.data_ptr(), rle32_ends.data_ptr(),
+           rle32_vals.data_ptr(), raw8.data_ptr(), rle8_ends.data_ptr(),
+           rle8_vals.data_ptr(), desc.ctypes.data, count, lanes,
+           out.data_ptr(), stream_of(out))
+    planes_to_words.launches += 1
+    return out
+
+
+planes_to_words.launches = 0
+
+
+# ----------------------------------------------------------------------
+# Delta lanes: DeltaPlan -> values (K1/K6 unpack, K7 scan)
+# ----------------------------------------------------------------------
+
+class DeltaPlan:
+    """A delta stream to rebuild on the device.
+
+    ``groups``: 7-tuples ``(width, words, starts, takes, n_vals, start,
+    n_take)`` — one width class's packed words (``n_vals`` values, flat
+    u32 in an int32 tensor); ``starts``/``takes`` None for a contiguous
+    group, whose first ``n_take`` deltas land at ``[start, start +
+    n_take)``.  ``md_lo`` / ``md_hi``: per-block min_delta as u32 lanes
+    (int32 tensors on the plan's device), repeated by ``block_size``.
+    ``first``: the first value; ``total``: the value count."""
+
+    __slots__ = ("groups", "md_lo", "md_hi", "block_size", "first",
+                 "total")
+
+    def __init__(self, groups, md_lo, md_hi, block_size, first, total):
+        self.groups = groups
+        self.md_lo = md_lo
+        self.md_hi = md_hi
+        self.block_size = block_size
+        self.first = first
+        self.total = total
+
+
+def _repeat_md(md, block_size: int, n_deltas: int) -> torch.Tensor:
+    """Per-delta min_delta (as int64 u32) from the per-block table."""
+    idx = torch.arange(n_deltas, dtype=torch.int64,
+                       device=md.device) // block_size
+    return md.to(torch.int64)[idx]
+
+
+def delta_scan_plain(dlo, dhi, md_lo, md_hi, block_size: int, first: int,
+                     total: int) -> torch.Tensor:
+    """Plain PyTorch version of K7."""
+    dev = dlo.device
+    n = total - 1
+    if dhi is None:
+        x = (u32_to_i64(dlo[:n]) + u32_to_i64(md_lo)[
+            torch.arange(n, device=dev) // block_size]) & 0xFFFFFFFF
+        s = torch.cat([torch.tensor([first & 0xFFFFFFFF], device=dev),
+                       (first & 0xFFFFFFFF) + torch.cumsum(x, 0)])
+        return i64_to_u32_bits(s & 0xFFFFFFFF)
+    f = first & 0xFFFFFFFFFFFFFFFF
+    f = f - (1 << 64) if f >= 1 << 63 else f
+    md = lanes_to_i64(md_lo, md_hi)[torch.arange(n, device=dev)
+                                    // block_size]
+    x = lanes_to_i64(dlo[:n], dhi[:n]) + md  # wraps mod 2^64
+    s = torch.cumsum(torch.cat([torch.tensor([f], device=dev), x]), 0)
+    lo, hi = i64_to_lanes(s)
+    return torch.stack([lo, hi], dim=1).reshape(-1)
+
+
+def delta_scan(dlo: torch.Tensor, dhi, md_lo: torch.Tensor, md_hi,
+               block_size: int, first: int, total: int) -> torch.Tensor:
+    """The delta rebuild's scan: ``out[0] = first`` and ``out[k+1] =
+    out[k] + d[k] + md[k // block_size]`` for ``k < total - 1``, mod 2^32
+    (``dhi``/``md_hi`` None: ``(total,)`` u32) or mod 2^64 (``(2 *
+    total,)`` interleaved (lo, hi) u32).  Inputs are int32 tensors of u32
+    bits.  CUDA tensors launch K7; CPU tensors take the plain version."""
+    wide = dhi is not None
+    if wide != (md_hi is not None):
+        raise ValueError("dhi and md_hi go together")
+    if total <= 0:
+        return torch.zeros(0, dtype=torch.int32, device=dlo.device)
+    n = total - 1
+    if block_size < 1 or md_lo.numel() * block_size < n \
+            or dlo.numel() < n or (wide and (dhi.numel() < n
+                                             or md_hi.numel()
+                                             < md_lo.numel())):
+        raise ValueError(f"delta stream of {n} values does not fit its "
+                         "buffers")
+    dev = dlo.device
+    if dev.type == "cpu":
+        return delta_scan_plain(dlo, dhi, md_lo, md_hi, block_size, first,
+                                total)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    for name, t in (("dlo", dlo), ("md_lo", md_lo)) + (
+            (("dhi", dhi), ("md_hi", md_hi)) if wide else ()):
+        check_tensor(t, name, torch.int32, dev)
+    sums = torch.empty(max((n + 1023) // 1024, 1), dtype=torch.int64,
+                       device=dev)
+    out = torch.empty(total * (2 if wide else 1), dtype=torch.int32,
+                      device=dev)
+    launch("delta_scan", dlo.data_ptr(), dhi.data_ptr() if wide else None,
+           md_lo.data_ptr(), md_hi.data_ptr() if wide else None, int(wide),
+           block_size, n, first & 0xFFFFFFFFFFFFFFFF, sums.data_ptr(),
+           out.data_ptr(), stream_of(out))
+    delta_scan.launches += 1
+    return out
+
+
+delta_scan.launches = 0
+
+
+def _placed_deltas(plan: DeltaPlan, n_deltas: int, wide: bool):
+    """Unpack each width class (K1, or K6 above width 32) into its
+    contiguous slice of the zero-initialised delta stream."""
+    dev = plan.md_lo.device
+    dlo = torch.zeros(n_deltas, dtype=torch.int32, device=dev)
+    dhi = torch.zeros(n_deltas, dtype=torch.int32, device=dev) \
+        if wide else None
+    for w, words, starts, _takes, n_vals, start, n_take in plan.groups:
+        if starts is not None:
+            raise NotImplementedError(
+                "scattered delta groups (DELTA_BINARY_PACKED pages) are not "
+                "supported by tpuparquet_torch yet")
+        if wide:
+            lo, hi = unpack_u64(words, w, n_vals)
+            dhi[start : start + n_take] = hi[:n_take]
+        else:
+            lo = unpack_u32(words, w, n_vals)
+        dlo[start : start + n_take] = lo[:n_take]
+    return dlo, dhi
+
+
+def expand_delta_i32(plan: DeltaPlan) -> torch.Tensor:
+    """Rebuild ``plan.total`` int32 values as ``(total,)`` u32 (an int32
+    tensor): unpack each width class (K1), place it, add min_delta and
+    scan mod 2^32 (K7).  ``md_hi`` is not read."""
+    if plan.total == 0:
+        return torch.zeros(0, dtype=torch.int32, device=plan.md_lo.device)
+    dlo, _ = _placed_deltas(plan, plan.total - 1, False)
+    return delta_scan(dlo, None, plan.md_lo, None, plan.block_size,
+                      plan.first, plan.total)
+
+
+def expand_delta_i64(plan: DeltaPlan) -> torch.Tensor:
+    """Rebuild ``plan.total`` int64 values as flat ``(2 * total,)``
+    interleaved (lo, hi) u32 — the DeviceColumn INT64 layout: unpack each
+    width class (K1 or K6), place it, add min_delta and scan mod 2^64
+    (K7)."""
+    if plan.total == 0:
+        return torch.zeros(0, dtype=torch.int32, device=plan.md_lo.device)
+    dlo, dhi = _placed_deltas(plan, plan.total - 1, True)
+    return delta_scan(dlo, dhi, plan.md_lo, plan.md_hi, plan.block_size,
+                      plan.first, plan.total)

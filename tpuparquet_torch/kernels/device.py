@@ -13,39 +13,50 @@ buffer.
 
 Covered: data page v1; UNCOMPRESSED and SNAPPY; required and optional
 flat INT32/INT64 columns; PLAIN and PLAIN_DICTIONARY/RLE_DICTIONARY;
-page CRCs.  Pages decompress on the host (the JAX package's
-``TPQ_DEVICE_SNAPPY=0 TPQ_DEVICE_PLANES=0 TPQ_DEVICE_DELTA=0``
-configuration; its PLAIN wire transports are lossless routing and give
-the same values).  Anything else raises NotImplementedError.
+page CRCs.  PLAIN pages take the JAX package's three wire transports
+under its switches and defaults, read per plan: byte planes
+(``TPQ_DEVICE_PLANES``, K5), delta lanes (``TPQ_DEVICE_DELTA``, K1/K6
+then K7) and snappy tokens (``TPQ_DEVICE_SNAPPY``, K8), which compete on
+wire bytes page by page exactly as in the reference; a page no
+transport wins ships its decompressed words.  Anything else raises
+NotImplementedError.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
 import torch
 
-from ..compress import decompress_block
+from ..compress import decompress_block, snappy_single_literal_view
 from ..cpu.hybrid import scan_hybrid
 from ..cpu.plain import decode_plain
 from ..errors import CorruptChunkError, CorruptPageError, ScanError
 from ..format.compact import CompactReader
-from ..format.metadata import Encoding, PageHeader, PageType, Type, \
-    decode_struct
+from ..format.metadata import CompressionCodec, Encoding, PageHeader, \
+    PageType, Type, decode_struct
 from ..io.pages import scan_levels_v1, verify_page_crc
+from ..native import pack_native, plane_native
 from ..stats import current_stats
+from .bitunpack import pad_to_words
 from .decode import (
+    DeltaPlan,
     bucket,
+    expand_delta_i32,
+    expand_delta_i64,
     levels_to_validity,
     page_dict_fixed,
     page_dict_fixed_levels_tbl,
     page_plain_fixed_levels_tbl,
     plain_fixed_to_lanes,
+    planes_to_words,
     stage_u32,
 )
 from .hybrid import count_eq_scan, expand_hybrid, max_scan_value, \
     plan_stream_args
+from .snappy import expand_tokens_words, plan_tokens
 
 __all__ = ["DeviceColumn", "device_column_from_jax_numpy",
            "plan_chunk_device", "read_row_group_device",
@@ -216,9 +227,11 @@ def _padded_words(n: int) -> int:
 
 
 class _Stager:
-    """Collects one column's host arrays (u32 words) for the row group's
-    batched transfer.  ``pad=False`` arrays stage at their exact length
-    (run tables and bit-packed words, whose lengths the plan fixed)."""
+    """Collects one column's host arrays for the row group's batched
+    transfer: u32 words (any 4-byte dtype) or bytes (uint8: token
+    literals, byte planes).  ``pad=False`` arrays stage at their exact
+    length (run and token tables, bit-packed words, planes, whose lengths
+    the plan fixed); byte arrays always do."""
 
     __slots__ = ("arrays",)
 
@@ -227,9 +240,14 @@ class _Stager:
 
     def add(self, arr, pad: bool = True) -> int:
         a = np.ascontiguousarray(np.asarray(arr).reshape(-1))
-        if a.dtype.itemsize != 4:
-            raise TypeError(f"staged arrays are u32 words, got {a.dtype}")
-        self.arrays.append((a.view(np.int32), pad))
+        if a.dtype.itemsize == 1 and not pad:
+            a = a.view(np.uint8)
+        elif a.dtype.itemsize == 4:
+            a = a.view(np.int32)
+        else:
+            raise TypeError(f"staged arrays are u32 words or unpadded "
+                            f"bytes, got {a.dtype} (pad={pad})")
+        self.arrays.append((a, pad))
         return len(self.arrays) - 1
 
     def add_many(self, arrs, pad: bool = True) -> list[int]:
@@ -240,30 +258,46 @@ def _put_all(stagers, device: torch.device):
     """Ship every stager's arrays to ``device`` in one copy.
 
     Returns ``(staged lists, host slab)``: each stager's list of device
-    views, and the pinned host slab, which must stay alive until the row
-    group's fence (the copy is non-blocking)."""
+    views — int32 for words, uint8 of the exact length for bytes, which
+    ride the slab zero-padded to whole words — and the pinned host slab,
+    which must stay alive until the row group's fence (the copy is
+    non-blocking).  ``bytes_staged`` counts what the JAX stager ships:
+    padded words, and byte arrays at their exact length."""
     layout = []
     total = 0
+    wire = 0
     for stg in stagers:
         spans = []
         for a, pad in stg.arrays:
-            n = _padded_words(a.size) if pad else a.size
-            spans.append((total, a.size, n))
+            if a.dtype == np.uint8:
+                n = -(-a.size // 4)
+                wire += a.size
+            else:
+                n = _padded_words(a.size) if pad else a.size
+                wire += 4 * n
+            spans.append((total, n))
             total += -(-n // _ALIGN_WORDS) * _ALIGN_WORDS
         layout.append(spans)
     cuda = device.type == "cuda"
     slab = torch.empty(total, dtype=torch.int32, pin_memory=cuda)
     host = slab.numpy()
+    host_u8 = host.view(np.uint8)
     for stg, spans in zip(stagers, layout):
-        for (a, _), (off, n, staged) in zip(stg.arrays, spans):
-            host[off : off + n] = a
-            host[off + n : off + staged] = 0
+        for (a, _), (off, staged) in zip(stg.arrays, spans):
+            if a.dtype == np.uint8:
+                host_u8[4 * off : 4 * off + a.size] = a
+                host_u8[4 * off + a.size : 4 * (off + staged)] = 0
+            else:
+                host[off : off + a.size] = a
+                host[off + a.size : off + staged] = 0
     st = current_stats()
     if st is not None:
-        st.bytes_staged += sum(s[2] for spans in layout for s in spans) * 4
+        st.bytes_staged += wire
     dev = slab.to(device, non_blocking=True) if cuda else slab
-    staged = [[dev[off : off + n] for off, _, n in spans]
-              for spans in layout]
+    staged = [[dev[off : off + n].view(torch.uint8)[: a.size]
+               if a.dtype == np.uint8 else dev[off : off + n]
+               for (a, _), (off, n) in zip(stg.arrays, spans)]
+              for stg, spans in zip(stagers, layout)]
     return staged, slab
 
 
@@ -300,6 +334,388 @@ def _merge_parts(parts, lanes: int = 1):
         return parts[0]
     arrs = [a[: m * lanes] for a, m in parts]
     return torch.cat(arrs), sum(m for _, m in parts)
+
+
+# ----------------------------------------------------------------------
+# PLAIN wire transports (the JAX package's default-on set)
+# ----------------------------------------------------------------------
+
+# The switches keep the JAX package's names and defaults and are read per
+# plan, so one process can compare both configurations.
+
+def _DEVICE_SNAPPY() -> bool:
+    return os.environ.get("TPQ_DEVICE_SNAPPY", "1") != "0"
+
+
+def _DEVICE_DELTA_LANES() -> bool:
+    return os.environ.get("TPQ_DEVICE_DELTA", "1") != "0"
+
+
+def _DEVICE_PLANES() -> bool:
+    return os.environ.get("TPQ_DEVICE_PLANES", "1") != "0"
+
+
+def _plan_delta_lane_words(seg, count: int, ptype: Type):
+    """Plan the delta-lane transport for one PLAIN int32/int64 values
+    segment: ``(first, one min_delta, packed delta offsets)``, rebuilt on
+    the device by :func:`expand_delta_i32`/``_i64``.
+
+    All arithmetic is modular (uint64/uint32 wrap), as the device rebuild
+    is, so a random page rejects on width and never corrupts.  Returns
+    ``(wire, commit)`` — ``wire`` is the staged cost after the stager's
+    padding, ``commit(stager)`` stages the plan and returns
+    ``words(staged)`` — or None."""
+    if count < 1024:
+        return None
+    lanes = _LANES[ptype]
+    nbytes = count * lanes * 4
+    buf = (seg.reshape(-1) if isinstance(seg, np.ndarray)
+           else np.frombuffer(seg, dtype=np.uint8))
+    if buf.size < nbytes:
+        raise ValueError("PLAIN: input too short")
+    v = np.ascontiguousarray(buf[:nbytes]).view("<u8" if lanes == 2
+                                                else "<u4")
+    n_deltas = count - 1
+    sdt = np.int64 if lanes == 2 else np.int32
+
+    def _width(dd):
+        lo = int(dd.min())
+        hi = int(dd.max())
+        span = int(np.uint64(hi - lo)) if lanes == 2 \
+            else int(np.uint32(hi - lo))
+        return lo, span.bit_length()
+
+    # the sample window's delta span lower-bounds the page's: a window
+    # that already needs full width proves the page rejects
+    win = 16384
+    if count > win:
+        _, w_s = _width((v[1 : win + 1] - v[:win]).view(sdt))
+        if w_s >= 32 * lanes:
+            return None
+    d = (v[1:] - v[:-1]).view(sdt)  # wrap-consistent deltas
+    md, w = _width(d)
+    if w >= 32 * lanes:
+        return None
+    # the wire after the stager's padding, with the delta count quantised
+    # to 32,768 as in the reference, so the estimate matches its routing
+    n_pad32 = (n_deltas + 32767) // 32768 * 32768
+    n_words = n_pad32 // 32 * w
+    wire = 4 * _padded_words(n_words) + 32 if w else 32
+    if wire + 4096 >= nbytes:
+        return None  # must clear the same savings floor as the planes
+
+    def commit(stager, _i64=(lanes == 2)):
+        mask = (1 << (32 * lanes)) - 1
+        off = ((d.astype(np.int64) - md).astype(np.uint64)
+               & np.uint64(mask)) if lanes == 1 \
+            else (d - md).view(np.uint64)
+        if n_pad32 != n_deltas:
+            off = np.concatenate(
+                [off, np.zeros(n_pad32 - n_deltas, dtype=np.uint64)])
+        words = (pad_to_words(pack_native().pack(off, w), w, n_pad32)
+                 .reshape(-1) if w else None)
+        md_u = np.uint64(md & mask)
+        md_lo = np.asarray([md_u & np.uint64(0xFFFFFFFF)], dtype=np.uint32)
+        md_hi = np.asarray([md_u >> np.uint64(32)], dtype=np.uint32)
+        groups = [(w, words, None, None, n_pad32, 0, n_deltas)] if w else []
+        plan = DeltaPlan(groups, md_lo, md_hi, n_deltas, int(v[0]), count)
+        build = _stage_delta_plan(plan, stager, need_hi=_i64)
+
+        def words_fn(s, _b=build):
+            return expand_delta_i64(_b(s)) if _i64 \
+                else expand_delta_i32(_b(s))
+
+        return words_fn
+
+    return wire, commit
+
+
+def _stage_delta_plan(plan: DeltaPlan, stager: _Stager, need_hi: bool):
+    """Stage the transport's DeltaPlan (contiguous groups): packed words
+    padded, the per-block min_delta lanes exact (the hi lane only for
+    int64).  Returns ``build(staged) -> DeltaPlan`` over the device
+    buffers."""
+    specs = [(w, stager.add(words), words.size, n_vals, start, n_take)
+             for w, words, _starts, _takes, n_vals, start, n_take
+             in plan.groups]
+    lo_h = stager.add(plan.md_lo, pad=False)
+    hi_h = stager.add(plan.md_hi, pad=False) if need_hi else None
+    meta = (plan.block_size, plan.first, plan.total)
+
+    def build(s, _specs=tuple(specs), _lo=lo_h, _hi=hi_h, _meta=meta):
+        groups = [(w, s[wh][:nw], None, None, n_vals, start, n_take)
+                  for w, wh, nw, n_vals, start, n_take in _specs]
+        return DeltaPlan(groups, s[_lo], None if _hi is None else s[_hi],
+                         *_meta)
+
+    return build
+
+
+def _plan_token_expansion(payload, expected_size: int):
+    """Token plan of a snappy block for the device: ``(te, ts, lp,
+    out_cap, steps, out_len, wire)``, ``wire`` being the padded tables'
+    bytes; None for a single-literal block (its bytes are the page
+    already) or when the int32 tables would wrap."""
+    if snappy_single_literal_view(payload) is not None:
+        return None
+    plan = plan_tokens(payload, expected_size)
+    if plan is None:
+        return None
+    te, ts, lp = plan[:3]
+    return (*plan, te.nbytes + ts.nbytes + lp.nbytes)
+
+
+def _plan_device_snappy_words(payload, expected_size: int, n_words: int,
+                              offset: int = 0):
+    """Plan device-side snappy decompression of one values segment
+    (``n_words`` u32 words at byte ``offset`` of the block).  Returns
+    ``(wire, commit)`` — ``commit(stager)`` stages the token tables and
+    returns ``words(staged)`` — or None when the host path applies
+    (single literal; int32 overflow; tokens would not shrink the
+    transfer)."""
+    plan = _plan_token_expansion(payload, expected_size)
+    if plan is None:
+        return None
+    out_len, wire = plan[5], plan[6]
+    if out_len < offset + n_words * 4:
+        raise ValueError("PLAIN values segment shorter than value count")
+    # numeric pages full of short matches cost more as 8-byte-per-token
+    # tables than as raw bytes: ship tokens only when they shrink the
+    # transfer
+    if wire >= 0.9 * (n_words * 4):
+        return None
+
+    def commit(stager, _plan=plan, _nw=n_words, _off=offset):
+        te, ts, lp, out_cap, steps = _plan[:5]
+        hs = stager.add_many([te, ts, lp], pad=False)
+
+        def words(s, _hs=hs):
+            return expand_tokens_words(s[_hs[0]], s[_hs[1]], s[_hs[2]],
+                                       out_cap, steps, _off, _nw)
+
+        return words
+
+    return wire, commit
+
+
+def _rle_table(plane: np.ndarray, count: int, val_dtype,
+               max_runs: int | None = None):
+    """(bucket-padded ends, vals, cap) run tables of one strided lane or
+    byte plane, or None when it has more than ``max_runs`` runs."""
+    res = plane_native().run_scan(
+        plane, count if max_runs is None else min(max_runs, count))
+    if res is None:
+        return None
+    ends_r, vals_r = res
+    cap = bucket(len(ends_r))
+    ends = np.full(cap, count, dtype=np.int32)
+    ends[: len(ends_r)] = ends_r
+    vals = np.zeros(cap, dtype=val_dtype)
+    vals[: len(vals_r)] = vals_r
+    return ends, vals, cap
+
+
+def _lane_contig(plane: np.ndarray) -> np.ndarray:
+    """Contiguous copy of a (possibly strided) lane or plane view."""
+    if plane.ndim == 1 and not plane.flags.c_contiguous:
+        return plane_native().gather(plane)
+    return np.ascontiguousarray(plane)
+
+
+def _plan_plane_words(seg, count: int, lanes: int, stager: _Stager,
+                      budget: int | None = None):
+    """Plan the lane / byte-plane RLE transport for one PLAIN values
+    segment (``count`` values of ``lanes`` u32 words).
+
+    Per u32 lane, from a sample window: ``rle32`` (the lane is runs),
+    ``bytes`` (random as a word, but some byte planes are runs) or
+    ``raw32``.  ``budget`` is a competitor's wire cost: the planes engage
+    only under it.  Returns ``(wire, words(staged), spec)`` — the wire
+    of the built tables, and K5's spec — or None when the page
+    rejects."""
+    if count < 1024:
+        return None  # cannot clear the 4 KiB savings floor
+    nbytes = count * lanes * 4
+    buf = (seg.reshape(-1) if isinstance(seg, np.ndarray)
+           else np.frombuffer(seg, dtype=np.uint8, count=nbytes))
+    if buf.size < nbytes:
+        raise ValueError("PLAIN values segment shorter than value count")
+    words_v = buf[:nbytes].view("<u4")  # value-interleaved lanes
+    wire_cap = (0.75 * nbytes if budget is None
+                else min(0.75 * nbytes, budget))
+    win_n = min(count, 1 << 14)
+    mid = (count - win_n) // 2
+    plans = []  # per lane: ("raw32",) | ("rle32", est) | ("bytes", cost8)
+    wire = 0
+    for lane in range(lanes):
+        lw = np.ascontiguousarray(
+            words_v[mid * lanes + lane : (mid + win_n) * lanes : lanes])
+        r32 = float((lw[1:] != lw[:-1]).mean()) if win_n > 1 else 1.0
+        est32 = 8 * bucket(int(r32 * count) + 1)
+        if est32 < 4 * count:
+            plans.append(("rle32", est32))
+            wire += est32
+            continue
+        wb = lw.view(np.uint8).reshape(win_n, 4)
+        r8 = (wb[1:] != wb[:-1]).mean(axis=0)
+        cost8 = np.minimum(5 * np.array(
+            [bucket(int(r * count) + 1) for r in r8]), count)
+        if cost8.sum() < 0.75 * 4 * count:
+            plans.append(("bytes", cost8))
+            wire += int(cost8.sum())
+        else:
+            plans.append(("raw32",))
+            wire += 4 * count
+    # engage only on a solid win: each engaged lane costs host time
+    if wire > wire_cap or nbytes - wire < 4096:
+        return None
+
+    raw32_parts, raw8_parts = [], []
+    e32_parts, v32_parts, e8_parts, v8_parts = [], [], [], []
+    s32 = s8 = 0
+    spec = []
+    actual = 0  # wire of the built tables (the sample can lie)
+
+    def raw32(lane_v):
+        nonlocal actual
+        spec.append(("raw32", len(raw32_parts)))
+        raw32_parts.append(_lane_contig(lane_v))
+        actual += 4 * count
+
+    def raw8(col):
+        nonlocal actual
+        raw8_parts.append(col)
+        actual += count
+        return ("raw8", len(raw8_parts) - 1)
+
+    for lane, plan in enumerate(plans):
+        lane_v = words_v[lane::lanes]  # strided view, len == count
+        if plan[0] == "rle32":
+            # past count/2 runs the 8 B/run table cannot beat the raw lane
+            tab = _rle_table(lane_v, count, np.uint32,
+                             max_runs=count // 2 + 1)
+            if tab is None or 8 * tab[2] >= 4 * count:
+                raw32(lane_v)
+                continue
+            ends, vals, cap = tab
+            e32_parts.append(ends)
+            v32_parts.append(vals)
+            spec.append(("rle32", s32, cap))
+            s32 += cap
+            actual += 8 * cap
+        elif plan[0] == "raw32":
+            raw32(lane_v)
+        else:
+            cost8 = plan[1]
+            subs = []
+            for t in range(4):
+                # byte t of value i's lane sits at i*4*lanes + 4*lane + t
+                col = buf[4 * lane + t : nbytes : 4 * lanes]
+                if cost8[t] >= count:
+                    subs.append(raw8(_lane_contig(col)))
+                    continue
+                tab = _rle_table(col, count, np.uint8,
+                                 max_runs=count // 5 + 1)
+                if tab is None or 5 * tab[2] >= count:
+                    subs.append(raw8(_lane_contig(col)))
+                    continue
+                ends, vals, cap = tab
+                e8_parts.append(ends)
+                v8_parts.append(vals)
+                subs.append(("rle8", s8, cap))
+                s8 += cap
+                actual += 5 * cap
+            spec.append(("bytes", *subs))
+    # the gate again, on what the built tables weigh
+    if actual > wire_cap or nbytes - actual < 4096:
+        return None
+
+    def cat(parts, dtype):
+        if not parts:
+            return np.zeros(1, dtype=dtype)
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+    hs = stager.add_many(
+        [cat(raw32_parts, np.uint32), cat(e32_parts, np.int32),
+         cat(v32_parts, np.uint32), cat(raw8_parts, np.uint8),
+         cat(e8_parts, np.int32), cat(v8_parts, np.uint8)], pad=False)
+    spec = tuple(spec)
+
+    def words(s, _hs=hs, _spec=spec):
+        return planes_to_words(*(s[h] for h in _hs), _spec, count, lanes)
+
+    return actual, words, spec
+
+
+def _plan_plain_transport(codec, values_seg, values_comp, non_null: int,
+                          ptype: Type, stager: _Stager):
+    """The transports' competition for one PLAIN page, in the JAX
+    package's order and with its gates.
+
+    ``values_comp`` is ``(compressed payload, uncompressed size, values
+    offset)`` when the page may decompress on the device, else None;
+    ``values_seg`` the decompressed values, or None while deferred.
+    Byte planes and delta lanes need the decompressed bytes; the token
+    scan is a third of the plan wall, so it runs lazily: the compressed
+    payload's size approximates the token wire, and a competitor already
+    under it skips the scan.  Returns ``(words(staged) or None, values
+    segment)`` — the segment decompressed if the raw path needs it."""
+    lanes = _LANES[ptype]
+    plan_words = None
+    payload_bound = None
+    if values_comp is not None:
+        payload_bound = len(values_comp[0])
+        competitors = ((_DEVICE_PLANES() or _DEVICE_DELTA_LANES())
+                       and non_null >= 1024)
+        if values_seg is None and competitors:
+            values_seg = decompress_block(codec, values_comp[0],
+                                          values_comp[1])
+    delta_cand = None
+    if _DEVICE_DELTA_LANES() and values_seg is not None:
+        delta_cand = _plan_delta_lane_words(values_seg, non_null, ptype)
+    delta_wire = delta_cand[0] if delta_cand is not None else None
+
+    def try_planes(budget):
+        if _DEVICE_PLANES() and non_null and values_seg is not None:
+            return _plan_plane_words(values_seg, non_null, lanes, stager,
+                                     budget=budget)
+        return None
+
+    budgets = [c for c in (delta_wire, payload_bound) if c is not None]
+    pl = try_planes(min(budgets) if budgets else None)
+    chosen = "planes" if pl is not None else None
+    if pl is not None:
+        plan_words = pl[1]
+    else:
+        tok = None
+        if payload_bound is not None and not (
+                delta_wire is not None and delta_wire < payload_bound):
+            # no competitor beats the token bound: pay the scan
+            tok = _plan_device_snappy_words(
+                values_comp[0], values_comp[1], non_null * lanes,
+                offset=values_comp[2])
+            if tok is None:
+                # the tokens are out after all: the planes may have lost
+                # only to their bound
+                pl = try_planes(delta_wire)
+                if pl is not None:
+                    plan_words, chosen = pl[1], "planes"
+        if plan_words is None:
+            if delta_cand is not None and (tok is None
+                                           or delta_cand[0] < tok[0]):
+                plan_words, chosen = delta_cand[1](stager), "delta"
+            elif tok is not None:
+                plan_words, chosen = tok[1](stager), "snappy"
+            elif values_seg is None:
+                values_seg = decompress_block(codec, values_comp[0],
+                                              values_comp[1])
+    st = current_stats()
+    if st is not None and chosen is not None:
+        name = {"planes": "pages_device_planes",
+                "delta": "pages_device_delta_lanes",
+                "snappy": "pages_device_snappy"}[chosen]
+        setattr(st, name, getattr(st, name) + 1)
+    return plan_words, values_seg
 
 
 def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
@@ -378,15 +794,34 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
         if h is None or h.num_values is None or h.num_values < 0:
             raise ValueError("DATA_PAGE header missing data_page_header")
         n = h.num_values
-        raw = decompress_block(cm.codec, payload, ph.uncompressed_page_size)
-        dl_scan, pos = scan_levels_v1(raw, n, max_def, 0,
-                                      h.definition_level_encoding)
-        values_seg = raw[pos:]
+        enc = Encoding(h.encoding)
+        device_plain = (_DEVICE_SNAPPY() and enc == Encoding.PLAIN
+                        and cm.codec == CompressionCodec.SNAPPY)
+        if device_plain and not max_def:
+            # a required PLAIN page holds no level bytes, so planning
+            # needs nothing from the payload: decompression is deferred
+            # to the transports' competition (device tokens, or the host)
+            values_comp = (payload, ph.uncompressed_page_size, 0)
+            values_seg = dl_scan = None
+        else:
+            raw = decompress_block(cm.codec, payload,
+                                   ph.uncompressed_page_size)
+            dl_scan, pos = scan_levels_v1(raw, n, max_def, 0,
+                                          h.definition_level_encoding)
+            values_seg = raw[pos:]
+            # with levels, the host scans them from its own copy, and
+            # the device may still slice the values out of its own
+            # expansion of the tokens, at byte `pos`
+            values_comp = ((payload, ph.uncompressed_page_size, pos)
+                           if device_plain else None)
         non_null = (count_eq_scan(dl_scan, dwidth, max_def,
                                   validate_max=True)
                     if dl_scan is not None else n)
         values_read += n
-        enc = Encoding(h.encoding)
+        plan_words = None
+        if enc == Encoding.PLAIN:
+            plan_words, values_seg = _plan_plain_transport(
+                cm.codec, values_seg, values_comp, non_null, ptype, stager)
 
         dl_ref = None  # (handles, cnt, nbp, single)
         if dl_scan is not None:
@@ -415,9 +850,11 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
             ops.append(_dict_page_op(dict_h, dl_ref, idx_ref, width, n,
                                      non_null, dwidth, vlanes))
         elif enc == Encoding.PLAIN:
-            wh = stager.add(stage_u32(values_seg, non_null * vlanes))
-            ops.append(_plain_page_op(wh, dl_ref, n, non_null, dwidth,
-                                      vlanes))
+            if plan_words is None:  # no transport won: the words ship
+                wh = stager.add(stage_u32(values_seg, non_null * vlanes))
+                plan_words = lambda s, _wh=wh: s[_wh]  # noqa: E731
+            ops.append(_plain_page_op(plan_words, dl_ref, n, non_null,
+                                      dwidth, vlanes))
         else:
             raise NotImplementedError(
                 f"column {col_path!r}: encoding {enc.name} is not "
@@ -469,17 +906,19 @@ def _dict_page_op(dict_h, dl_ref, idx_ref, width, n, non_null, dwidth,
     return op
 
 
-def _plain_page_op(wh, dl_ref, n, non_null, dwidth, lanes):
-    """Deferred PLAIN page: the staged words are the values."""
+def _plain_page_op(get_words, dl_ref, n, non_null, dwidth, lanes):
+    """Deferred PLAIN page: ``get_words(staged)`` gives the value words,
+    staged as they are or rebuilt by a wire transport's kernels."""
     def op(s, parts):
+        words = get_words(s)
         if dl_ref is not None:
             (dh, dt), d_cnt, d_nbp, d_sg = dl_ref
             vals, dl = page_plain_fixed_levels_tbl(
-                s[wh], s[dh], s[dt], non_null, lanes, d_cnt, dwidth, d_nbp,
+                words, s[dh], s[dt], non_null, lanes, d_cnt, dwidth, d_nbp,
                 dsingle=d_sg)
             parts["def"].append((dl, n))
         else:
-            vals = plain_fixed_to_lanes(s[wh], non_null, lanes)
+            vals = plain_fixed_to_lanes(words, non_null, lanes)
         parts["val"].append((vals, non_null))
 
     return op

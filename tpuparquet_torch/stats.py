@@ -6,7 +6,12 @@ read_row_groups_device`: host planning (``plan_s``: page walk,
 decompression, run-table scans), staging (``transfer_s``: pinned host
 slab + one host-to-device copy per row group), device work
 (``dispatch_s``: kernel launches up to the row group's fence) and the
-bytes that crossed to the device (``bytes_staged``, padding included).
+bytes that crossed to the device (``bytes_staged``, counted as the JAX
+stager counts them: 4-byte arrays at their padded word length, byte
+arrays such as token literals and byte planes at their exact length,
+though they ride the slab zero-padded to whole words), and the PLAIN pages each wire transport carried, under the JAX
+package's counter names (``pages_device_planes``,
+``pages_device_delta_lanes``, ``pages_device_snappy``).
 """
 
 from __future__ import annotations
@@ -24,6 +29,9 @@ class DecodeStats:
     plan_s: float = 0.0
     transfer_s: float = 0.0
     dispatch_s: float = 0.0
+    pages_device_planes: int = 0
+    pages_device_delta_lanes: int = 0
+    pages_device_snappy: int = 0
 
 
 _tls = threading.local()
