@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py [--values N] [--groups G]
 
-1. Builds the port's eight CUDA kernels (K1-K8) and its C host helpers
-   (snappy, bit packing, lane planes) from the sources in this checkout.
+1. Builds the port's ten CUDA kernels (K1-K10) and its C host helpers
+   (snappy, bit packing, lane planes, BYTE_ARRAY passes) from the sources
+   in this checkout, one compiler process per source, in parallel.
 2. Holds every kernel against its plain PyTorch version on the card, bit
-   for bit.
+   for bit over the whole (padded) output.
 3. Writes the NYC-Taxi-shaped config-2 file of ``bench.py`` (seed 42, 8
    row groups, 50,000,000 values by default) with the port's writer and
    reads it through ``read_row_groups_device`` on the card with the
@@ -17,11 +18,18 @@
    3b. Does the same for the transport mix, a file on which every route
    engages (snappy tokens with and without levels, delta lanes at widths
    7 and 39, byte planes), with the default transports.
+   3c. Config 4 of ``bench.py`` (dictionary strings beside PLAIN
+   doubles, data page v2, 8 row groups of 1,562,500 rows), default
+   transports: K9 decodes the strings, and no page takes a transport.
+   3d. The string mix (long distinct URLs, with and without nulls, and
+   random hex tokens; V1, 8 row groups of 250,000 rows): the URL pages
+   ship snappy tokens, K8 expands them and K10 gathers the values; the
+   tokens ship raw.
 4. Times each kernel at the main paths' page shapes with CUDA events,
    beside its memory/operation bound, its plain version and, where one
-   PyTorch call computes the core of the function, that call.
+   PyTorch call computes the function or its core, that call.
 
-Every kernel must have launched on the paths of phases 3 and 3b; the
+Every kernel must have launched on the paths of phases 3 to 3d; the
 counts are set to 0 just before each path's read and read just after.
 Exits non-zero, printing no result, when CUDA is unavailable or any
 phase fails.  The last line is
@@ -67,14 +75,34 @@ MIX_SCHEMA = """message mix {
 }"""
 
 
-def _write(schema: str, groups, optional: str) -> bytes:
+CONFIG4_SCHEMA = """message m {
+    required binary vendor (STRING);
+    required double fare;
+    required double tip;
+    optional binary note (STRING);
+}"""
+
+STRINGS_SCHEMA = """message strings {
+    required binary url (STRING);
+    optional binary url_opt (STRING);
+    optional binary token (STRING);
+}"""
+
+
+def _write(schema: str, groups, optional, data_page_v2: bool = False) \
+        -> bytes:
+    """Write ``[(columns, masks)]`` with the port's writer, SNAPPY;
+    ``masks`` is one optional column's mask (``optional`` names it) or a
+    dict of them (``optional`` None)."""
     from tpuparquet_torch.format.metadata import CompressionCodec
     from tpuparquet_torch.io.writer import FileWriter
 
     buf = io.BytesIO()
-    w = FileWriter(buf, schema, codec=CompressionCodec.SNAPPY)
+    w = FileWriter(buf, schema, codec=CompressionCodec.SNAPPY,
+                   data_page_v2=data_page_v2)
     for cols, mask in groups:
-        w.write_columns(cols, masks={optional: mask})
+        w.write_columns(cols, masks=mask if optional is None
+                        else {optional: mask})
     w.close()
     return buf.getvalue()
 
@@ -129,6 +157,106 @@ def build_mix(n_values: int, n_groups: int, seed: int = 11):
         }
         groups.append((cols, mask))
     return _write(MIX_SCHEMA, groups, "tok_opt"), groups
+
+
+def _bytes_col(choices, picks):
+    """``(offsets, data)`` of the vocabulary strings at ``picks``, gathered
+    vectorised (bench.py build_config4's ``bytes_col``)."""
+    cb = np.frombuffer(b"".join(choices), dtype=np.uint8)
+    co = np.zeros(len(choices) + 1, dtype=np.int64)
+    np.cumsum([len(c) for c in choices], out=co[1:])
+    lens = (co[1:] - co[:-1])[picks]
+    offs = np.zeros(len(picks) + 1, dtype=np.int64)
+    np.cumsum(lens, out=offs[1:])
+    pos = (np.arange(int(offs[-1]), dtype=np.int64)
+           - np.repeat(offs[:-1], lens) + np.repeat(co[:-1][picks], lens))
+    return offs, cb[pos]
+
+
+def config4_groups(per: int, n_groups: int, seed: int = 4):
+    """bench.py build_config4's generator: ``[(columns, {"note": mask})]``
+    with each string column as ``(offsets, data)``."""
+    rng = np.random.default_rng(seed)
+    vocab = [f"vendor-{i:03d}".encode() for i in range(200)]
+    notes = [f"note text {i}".encode() for i in range(50)]
+    groups = []
+    for _ in range(n_groups):
+        note_mask = rng.random(per) >= 0.4
+        n_notes = int(note_mask.sum())
+        cols = {
+            "vendor": _bytes_col(vocab, rng.integers(0, len(vocab),
+                                                     size=per)),
+            "fare": rng.random(per) * 100.0,
+            "tip": rng.random(per) * 20.0,
+            "note": _bytes_col(notes, rng.integers(0, len(notes),
+                                                   size=n_notes)),
+        }
+        groups.append((cols, {"note": note_mask}))
+    return groups
+
+
+_URL_HEAD = b"https://data.example.org/nyc/yellow/2024/trips/by-vendor/" \
+    b"pickup-zone/"
+_URL_TAIL = b"/details.json"
+
+
+def strings_groups(rows: int, n_groups: int, seed: int = 13):
+    """The string mix: ``url`` (``_URL_HEAD + %09d of 7 i + _URL_TAIL``,
+    ``i`` running over the whole file), ``url_opt`` (the same under a
+    10%-null mask) and ``token`` (16 lowercase hex digits of random
+    bytes under another 10%-null mask), each as ``(offsets, data)``,
+    built as byte matrices.  Returns ``[(columns, masks)]``."""
+    rng = np.random.default_rng(seed)
+    width = len(_URL_HEAD) + 9 + len(_URL_TAIL)
+    hexd = np.frombuffer(b"0123456789abcdef", dtype=np.uint8)
+    groups = []
+    for g in range(n_groups):
+        num = 7 * np.arange(g * rows, (g + 1) * rows, dtype=np.int64)
+        url = np.empty((rows, width), dtype=np.uint8)
+        url[:, : len(_URL_HEAD)] = np.frombuffer(_URL_HEAD, np.uint8)
+        for k in range(9):
+            url[:, len(_URL_HEAD) + k] = 48 + (num // 10 ** (8 - k)) % 10
+        url[:, len(_URL_HEAD) + 9 :] = np.frombuffer(_URL_TAIL, np.uint8)
+        url_mask = rng.random(rows) >= 0.1
+        tok_mask = rng.random(rows) >= 0.1
+        raw = rng.integers(0, 256, size=(int(tok_mask.sum()), 8),
+                           dtype=np.uint8)
+        tok = np.stack([hexd[raw >> 4], hexd[raw & 15]], axis=2)
+
+        def col(m):
+            return (np.arange(m.shape[0] + 1, dtype=np.int64) * m.shape[1],
+                    m.reshape(-1))
+
+        groups.append(({"url": col(url), "url_opt": col(url[url_mask]),
+                        "token": col(tok.reshape(-1, 16))},
+                       {"url_opt": url_mask, "token": tok_mask}))
+    return groups
+
+
+def _port_columns(groups):
+    """The generators' ``(offsets, data)`` string columns as the port's
+    ByteArrayColumn."""
+    from tpuparquet_torch.cpu.plain import ByteArrayColumn
+
+    return [({k: ByteArrayColumn(*v) if isinstance(v, tuple) else v
+              for k, v in cols.items()}, masks) for cols, masks in groups]
+
+
+def build_config4(n_values: int, n_groups: int):
+    """The config-4 file of bench.py (build_config4: DataPage V2, SNAPPY),
+    written with the port's writer.  Returns (file bytes, groups)."""
+    groups = _port_columns(config4_groups(n_values // 4 // n_groups,
+                                          n_groups))
+    return _write(CONFIG4_SCHEMA, groups, None, data_page_v2=True), groups
+
+
+def build_strings(n_values: int, n_groups: int):
+    """The string mix, V1, SNAPPY, ``max(n_values // 200, 200_000)`` rows
+    a row group, written with the port's writer.  Returns (file bytes,
+    groups)."""
+    groups = _port_columns(strings_groups(max(n_values // 200, 200_000),
+                                          n_groups))
+    return _write(STRINGS_SCHEMA, groups, None), groups
 
 
 def _u32(t: torch.Tensor) -> np.ndarray:
@@ -329,6 +457,102 @@ def _check_tokens(rng, dev) -> None:
                 raise AssertionError(f"K8 {name} at {off}: wrong words")
 
 
+def _staged_dictionary(rng, n_entries: int, max_len: int):
+    """A BYTE_ARRAY dictionary as the planner stages it: int32 offsets and
+    u8 data, each zero-padded to the JAX piece split's length.  Returns
+    (offsets, data, lengths)."""
+    from tpuparquet_torch.kernels.device import _padded_len
+
+    lens = rng.integers(0, max_len, size=n_entries, endpoint=True)
+    offs = np.zeros(_padded_len(n_entries + 1), dtype=np.int32)
+    offs[1 : n_entries + 1] = np.cumsum(lens)
+    data = np.zeros(_padded_len(int(lens.sum()), 1), dtype=np.uint8)
+    data[: int(lens.sum())] = rng.integers(0, 256, size=int(lens.sum()),
+                                           dtype=np.uint8)
+    return offs, data, lens
+
+
+def _check_dict_bytes(rng, dev) -> None:
+    """K9 against its plain version over the whole padded output, and its
+    values against a host gather."""
+    from tpuparquet_torch.kernels.decode import bucket, page_dict_bytes, \
+        page_dict_bytes_plain
+
+    cases = [  # (label, entries, max length, values, width, stream)
+        ("single run", 200, 12, 20_000, 8, "single"),
+        ("run table", 200, 12, 20_000, 8, "table"),
+        ("width 0", 1, 9, 1000, 0, None),
+        ("empty blob", 5, 0, 3000, 3, "table"),
+        ("exact bucket", 37, 30, 1024, 6, "single"),
+        ("all null", 37, 30, 0, 6, "table"),
+        # 20,000 entries of up to 4,000 bytes: the staged data spans
+        # several 16 MB pieces
+        ("16 MB pieces", 20_000, 4000, 3000, 15, "table"),
+    ]
+    for label, n_ent, max_len, nn, w, how in cases:
+        offs, data, lens = _staged_dictionary(rng, n_ent, max_len)
+        idx = _runny(rng, max(nn, 1), max(w, 1))[:nn] % n_ent
+        if w == 0:
+            idx[:] = 0
+            bp = tbl = None
+            cnt, nbp, single = bucket(max(nn, 1)), 0, False
+        else:
+            bp, tbl, cnt, nbp = _stream(idx, w, dev)
+            single = how == "single"
+            if single:
+                bp = _one_run(idx, w, cnt, dev)
+        total_b = int(lens[idx].sum())
+        cap = bucket(max(total_b, 1))
+        doffs, ddata = _t(offs, dev), _t(data, dev)
+        got = page_dict_bytes(doffs, ddata, bp, tbl, nn, cnt, w, nbp, cap,
+                              single)
+        cpu = [None if t is None else t.cpu() for t in (bp, tbl)]
+        _same(f"K9 {label}", got, page_dict_bytes_plain(
+            doffs.cpu(), ddata.cpu(), *cpu, nn, cnt, w, nbp, cap, single))
+        starts = offs[idx].astype(np.int64)
+        want = np.concatenate([data[a : a + n] for a, n in
+                               zip(starts, lens[idx])] or [np.zeros(0,
+                                                                    np.uint8)])
+        if not np.array_equal(got[:total_b].cpu().numpy(), want):
+            raise AssertionError(f"K9 {label}: wrong bytes")
+
+
+def _check_bytes_from_blob(rng, dev) -> None:
+    """K10 against its plain version over the whole padded output, and
+    its values against the records it reads."""
+    from tpuparquet_torch.kernels.decode import bucket, \
+        plain_bytes_from_blob, plain_bytes_from_blob_plain
+
+    for label, n, max_len, pos, cut in (("pos 0", 5000, 40, 0, 0),
+                                        ("odd pos", 5000, 40, 7, 0),
+                                        ("empty values", 300, 0, 3, 0),
+                                        ("short blob", 5000, 40, 5, 999)):
+        lens = rng.integers(0, max_len, size=n, endpoint=True)
+        offs = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(lens, out=offs[1:])
+        nb = int(offs[-1])
+        vals = rng.integers(0, 256, size=nb, dtype=np.uint8)
+        page = [rng.integers(0, 256, size=pos, dtype=np.uint8)]
+        for i in range(n):
+            page += [np.frombuffer(np.uint32(lens[i]).tobytes(), np.uint8),
+                     vals[offs[i] : offs[i + 1]]]
+        blob = np.concatenate(page)
+        # the blob is K8's output, a bucket wide; `cut` shortens it so the
+        # formula's tail reaches past its end
+        wide = np.zeros(bucket(blob.size), np.uint8)
+        wide[: blob.size] = blob
+        wide = wide[: wide.size - cut] if cut else wide
+        offs_pad = np.full(bucket(n + 1), nb, dtype=np.int32)
+        offs_pad[: n + 1] = offs
+        cap = bucket(max(nb, 1))
+        b_d, o_d = _t(wide, dev), _t(offs_pad, dev)
+        got = plain_bytes_from_blob(b_d, o_d, pos, cap)
+        _same(f"K10 {label}", got,
+              plain_bytes_from_blob_plain(b_d.cpu(), o_d.cpu(), pos, cap))
+        if not np.array_equal(got[:nb].cpu().numpy(), vals):
+            raise AssertionError(f"K10 {label}: wrong bytes")
+
+
 def check_kernels(dev) -> None:
     """Phase 2: every kernel against its plain version on the card."""
     from tpuparquet_torch.cpu.bitpack import pack
@@ -390,6 +614,8 @@ def check_kernels(dev) -> None:
     _check_unpack_u64(rng, dev)
     _check_delta_scan(rng, dev)
     _check_tokens(rng, dev)
+    _check_dict_bytes(rng, dev)
+    _check_bytes_from_blob(rng, dev)
     if dev.type == "cuda":  # a fault during a run surfaces here
         torch.cuda.synchronize(dev)
 
@@ -426,23 +652,28 @@ def _stage(arrays, dev):
     return [_t(a, dev) for a in arrays]
 
 
-def time_kernels(groups, mix_groups, dev, launches) -> list:
+def time_kernels(groups, mix_groups, groups4, groups_s, dev,
+                 launches) -> list:
     """Phase 4: each kernel at the main paths' page shapes."""
     from tpuparquet_torch.compress import compress_block
-    from tpuparquet_torch.cpu.hybrid import encode_hybrid, scan_hybrid
-    from tpuparquet_torch.format.metadata import CompressionCodec
-    from tpuparquet_torch.io.chunk import build_dictionary
+    from tpuparquet_torch.cpu.dictionary import build_dictionary
+    from tpuparquet_torch.cpu.hybrid import encode_hybrid, expand_scan, \
+        scan_hybrid
+    from tpuparquet_torch.cpu.plain import encode_plain
+    from tpuparquet_torch.format.metadata import CompressionCodec, Type
     from tpuparquet_torch.kernels.bitunpack import pad_to_words, \
         unpack_u32, unpack_u32_plain, unpack_u64, unpack_u64_plain
-    from tpuparquet_torch.kernels.decode import delta_scan, \
+    from tpuparquet_torch.kernels.decode import bucket, delta_scan, \
         delta_scan_plain, levels_to_validity, levels_to_validity_plain, \
-        page_dict_fixed, page_dict_fixed_plain, planes_to_words_plain
+        page_dict_bytes, page_dict_bytes_plain, page_dict_fixed, \
+        page_dict_fixed_plain, plain_bytes_from_blob, \
+        plain_bytes_from_blob_plain, planes_to_words_plain
     from tpuparquet_torch.kernels.device import _plan_plane_words, \
         _put_all, _Stager
     from tpuparquet_torch.kernels.hybrid import expand_hybrid, \
         expand_hybrid_plain, plan_stream_args
-    from tpuparquet_torch.kernels.snappy import expand_tokens_words, \
-        expand_tokens_words_plain, plan_tokens
+    from tpuparquet_torch.kernels.snappy import expand_tokens, \
+        expand_tokens_words, expand_tokens_words_plain, plan_tokens
     from tpuparquet_torch.native import pack_native
 
     cols, pay_mask = groups[0]
@@ -497,7 +728,8 @@ def time_kernels(groups, mix_groups, dev, launches) -> list:
         bp.nbytes + tbl.nbytes + 4 * cnt, 8 * cnt)
     # the dictionary as staged: first-occurrence order, zero-padded to
     # its bucket; K3 gathers from the indices K2 expanded (a run of
-    # width 32), the launch the main path makes for this page
+    # width 32), the launch the main path makes for this page.  One
+    # PyTorch call computes that gather
     dictionary = np.zeros(32, dtype=np.int32)
     dictionary[: dvals.size] = dvals
     (dict_d,) = _stage([dictionary], dev)
@@ -507,7 +739,8 @@ def time_kernels(groups, mix_groups, dev, launches) -> list:
         lambda: page_dict_fixed(dict_d, idx_d, None, cnt, 32, cnt, 1, True),
         lambda: page_dict_fixed_plain(dict_d, idx_d, None, cnt, 32, cnt, 1,
                                       True),
-        dict_d.numel() * 4 + 4 * cnt + 4 * cnt, 8 * cnt)
+        dict_d.numel() * 4 + 4 * cnt + 4 * cnt, 8 * cnt,
+        library=lambda: torch.index_select(dict_d, 0, idx_d))
     # K4: payment_type's expanded def levels (2^21 slots); one PyTorch
     # call computes its core, the running count of the mask
     levels = torch.zeros(cnt, dtype=torch.int32, device=dev)
@@ -601,6 +834,68 @@ def time_kernels(groups, mix_groups, dev, launches) -> list:
         te.nbytes + ts.nbytes + lp.nbytes + 4 * nw, 4 * nw)
     print(f"K8 page: {te.size} tokens, {lp.size} literal bytes, out_cap "
           f"{out_cap}, {steps} rounds", flush=True)
+
+    # K9: config 4's vendor page (row group 0), planned as the reader
+    # plans it: the dictionary staged padded, the indices expanded on the
+    # host for the offsets, the index stream shipped for K9.  One PyTorch
+    # call computes the core of its offsets: the running sum of the
+    # values' lengths
+    vendor = groups4[0][0]["vendor"]
+    d, idx = build_dictionary(vendor)
+    nn = len(vendor)
+    w = max((len(d) - 1).bit_length(), 1)
+    sc = scan_hybrid(encode_hybrid(idx.astype(np.uint32), w), nn, w)
+    idx_u = expand_scan(*sc[:6], nn, w)
+    (bp, tbl), cnt, nbp, single = plan_stream_args(sc, nn, w,
+                                                   expanded=idx_u)
+    lens = d.lengths()[idx_u]
+    total_b = int(lens.sum())
+    cap = bucket(total_b)
+    stg = _Stager()
+    stg.add_many([d.offsets.astype(np.int32), d.data])
+    stg.add_many([bp, tbl], pad=False)
+    ((doffs, ddata, bp_d, tbl_d),), _slab = _put_all([stg], dev)
+    _sync(dev)
+    lens_d = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    row("page_dict_bytes", "tpuparquet_torch/csrc/dict_bytes.cu",
+        "tpuparquet/kernels/decode.py:333",
+        lambda: page_dict_bytes(doffs, ddata, bp_d, tbl_d, nn, cnt, w, nbp,
+                                cap, single),
+        lambda: page_dict_bytes_plain(doffs, ddata, bp_d, tbl_d, nn, cnt, w,
+                                      nbp, cap, single),
+        4 * doffs.numel() + ddata.numel() + bp.nbytes + tbl.nbytes + cap,
+        2 * cnt + cap,
+        library=lambda: torch.cumsum(lens_d, 0, dtype=torch.int32))
+    got = page_dict_bytes(doffs, ddata, bp_d, tbl_d, nn, cnt, w, nbp, cap,
+                          single)
+    if not np.array_equal(got[:total_b].cpu().numpy(), vendor.data):
+        raise AssertionError("K9 vendor page: wrong bytes")
+    print(f"K9 page: {nn} values, {total_b} bytes out (cap {cap}), index "
+          f"width {w}, single run {single}", flush=True)
+
+    # K10: the string mix's url page (row group 0): its PLAIN records,
+    # snappy-compressed as the writer does, expanded by K8 into the blob
+    # K10 reads, as on the main path
+    url = groups_s[0][0]["url"]
+    page = np.frombuffer(encode_plain(Type.BYTE_ARRAY, url), np.uint8)
+    comp = compress_block(CompressionCodec.SNAPPY, page)
+    te, ts, lp, out_cap, steps, _ = plan_tokens(comp, page.size)
+    blob_d = expand_tokens(*_stage([te, ts, lp], dev), out_cap, steps)
+    nn, nb = len(url), url.data.size
+    offs_pad = np.full(bucket(nn + 1), nb, dtype=np.int32)
+    offs_pad[: nn + 1] = url.offsets
+    (offs_d,) = _stage([offs_pad], dev)
+    cap = bucket(nb)
+    row("plain_bytes_from_blob", "tpuparquet_torch/csrc/bytes_from_blob.cu",
+        "tpuparquet/kernels/decode.py:361",
+        lambda: plain_bytes_from_blob(blob_d, offs_d, 0, cap),
+        lambda: plain_bytes_from_blob_plain(blob_d, offs_d, 0, cap),
+        nb + offs_pad.nbytes + cap, cap)
+    got = plain_bytes_from_blob(blob_d, offs_d, 0, cap)
+    if not np.array_equal(got[:nb].cpu().numpy(), url.data):
+        raise AssertionError("K10 url page: wrong bytes")
+    print(f"K10 page: {nn} values, {nb} bytes out (cap {cap}), blob "
+          f"{out_cap} bytes", flush=True)
     return out
 
 
@@ -631,24 +926,36 @@ def _drive(reader, dev, wrappers):
     return got, {k: fn.launches for k, fn in wrappers.items()}, st
 
 
-def _check_read(label, reader, got, groups, optional) -> int:
-    """Every value, def level and mask against the generator; row group
-    0 against the CPU run buffer for buffer.  Returns the value count."""
+def _same_values(got, want) -> bool:
+    """Strings by offsets and bytes, numbers bit for bit."""
+    if hasattr(want, "offsets"):
+        return (np.array_equal(got.offsets, want.offsets)
+                and np.array_equal(got.data, want.data))
+    want = np.ascontiguousarray(want)
+    return got.dtype == want.dtype and np.array_equal(
+        got.view(np.uint8), want.view(np.uint8))
+
+
+def _check_read(label, reader, got, groups) -> int:
+    """Every value, def level and mask against the generator's
+    ``[(columns, {optional column: mask})]``; row group 0 against the
+    CPU run buffer for buffer.  Returns the value count."""
     from tpuparquet_torch.kernels.device import read_row_group_device
 
-    for (rg, out), (cols, mask) in zip(got, groups):
+    for (rg, out), (cols, masks) in zip(got, groups):
+        rows = next(iter(out.values())).num_values
         for name, col in out.items():
             vals, _rep, dl = col.to_numpy()
-            if not np.array_equal(vals, cols[name]):
+            if not _same_values(vals, cols[name]):
                 raise AssertionError(f"{label} row group {rg} {name}: "
                                      "values differ")
-            opt = name == optional
-            want_dl = (mask.astype(np.int32) if opt
-                       else np.zeros(mask.size, np.int32))
+            mask = masks.get(name)
+            want_dl = (np.zeros(rows, np.int32) if mask is None
+                       else mask.astype(np.int32))
             if not np.array_equal(dl, want_dl):
                 raise AssertionError(f"{label} row group {rg} {name}: "
                                      "def levels")
-            want_mask = mask if opt else np.ones(mask.size, bool)
+            want_mask = np.ones(rows, bool) if mask is None else mask
             if not np.array_equal(col.mask.cpu().numpy(), want_mask):
                 raise AssertionError(f"{label} row group {rg} {name}: mask")
     cpu = read_row_group_device(reader, 0, device="cpu")
@@ -673,7 +980,7 @@ def _routing(label, st, want: dict) -> None:
         raise AssertionError(f"{label}: routing {got}, expected {want}")
 
 
-def _best_of(label, reader, dev, n_values, reps: int = 3):
+def _best_of(label, reader, dev, n_values, reps: int = 3, note: str = ""):
     from tpuparquet_torch.kernels.device import read_row_groups_device
     from tpuparquet_torch.stats import collect_stats
 
@@ -691,13 +998,18 @@ def _best_of(label, reader, dev, n_values, reps: int = 3):
     print(f"{label} best of {reps}: {best:.4f} s, {n_values / best:.4e} "
           f"values/s; plan_s {phases.plan_s:.4f}, transfer_s "
           f"{phases.transfer_s:.4f}, dispatch_s {phases.dispatch_s:.4f}, "
-          f"bytes_staged {phases.bytes_staged}", flush=True)
+          f"bytes_staged {phases.bytes_staged}{note}", flush=True)
 
 
 def _need(label, launches, names) -> None:
     missing = [k for k in names if launches[k] == 0]
     if missing:
         raise AssertionError(f"{label} launched no {missing}")
+
+
+def _need_any(label, launches, names) -> None:
+    if not any(launches[k] for k in names):
+        raise AssertionError(f"{label} launched none of {names}")
 
 
 def main(argv=None) -> int:
@@ -713,7 +1025,8 @@ def main(argv=None) -> int:
     from tpuparquet_torch.io.reader import FileReader
     from tpuparquet_torch.kernels import bitunpack, decode, hybrid, snappy
     from tpuparquet_torch.kernels._lib import build_kernels
-    from tpuparquet_torch.native import pack_native, plane_native
+    from tpuparquet_torch.native import bytes_native, pack_native, \
+        plane_native
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -733,6 +1046,7 @@ def main(argv=None) -> int:
     _snappy()
     pack_native()
     plane_native()
+    bytes_native()
     print(f"build: kernels {build_s:.2f} s, with the C host helpers "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -749,7 +1063,9 @@ def main(argv=None) -> int:
                 "planes_to_words": decode.planes_to_words,
                 "unpack_u64": bitunpack.unpack_u64,
                 "delta_scan": decode.delta_scan,
-                "expand_tokens": snappy.expand_tokens}
+                "expand_tokens": snappy.expand_tokens,
+                "page_dict_bytes": decode.page_dict_bytes,
+                "plain_bytes_from_blob": decode.plain_bytes_from_blob}
     total_launches = dict.fromkeys(wrappers, 0)
     g = args.groups
 
@@ -764,7 +1080,8 @@ def main(argv=None) -> int:
         _set_transports(on)
         got, launches, st = _drive(reader, dev, wrappers)
         print(f"{label} launches: {launches}", flush=True)
-        n_values = _check_read(label, reader, got, groups, "payment_type")
+        n_values = _check_read(label, reader, got,
+                               [(c, {"payment_type": m}) for c, m in groups])
         del got
         _routing(label, st, {"pages_device_delta_lanes": g if on else 0,
                              "pages_device_planes": g if on else 0,
@@ -785,8 +1102,8 @@ def main(argv=None) -> int:
     mix_reader = FileReader(mix_blob)
     got, launches, st = _drive(mix_reader, dev, wrappers)
     print(f"transport mix launches: {launches}", flush=True)
-    n_mix = _check_read("transport mix", mix_reader, got, mix_groups,
-                        "tok_opt")
+    n_mix = _check_read("transport mix", mix_reader, got,
+                        [(c, {"tok_opt": m}) for c, m in mix_groups])
     del got
     _routing("transport mix", st, {"pages_device_snappy": 2 * g,
                                    "pages_device_delta_lanes": 2 * g,
@@ -797,10 +1114,53 @@ def main(argv=None) -> int:
     for k, c in launches.items():
         total_launches[k] += c
     _best_of("transport mix", mix_reader, dev, n_mix)
-    print(f"launches over the three reads: {total_launches}", flush=True)
+    del mix_reader, mix_blob
+
+    # phase 3c: config 4 (strings beside doubles, data page v2), default
+    # transports
+    t0 = time.perf_counter()
+    blob4, groups4 = build_config4(args.values, g)
+    print(f"config 4: {g} row groups, {len(blob4)} bytes, written in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    reader4 = FileReader(blob4)
+    got, launches, st = _drive(reader4, dev, wrappers)
+    print(f"config 4 launches: {launches}", flush=True)
+    n4 = _check_read("config 4", reader4, got, groups4)
+    del got
+    _routing("config 4", st, {"pages_device_snappy": 0,
+                              "pages_device_delta_lanes": 0,
+                              "pages_device_planes": 0})
+    _need("config 4", launches, ["page_dict_bytes", "levels_to_validity"])
+    _need_any("config 4", launches, ["unpack_u32", "expand_hybrid"])
+    for k, c in launches.items():
+        total_launches[k] += c
+    _best_of("config 4", reader4, dev, n4,
+             note=" (the JAX package: 225,490,944 on bench.py's own file)")
+    del reader4, blob4
+
+    # phase 3d: the string mix, default transports
+    t0 = time.perf_counter()
+    blob_s, groups_s = build_strings(args.values, g)
+    print(f"string mix: {g} row groups, {len(blob_s)} bytes, written in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    reader_s = FileReader(blob_s)
+    got, launches, st = _drive(reader_s, dev, wrappers)
+    print(f"string mix launches: {launches}", flush=True)
+    n_s = _check_read("string mix", reader_s, got, groups_s)
+    del got
+    _routing("string mix", st, {"pages_device_snappy": 2 * g,
+                                "pages_device_delta_lanes": 0,
+                                "pages_device_planes": 0})
+    _need("string mix", launches, ["expand_tokens", "plain_bytes_from_blob",
+                                   "levels_to_validity"])
+    for k, c in launches.items():
+        total_launches[k] += c
+    _best_of("string mix", reader_s, dev, n_s)
+    print(f"launches over the five reads: {total_launches}", flush=True)
 
     # phase 4: kernel times at the main paths' shapes
-    kernels = time_kernels(groups, mix_groups, dev, total_launches)
+    kernels = time_kernels(groups, mix_groups, groups4, groups_s, dev,
+                           total_launches)
     _need("the main paths", total_launches, list(wrappers))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

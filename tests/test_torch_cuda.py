@@ -41,7 +41,7 @@ def cuda():
 
 
 def test_kernels_match_plain_versions(cuda):
-    """K1-K8 against their plain versions, bit for bit (the checks of
+    """K1-K10 against their plain versions, bit for bit (the checks of
     chip_smoke.py's phase 2)."""
     chip_smoke.check_kernels(cuda)
 
@@ -55,6 +55,18 @@ def test_transport_kernel_matches_plain_version(cuda, check):
     torch.cuda.synchronize(cuda)
 
 
+@pytest.mark.parametrize("check", ["_check_dict_bytes",
+                                   "_check_bytes_from_blob"])
+def test_bytes_kernel_matches_plain_version(cuda, check):
+    """K9 (page_dict_bytes: single-run and run-table index streams, width
+    0, an empty dictionary blob, an exact bucket, an all-null page, a
+    dictionary over several 16 MB pieces) and K10 (plain_bytes_from_blob:
+    offsets 0 and odd, empty values, a blob shorter than the formula's
+    reach), over the whole padded output."""
+    getattr(chip_smoke, check)(np.random.default_rng(2), cuda)
+    torch.cuda.synchronize(cuda)
+
+
 def _same_buffers(reader, out, groups):
     for rg, cols_out in out:
         cpu = read_row_group_device(reader, rg, device="cpu")
@@ -65,13 +77,43 @@ def _same_buffers(reader, out, groups):
             assert a.keys() == b.keys()
             for k in a:
                 np.testing.assert_array_equal(a[k], b[k], err_msg=name)
-            np.testing.assert_array_equal(col.to_numpy()[0], cols[name])
+            assert chip_smoke._same_values(col.to_numpy()[0], cols[name])
 
 
 def _launches(names):
     fns = {"K5": decode.planes_to_words, "K6": bitunpack.unpack_u64,
-           "K7": decode.delta_scan, "K8": snappy.expand_tokens}
+           "K7": decode.delta_scan, "K8": snappy.expand_tokens,
+           "K9": decode.page_dict_bytes,
+           "K10": decode.plain_bytes_from_blob}
     return {k: fns[k].launches for k in names}
+
+
+def test_config4_on_card_matches_cpu_buffer_for_buffer(cuda, monkeypatch):
+    """Config 4 at 250,000 rows a group: dictionary strings through K9,
+    doubles PLAIN, data page v2."""
+    for k in chip_smoke.TRANSPORT_ENV:
+        monkeypatch.delenv(k, raising=False)
+    blob, groups = chip_smoke.build_config4(2_000_000, 2)
+    reader = FileReader(io.BytesIO(blob))
+    before = _launches(["K9"])
+    out = list(read_row_groups_device(reader))
+    _same_buffers(reader, out, groups)
+    assert _launches(["K9"])["K9"] == before["K9"] + 4
+
+
+def test_string_mix_on_card(cuda, monkeypatch):
+    """The URL pages through K8 then K10, the hex tokens raw."""
+    for k in chip_smoke.TRANSPORT_ENV:
+        monkeypatch.delenv(k, raising=False)
+    blob, groups = chip_smoke.build_strings(2_000_000, 2)
+    reader = FileReader(io.BytesIO(blob))
+    before = _launches(["K8", "K10"])
+    with collect_stats() as st:
+        out = list(read_row_groups_device(reader))
+    after = _launches(["K8", "K10"])
+    _same_buffers(reader, out, groups)
+    assert st.pages_device_snappy == 4
+    assert all(after[k] == before[k] + 4 for k in after)
 
 
 def test_transports_on_card_match_cpu_buffer_for_buffer(cuda, monkeypatch):

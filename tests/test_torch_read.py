@@ -10,7 +10,12 @@ both packages, in the JAX package's no-wire-transport configuration
 PLAIN pages take the byte-plane, delta-lane and snappy-token transports.
 With the transports on, the routing counters and the staged bytes must
 match too.  The transport mix (``chip_smoke.build_mix``, 200,000 rows in
-one row group) is a file on which every route engages.
+one row group) is a file on which every route engages.  A config-4-shaped
+file (bench.py's generator at 2 x 40,000 rows: dictionary strings beside
+PLAIN doubles, data page v2) and the string mix (40,000 rows of distinct
+URLs, which ship snappy tokens for K8 then K10, and random hex tokens,
+which ship raw; V1 and V2) hold the BYTE_ARRAY and V2 paths to the same
+standard.
 """
 
 import io
@@ -21,7 +26,9 @@ import numpy as np
 import pytest
 
 from tpuparquet import CompressionCodec as JaxCodec
+from tpuparquet import Encoding as JaxEncoding
 from tpuparquet import FileWriter as JaxFileWriter
+from tpuparquet.cpu.plain import ByteArrayColumn as JaxByteArrayColumn
 from tpuparquet.io.reader import FileReader as JaxFileReader
 from tpuparquet.kernels.device import read_row_groups_device as \
     jax_read_row_groups_device
@@ -107,19 +114,24 @@ def transports(monkeypatch):
 
 
 def _jax_buffers(col) -> dict:
-    return {"ptype": col.ptype, "num_values": col.num_values,
-            "n_packed": col.n_packed,
-            "data": np.asarray(col._data_p),
-            "mask": None if col._mask_p is None else np.asarray(col._mask_p),
-            "positions": (None if col._pos_p is None
-                          else np.asarray(col._pos_p)),
-            "def_levels": (None if col._def_p is None
-                           else np.asarray(col._def_p))}
+    out = {"ptype": col.ptype, "num_values": col.num_values,
+           "n_packed": col.n_packed,
+           "data": np.asarray(col._data_p),
+           "mask": None if col._mask_p is None else np.asarray(col._mask_p),
+           "positions": (None if col._pos_p is None
+                         else np.asarray(col._pos_p)),
+           "def_levels": (None if col._def_p is None
+                          else np.asarray(col._def_p))}
+    if col.offsets is not None:
+        out["offsets"] = np.asarray(col.offsets)
+        out["n_bytes"] = col.n_bytes
+    return out
 
 
 def _assert_same_column(ours, theirs, where):
-    assert (ours.ptype, ours.num_values, ours.n_packed) == \
-        (theirs.ptype, theirs.num_values, theirs.n_packed), where
+    assert (ours.ptype, ours.num_values, ours.n_packed, ours.n_bytes) == \
+        (theirs.ptype, theirs.num_values, theirs.n_packed,
+         theirs.n_bytes), where
     a, b = ours.padded_buffers(), theirs.padded_buffers()
     assert a.keys() == b.keys(), where
     for k in a:
@@ -328,17 +340,227 @@ def test_out_of_range_dictionary_index_rejected():
         read_row_group_device(FileReader(bytes(blob)), 0, device="cpu")
 
 
-@pytest.mark.parametrize("what", ["v2", "gzip", "double"])
+@pytest.mark.parametrize("what", ["gzip", "list", "delta", "bss"])
 def test_unsupported_input_raises_not_implemented(what):
-    groups = [({"v": np.arange(100, dtype=np.int64)}, {})]
+    """Inputs of later slices raise: another codec, a nested LIST (rep
+    levels), DELTA_BINARY_PACKED int64, BYTE_STREAM_SPLIT doubles."""
+    v = np.arange(100, dtype=np.int64)
+    groups = [({"v": v}, {})]
     schema, codec, kw = "message m { required int64 v; }", JaxCodec.SNAPPY, {}
-    if what == "v2":
-        kw = {"data_page_v2": True}
-    elif what == "gzip":
+    if what == "gzip":
         codec = JaxCodec.GZIP
-    else:
+    elif what == "delta":
+        kw = {"column_encodings": {"v": JaxEncoding.DELTA_BINARY_PACKED}}
+    elif what == "bss":
         schema = "message m { required double v; }"
         groups = [({"v": np.linspace(0, 1, 100)}, {})]
-    blob = _write(JaxFileWriter, codec, groups, schema=schema, **kw)
+        kw = {"column_encodings": {"v": JaxEncoding.BYTE_STREAM_SPLIT}}
+    if what == "list":
+        buf = io.BytesIO()
+        w = JaxFileWriter(buf, """message m { optional group l (LIST) {
+            repeated group list { optional int64 element; } } }""",
+                          codec=codec)
+        w.write_columns({"l": v}, offsets={"l": np.arange(0, 101, 4)},
+                        masks={"l": np.ones(25, bool)},
+                        element_masks={"l": np.ones(100, bool)})
+        w.close()
+        blob = buf.getvalue()
+    else:
+        blob = _write(JaxFileWriter, codec, groups, schema=schema, **kw)
     with pytest.raises(NotImplementedError):
         read_row_group_device(FileReader(blob), 0, device="cpu")
+
+
+# ----------------------------------------------------------------------
+# Data page v2, doubles and BYTE_ARRAY strings
+# ----------------------------------------------------------------------
+
+def _jax_groups(groups):
+    """The generators' ``(offsets, data)`` string columns as the JAX
+    package's ByteArrayColumn."""
+    return [({k: JaxByteArrayColumn(*v) if isinstance(v, tuple) else v
+              for k, v in cols.items()}, masks) for cols, masks in groups]
+
+
+def _write_groups(writer, schema, groups, **kw) -> bytes:
+    if writer == "jax":
+        return _write(JaxFileWriter, JaxCodec.SNAPPY, _jax_groups(groups),
+                      schema=schema, **kw)
+    return _write(FileWriter, CompressionCodec.SNAPPY,
+                  chip_smoke._port_columns(groups), schema=schema, **kw)
+
+
+@pytest.fixture(scope="module")
+def config4():
+    groups = chip_smoke.config4_groups(40_000, 2)
+    return groups, {w: _write_groups(w, chip_smoke.CONFIG4_SCHEMA, groups,
+                                     data_page_v2=True)
+                    for w in ("jax", "port")}
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_config4_matches_jax(config4, transports, writer):
+    """Strings by dictionary (K9), doubles PLAIN, an optional string
+    column, V2 pages: every buffer, the staged bytes and the routing (no
+    transport wins) equal the JAX package's."""
+    groups, files = config4
+    ours, st, jst = _read_both(files[writer])
+    assert ours.keys() == {0, 1}
+    assert {k: getattr(st, k) for k in COUNTERS} == dict.fromkeys(COUNTERS,
+                                                                  0)
+    if _natives_present():
+        assert {k: getattr(jst, k) for k in COUNTERS} == \
+            dict.fromkeys(COUNTERS, 0)
+        assert st.bytes_staged == jst.bytes_staged
+    assert ours[0]["vendor"].lanes is None and ours[0]["fare"].lanes == 2
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_config4_matches_cpu_oracle(config4, writer):
+    groups, files = config4
+    blob = files[writer]
+    oracle = JaxFileReader(io.BytesIO(blob))
+    for rg, out in read_row_groups_device(FileReader(blob), device="cpu"):
+        want = oracle.read_row_group_arrays(rg)
+        cols, masks = groups[rg]
+        for name, col in out.items():
+            vals, _rep, dl = col.to_numpy()
+            ref = want[name].values
+            if name in ("vendor", "note"):
+                np.testing.assert_array_equal(vals.offsets, ref.offsets)
+                np.testing.assert_array_equal(vals.data, ref.data)
+                np.testing.assert_array_equal(vals.offsets, cols[name][0])
+                np.testing.assert_array_equal(vals.data, cols[name][1])
+            else:
+                assert vals.dtype == np.dtype("<f8")
+                np.testing.assert_array_equal(vals.view(np.uint64),
+                                              ref.view(np.uint64))
+                np.testing.assert_array_equal(vals, cols[name])
+            np.testing.assert_array_equal(dl, want[name].def_levels)
+        np.testing.assert_array_equal(out["note"].mask.numpy(),
+                                      masks["note"])
+
+
+@pytest.fixture(scope="module")
+def strings():
+    return chip_smoke.strings_groups(40_000, 1)
+
+
+@pytest.mark.parametrize("v2", [False, True])
+def test_string_mix_matches_jax(strings, transports, v2):
+    """``url`` and ``url_opt`` (past its levels) take the snappy tokens
+    and K10; ``token`` ships raw.  Buffers, routing and staged bytes equal
+    the JAX package's, for V1 and V2 pages."""
+    blob = _write_groups("jax", chip_smoke.STRINGS_SCHEMA, strings,
+                         data_page_v2=v2)
+    ours, st, jst = _read_both(blob)
+    cols, masks = strings[0]
+    for name, col in ours[0].items():
+        vals = col.to_numpy()[0]
+        np.testing.assert_array_equal(vals.offsets, cols[name][0])
+        np.testing.assert_array_equal(vals.data, cols[name][1])
+    np.testing.assert_array_equal(ours[0]["token"].mask.numpy(),
+                                  masks["token"])
+    routing = {k: getattr(st, k) for k in COUNTERS}
+    assert routing == {"pages_device_snappy": 2,
+                       "pages_device_delta_lanes": 0,
+                       "pages_device_planes": 0}
+    if not _natives_present():
+        pytest.skip("the JAX package's C helpers are not built here, so "
+                    "its routing differs")
+    assert routing == {k: getattr(jst, k) for k in COUNTERS}
+    assert st.bytes_staged == jst.bytes_staged
+
+
+def test_string_mix_without_device_snappy_ships_bytes(strings,
+                                                      no_transports):
+    """With ``TPQ_DEVICE_SNAPPY=0`` every string page ships its bytes,
+    and the buffers still equal the JAX package's."""
+    blob = _write_groups("port", chip_smoke.STRINGS_SCHEMA, strings)
+    _, st, jst = _read_both(blob)
+    assert st.pages_device_snappy == 0
+    assert st.bytes_staged == jst.bytes_staged
+
+
+@pytest.mark.parametrize("v2", [False, True])
+def test_multi_page_string_chunks_match_jax(transports, v2):
+    """Several data pages per string chunk (the JAX writer's page_rows):
+    dictionary and PLAIN pages merge as in the JAX package, offsets
+    rebased."""
+    groups = chip_smoke.config4_groups(5000, 1, seed=9)
+    strs = chip_smoke.strings_groups(5000, 1, seed=9)
+    for schema, g in ((chip_smoke.CONFIG4_SCHEMA, groups),
+                      (chip_smoke.STRINGS_SCHEMA, strs)):
+        blob = _write_groups("jax", schema, g, page_rows=1500,
+                             data_page_v2=v2)
+        ours, st, jst = _read_both(blob)
+        if _natives_present():
+            assert st.bytes_staged == jst.bytes_staged
+        for name, col in ours[0].items():
+            vals = col.to_numpy()[0]
+            want = g[0][0][name]
+            if isinstance(want, tuple):
+                np.testing.assert_array_equal(vals.offsets, want[0])
+                np.testing.assert_array_equal(vals.data, want[1])
+            else:
+                np.testing.assert_array_equal(vals, want)
+
+
+@pytest.mark.parametrize("what", ["config4", "strings", "strings v2"])
+def test_string_page_plans_match_jax(config4, strings, transports, what):
+    """Each string page's plan, array for array: the dictionary's offsets
+    and bytes, the index and level streams, the token tables and padded
+    offsets or the raw bytes — with their padding flags — equal the JAX
+    planner's on the same chunk bytes."""
+    from tpuparquet.kernels.device import _Stager as JaxStager
+    from tpuparquet.kernels.device import plan_chunk_device as jax_plan
+    from tpuparquet_torch.kernels.device import _Stager, plan_chunk_device
+
+    if not _natives_present():
+        pytest.skip("the JAX package's C helpers are not built here, so "
+                    "its plans differ")
+    if what == "config4":
+        blob = config4[1]["port"]
+    else:
+        blob = _write_groups("port", chip_smoke.STRINGS_SCHEMA, strings,
+                             data_page_v2=what.endswith("v2"))
+    ours, theirs = FileReader(blob), JaxFileReader(io.BytesIO(blob))
+    planned = []
+    for path, node, cm in ours.selected_chunks(ours.meta.row_groups[0]):
+        if cm.type != 6:  # BYTE_ARRAY
+            continue
+        planned.append(path)
+        chunk, start = ours.chunk_blob(cm, path)
+        stg, jstg = _Stager(), JaxStager()
+        plan_chunk_device(chunk, cm, node, start, stg)
+        jax_plan(bytes(chunk), cm, theirs.schema.leaf(path), start, jstg)
+        assert len(stg.arrays) == len(jstg.arrays), path
+        for i, ((a, pad), b) in enumerate(zip(stg.arrays, jstg.arrays)):
+            assert pad == (i not in jstg.no_pad), (path, i)
+            b = np.ascontiguousarray(b).reshape(-1)
+            assert a.itemsize == b.itemsize, (path, i)
+            np.testing.assert_array_equal(a.view(np.uint8),
+                                          b.view(np.uint8), err_msg=path)
+    assert len(planned) == (2 if what == "config4" else 3)
+
+
+def test_v2_num_nulls_mismatch_raises():
+    """A V2 header whose num_nulls disagrees with its def levels is
+    corrupt."""
+    groups = [({"v": np.arange(900, dtype=np.int32)},
+               {"v": np.arange(1000) % 10 != 0})]
+    blob = bytearray(_write(FileWriter, CompressionCodec.UNCOMPRESSED,
+                            groups, schema="message m { optional int32 v; }",
+                            page_crc=False, data_page_v2=True))
+    reader = FileReader(bytes(blob))
+    cm = reader.meta.row_groups[0].columns[0].meta_data
+    r = CompactReader(bytes(blob), cm.data_page_offset)
+    ph = decode_struct(PageHeader, r)
+    assert ph.data_page_header_v2.num_nulls == 100
+    # the page header's num_nulls field: rewrite 100 as 99 (both one
+    # zigzag varint byte) in place
+    hdr = bytes(blob[cm.data_page_offset : r.pos])
+    at = hdr.index(bytes([0x15, 200]))  # field 2, i32, zigzag(100)
+    blob[cm.data_page_offset + at + 1] = 198  # zigzag(99)
+    with pytest.raises(ValueError, match="num_nulls"):
+        read_row_group_device(FileReader(bytes(blob)), 0, device="cpu")

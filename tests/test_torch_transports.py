@@ -366,7 +366,7 @@ def test_stager_carries_bytes_at_their_length():
     w = np.arange(5, dtype=np.uint32)
     stg.add_many([b, w, b[:1]], pad=False)
     with pytest.raises(TypeError):
-        stg.add(b)  # bytes always stage at their exact length
+        stg.add(w.astype(np.int64))  # words are 4 bytes, bytes 1
     from tpuparquet_torch.stats import collect_stats
 
     with collect_stats() as st:
@@ -385,4 +385,4 @@ def test_bucket_matches_jax():
         [jax_bucket(n) for n in range(0, 5000, 37)]
     for n in (0, 1, 31, 32_767, 32_768, 1 << 20, (1 << 22) + 5,
               (5 << 22) + 99_999):
-        assert 4 * pdev._padded_words(n) == jdev._padded_u32_bytes(n)
+        assert 4 * pdev._padded_len(n) == jdev._padded_u32_bytes(n)

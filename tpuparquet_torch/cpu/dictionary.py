@@ -1,0 +1,92 @@
+"""Dictionary building for the writer: first-occurrence interning.
+
+The dictionary lists the distinct values in the order they first occur
+(what an interning writer produces, as the JAX package's
+``tpuparquet/cpu/dictionary.py``), and the indices give each value's
+position in it.  Integers with a small value range intern through a
+dense table, other fixed-width values through ``np.unique`` re-ranked by
+first occurrence, and byte columns in one C pass (``csrc/bytes.c``
+``tpq_intern_var``) that stops as soon as the distinct count passes the
+caller's cap.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .plain import ByteArrayColumn
+
+__all__ = ["build_dictionary", "intern_byte_column"]
+
+
+def _first_occurrence_rank(first_idx: np.ndarray):
+    """``(order, rank)``: the unique values' order of first occurrence,
+    and each unique value's rank in it."""
+    order = np.argsort(first_idx, kind="stable")
+    rank = np.empty(order.size, dtype=np.int64)
+    rank[order] = np.arange(order.size)
+    return order, rank
+
+
+def _build_int_dictionary_smallrange(arr: np.ndarray):
+    """O(n + range) interning of an integer column whose value range is
+    at most ``4 n`` and ``2^24``; None otherwise."""
+    n = arr.size
+    lo, hi = int(arr.min()), int(arr.max())
+    span = hi - lo + 1
+    if span > 4 * n or span > 1 << 24:
+        return None
+    off = arr.astype(np.int64) - lo
+    first = np.full(span, n, dtype=np.int64)
+    # reversed fancy assignment keeps the smallest original index
+    first[off[::-1]] = np.arange(n - 1, -1, -1, dtype=np.int64)
+    present = first < n
+    order, rank = _first_occurrence_rank(first[present])
+    lookup = np.empty(span, dtype=np.int64)
+    lookup[present] = rank
+    uniq = (np.nonzero(present)[0][order] + lo).astype(arr.dtype)
+    return uniq, lookup[off].astype(np.int32)
+
+
+def _gather_bytes(values: ByteArrayColumn,
+                  idx: np.ndarray) -> ByteArrayColumn:
+    """The values at ``idx``, as a new column (one C gather)."""
+    from ..native import bytes_native
+
+    lens = values.lengths()[idx]
+    offsets = np.zeros(idx.size + 1, dtype=np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    data = bytes_native().gather_var(values.data, values.offsets[:-1][idx],
+                                     lens, int(offsets[-1]))
+    return ByteArrayColumn(offsets, data)
+
+
+def intern_byte_column(values: ByteArrayColumn, max_distinct: int):
+    """``(dictionary, int32 indices)`` of a byte column, or
+    :data:`~tpuparquet_torch.native.TOO_MANY_DISTINCT` once more than
+    ``max_distinct`` distinct values appear (the writer's gate would
+    reject the dictionary, so the pass stops early)."""
+    from ..native import TOO_MANY_DISTINCT, bytes_native
+
+    out = bytes_native().intern_var(values.data, values.offsets,
+                                    max_distinct)
+    if out is TOO_MANY_DISTINCT:
+        return out
+    firsts, indices = out
+    return _gather_bytes(values, firsts), indices
+
+
+def build_dictionary(values):
+    """``(dictionary, int32 indices)`` in first-occurrence order, for an
+    integer or float array or a :class:`ByteArrayColumn` (uncapped)."""
+    if isinstance(values, ByteArrayColumn):
+        return intern_byte_column(values, max(len(values), 1))
+    arr = np.asarray(values)
+    if arr.dtype.kind in "iu" and arr.size:
+        out = _build_int_dictionary_smallrange(arr)
+        if out is not None:
+            return out
+    uniq, first_idx, inv = np.unique(arr, return_index=True,
+                                     return_inverse=True)
+    order, rank = _first_occurrence_rank(first_idx)
+    return uniq[order], rank[inv.reshape(-1)].astype(np.int32)

@@ -1,7 +1,11 @@
-"""PLAIN codec for the fixed-width integer types (int32, int64).
+"""PLAIN codec for INT32, INT64, FLOAT, DOUBLE and BYTE_ARRAY.
 
-Values are little-endian on the wire, which is native on every platform
-the port targets, so decode is a zero-copy reinterpret of the buffer.
+Fixed-width values are little-endian on the wire, which is native on
+every platform the port targets, so their decode is a zero-copy
+reinterpret of the buffer.  BYTE_ARRAY values are ``(u32-LE length,
+bytes)`` records; they decode to offsets + data (:class:`ByteArrayColumn`,
+the Arrow layout the device path keeps) with one C pass over the length
+prefixes and one C gather (``csrc/bytes.c``).
 """
 
 from __future__ import annotations
@@ -10,12 +14,54 @@ import numpy as np
 
 from ..format.metadata import Type
 
-__all__ = ["PHYSICAL_DTYPES", "decode_plain", "encode_plain"]
+__all__ = ["PHYSICAL_DTYPES", "ByteArrayColumn", "decode_plain",
+           "encode_plain"]
 
 PHYSICAL_DTYPES = {
     Type.INT32: np.dtype("<i4"),
     Type.INT64: np.dtype("<i8"),
+    Type.FLOAT: np.dtype("<f4"),
+    Type.DOUBLE: np.dtype("<f8"),
 }
+
+
+class ByteArrayColumn:
+    """Arrow-style variable-length binary column: int64 offsets + byte data.
+
+    ``offsets`` has ``N + 1`` entries; value ``i`` is
+    ``data[offsets[i]:offsets[i+1]]``.
+    """
+
+    __slots__ = ("offsets", "data")
+
+    def __init__(self, offsets: np.ndarray, data: np.ndarray):
+        self.offsets = np.asarray(offsets, dtype=np.int64)
+        self.data = np.asarray(data, dtype=np.uint8)
+
+    def __len__(self) -> int:
+        return len(self.offsets) - 1
+
+    def __getitem__(self, i: int) -> bytes:
+        return self.data[self.offsets[i] : self.offsets[i + 1]].tobytes()
+
+    def lengths(self) -> np.ndarray:
+        return np.diff(self.offsets)
+
+    def to_list(self) -> list[bytes]:
+        data = self.data.tobytes()
+        offs = self.offsets
+        return [data[offs[i] : offs[i + 1]] for i in range(len(self))]
+
+    def __eq__(self, other):
+        if not isinstance(other, ByteArrayColumn):
+            return NotImplemented
+        return (
+            np.array_equal(self.offsets, other.offsets)
+            and np.array_equal(self.data, other.data)
+        )
+
+    def __repr__(self):
+        return f"ByteArrayColumn(n={len(self)}, nbytes={self.data.size})"
 
 
 def _dtype(ptype) -> np.dtype:
@@ -23,15 +69,24 @@ def _dtype(ptype) -> np.dtype:
     if dt is None:
         raise NotImplementedError(
             f"physical type {Type(ptype).name} is not supported by "
-            "tpuparquet_torch (INT32 and INT64 only)")
+            "tpuparquet_torch (INT32, INT64, FLOAT, DOUBLE and BYTE_ARRAY "
+            "only)")
     return dt
 
 
-def decode_plain(ptype, data, count: int) -> np.ndarray:
-    """Decode ``count`` PLAIN values (a zero-copy view; trailing bytes
-    are ignored)."""
-    dt = _dtype(ptype)
+def decode_plain(ptype, data, count: int):
+    """Decode ``count`` PLAIN values: a zero-copy view for fixed-width
+    types, a :class:`ByteArrayColumn` (its own copy of the bytes) for
+    BYTE_ARRAY.  Trailing bytes are ignored."""
     buf = np.frombuffer(data, dtype=np.uint8)
+    if Type(ptype) == Type.BYTE_ARRAY:
+        from ..native import bytes_native
+
+        nat = bytes_native()
+        positions, offsets = nat.byte_array_scan(buf, count)
+        return ByteArrayColumn(offsets, nat.gather_var(
+            buf, positions, offsets[1:] - offsets[:-1], int(offsets[-1])))
+    dt = _dtype(ptype)
     need = count * dt.itemsize
     if buf.size < need:
         raise ValueError(
@@ -41,5 +96,12 @@ def decode_plain(ptype, data, count: int) -> np.ndarray:
 
 
 def encode_plain(ptype, values) -> bytes:
+    """PLAIN-encode an array (fixed-width types) or a
+    :class:`ByteArrayColumn` (BYTE_ARRAY, one C pass)."""
+    if Type(ptype) == Type.BYTE_ARRAY:
+        from ..native import bytes_native
+
+        return bytes_native().byte_array_emit(values.data,
+                                              values.offsets).tobytes()
     return np.ascontiguousarray(np.asarray(values, dtype=_dtype(ptype))) \
         .tobytes()

@@ -1,18 +1,21 @@
-"""Schema DSL, flat subset: ``message m { required|optional int32|int64 x; }``.
+"""Schema DSL, flat subset: ``message m { required|optional <type> x; }``.
 
-The parquet-mr style text form of a schema, cut to what the flat
-int32/int64 path needs: one message of primitive fields, each
-``required`` or ``optional``, typed ``int32`` or ``int64``.  Groups,
-repeated fields, other types and annotations raise
-:class:`NotImplementedError` naming what was found, so a schema this
-package cannot decode is refused at the door rather than misread.
+The parquet-mr style text form of a schema, cut to what the flat path
+needs: one message of primitive fields, each ``required`` or
+``optional``, typed ``int32``, ``int64``, ``float``, ``double`` or
+``binary``; a binary field may carry the ``(STRING)`` annotation (written
+as the UTF8 converted type).  Groups, repeated fields, other types and
+annotations raise :class:`NotImplementedError` naming what was found, so
+a schema this package cannot decode is refused at the door rather than
+misread.
 """
 
 from __future__ import annotations
 
 import re
 
-from .metadata import FieldRepetitionType, SchemaElement, Type
+from .metadata import ConvertedType, FieldRepetitionType, SchemaElement, \
+    Type
 
 __all__ = [
     "ColumnDefinition",
@@ -82,9 +85,10 @@ class SchemaDefinition:
 
 
 _TOKEN_RE = re.compile(
-    r"(?P<ws>\s+)|(?P<ident>[A-Za-z_][A-Za-z0-9_]*)|(?P<punct>[{};])")
+    r"(?P<ws>\s+)|(?P<ident>[A-Za-z_][A-Za-z0-9_]*)|(?P<punct>[{};()])")
 
-_TYPES = {"int32": Type.INT32, "int64": Type.INT64}
+_TYPES = {"int32": Type.INT32, "int64": Type.INT64, "float": Type.FLOAT,
+          "double": Type.DOUBLE, "binary": Type.BYTE_ARRAY}
 _REPETITIONS = {"required": FieldRepetitionType.REQUIRED,
                 "optional": FieldRepetitionType.OPTIONAL}
 
@@ -143,15 +147,23 @@ def parse_schema_definition(text: str) -> SchemaDefinition:
         if ptype is None:
             raise NotImplementedError(
                 f"column type {tname!r} is not supported by "
-                "tpuparquet_torch (int32 and int64 only)")
+                "tpuparquet_torch (int32, int64, float, double, binary)")
         fname, line = take("field name")
+        se = SchemaElement(type=ptype, repetition_type=rep, name=fname)
         end, line = take("';'")
+        if end == "(" and ptype == Type.BYTE_ARRAY:
+            ann, line = take("annotation")
+            if ann != "STRING" or take("')'")[0] != ")":
+                raise NotImplementedError(
+                    f"field {fname!r}: annotation {ann!r} is not supported "
+                    "by tpuparquet_torch (STRING only)")
+            se.converted_type = ConvertedType.UTF8
+            end, line = take("';'")
         if end != ";":
             raise NotImplementedError(
                 f"field {fname!r}: annotations and field ids are not "
                 "supported by tpuparquet_torch")
-        root.children.append(ColumnDefinition(
-            SchemaElement(type=ptype, repetition_type=rep, name=fname)))
+        root.children.append(ColumnDefinition(se))
     if i != len(toks):
         raise SchemaParseError(f"trailing content {toks[i][0]!r}",
                                toks[i][1])

@@ -3,15 +3,17 @@
 :func:`write_chunk` emits a dictionary page when the dictionary pays
 (the JAX package's policy: at most ``MAX_DICT_ENTRIES - 1`` distinct
 values, and dictionary + packed indices smaller than the PLAIN values),
-then one V1 data page, and returns the ``ColumnChunk`` metadata with
-sizes including page headers, statistics and the encodings list.
+then one data page (V1, or V2 with ``data_page_v2=True``), and returns the
+``ColumnChunk`` metadata with sizes including page headers, statistics
+and the encodings list.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..cpu.plain import PHYSICAL_DTYPES
+from ..cpu.dictionary import build_dictionary, intern_byte_column
+from ..cpu.plain import ByteArrayColumn
 from ..format.metadata import (
     ColumnChunk,
     ColumnMetaData,
@@ -19,47 +21,50 @@ from ..format.metadata import (
     Statistics,
     Type,
 )
-from .pages import write_data_page_v1, write_dictionary_page
+from ..native import TOO_MANY_DISTINCT
+from .pages import write_data_page_v1, write_data_page_v2, \
+    write_dictionary_page
 
-__all__ = ["MAX_DICT_ENTRIES", "build_dictionary", "write_chunk"]
+__all__ = ["MAX_DICT_ENTRIES", "write_chunk"]
 
 MAX_DICT_ENTRIES = 1 << 15  # math.MaxInt16, as the JAX package
 
 
-def build_dictionary(arr: np.ndarray):
-    """``(dictionary, int32 indices)`` with the dictionary in
-    first-occurrence order (what an interning writer produces)."""
-    n = arr.size
-    lo, hi = int(arr.min()), int(arr.max())
-    span = hi - lo + 1
-    if span <= 4 * n and span <= 1 << 24:
-        # small value range: an O(n + range) table instead of a sort
-        off = arr.astype(np.int64) - lo
-        first = np.full(span, n, dtype=np.int64)
-        # reversed fancy assignment keeps the smallest original index
-        first[off[::-1]] = np.arange(n - 1, -1, -1, dtype=np.int64)
-        present = first < n
-        order = np.argsort(first[present], kind="stable")
-        rank = np.empty(order.size, dtype=np.int64)
-        rank[order] = np.arange(order.size)
-        lookup = np.empty(span, dtype=np.int64)
-        lookup[present] = rank
-        uniq = (np.nonzero(present)[0][order] + lo).astype(arr.dtype)
-        return uniq, lookup[off].astype(np.int32)
-    uniq, first_idx, inv = np.unique(arr, return_index=True,
-                                     return_inverse=True)
-    order = np.argsort(first_idx, kind="stable")
-    rank = np.empty_like(order)
-    rank[order] = np.arange(order.size)
-    return uniq[order], rank[inv.reshape(-1)].astype(np.int32)
+def _column_size(column) -> int:
+    """PLAIN size of a column: records with their 4-byte prefixes for
+    bytes, the array's bytes otherwise."""
+    if isinstance(column, ByteArrayColumn):
+        return int(column.data.size) + 4 * len(column)
+    return int(column.nbytes)
 
 
-def _maybe_dictionary(arr: np.ndarray):
+def _size_gate(column, dictionary, indices, n: int):
+    """Keep the dictionary only when it pays: fewer than
+    ``MAX_DICT_ENTRIES`` entries, and dictionary + packed indices
+    smaller than the PLAIN values."""
+    dsize = len(dictionary)
+    if dsize >= MAX_DICT_ENTRIES:
+        return None, None
+    width = max((dsize - 1).bit_length(), 1)
+    if _column_size(dictionary) + n * width // 8 >= _column_size(column):
+        return None, None
+    return dictionary, indices
+
+
+def _maybe_dictionary(column):
     """The JAX writer's dictionary heuristic: ``(dictionary, indices)``
     or ``(None, None)`` for PLAIN."""
-    n = arr.shape[0]
+    n = len(column)
     if n == 0:
         return None, None
+    if isinstance(column, ByteArrayColumn):
+        # capped at MAX - 1: a column reaching MAX distinct values aborts
+        # the intern in O(cap) instead of paying for a discarded one
+        out = intern_byte_column(column, MAX_DICT_ENTRIES - 1)
+        if out is TOO_MANY_DISTINCT:
+            return None, None
+        return _size_gate(column, *out, n)
+    arr = column
     if n > 4096:
         # strictly monotonic values are all distinct: reject without a
         # sort (elementwise compares — a diff could wrap)
@@ -69,64 +74,71 @@ def _maybe_dictionary(arr: np.ndarray):
     if n > 1 << 17:
         # distinct(sample) is a lower bound on distinct(full): a strided
         # sample that already fails the gates proves the intern would
-        # be discarded
+        # be discarded (random floats reject here)
         sample = arr[:: n // 65536][:65536]
         ds = int(np.unique(sample).size)
         width = max((ds - 1).bit_length(), 1)
         if ds >= MAX_DICT_ENTRIES or \
                 ds * arr.itemsize + n * width // 8 >= arr.nbytes:
             return None, None
-    dictionary, indices = build_dictionary(arr)
-    dsize = dictionary.shape[0]
-    if dsize >= MAX_DICT_ENTRIES:
-        return None, None
-    width = max((dsize - 1).bit_length(), 1)
-    if dictionary.nbytes + n * width // 8 >= arr.nbytes:
-        return None, None
-    return dictionary, indices
+    return _size_gate(column, *build_dictionary(arr), n)
 
 
-def _stat_bytes(ptype: Type, v) -> bytes:
-    return int(v).to_bytes(PHYSICAL_DTYPES[ptype].itemsize, "little",
-                           signed=True)
+def _statistics(ptype: Type, src, null_count: int, distinct):
+    """Chunk statistics over ``src`` (the dictionary when there is one:
+    every value appears in it).  Floats ignore NaN; bytes carry min/max
+    only over a dictionary (a PLAIN byte chunk writes counts only), and
+    no deprecated signed-order min/max."""
+    mn = mx = None
+    if isinstance(src, ByteArrayColumn):
+        if distinct is not None and len(src):
+            vals = src.to_list()
+            mn, mx = min(vals), max(vals)
+    else:
+        vals = src[~np.isnan(src)] if src.dtype.kind == "f" else src
+        if vals.size:
+            mn, mx = vals.min().tobytes(), vals.max().tobytes()
+    st = Statistics(null_count=null_count, distinct_count=distinct,
+                    min_value=mn, max_value=mx)
+    if ptype != Type.BYTE_ARRAY:
+        st.min = st.min_value
+        st.max = st.max_value
+    return st
 
 
-def write_chunk(out, node, column: np.ndarray, dl: np.ndarray, *, codec,
-                page_crc: bool = True, null_count: int = 0) -> ColumnChunk:
+def write_chunk(out, node, column, dl: np.ndarray, *, codec,
+                page_crc: bool = True, null_count: int = 0,
+                data_page_v2: bool = False) -> ColumnChunk:
     """Write one flat column chunk at the current position of ``out`` (a
     position-tracking binary stream).  ``column`` holds the non-null
-    values, ``dl`` the definition level of every slot."""
+    values (an array of the physical dtype, or a
+    :class:`ByteArrayColumn`), ``dl`` the definition level of every
+    slot."""
     ptype = Type(node.element.type)
     pos0 = out.tell()
     dictionary, indices = _maybe_dictionary(column)
     total_comp = total_uncomp = 0
     dict_page_offset = None
+    distinct = None
     if dictionary is not None:
         dict_page_offset = pos0
+        distinct = len(dictionary)
         c, u = write_dictionary_page(out, node, dictionary, codec,
                                      page_crc=page_crc)
         total_comp += c
         total_uncomp += u
-    src = dictionary if dictionary is not None else column
-    mn = mx = None
-    if src.size:
-        mn = _stat_bytes(ptype, src.min())
-        mx = _stat_bytes(ptype, src.max())
-    stats = Statistics(
-        null_count=null_count,
-        distinct_count=(None if dictionary is None
-                        else int(dictionary.shape[0])),
-        min_value=mn, max_value=mx)
-    # the deprecated min/max carry signed order: valid for int32/int64
-    stats.min = stats.min_value
-    stats.max = stats.max_value
+    stats = _statistics(ptype, column if dictionary is None else dictionary,
+                        null_count, distinct)
     data_page_offset = out.tell()
-    c, u = write_data_page_v1(
-        out, node, indices if dictionary is not None else column, dl,
-        codec,
-        dictionary_size=(None if dictionary is None
-                         else int(dictionary.shape[0])),
-        statistics=stats, page_crc=page_crc)
+    page_column = indices if dictionary is not None else column
+    if data_page_v2:
+        c, u = write_data_page_v2(
+            out, node, page_column, dl, codec, null_count=null_count,
+            dictionary_size=distinct, statistics=stats, page_crc=page_crc)
+    else:
+        c, u = write_data_page_v1(
+            out, node, page_column, dl, codec, dictionary_size=distinct,
+            statistics=stats, page_crc=page_crc)
     total_comp += c
     total_uncomp += u
     encodings = [Encoding.RLE, Encoding.PLAIN]

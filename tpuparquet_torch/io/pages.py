@@ -1,9 +1,14 @@
-"""Data page v1 and dictionary page: CRC, level split, page writers.
+"""Data pages v1 and v2 and the dictionary page: CRC, level split, page
+writers.
 
 Layouts:
 
 * **V1 data page**: body = [rep levels (4-byte-length-prefixed RLE)]
   [def levels (same)] [encoded values]; the whole body is compressed.
+* **V2 data page**: [rep levels][def levels][values]; the level streams
+  carry no length prefix (the header gives their byte lengths) and stay
+  uncompressed; only the values block is compressed, and only when
+  ``is_compressed`` is not false.
 * **Dictionary page**: PLAIN-encoded distinct values, whole body
   compressed; at most one per chunk, first.
 
@@ -25,7 +30,9 @@ from ..cpu.plain import encode_plain
 from ..errors import CorruptPageError
 from ..format.compact import CompactWriter
 from ..format.metadata import (
+    CompressionCodec,
     DataPageHeader,
+    DataPageHeaderV2,
     DictionaryPageHeader,
     Encoding,
     PageHeader,
@@ -38,8 +45,10 @@ __all__ = [
     "page_crc32",
     "verify_page_crc",
     "scan_levels_v1",
+    "scan_levels_v2",
     "encode_dict_indices",
     "write_data_page_v1",
+    "write_data_page_v2",
     "write_dictionary_page",
 ]
 
@@ -91,6 +100,23 @@ def scan_levels_v1(raw, n: int, max_level: int, pos: int,
     return sc, pos + 4 + size
 
 
+def scan_levels_v2(payload, h: DataPageHeaderV2, n: int, max_def: int):
+    """Split a flat column's V2 page into its def-level run table and
+    values block.  Returns ``(scan | None, values offset)``; the levels
+    are read from the uncompressed prefix, without a length prefix.
+    Raises ValueError when the header's level lengths overrun the
+    page."""
+    rl_len = h.repetition_levels_byte_length or 0
+    dl_len = h.definition_levels_byte_length or 0
+    if rl_len < 0 or dl_len < 0 or rl_len + dl_len > len(payload):
+        raise ValueError("V2 level lengths exceed page size")
+    sc = None
+    if max_def:
+        sc = scan_hybrid(payload[rl_len : rl_len + dl_len], n,
+                         int(max_def).bit_length())
+    return sc, rl_len + dl_len
+
+
 def encode_dict_indices(indices, dict_size: int) -> bytes:
     """Dictionary indices as (bit-width byte + hybrid stream)."""
     width = max(int(dict_size - 1).bit_length(), 1) if dict_size > 1 else 1
@@ -140,7 +166,46 @@ def write_data_page_v1(out, node, column, dl, codec, *,
     return len(hdr) + len(comp), len(hdr) + len(body)
 
 
-def write_dictionary_page(out, node, dictionary: np.ndarray, codec,
+def write_data_page_v2(out, node, column, dl, codec, *, null_count: int,
+                       dictionary_size=None, statistics=None,
+                       page_crc=True) -> tuple[int, int]:
+    """Append a V2 data page of a flat column (arguments as
+    :func:`write_data_page_v1`); the CRC covers the level bytes and the
+    compressed values as they appear in the file."""
+    dl_b = (encode_hybrid(as_uint32(dl), int(node.max_def_level).bit_length())
+            if node.max_def_level else b"")
+    if dictionary_size is not None:
+        values_b = encode_dict_indices(column, dictionary_size)
+        enc = Encoding.RLE_DICTIONARY
+    else:
+        values_b = encode_plain(Type(node.element.type), column)
+        enc = Encoding.PLAIN
+    comp = compress_block(codec, values_b)
+    ph = PageHeader(
+        type=PageType.DATA_PAGE_V2,
+        uncompressed_page_size=len(dl_b) + len(values_b),
+        compressed_page_size=len(dl_b) + len(comp),
+        crc=page_crc32(dl_b, comp) if page_crc else None,
+        data_page_header_v2=DataPageHeaderV2(
+            num_values=len(dl),
+            num_nulls=null_count,
+            num_rows=len(dl),
+            encoding=enc,
+            definition_levels_byte_length=len(dl_b),
+            repetition_levels_byte_length=0,
+            is_compressed=codec != CompressionCodec.UNCOMPRESSED,
+            statistics=statistics,
+        ),
+    )
+    hdr = _header_bytes(ph)
+    out.write(hdr)
+    out.write(dl_b)
+    out.write(comp)
+    return (len(hdr) + len(dl_b) + len(comp),
+            len(hdr) + ph.uncompressed_page_size)
+
+
+def write_dictionary_page(out, node, dictionary, codec,
                           page_crc=True) -> tuple[int, int]:
     """PLAIN dictionary page; returns (compressed, uncompressed) sizes
     including the header bytes."""
@@ -152,7 +217,7 @@ def write_dictionary_page(out, node, dictionary: np.ndarray, codec,
         compressed_page_size=len(comp),
         crc=page_crc32(comp) if page_crc else None,
         dictionary_page_header=DictionaryPageHeader(
-            num_values=int(dictionary.shape[0]), encoding=Encoding.PLAIN),
+            num_values=len(dictionary), encoding=Encoding.PLAIN),
     )
     hdr = _header_bytes(ph)
     out.write(hdr)

@@ -1,23 +1,48 @@
-"""FileWriter: the columnar write path for flat int32/int64 schemas.
+"""FileWriter: the columnar write path for flat schemas of int32, int64,
+float, double and binary columns.
 
-``write_columns`` takes whole column arrays (non-null values only) plus
-validity masks for optional columns and writes one row group: one
-column chunk per leaf, each a dictionary page when it pays and one V1
-data page, SNAPPY or UNCOMPRESSED, with statistics and page CRCs — the
-JAX package writer's policy for these columns.
+``write_columns`` takes whole columns (non-null values only: arrays, or
+:class:`~tpuparquet_torch.cpu.plain.ByteArrayColumn` for binary leaves)
+plus validity masks for optional columns and writes one row group: one
+column chunk per leaf, each a dictionary page when it pays and one data
+page (V1, or V2 with ``data_page_v2=True``), SNAPPY or UNCOMPRESSED, with
+statistics and page CRCs — the JAX package writer's policy for these
+columns.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..cpu.plain import PHYSICAL_DTYPES
+from ..cpu.plain import PHYSICAL_DTYPES, ByteArrayColumn
 from ..format.footer import MAGIC, write_footer
-from ..format.metadata import CompressionCodec, FileMetaData, RowGroup
+from ..format.metadata import CompressionCodec, FileMetaData, RowGroup, Type
 from ..format.schema import Schema
 from .chunk import write_chunk
 
 __all__ = ["FileWriter"]
+
+
+def _column_values(leaf, values):
+    """A leaf's values in its physical representation; raises on a
+    column of the wrong kind or out of the type's range."""
+    if leaf.type == Type.BYTE_ARRAY:
+        if not isinstance(values, ByteArrayColumn):
+            raise TypeError(f"column {leaf.name!r}: expected a "
+                            "ByteArrayColumn")
+        return values
+    dt = PHYSICAL_DTYPES[leaf.type]
+    vals = np.asarray(values)
+    if vals.ndim != 1 or vals.dtype.kind not in ("f" if dt.kind == "f"
+                                                 else "iu"):
+        raise TypeError(f"column {leaf.name!r}: expected a 1-D "
+                        f"{'float' if dt.kind == 'f' else 'integer'} array")
+    if dt.kind != "f" and vals.size and (
+            int(vals.min()) < np.iinfo(dt).min
+            or int(vals.max()) > np.iinfo(dt).max):
+        raise ValueError(f"column {leaf.name!r}: values out of range for "
+                         f"{leaf.type.name}")
+    return vals.astype(dt, copy=False)
 
 
 class FileWriter:
@@ -29,7 +54,7 @@ class FileWriter:
 
     def __init__(self, f, schema, *,
                  codec: CompressionCodec = CompressionCodec.UNCOMPRESSED,
-                 page_crc: bool = True):
+                 page_crc: bool = True, data_page_v2: bool = False):
         self._f = f
         self._pos = 0
         self.schema = (schema if isinstance(schema, Schema)
@@ -41,6 +66,7 @@ class FileWriter:
                     "supported by tpuparquet_torch")
         self.codec = CompressionCodec(codec)
         self.page_crc = page_crc
+        self.data_page_v2 = data_page_v2
         self.row_groups: list[RowGroup] = []
         self.total_rows = 0
         self._closed = False
@@ -54,8 +80,9 @@ class FileWriter:
         return self._pos
 
     def write_columns(self, columns: dict, *, masks: dict | None = None):
-        """Write one row group.  ``columns`` maps leaf name -> array of
-        the column's **non-null** values; ``masks`` maps an optional
+        """Write one row group.  ``columns`` maps leaf name -> the
+        column's **non-null** values (an integer or float array, or a
+        ByteArrayColumn for a binary leaf); ``masks`` maps an optional
         leaf's name -> bool validity per row."""
         if self._closed:
             raise ValueError("writer is closed")
@@ -65,17 +92,7 @@ class FileWriter:
         for leaf in self.schema.leaves:
             if leaf.name not in columns:
                 raise ValueError(f"missing column {leaf.name!r}")
-            dt = PHYSICAL_DTYPES[leaf.type]
-            vals = np.asarray(columns[leaf.name])
-            if vals.ndim != 1 or vals.dtype.kind not in "iu":
-                raise TypeError(
-                    f"column {leaf.name!r}: expected a 1-D integer array")
-            if vals.size and (int(vals.min()) < np.iinfo(dt).min
-                              or int(vals.max()) > np.iinfo(dt).max):
-                raise ValueError(
-                    f"column {leaf.name!r}: values out of range for "
-                    f"{leaf.type.name}")
-            vals = vals.astype(dt, copy=False)
+            vals = _column_values(leaf, columns[leaf.name])
             mask = masks.get(leaf.name)
             if mask is not None:
                 if leaf.max_def_level == 0:
@@ -84,26 +101,27 @@ class FileWriter:
                         "mask is not allowed")
                 mask = np.asarray(mask, dtype=bool)
                 rows = mask.size
-                if int(mask.sum()) != vals.size:
+                if int(mask.sum()) != len(vals):
                     raise ValueError(
-                        f"column {leaf.name!r}: {vals.size} values vs "
+                        f"column {leaf.name!r}: {len(vals)} values vs "
                         f"{int(mask.sum())} valid mask entries")
                 dl = mask.astype(np.int32) * leaf.max_def_level
             else:
-                rows = vals.size
+                rows = len(vals)
                 dl = np.full(rows, leaf.max_def_level, dtype=np.int32)
             if n_rows is None:
                 n_rows = rows
             elif n_rows != rows:
                 raise ValueError("column row counts differ")
-            prepared.append((leaf, vals, dl, rows - vals.size))
+            prepared.append((leaf, vals, dl, rows - len(vals)))
         if self._pos == 0:
             self.write(MAGIC)
         chunks = []
         total_bytes = total_comp = 0
         for leaf, vals, dl, nulls in prepared:
             cc = write_chunk(self, leaf, vals, dl, codec=self.codec,
-                             page_crc=self.page_crc, null_count=nulls)
+                             page_crc=self.page_crc, null_count=nulls,
+                             data_page_v2=self.data_page_v2)
             total_bytes += cc.meta_data.total_uncompressed_size
             total_comp += cc.meta_data.total_compressed_size
             chunks.append(cc)

@@ -35,6 +35,8 @@ KERNELS = {
     "delta_scan": [_P, _P, _P, _P, _I, _L, _L, _U64, _P, _P, _P],
     "snappy_expand": [_P, _P, _I, _P, _L, ctypes.c_int32, _I, _P, _P, _L,
                       _L, _P, _P],
+    "dict_bytes": [_P, _L, _P, _L, _P, _I, _L, _L, _P, _P, _P, _P, _L, _P],
+    "bytes_from_blob": [_P, _L, _P, _L, _I, _P, _L, _P],
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

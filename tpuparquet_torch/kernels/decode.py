@@ -1,6 +1,7 @@
-"""Device value decode: PLAIN staging, dictionary pages (K3), validity
-(K4), and the PLAIN wire transports' rebuilds: byte planes (K5) and
-delta lanes (K7, after K1 or K6).
+"""Device value decode: PLAIN staging, dictionary pages (K3 fixed-width,
+K9 BYTE_ARRAY), validity (K4), the PLAIN wire transports' rebuilds: byte
+planes (K5) and delta lanes (K7, after K1 or K6), and BYTE_ARRAY values
+gathered out of a device-snappy page (K10).
 
 Hosts stage padded, fixed-shape buffers (page words, run tables); the
 device expands them.  Output sizes are padded to power-of-two buckets
@@ -25,6 +26,8 @@ __all__ = [
     "bucket", "stage_u32", "plain_fixed_to_lanes",
     "page_dict_fixed", "page_dict_fixed_plain",
     "page_dict_fixed_levels_tbl", "page_plain_fixed_levels_tbl",
+    "page_dict_bytes", "page_dict_bytes_plain",
+    "plain_bytes_from_blob", "plain_bytes_from_blob_plain",
     "levels_to_validity", "levels_to_validity_plain",
     "planes_to_words", "planes_to_words_plain",
     "DeltaPlan", "delta_scan", "delta_scan_plain",
@@ -144,6 +147,151 @@ def page_plain_fixed_levels_tbl(words, d_bp, d_tbl, count: int, lanes: int,
     """PLAIN page of an optional column: ``(values view, def_levels)``."""
     dl = expand_hybrid(d_bp, d_tbl, dcnt, dw, dnbp, dsingle)
     return words[: count * lanes], dl
+
+
+# ----------------------------------------------------------------------
+# K9: dictionary page of BYTE_ARRAY values; K10: values out of a page blob
+# ----------------------------------------------------------------------
+
+def _upper_bound(sorted_i32, b):
+    """For each ``b``: how many entries of the sorted int32 tensor are
+    ``<= b`` (``searchsorted(side="right")``), as int64."""
+    return torch.searchsorted(sorted_i32, b, right=True)
+
+
+def page_dict_bytes_plain(dict_offsets, dict_data, i_bp, i_tbl, non_null: int,
+                          icnt: int, iw: int, inbp: int, total_bytes: int,
+                          isingle: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of K9, in the reference's int32 arithmetic."""
+    dev = dict_offsets.device
+    if iw == 0:
+        idx = torch.zeros(icnt, dtype=torch.int32, device=dev)
+    elif isingle:
+        idx = unpack_u32_plain(i_bp, iw, icnt)
+    else:
+        idx = expand_hybrid_plain(i_bp, i_tbl, icnt, iw, inbp)
+    # the u32 indices read as int32, as the reference's astype: a value
+    # past 2^31 turns negative and clips to 0
+    n_dict = dict_offsets.numel() - 1
+    idx = torch.clamp(idx, 0, max(n_dict - 1, 0)).long()
+    lens = dict_offsets[1:] - dict_offsets[:-1]
+    valid = torch.arange(icnt, device=dev) < non_null
+    contrib = torch.where(valid, lens[idx], torch.zeros_like(lens[idx]))
+    out_offsets = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                             torch.cumsum(contrib, 0, dtype=torch.int32)])
+    if dict_data.numel() == 0:
+        return torch.zeros(total_bytes, dtype=torch.uint8, device=dev)
+    b = torch.arange(total_bytes, dtype=torch.int32, device=dev)
+    val = torch.clamp(_upper_bound(out_offsets[1:], b), max=icnt - 1)
+    src = dict_offsets[idx[val]] + (b - out_offsets[val])
+    src = torch.clamp(src, 0, dict_data.numel() - 1)
+    return dict_data[src.long()]
+
+
+def page_dict_bytes(dict_offsets: torch.Tensor, dict_data: torch.Tensor,
+                    i_bp, i_tbl, non_null: int, icnt: int, iw: int,
+                    inbp: int, total_bytes: int,
+                    isingle: bool = False) -> torch.Tensor:
+    """Decode one dictionary page of BYTE_ARRAY values into
+    ``(total_bytes,)`` u8: expand the index stream (``icnt`` slots, width
+    ``iw``; ``iw == 0`` means every index is 0), clamp each index to
+    ``[0, n_dict - 1]`` (``n_dict = dict_offsets.numel() - 1``, the staged
+    length), scan the lengths of the first ``non_null`` values into the
+    output offsets, and gather every output byte from ``dict_data``.
+    Bytes past the values' end hold what the reference's clamps give.
+    ``dict_offsets`` is int32, ``dict_data`` uint8, both as staged.  CUDA
+    tensors launch K9 (a run-table index stream is expanded by K2 first);
+    CPU tensors take the plain version."""
+    if dict_offsets.numel() < 2:
+        raise ValueError("dictionary offsets must hold >= 2 entries")
+    if not 0 <= non_null <= icnt or icnt < 1:
+        raise ValueError(f"non_null {non_null} outside [0, icnt={icnt}]")
+    if not 0 <= total_bytes < 1 << 31:
+        raise ValueError(f"total_bytes {total_bytes} out of the int32 range")
+    if not 0 <= iw <= 32:
+        raise ValueError(f"index bit width {iw} out of range 0..32")
+    if iw:
+        if isingle:
+            _check_words(i_bp, iw, icnt)
+        else:
+            _check_table(i_tbl)
+    dev = dict_offsets.device
+    if dev.type == "cpu":
+        return page_dict_bytes_plain(dict_offsets, dict_data, i_bp, i_tbl,
+                                     non_null, icnt, iw, inbp, total_bytes,
+                                     isingle)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    check_tensor(dict_offsets, "dict_offsets", torch.int32, dev)
+    check_tensor(dict_data, "dict_data", torch.uint8, dev)
+    words_ptr = None
+    if iw:
+        check_tensor(i_bp, "i_bp", torch.int32, dev)
+        if not isingle:
+            i_bp, iw = expand_hybrid(i_bp, i_tbl, icnt, iw, inbp), 32
+        words_ptr = i_bp.data_ptr()
+    idx = torch.empty(icnt, dtype=torch.int32, device=dev)
+    out_offsets = torch.empty(icnt + 1, dtype=torch.int32, device=dev)
+    sums = torch.empty((icnt + 1023) // 1024, dtype=torch.int32, device=dev)
+    out = torch.empty(total_bytes, dtype=torch.uint8, device=dev)
+    launch("dict_bytes", dict_offsets.data_ptr(), dict_offsets.numel(),
+           dict_data.data_ptr(), dict_data.numel(), words_ptr, iw, non_null,
+           icnt, idx.data_ptr(), out_offsets.data_ptr(), sums.data_ptr(),
+           out.data_ptr(), total_bytes, stream_of(out))
+    page_dict_bytes.launches += 1
+    return out
+
+
+page_dict_bytes.launches = 0
+
+
+def plain_bytes_from_blob_plain(blob, out_offsets, pos: int,
+                                total_bytes: int) -> torch.Tensor:
+    """Plain PyTorch version of K10, in the reference's int32
+    arithmetic."""
+    dev = blob.device
+    if blob.numel() == 0:
+        return torch.zeros(total_bytes, dtype=torch.uint8, device=dev)
+    b = torch.arange(total_bytes, dtype=torch.int32, device=dev)
+    val = torch.clamp(_upper_bound(out_offsets[1:], b),
+                      max=out_offsets.numel() - 2)
+    o = out_offsets[val]
+    src = pos + o + 4 * (val.to(torch.int32) + 1) + (b - o)
+    src = torch.clamp(src, 0, blob.numel() - 1)
+    return blob[src.long()]
+
+
+def plain_bytes_from_blob(blob: torch.Tensor, out_offsets: torch.Tensor,
+                          pos: int, total_bytes: int) -> torch.Tensor:
+    """PLAIN BYTE_ARRAY values gathered out of a device-resident page
+    blob (K8's expansion of the page) into ``(total_bytes,)`` u8: value
+    ``v`` starts at blob byte ``pos + out_offsets[v] + 4 * (v + 1)``, past
+    the values block's offset and the ``v + 1`` length prefixes up to it.
+    ``out_offsets`` (int32, ``>= 2`` entries) is padded with the values'
+    byte count; bytes past the end hold what the reference's clamps give.
+    CUDA tensors launch K10; CPU tensors take the plain version."""
+    if out_offsets.numel() < 2:
+        raise ValueError("out_offsets must hold >= 2 entries")
+    if not 0 <= pos < 1 << 31 or not 0 <= total_bytes < 1 << 31:
+        raise ValueError(f"pos {pos} or total_bytes {total_bytes} out of "
+                         "the int32 range")
+    dev = blob.device
+    if dev.type == "cpu":
+        return plain_bytes_from_blob_plain(blob, out_offsets, pos,
+                                           total_bytes)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    check_tensor(blob, "blob", torch.uint8, dev)
+    check_tensor(out_offsets, "out_offsets", torch.int32, dev)
+    out = torch.empty(total_bytes, dtype=torch.uint8, device=dev)
+    launch("bytes_from_blob", blob.data_ptr(), blob.numel(),
+           out_offsets.data_ptr(), out_offsets.numel(), pos, out.data_ptr(),
+           total_bytes, stream_of(out))
+    plain_bytes_from_blob.launches += 1
+    return out
+
+
+plain_bytes_from_blob.launches = 0
 
 
 def levels_to_validity_plain(def_levels: torch.Tensor, max_def: int):

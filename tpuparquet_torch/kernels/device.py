@@ -1,25 +1,31 @@
 """Device decode orchestration: column chunks -> device-resident columns.
 
 The port of ``tpuparquet/kernels/device.py``'s read path for flat
-int32/int64 columns: the host walks page headers, verifies CRCs,
-decompresses pages and builds run-table plans (:func:`plan_chunk_device`);
-one pinned host slab per row group carries every column's plans and page
-words to the device in one non-blocking copy (:func:`_put_all`); the
-deferred per-page ops launch the kernels and the row group ends in one
-fence (:func:`_finish_row_group`).  The result is a :class:`DeviceColumn`
-per column, in the JAX package's buffer layout — flat 1-D u32 lanes,
-bucket-padded, same logical lengths — so the two compare buffer for
-buffer.
+columns: the host walks page headers, verifies CRCs, decompresses pages
+and builds run-table plans (:func:`plan_chunk_device`); one pinned host
+slab per row group carries every column's plans and page words to the
+device in one non-blocking copy (:func:`_put_all`); the deferred
+per-page ops launch the kernels and the row group ends in one fence
+(:func:`_finish_row_group`).  The result is a :class:`DeviceColumn` per
+column, in the JAX package's buffer layout — flat 1-D u32 lanes, or u8
+bytes with int32 offsets for BYTE_ARRAY, bucket-padded, same logical
+lengths — so the two compare buffer for buffer.
 
-Covered: data page v1; UNCOMPRESSED and SNAPPY; required and optional
-flat INT32/INT64 columns; PLAIN and PLAIN_DICTIONARY/RLE_DICTIONARY;
-page CRCs.  PLAIN pages take the JAX package's three wire transports
-under its switches and defaults, read per plan: byte planes
-(``TPQ_DEVICE_PLANES``, K5), delta lanes (``TPQ_DEVICE_DELTA``, K1/K6
-then K7) and snappy tokens (``TPQ_DEVICE_SNAPPY``, K8), which compete on
-wire bytes page by page exactly as in the reference; a page no
-transport wins ships its decompressed words.  Anything else raises
-NotImplementedError.
+Covered: data pages v1 and v2 (levels outside compression, the
+``num_nulls`` cross-check); UNCOMPRESSED and SNAPPY; required and
+optional flat INT32, INT64, FLOAT, DOUBLE and BYTE_ARRAY columns; PLAIN
+and PLAIN_DICTIONARY/RLE_DICTIONARY; page CRCs.  Fixed-width PLAIN pages
+take the JAX package's three wire transports under its switches and
+defaults, read per plan: byte planes (``TPQ_DEVICE_PLANES``, K5), delta
+lanes (``TPQ_DEVICE_DELTA``, integers only: K1/K6 then K7) and snappy
+tokens (``TPQ_DEVICE_SNAPPY``, K8), which compete on wire bytes page by
+page exactly as in the reference; a page no transport wins ships its
+decompressed words.  BYTE_ARRAY dictionary pages decode with K9; a
+snappy PLAIN BYTE_ARRAY page whose token tables fit the reference's
+budget ships them instead of its bytes, and K10 gathers the values out
+of K8's expansion; other PLAIN BYTE_ARRAY pages ship their value bytes.
+Anything else (repeated columns, other types and encodings, other
+codecs) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,13 +37,13 @@ import numpy as np
 import torch
 
 from ..compress import decompress_block, snappy_single_literal_view
-from ..cpu.hybrid import scan_hybrid
-from ..cpu.plain import decode_plain
+from ..cpu.hybrid import expand_scan, scan_hybrid
+from ..cpu.plain import ByteArrayColumn, decode_plain
 from ..errors import CorruptChunkError, CorruptPageError, ScanError
 from ..format.compact import CompactReader
 from ..format.metadata import CompressionCodec, Encoding, PageHeader, \
     PageType, Type, decode_struct
-from ..io.pages import scan_levels_v1, verify_page_crc
+from ..io.pages import scan_levels_v1, scan_levels_v2, verify_page_crc
 from ..native import pack_native, plane_native
 from ..stats import current_stats
 from .bitunpack import pad_to_words
@@ -47,42 +53,50 @@ from .decode import (
     expand_delta_i32,
     expand_delta_i64,
     levels_to_validity,
+    page_dict_bytes,
     page_dict_fixed,
     page_dict_fixed_levels_tbl,
     page_plain_fixed_levels_tbl,
+    plain_bytes_from_blob,
     plain_fixed_to_lanes,
     planes_to_words,
     stage_u32,
 )
 from .hybrid import count_eq_scan, expand_hybrid, max_scan_value, \
     plan_stream_args
-from .snappy import expand_tokens_words, plan_tokens
+from .snappy import expand_tokens, expand_tokens_words, plan_tokens
 
 __all__ = ["DeviceColumn", "device_column_from_jax_numpy",
            "plan_chunk_device", "read_row_group_device",
            "read_row_groups_device"]
 
-_LANES = {Type.INT32: 1, Type.INT64: 2}
+_LANES = {Type.INT32: 1, Type.FLOAT: 1, Type.INT64: 2, Type.DOUBLE: 2}
 _DICT_ENCODINGS = (Encoding.PLAIN_DICTIONARY, Encoding.RLE_DICTIONARY)
-_NP_DTYPES = {Type.INT32: np.dtype("<i4"), Type.INT64: np.dtype("<i8")}
+_NP_DTYPES = {Type.INT32: np.dtype("<i4"), Type.INT64: np.dtype("<i8"),
+              Type.FLOAT: np.dtype("<f4"), Type.DOUBLE: np.dtype("<f8")}
+_I32_MAX = (1 << 31) - 1
 
 
 class DeviceColumn:
     """Device-resident decoded column.
 
     ``data``: flat ``(n_packed * lanes,)`` u32 lanes (an int32 tensor,
-    same bits) of the non-null values; ``mask``/``positions`` map record
-    slots to packed values; ``def_levels`` keep the nulls.  Buffers are
-    stored bucket-padded (the shape the page kernels emit) with logical
-    lengths ``num_values`` (record slots) and ``n_packed`` (non-null
-    values); the accessors slice lazily and materialise implicit streams
-    (all-zero levels, all-valid masks) on demand."""
+    same bits) of the non-null values, or for BYTE_ARRAY their u8 bytes
+    with ``offsets`` (int32, ``n_packed + 1`` entries, as the reference
+    holds them on a device without 64-bit integers) and ``n_bytes``;
+    ``mask``/``positions`` map record slots to packed values;
+    ``def_levels`` keep the nulls.  Buffers are stored bucket-padded (the
+    shape the page kernels emit) with logical lengths ``num_values``
+    (record slots) and ``n_packed`` (non-null values); the accessors slice
+    lazily and materialise implicit streams (all-zero levels, all-valid
+    masks) on demand."""
 
-    __slots__ = ("ptype", "num_values", "n_packed", "_data_p", "_mask_p",
-                 "_pos_p", "_def_p", "_cache")
+    __slots__ = ("ptype", "num_values", "n_packed", "offsets", "n_bytes",
+                 "_data_p", "_mask_p", "_pos_p", "_def_p", "_cache")
 
     def __init__(self, ptype, data, mask, positions, def_levels,
-                 num_values: int, n_packed: int):
+                 num_values: int, n_packed: int, offsets=None,
+                 n_bytes: int | None = None):
         self.ptype = Type(ptype)
         self._data_p = data
         self._mask_p = mask
@@ -90,11 +104,14 @@ class DeviceColumn:
         self._def_p = def_levels
         self.num_values = num_values
         self.n_packed = n_packed
+        self.offsets = offsets
+        self.n_bytes = n_bytes
         self._cache = {}
 
     @property
-    def lanes(self) -> int:
-        return _LANES[self.ptype]
+    def lanes(self) -> int | None:
+        """u32 words per value; None for BYTE_ARRAY."""
+        return None if self.offsets is not None else _LANES[self.ptype]
 
     @property
     def device(self) -> torch.device:
@@ -109,8 +126,9 @@ class DeviceColumn:
 
     @property
     def data(self):
-        return self._sliced("data", self._data_p, self.n_packed * self.lanes,
-                            None)
+        n = self.n_bytes if self.offsets is not None \
+            else self.n_packed * self.lanes
+        return self._sliced("data", self._data_p, n, None)
 
     @property
     def mask(self):
@@ -147,14 +165,16 @@ class DeviceColumn:
 
     def padded_buffers(self) -> dict:
         """Every stored buffer, padding included, as host numpy arrays
-        (u32 lanes as uint32) — the unit of buffer-for-buffer parity."""
+        (u32 lanes as uint32, bytes as uint8) — the unit of
+        buffer-for-buffer parity."""
         out = {}
-        for name, t in (("data", self._data_p), ("mask", self._mask_p),
-                        ("positions", self._pos_p),
+        for name, t in (("data", self._data_p), ("offsets", self.offsets),
+                        ("mask", self._mask_p), ("positions", self._pos_p),
                         ("def_levels", self._def_p)):
             if t is not None:
                 a = t.cpu().numpy()
-                out[name] = a.view(np.uint32) if name == "data" else a
+                out[name] = a.view(np.uint32) \
+                    if name == "data" and a.dtype == np.int32 else a
         return out
 
     def to_numpy(self, limit: int | None = None):
@@ -168,6 +188,10 @@ class DeviceColumn:
                 else int(self._mask_p[:n].sum().item())
         dl = (np.zeros(n, dtype=np.int32) if self._def_p is None
               else self._def_p[:n].cpu().numpy())
+        if self.offsets is not None:
+            offs = self.offsets[: nn + 1].cpu().numpy().astype(np.int64)
+            data = self._data_p[: int(offs[-1])].cpu().numpy()
+            return ByteArrayColumn(offs, data), np.zeros(n, np.int32), dl
         flat = self._data_p[: nn * self.lanes].cpu().numpy()
         vals = flat.view(_NP_DTYPES[self.ptype])
         return vals, np.zeros(n, dtype=np.int32), dl
@@ -178,9 +202,10 @@ def device_column_from_jax_numpy(col_np: dict,
     """The port's column from a JAX ``DeviceColumn``'s numpy buffers.
 
     ``col_np`` maps ``ptype``, ``num_values``, ``n_packed`` and the
-    padded buffers ``data`` (u32), ``mask``, ``positions``,
-    ``def_levels`` (None where the JAX column holds none) — the JAX
-    column's ``_data_p``/``_mask_p``/``_pos_p``/``_def_p`` as numpy."""
+    padded buffers ``data`` (u32, or u8 for BYTE_ARRAY), ``mask``,
+    ``positions``, ``def_levels`` (None where the JAX column holds none)
+    — the JAX column's ``_data_p``/``_mask_p``/``_pos_p``/``_def_p`` as
+    numpy — and, for BYTE_ARRAY, ``offsets`` and ``n_bytes``."""
     def t(a, dtype):
         if a is None:
             return None
@@ -189,12 +214,17 @@ def device_column_from_jax_numpy(col_np: dict,
             a = a.view(np.int32)
         return torch.from_numpy(a.copy()).to(device=device, dtype=dtype)
 
+    offsets = col_np.get("offsets")
+    n_bytes = col_np.get("n_bytes")
     return DeviceColumn(
-        col_np["ptype"], t(col_np["data"], torch.int32),
+        col_np["ptype"],
+        t(col_np["data"], torch.int32 if offsets is None else torch.uint8),
         t(col_np.get("mask"), torch.bool),
         t(col_np.get("positions"), torch.int32),
         t(col_np.get("def_levels"), torch.int32),
-        int(col_np["num_values"]), int(col_np["n_packed"]))
+        int(col_np["num_values"]), int(col_np["n_packed"]),
+        offsets=t(offsets, torch.int32),
+        n_bytes=None if n_bytes is None else int(n_bytes))
 
 
 # ----------------------------------------------------------------------
@@ -205,19 +235,25 @@ def device_column_from_jax_numpy(col_np: dict,
 # down to 128 KB) and zero-pads only the last piece to a bucket; the
 # pieces are reassembled on the device, so the staged array is that much
 # longer than the host array.  Kernels see those lengths (a padded
-# dictionary's n_dict), so the port stages the same padded lengths.
-_PIECE_WORDS = (16 << 20) // 4
-_MIN_PIECE_WORDS = (128 << 10) // 4
+# dictionary's n_dict, a padded dictionary blob's last byte), so the port
+# stages the same padded lengths.
+_PIECE_BYTES = 16 << 20
+_MIN_PIECE_BYTES = 128 << 10
 _ALIGN_WORDS = 64  # 256-byte alignment of every array in the slab
 
 
-def _padded_words(n: int) -> int:
-    """Staged length of an n-word array under the JAX piece split."""
+def _padded_len(n: int, itemsize: int = 4) -> int:
+    """Staged length of an n-element array of ``itemsize``-byte rows
+    under the JAX piece split (``_split_rows``): 16 MB pieces, then
+    descending powers of two down to 128 KB, then a zero-padded tail
+    bucketed to at least 32 rows."""
     if n == 0:
         return 0
-    total = (n // _PIECE_WORDS) * _PIECE_WORDS
+    max_rows = 1 << ((_PIECE_BYTES // itemsize).bit_length() - 1)
+    min_rows = 1 << ((_MIN_PIECE_BYTES // itemsize).bit_length() - 1)
+    total = (n // max_rows) * max_rows
     left = n - total
-    while left >= _MIN_PIECE_WORDS:
+    while left >= min_rows:
         p = 1 << (left.bit_length() - 1)
         total += p
         left -= p
@@ -229,9 +265,10 @@ def _padded_words(n: int) -> int:
 class _Stager:
     """Collects one column's host arrays for the row group's batched
     transfer: u32 words (any 4-byte dtype) or bytes (uint8: token
-    literals, byte planes).  ``pad=False`` arrays stage at their exact
-    length (run and token tables, bit-packed words, planes, whose lengths
-    the plan fixed); byte arrays always do."""
+    literals, byte planes, BYTE_ARRAY values and dictionaries).  Arrays
+    stage zero-padded to the JAX piece split's length; ``pad=False``
+    arrays stage at their exact length (run and token tables, bit-packed
+    words, planes, padded offsets, whose lengths the plan fixed)."""
 
     __slots__ = ("arrays",)
 
@@ -240,13 +277,13 @@ class _Stager:
 
     def add(self, arr, pad: bool = True) -> int:
         a = np.ascontiguousarray(np.asarray(arr).reshape(-1))
-        if a.dtype.itemsize == 1 and not pad:
+        if a.dtype.itemsize == 1:
             a = a.view(np.uint8)
         elif a.dtype.itemsize == 4:
             a = a.view(np.int32)
         else:
-            raise TypeError(f"staged arrays are u32 words or unpadded "
-                            f"bytes, got {a.dtype} (pad={pad})")
+            raise TypeError(f"staged arrays are u32 words or bytes, got "
+                            f"{a.dtype}")
         self.arrays.append((a, pad))
         return len(self.arrays) - 1
 
@@ -258,25 +295,21 @@ def _put_all(stagers, device: torch.device):
     """Ship every stager's arrays to ``device`` in one copy.
 
     Returns ``(staged lists, host slab)``: each stager's list of device
-    views — int32 for words, uint8 of the exact length for bytes, which
-    ride the slab zero-padded to whole words — and the pinned host slab,
-    which must stay alive until the row group's fence (the copy is
-    non-blocking).  ``bytes_staged`` counts what the JAX stager ships:
-    padded words, and byte arrays at their exact length."""
+    views — int32 for words, uint8 for bytes, each of its staged
+    (padded) length; bytes ride the slab zero-padded to whole words — and
+    the pinned host slab, which must stay alive until the row group's
+    fence (the copy is non-blocking).  ``bytes_staged`` counts what the
+    JAX stager ships: every array at its staged length."""
     layout = []
     total = 0
     wire = 0
     for stg in stagers:
         spans = []
         for a, pad in stg.arrays:
-            if a.dtype == np.uint8:
-                n = -(-a.size // 4)
-                wire += a.size
-            else:
-                n = _padded_words(a.size) if pad else a.size
-                wire += 4 * n
+            n = _padded_len(a.size, a.itemsize) if pad else a.size
+            wire += n * a.itemsize
             spans.append((total, n))
-            total += -(-n // _ALIGN_WORDS) * _ALIGN_WORDS
+            total += -(-(n * a.itemsize) // (4 * _ALIGN_WORDS)) * _ALIGN_WORDS
         layout.append(spans)
     cuda = device.type == "cuda"
     slab = torch.empty(total, dtype=torch.int32, pin_memory=cuda)
@@ -286,7 +319,7 @@ def _put_all(stagers, device: torch.device):
         for (a, _), (off, staged) in zip(stg.arrays, spans):
             if a.dtype == np.uint8:
                 host_u8[4 * off : 4 * off + a.size] = a
-                host_u8[4 * off + a.size : 4 * (off + staged)] = 0
+                host_u8[4 * off + a.size : 4 * off + -(-staged // 4) * 4] = 0
             else:
                 host[off : off + a.size] = a
                 host[off + a.size : off + staged] = 0
@@ -294,8 +327,9 @@ def _put_all(stagers, device: torch.device):
     if st is not None:
         st.bytes_staged += wire
     dev = slab.to(device, non_blocking=True) if cuda else slab
-    staged = [[dev[off : off + n].view(torch.uint8)[: a.size]
-               if a.dtype == np.uint8 else dev[off : off + n]
+    dev_u8 = dev.view(torch.uint8)
+    staged = [[dev_u8[4 * off : 4 * off + n] if a.dtype == np.uint8
+               else dev[off : off + n]
                for (a, _), (off, n) in zip(stg.arrays, spans)]
               for stg, spans in zip(stagers, layout)]
     return staged, slab
@@ -305,16 +339,19 @@ def _put_all(stagers, device: torch.device):
 # Planning
 # ----------------------------------------------------------------------
 
-def _check_dict_indices(i_sc, width: int, non_null: int,
-                        dict_len: int) -> None:
+def _check_dict_indices(i_sc, width: int, non_null: int, dict_len: int,
+                        idx_np=None) -> None:
     """Reject out-of-range dictionary indices on the host: the device
     gather clamps (its padding lanes must stay in range), which would
-    turn a corrupt file's oversized index into a silent wrong value."""
+    turn a corrupt file's oversized index into a silent wrong value.
+    ``idx_np``: the indices already expanded on the host."""
     if non_null == 0:
         return
     if dict_len <= 0:
         raise ValueError("dict-encoded page with empty dictionary")
-    if i_sc is None:
+    if idx_np is not None:
+        mx = int(idx_np.max()) if idx_np.size else -1
+    elif i_sc is None:
         mx = 0  # width 0: every index decodes to 0
     elif (1 << width) <= dict_len:
         return
@@ -400,7 +437,7 @@ def _plan_delta_lane_words(seg, count: int, ptype: Type):
     # to 32,768 as in the reference, so the estimate matches its routing
     n_pad32 = (n_deltas + 32767) // 32768 * 32768
     n_words = n_pad32 // 32 * w
-    wire = 4 * _padded_words(n_words) + 32 if w else 32
+    wire = 4 * _padded_len(n_words) + 32 if w else 32
     if wire + 4096 >= nbytes:
         return None  # must clear the same savings floor as the planes
 
@@ -496,6 +533,25 @@ def _plan_device_snappy_words(payload, expected_size: int, n_words: int,
         return words
 
     return wire, commit
+
+
+def _plan_device_snappy_blob(payload, expected_size: int,
+                             wire_budget: float, stager: _Stager):
+    """Plan device-side snappy decompression of a whole page into bytes
+    (for byte-granular consumers: K10).  Returns ``(wire, blob(staged))``
+    — ``blob`` gives the ``(out_cap,)`` u8 expansion — or None when the
+    host path applies (single literal; int32 overflow; the token tables
+    over ``wire_budget`` bytes)."""
+    plan = _plan_token_expansion(payload, expected_size)
+    if plan is None or plan[6] > wire_budget:
+        return None
+    te, ts, lp, out_cap, steps = plan[:5]
+    hs = stager.add_many([te, ts, lp], pad=False)
+
+    def blob(s, _hs=hs):
+        return expand_tokens(s[_hs[0]], s[_hs[1]], s[_hs[2]], out_cap, steps)
+
+    return plan[6], blob
 
 
 def _rle_table(plane: np.ndarray, count: int, val_dtype,
@@ -661,17 +717,19 @@ def _plan_plain_transport(codec, values_seg, values_comp, non_null: int,
     under it skips the scan.  Returns ``(words(staged) or None, values
     segment)`` — the segment decompressed if the raw path needs it."""
     lanes = _LANES[ptype]
+    is_int = ptype in (Type.INT32, Type.INT64)
     plan_words = None
     payload_bound = None
     if values_comp is not None:
         payload_bound = len(values_comp[0])
-        competitors = ((_DEVICE_PLANES() or _DEVICE_DELTA_LANES())
+        competitors = ((_DEVICE_PLANES() or (_DEVICE_DELTA_LANES()
+                                             and is_int))
                        and non_null >= 1024)
         if values_seg is None and competitors:
             values_seg = decompress_block(codec, values_comp[0],
                                           values_comp[1])
     delta_cand = None
-    if _DEVICE_DELTA_LANES() and values_seg is not None:
+    if _DEVICE_DELTA_LANES() and is_int and values_seg is not None:
         delta_cand = _plan_delta_lane_words(values_seg, non_null, ptype)
     delta_wire = delta_cand[0] if delta_cand is not None else None
 
@@ -718,19 +776,31 @@ def _plan_plain_transport(codec, values_seg, values_comp, non_null: int,
     return plan_words, values_seg
 
 
+def _int32_offsets(offs: np.ndarray) -> np.ndarray:
+    """Byte offsets as the device layout's int32; raises ValueError past
+    2^31 - 1 bytes, where the reference's int32 offsets would wrap."""
+    if offs.size and int(offs[-1]) > _I32_MAX:
+        raise ValueError(f"{int(offs[-1])} bytes of BYTE_ARRAY values "
+                         "overflow the int32 offsets of the device layout")
+    return offs.astype(np.int32)
+
+
 def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
     """Host phase of one column chunk: page-header walk, CRC checks,
     decompression, run-table scans, staging registration.  Returns
-    ``finish(staged)``, which launches the page kernels and assembles
-    the :class:`DeviceColumn`.  Offsets in ``cm`` are absolute; ``blob``
-    starts at file offset ``base``.  Page CRCs are verified whenever a
-    header carries one."""
+    ``finish(staged, device)``, which launches the page kernels and
+    assembles the :class:`DeviceColumn`.  Offsets in ``cm`` are absolute;
+    ``blob`` starts at file offset ``base``.  Page CRCs are verified
+    whenever a header carries one."""
     ptype = Type(cm.type)
     col_path = ".".join(cm.path_in_schema)
-    if ptype not in _LANES or Type(node.element.type) != ptype:
+    is_bytes = ptype == Type.BYTE_ARRAY
+    if (ptype not in _LANES and not is_bytes) \
+            or Type(node.element.type) != ptype:
         raise NotImplementedError(
             f"column {col_path!r}: physical type {ptype.name} is not "
-            "supported by tpuparquet_torch (INT32 and INT64 only)")
+            "supported by tpuparquet_torch (INT32, INT64, FLOAT, DOUBLE and "
+            "BYTE_ARRAY only)")
     if node.max_rep_level:
         raise NotImplementedError(
             f"column {col_path!r}: repeated columns are not supported by "
@@ -741,12 +811,14 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
     start -= base
     end = start + cm.total_compressed_size
     r = CompactReader(blob, start, end)
-    vlanes = _LANES[ptype]
+    vlanes = _LANES.get(ptype)
     max_def = node.max_def_level
     dwidth = max_def.bit_length()
     total = cm.num_values
-    dict_h = None
+    dict_h = None  # staged words, or (offsets, data) handles for bytes
+    dict_lens = None
     dict_len = 0
+    chunk_bytes = 0  # BYTE_ARRAY value bytes so far (int32 offsets)
     ops = []  # deferred device work: op(staged, parts) -> None
     values_read = 0
     page_i = 0
@@ -779,47 +851,85 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
             raw = decompress_block(cm.codec, payload,
                                    ph.uncompressed_page_size)
             arr = decode_plain(ptype, raw, dph.num_values)
-            dict_len = arr.shape[0]
-            dict_h = stager.add(arr.view("<u4"))
+            if is_bytes:
+                dict_lens = arr.lengths()
+                dict_len = dict_lens.size
+                dict_h = (stager.add(_int32_offsets(arr.offsets)),
+                          stager.add(arr.data))
+            else:
+                dict_len = arr.shape[0]
+                dict_h = stager.add(arr.view("<u4"))
             if r.pos != cm.data_page_offset - base:
                 r.pos = cm.data_page_offset - base
             continue
-        if kind == PageType.DATA_PAGE_V2:
-            raise NotImplementedError(
-                f"column {col_path!r}: DATA_PAGE_V2 is not supported by "
-                "tpuparquet_torch (data page v1 only)")
-        if kind != PageType.DATA_PAGE:
-            continue  # index pages carry nothing to decode
-        h = ph.data_page_header
-        if h is None or h.num_values is None or h.num_values < 0:
-            raise ValueError("DATA_PAGE header missing data_page_header")
-        n = h.num_values
-        enc = Encoding(h.encoding)
-        device_plain = (_DEVICE_SNAPPY() and enc == Encoding.PLAIN
-                        and cm.codec == CompressionCodec.SNAPPY)
-        if device_plain and not max_def:
-            # a required PLAIN page holds no level bytes, so planning
-            # needs nothing from the payload: decompression is deferred
-            # to the transports' competition (device tokens, or the host)
-            values_comp = (payload, ph.uncompressed_page_size, 0)
-            values_seg = dl_scan = None
+        # device snappy for a PLAIN page: a fixed-width page's values may
+        # decompress on the device (``values_comp``, into the transports'
+        # competition), a BYTE_ARRAY page's whole block (``bytes_comp``,
+        # for K10); either is (compressed block, size, values offset)
+        snappy = (_DEVICE_SNAPPY()
+                  and cm.codec == CompressionCodec.SNAPPY)
+        values_comp = bytes_comp = None
+        if kind == PageType.DATA_PAGE:
+            h = ph.data_page_header
+            if h is None or h.num_values is None or h.num_values < 0:
+                raise ValueError("DATA_PAGE header missing data_page_header")
+            n = h.num_values
+            enc = Encoding(h.encoding)
+            snappy = snappy and enc == Encoding.PLAIN
+            if snappy and not max_def and not is_bytes:
+                # a required PLAIN page holds no level bytes, so planning
+                # needs nothing from the payload: decompression is
+                # deferred to the transports' competition
+                values_comp = (payload, ph.uncompressed_page_size, 0)
+                values_seg = dl_scan = None
+            else:
+                raw = decompress_block(cm.codec, payload,
+                                       ph.uncompressed_page_size)
+                dl_scan, pos = scan_levels_v1(raw, n, max_def, 0,
+                                              h.definition_level_encoding)
+                values_seg = raw[pos:]
+                # with levels, the host scans them from its own copy, and
+                # the device may still take the values out of its own
+                # expansion of the tokens, at byte `pos`
+                if snappy:
+                    comp = (payload, ph.uncompressed_page_size, pos)
+                    if is_bytes:
+                        bytes_comp = comp
+                    else:
+                        values_comp = comp
+        elif kind == PageType.DATA_PAGE_V2:
+            h = ph.data_page_header_v2
+            if h is None or h.num_values is None or h.num_values < 0:
+                raise ValueError(
+                    "DATA_PAGE_V2 header missing data_page_header_v2")
+            n = h.num_values
+            enc = Encoding(h.encoding)
+            snappy = snappy and enc == Encoding.PLAIN
+            # V2 keeps the levels outside compression: planning needs only
+            # the level bytes, and the values block decompresses on its own
+            dl_scan, vpos = scan_levels_v2(payload, h, n, max_def)
+            values_seg = payload[vpos:]
+            if h.is_compressed is not False:
+                comp = (values_seg, ph.uncompressed_page_size - vpos, 0)
+                if snappy and not is_bytes:
+                    values_comp, values_seg = comp, None
+                else:
+                    if snappy:
+                        bytes_comp = comp
+                    values_seg = decompress_block(cm.codec, comp[0], comp[1])
         else:
-            raw = decompress_block(cm.codec, payload,
-                                   ph.uncompressed_page_size)
-            dl_scan, pos = scan_levels_v1(raw, n, max_def, 0,
-                                          h.definition_level_encoding)
-            values_seg = raw[pos:]
-            # with levels, the host scans them from its own copy, and
-            # the device may still slice the values out of its own
-            # expansion of the tokens, at byte `pos`
-            values_comp = ((payload, ph.uncompressed_page_size, pos)
-                           if device_plain else None)
+            continue  # index pages carry nothing to decode
         non_null = (count_eq_scan(dl_scan, dwidth, max_def,
                                   validate_max=True)
                     if dl_scan is not None else n)
+        if (kind == PageType.DATA_PAGE_V2 and dl_scan is not None
+                and h.num_nulls is not None
+                and n - h.num_nulls != non_null):
+            raise ValueError(f"V2 num_nulls {h.num_nulls} disagrees with "
+                             f"def levels ({n - non_null} nulls)")
         values_read += n
         plan_words = None
-        if enc == Encoding.PLAIN:
+        if enc == Encoding.PLAIN and not is_bytes:
             plan_words, values_seg = _plan_plain_transport(
                 cm.codec, values_seg, values_comp, non_null, ptype, stager)
 
@@ -838,17 +948,29 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
             width = int(values_seg[0]) if len(values_seg) else 0
             if width > 32:
                 raise ValueError(f"dictionary index bit width {width} > 32")
-            i_sc = scan_hybrid(values_seg, non_null, width, pos=1) \
-                if width else None
-            _check_dict_indices(i_sc, width, non_null, dict_len)
-            idx_ref = None
-            if i_sc is not None:
-                i_args, i_cnt, i_nbp, i_sg = plan_stream_args(
-                    i_sc, non_null, width)
-                idx_ref = (stager.add_many(i_args, pad=False), i_cnt,
-                           i_nbp, i_sg)
-            ops.append(_dict_page_op(dict_h, dl_ref, idx_ref, width, n,
-                                     non_null, dwidth, vlanes))
+            if is_bytes:
+                op, nb = _plan_dict_bytes_page(values_seg, width, non_null,
+                                               dict_h, dict_lens, dl_ref, n,
+                                               dwidth, stager)
+                chunk_bytes += nb
+                ops.append(op)
+            else:
+                i_sc = scan_hybrid(values_seg, non_null, width, pos=1) \
+                    if width else None
+                _check_dict_indices(i_sc, width, non_null, dict_len)
+                idx_ref = None
+                if i_sc is not None:
+                    i_args, i_cnt, i_nbp, i_sg = plan_stream_args(
+                        i_sc, non_null, width)
+                    idx_ref = (stager.add_many(i_args, pad=False), i_cnt,
+                               i_nbp, i_sg)
+                ops.append(_dict_page_op(dict_h, dl_ref, idx_ref, width, n,
+                                         non_null, dwidth, vlanes))
+        elif enc == Encoding.PLAIN and is_bytes:
+            op, nb = _plan_plain_bytes_page(values_seg, bytes_comp, non_null,
+                                            dl_ref, n, dwidth, stager)
+            chunk_bytes += nb
+            ops.append(op)
         elif enc == Encoding.PLAIN:
             if plan_words is None:  # no transport won: the words ship
                 wh = stager.add(stage_u32(values_seg, non_null * vlanes))
@@ -859,22 +981,145 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
             raise NotImplementedError(
                 f"column {col_path!r}: encoding {enc.name} is not "
                 "supported by tpuparquet_torch (PLAIN and dictionary only)")
+        if chunk_bytes > _I32_MAX:
+            raise ValueError(f"{chunk_bytes} bytes of BYTE_ARRAY values "
+                             "overflow the int32 offsets of the device "
+                             "layout")
 
-    def finish(staged) -> DeviceColumn:
-        parts = {"val": [], "def": []}
+    def finish(staged, device) -> DeviceColumn:
+        parts = {"val": [], "bytes": [], "def": []}
         for op in ops:
             op(staged, parts)
         dl, _ = _merge_parts(parts["def"])
         mask = positions = None
         if max_def and dl is not None:
             mask, positions = levels_to_validity(dl, max_def)
-        data, n_packed = _merge_parts(parts["val"], lanes=vlanes)
+        if parts["bytes"]:
+            data, offs, n_bytes = _merge_bytes(parts["bytes"])
+            offsets = torch.from_numpy(offs)
+            if device.type == "cuda":
+                # outside the slab, as the reference uploads them; the
+                # copy is done by the row group's fence
+                offsets = offsets.pin_memory().to(device, non_blocking=True)
+            return DeviceColumn(ptype, data, mask, positions, dl, total,
+                                offs.size - 1, offsets=offsets,
+                                n_bytes=n_bytes)
+        data, n_packed = _merge_parts(parts["val"], lanes=vlanes or 1)
         if data is None:
-            data = torch.zeros(0, dtype=torch.int32)
+            data = torch.zeros(0, dtype=torch.int32, device=device)
         return DeviceColumn(ptype, data, mask, positions, dl, total,
                             n_packed)
 
     return finish
+
+
+def _merge_bytes(parts):
+    """[(int32 host offsets, padded device bytes, n_bytes)] -> (data,
+    int32 offsets, n_bytes).  One page keeps its padded bytes; several
+    are sliced to their length and concatenated, with the offsets rebased
+    on the host."""
+    if len(parts) == 1:
+        offs, data, nb = parts[0]
+        return data, offs, nb
+    offs = [np.zeros(1, dtype=np.int64)]
+    datas = []
+    base_off = 0
+    for o, data, nb in parts:
+        offs.append(o[1:].astype(np.int64) + base_off)
+        datas.append(data[:nb])
+        base_off += nb
+    return torch.cat(datas), np.concatenate(offs).astype(np.int32), base_off
+
+
+def _plan_dict_bytes_page(values_seg, width: int, non_null: int, dict_h,
+                          dict_lens, dl_ref, n: int, dwidth: int,
+                          stager: _Stager):
+    """Plan one dictionary page of BYTE_ARRAY values: the host expands the
+    indices once (vectorised) to check them and to size the output — the
+    offsets, and ``cap = bucket(total bytes)`` — and the index stream
+    ships as its run table for K9.  Returns ``(op, value bytes)``."""
+    if width:
+        i_sc = scan_hybrid(values_seg, non_null, width, pos=1)
+        idx_u = expand_scan(*i_sc[:6], non_null, width)
+        # checked before the int32 cast: a width-32 index like 0xFFFFFFFF
+        # would wrap negative and pass
+        _check_dict_indices(None, width, non_null, dict_lens.size,
+                            idx_np=idx_u)
+        idx_np = idx_u.astype(np.int32)
+    else:
+        i_sc = None
+        idx_np = np.zeros(non_null, np.int32)
+        _check_dict_indices(None, width, non_null, dict_lens.size,
+                            idx_np=idx_np)
+    lens = dict_lens[idx_np]
+    out_offsets = np.zeros(non_null + 1, dtype=np.int64)
+    np.cumsum(lens, out=out_offsets[1:])
+    out_offsets = _int32_offsets(out_offsets)
+    total_b = int(out_offsets[-1])
+    cap = bucket(max(total_b, 1))
+    if i_sc is not None:
+        i_args, i_cnt, i_nbp, i_sg = plan_stream_args(i_sc, non_null, width,
+                                                      expanded=idx_u)
+        idx_hs = stager.add_many(i_args, pad=False)
+    else:
+        idx_hs, i_cnt, i_nbp, i_sg = None, bucket(max(non_null, 1)), 0, False
+    doh, ddh = dict_h
+
+    def op(s, parts):
+        if dl_ref is not None:
+            parts["def"].append((_expand_def(s, dl_ref, dwidth), n))
+        bp, tbl = (None, None) if idx_hs is None else \
+            (s[idx_hs[0]], s[idx_hs[1]])
+        data = page_dict_bytes(s[doh], s[ddh], bp, tbl, non_null, i_cnt,
+                               width, i_nbp, cap, isingle=i_sg)
+        parts["bytes"].append((out_offsets, data, total_b))
+
+    return op, total_b
+
+
+def _plan_plain_bytes_page(values_seg, bytes_comp, non_null: int, dl_ref,
+                           n: int, dwidth: int, stager: _Stager):
+    """Plan one PLAIN BYTE_ARRAY page: the host scans the length prefixes
+    (one C pass) for the offsets.  When the page may decompress on the
+    device and its token tables cost under ``0.9 x`` its value bytes, less
+    the padded offsets that must ship with them, the tables ship and K8
+    then K10 rebuild the values on the device (counted in
+    ``pages_device_snappy``); otherwise the value bytes ship.  Returns
+    ``(op, value bytes)``."""
+    col = decode_plain(Type.BYTE_ARRAY, values_seg, non_null)
+    offs = _int32_offsets(col.offsets)
+    nb = int(col.data.size)
+    blob_plan = None
+    if bytes_comp is not None:
+        budget = 0.9 * nb - 4 * bucket(non_null + 1)
+        if budget > 0:
+            blob_plan = _plan_device_snappy_blob(bytes_comp[0], bytes_comp[1],
+                                                 budget, stager)
+    if blob_plan is not None:
+        st = current_stats()
+        if st is not None:
+            st.pages_device_snappy += 1
+        blob_fn = blob_plan[1]
+        cap = bucket(max(nb, 1))
+        offs_pad = np.full(bucket(non_null + 1), nb, dtype=np.int32)
+        offs_pad[: non_null + 1] = offs
+        oh = stager.add(offs_pad, pad=False)
+        pos = bytes_comp[2]
+
+        def get_data(s):
+            return plain_bytes_from_blob(blob_fn(s), s[oh], pos, cap)
+    else:
+        dh = stager.add(col.data)
+
+        def get_data(s):
+            return s[dh]
+
+    def op(s, parts):
+        if dl_ref is not None:
+            parts["def"].append((_expand_def(s, dl_ref, dwidth), n))
+        parts["bytes"].append((offs, get_data(s), nb))
+
+    return op, nb
 
 
 def _dict_page_op(dict_h, dl_ref, idx_ref, width, n, non_null, dwidth,
@@ -980,7 +1225,7 @@ def _finish_row_group(planned, device: torch.device):
     t0 = time.perf_counter()
     staged_lists, slab = _put_all([stg for _, _, stg in planned], device)
     t1 = time.perf_counter()
-    out = {path: finish(staged)
+    out = {path: finish(staged, device)
            for (path, finish, _), staged in zip(planned, staged_lists)}
     if device.type == "cuda":
         # the one fence of the row group: kernels done, and the pinned

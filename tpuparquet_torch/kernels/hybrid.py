@@ -105,14 +105,15 @@ def single_bp_scan(scan) -> bool:
     return len(ends) == 1 and not bool(is_rle[0])
 
 
-def plan_stream_args(scan, count: int, width: int):
+def plan_stream_args(scan, count: int, width: int, expanded=None):
     """``((bp_words, table), cnt, nbp, single)`` staging plan of one
     hybrid stream — the JAX package's decision, reproduced exactly.
 
     When the stream's run table plus its bit-packed segments (bucket
     padded, as shipped) weigh more than a plain bit-packing of all its
-    values, the host expands the runs and re-packs them as ONE
-    bit-packed run (``single=True``)."""
+    values, the host expands the runs (or takes the caller's
+    ``expanded`` values) and re-packs them as ONE bit-packed run
+    (``single=True``)."""
     from .decode import bucket
 
     def bp_wire(n_vals: int) -> int:
@@ -125,7 +126,8 @@ def plan_stream_args(scan, count: int, width: int):
             bp_wire(n_bp) if n_bp else 0)
         new_wire = 16 * bucket(1) + bp_wire(count)
         if old_wire > new_wire:
-            vals = expand_scan(*scan[:6], count, width)
+            vals = (expanded if expanded is not None
+                    else expand_scan(*scan[:6], count, width))
             packed = np.frombuffer(pack(vals[:count], width), dtype=np.uint8)
             scan = (np.array([count], dtype=np.int32),
                     np.zeros(1, dtype=bool),

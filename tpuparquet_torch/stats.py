@@ -7,11 +7,14 @@ decompression, run-table scans), staging (``transfer_s``: pinned host
 slab + one host-to-device copy per row group), device work
 (``dispatch_s``: kernel launches up to the row group's fence) and the
 bytes that crossed to the device (``bytes_staged``, counted as the JAX
-stager counts them: 4-byte arrays at their padded word length, byte
-arrays such as token literals and byte planes at their exact length,
-though they ride the slab zero-padded to whole words), and the PLAIN pages each wire transport carried, under the JAX
-package's counter names (``pages_device_planes``,
-``pages_device_delta_lanes``, ``pages_device_snappy``).
+stager counts them: each array at its staged length, padded by the
+JAX piece split unless its plan fixed its length — run and token
+tables, token literals, byte planes — though bytes ride the slab
+zero-padded to whole words; BYTE_ARRAY offsets, uploaded on their own
+as in the reference, are not counted), and the PLAIN pages each wire
+transport carried, under the JAX package's counter names
+(``pages_device_planes``, ``pages_device_delta_lanes``,
+``pages_device_snappy``).
 """
 
 from __future__ import annotations
