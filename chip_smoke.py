@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py [--values N] [--groups G]
 
-1. Builds the port's ten CUDA kernels (K1-K10) and its C host helpers
-   (snappy, bit packing, lane planes, BYTE_ARRAY passes) from the sources
-   in this checkout, one compiler process per source, in parallel.
+1. Builds the port's twelve CUDA kernels (K1-K12) and its C host helpers
+   (snappy, hybrid run scans, bit packing, the DELTA_BINARY_PACKED block
+   walk, lane planes, BYTE_ARRAY passes) from the sources in this
+   checkout, one compiler process per source, in parallel.
 2. Holds every kernel against its plain PyTorch version on the card, bit
    for bit over the whole (padded) output.
 3. Writes the NYC-Taxi-shaped config-2 file of ``bench.py`` (seed 42, 8
@@ -12,9 +13,9 @@
    reads it through ``read_row_groups_device`` on the card with the
    default PLAIN wire transports (byte planes, delta lanes, snappy
    tokens), then again with ``TPQ_DEVICE_SNAPPY/PLANES/DELTA=0`` (no
-   transport).  Each read checks every value, def level and mask against
-   the generator, row group 0 against the CPU run buffer for buffer, and
-   the routing counters; each is timed best of 3.
+   transport).  Each read checks every value, rep and def level and mask
+   against the generator, row group 0 against the CPU run buffer for
+   buffer, and the routing counters; each is timed best of 3.
    3b. Does the same for the transport mix, a file on which every route
    engages (snappy tokens with and without levels, delta lanes at widths
    7 and 39, byte planes), with the default transports.
@@ -25,11 +26,19 @@
    random hex tokens; V1, 8 row groups of 250,000 rows): the URL pages
    ship snappy tokens, K8 expands them and K10 gathers the values; the
    tokens ship raw.
+   3e. Config 3 of ``bench.py`` (DELTA_BINARY_PACKED int64 timestamps in
+   a nullable LIST, seed 3, 8 row groups of 2,083,333 rows, 59,096,968
+   level slots): rep and def levels through K1, the deltas through K1
+   and K7, validity through K4.
+   3f. The sensor table (bursty DELTA_BINARY_PACKED timestamps and an
+   optional int32 sequence beside BYTE_STREAM_SPLIT float and double
+   readings; 8 row groups of 1,562,500 rows): K11 places the scattered
+   miniblock width classes, K12 turns the byte streams into lanes.
 4. Times each kernel at the main paths' page shapes with CUDA events,
    beside its memory/operation bound, its plain version and, where one
    PyTorch call computes the function or its core, that call.
 
-Every kernel must have launched on the paths of phases 3 to 3d; the
+Every kernel must have launched on the paths of phases 3 to 3f; the
 counts are set to 0 just before each path's read and read just after.
 Exits non-zero, printing no result, when CUDA is unavailable or any
 phase fails.  The last line is
@@ -88,21 +97,40 @@ STRINGS_SCHEMA = """message strings {
     optional binary token (STRING);
 }"""
 
+CONFIG3_SCHEMA = """message m {
+    optional group events (LIST) {
+        repeated group list {
+            optional int64 element (TIMESTAMP(MILLIS, true));
+        }
+    }
+}"""
 
-def _write(schema: str, groups, optional, data_page_v2: bool = False) \
-        -> bytes:
+SENSORS_SCHEMA = """message sensors {
+    required int64 ts (TIMESTAMP(MICROS, true));
+    optional int32 seq;
+    required float temp;
+    optional double reading;
+}"""
+
+
+def _write(schema: str, groups, optional, data_page_v2: bool = False,
+           column_encodings=None, lists=None) -> bytes:
     """Write ``[(columns, masks)]`` with the port's writer, SNAPPY;
     ``masks`` is one optional column's mask (``optional`` names it) or a
-    dict of them (``optional`` None)."""
+    dict of them (``optional`` None).  ``lists`` gives each row group's
+    ``(offsets, element_masks)`` of its LIST columns."""
     from tpuparquet_torch.format.metadata import CompressionCodec
     from tpuparquet_torch.io.writer import FileWriter
 
     buf = io.BytesIO()
     w = FileWriter(buf, schema, codec=CompressionCodec.SNAPPY,
-                   data_page_v2=data_page_v2)
-    for cols, mask in groups:
+                   data_page_v2=data_page_v2,
+                   column_encodings=column_encodings)
+    for i, (cols, mask) in enumerate(groups):
+        offs, elem = lists[i] if lists is not None else (None, None)
         w.write_columns(cols, masks=mask if optional is None
-                        else {optional: mask})
+                        else {optional: mask}, offsets=offs,
+                        element_masks=elem)
     w.close()
     return buf.getvalue()
 
@@ -257,6 +285,84 @@ def build_strings(n_values: int, n_groups: int):
     groups = _port_columns(strings_groups(max(n_values // 200, 200_000),
                                           n_groups))
     return _write(STRINGS_SCHEMA, groups, None), groups
+
+
+def config3_groups(rows: int, n_groups: int, seed: int = 3):
+    """bench.py build_config3's generator (the nullable LIST of
+    timestamps): ``[(columns, masks, offsets, element_masks)]``, each
+    keyed ``events``."""
+    rng = np.random.default_rng(seed)
+    base_ts = 1_600_000_000_000
+    groups = []
+    for _ in range(n_groups):
+        lens = rng.integers(0, 8, size=rows)
+        row_mask = rng.random(rows) >= 0.03      # 3% null rows
+        lens[~row_mask] = 0                       # null rows are empty
+        offs = np.zeros(rows + 1, dtype=np.int64)
+        np.cumsum(lens, out=offs[1:])
+        elem_mask = rng.random(int(offs[-1])) >= 0.02  # 2% null elements
+        ts = base_ts + rng.integers(0, 60_000,
+                                    size=int(elem_mask.sum())).cumsum()
+        groups.append(({"events": ts}, {"events": row_mask},
+                       {"events": offs}, {"events": elem_mask}))
+    return groups
+
+
+def build_config3(n_values: int, n_groups: int, data_page_v2: bool = False):
+    """The config-3 file of bench.py (build_config3: DELTA_BINARY_PACKED
+    int64 timestamps in a nullable LIST, SNAPPY, ``n_values // 3 //
+    n_groups`` rows a group), written with the port's writer.  Returns
+    (file bytes, groups)."""
+    groups = config3_groups(n_values // 3 // n_groups, n_groups)
+    blob = _write(CONFIG3_SCHEMA, [(c, m) for c, m, _, _ in groups], None,
+                  data_page_v2=data_page_v2,
+                  column_encodings={"events.list.element":
+                                    _encoding("DELTA_BINARY_PACKED")},
+                  lists=[(o, e) for _, _, o, e in groups])
+    return blob, groups
+
+
+def sensor_groups(rows: int, n_groups: int, seed: int = 17):
+    """The sensor table's generator: bursty microsecond timestamps ``ts``
+    (lognormal gaps, the base carried across row groups), an optional
+    int32 sequence ``seq`` (10% nulls, geometric steps), a slow float
+    ``temp`` walk and optional double ``reading``s (5% nulls).  Returns
+    ``[(columns, masks)]``."""
+    rng = np.random.default_rng(seed)
+    base = 1_700_000_000_000_000
+    groups = []
+    for _ in range(n_groups):
+        ts = base + np.cumsum(rng.lognormal(8.0, 2.5, rows).astype(np.int64))
+        base = int(ts[-1])
+        seq_mask = rng.random(rows) >= 0.1
+        seq = np.cumsum(rng.geometric(0.3, int(seq_mask.sum()))).astype(
+            np.int32)
+        temp = (20 + np.cumsum(rng.normal(0, 0.05, rows))).astype(np.float32)
+        reading_mask = rng.random(rows) >= 0.05
+        reading = rng.normal(100, 15, int(reading_mask.sum()))
+        groups.append(({"ts": ts, "seq": seq, "temp": temp,
+                        "reading": reading},
+                       {"seq": seq_mask, "reading": reading_mask}))
+    return groups
+
+
+def build_sensors(rows: int, n_groups: int, data_page_v2: bool = False):
+    """The sensor table: ``ts`` and ``seq`` DELTA_BINARY_PACKED, ``temp``
+    and ``reading`` BYTE_STREAM_SPLIT, SNAPPY, written with the port's
+    writer.  Returns (file bytes, groups)."""
+    groups = sensor_groups(rows, n_groups)
+    enc = {"ts": _encoding("DELTA_BINARY_PACKED"),
+           "seq": _encoding("DELTA_BINARY_PACKED"),
+           "temp": _encoding("BYTE_STREAM_SPLIT"),
+           "reading": _encoding("BYTE_STREAM_SPLIT")}
+    return _write(SENSORS_SCHEMA, groups, None, data_page_v2=data_page_v2,
+                  column_encodings=enc), groups
+
+
+def _encoding(name: str):
+    from tpuparquet_torch.format.metadata import Encoding
+
+    return Encoding[name]
 
 
 def _u32(t: torch.Tensor) -> np.ndarray:
@@ -553,6 +659,90 @@ def _check_bytes_from_blob(rng, dev) -> None:
             raise AssertionError(f"K10 {label}: wrong bytes")
 
 
+def _bursty(rng, n: int) -> np.ndarray:
+    """Microsecond timestamps with lognormal gaps (the sensor table's):
+    miniblock widths vary, so width classes scatter."""
+    return 1_700_000_000_000_000 + np.cumsum(
+        rng.lognormal(8.0, 2.5, n).astype(np.int64))
+
+
+def _device_plan(plan, dev):
+    """A host DeltaPlan with its arrays on ``dev``."""
+    from tpuparquet_torch.kernels.decode import DeltaPlan
+
+    return DeltaPlan(
+        [(w, _t(words, dev), None if st is None else _t(st, dev),
+          None if tk is None else _t(tk, dev), nv, s0, nt)
+         for w, words, st, tk, nv, s0, nt in plan.groups],
+        _t(plan.md_lo, dev), _t(plan.md_hi, dev), plan.block_size,
+        plan.first, plan.total)
+
+
+def _check_delta_scatter(rng, dev) -> None:
+    """K11 against its plain version over the whole delta stream: int32
+    and int64 lanes, miniblocks of 32 and 64 in shuffled order, a partial
+    last miniblock, one miniblock past ``out_len`` and one straddling it;
+    then whole DELTA_BINARY_PACKED streams of bursty timestamps (block
+    256 with 4 and 8 miniblocks) rebuilt on the card."""
+    from tpuparquet_torch.cpu.delta import encode_delta_binary_packed
+    from tpuparquet_torch.kernels.decode import expand_delta_i32, \
+        expand_delta_i64, plan_delta_i32, plan_delta_i64, scatter_deltas, \
+        scatter_deltas_plain
+
+    for wide in (False, True):
+        for mb, k in ((32, 37), (64, 1000), (32, 40_000)):
+            out_len = k * mb - 17
+            order = rng.permutation(k)
+            starts = (order * mb).astype(np.int32)
+            takes = np.full(k, mb, np.int32)
+            takes[int(np.argmax(order))] = mb - 9   # the partial last one
+            starts[int(np.argmin(order))] = out_len + 5  # past out_len
+            lo, hi = (_t(rng.integers(0, 2**32, size=k * mb,
+                                      dtype=np.uint32), dev)
+                      for _ in range(2))
+            st, tk = _t(starts, dev), _t(takes, dev)
+            dlo = torch.zeros(out_len, dtype=torch.int32, device=dev)
+            dhi = torch.zeros_like(dlo) if wide else None
+            scatter_deltas(lo, hi if wide else None, st, tk, k * mb, dlo,
+                           dhi, out_len)
+            plo = torch.zeros(out_len, dtype=torch.int32)
+            phi = torch.zeros_like(plo) if wide else None
+            scatter_deltas_plain(lo.cpu(), hi.cpu() if wide else None,
+                                 st.cpu(), tk.cpu(), k * mb, plo, phi,
+                                 out_len)
+            _same(f"K11 mb {mb} k {k} wide {wide} lo", dlo, plo)
+            if wide:
+                _same(f"K11 mb {mb} k {k} hi", dhi, phi)
+    for block, n_mb in ((256, 4), (256, 8)):
+        ts = _bursty(rng, 100_003)
+        for i32 in (False, True):
+            v = (ts % 2**31).astype(np.int32) if i32 else ts
+            plan = (plan_delta_i32 if i32 else plan_delta_i64)(
+                encode_delta_binary_packed(v, block, n_mb))
+            if not any(g[2] is not None for g in plan.groups):
+                raise AssertionError("K11 check: no scattered width class")
+            got = (expand_delta_i32 if i32 else expand_delta_i64)(
+                _device_plan(plan, dev))
+            if not np.array_equal(got.cpu().numpy().view(v.dtype), v):
+                raise AssertionError(f"K11 block {block}/{n_mb} int32 {i32}: "
+                                     "wrong values")
+
+
+def _check_bss(rng, dev) -> None:
+    """K12 against its plain version: 4 and 8 streams (and 6, a partial
+    last lane), counts not a multiple of 32."""
+    from tpuparquet_torch.kernels.decode import bss_to_lanes, \
+        bss_to_lanes_plain
+
+    for k, lanes in ((4, 1), (8, 2), (6, 2)):
+        for count in (1, 1000, 1_000_003):
+            raw = _t(rng.integers(0, 256, size=k * count + 3,
+                                  dtype=np.uint8), dev)
+            _same(f"K12 k {k} count {count}",
+                  bss_to_lanes(raw, count, k, lanes),
+                  bss_to_lanes_plain(raw.cpu(), count, k, lanes))
+
+
 def check_kernels(dev) -> None:
     """Phase 2: every kernel against its plain version on the card."""
     from tpuparquet_torch.cpu.bitpack import pack
@@ -616,6 +806,8 @@ def check_kernels(dev) -> None:
     _check_tokens(rng, dev)
     _check_dict_bytes(rng, dev)
     _check_bytes_from_blob(rng, dev)
+    _check_delta_scatter(rng, dev)
+    _check_bss(rng, dev)
     if dev.type == "cuda":  # a fault during a run surfaces here
         torch.cuda.synchronize(dev)
 
@@ -652,10 +844,12 @@ def _stage(arrays, dev):
     return [_t(a, dev) for a in arrays]
 
 
-def time_kernels(groups, mix_groups, groups4, groups_s, dev,
+def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, dev,
                  launches) -> list:
     """Phase 4: each kernel at the main paths' page shapes."""
     from tpuparquet_torch.compress import compress_block
+    from tpuparquet_torch.cpu.bss import encode_byte_stream_split
+    from tpuparquet_torch.cpu.delta import encode_delta_binary_packed
     from tpuparquet_torch.cpu.dictionary import build_dictionary
     from tpuparquet_torch.cpu.hybrid import encode_hybrid, expand_scan, \
         scan_hybrid
@@ -663,11 +857,13 @@ def time_kernels(groups, mix_groups, groups4, groups_s, dev,
     from tpuparquet_torch.format.metadata import CompressionCodec, Type
     from tpuparquet_torch.kernels.bitunpack import pad_to_words, \
         unpack_u32, unpack_u32_plain, unpack_u64, unpack_u64_plain
-    from tpuparquet_torch.kernels.decode import bucket, delta_scan, \
-        delta_scan_plain, levels_to_validity, levels_to_validity_plain, \
-        page_dict_bytes, page_dict_bytes_plain, page_dict_fixed, \
-        page_dict_fixed_plain, plain_bytes_from_blob, \
-        plain_bytes_from_blob_plain, planes_to_words_plain
+    from tpuparquet_torch.kernels.decode import bss_to_lanes, \
+        bss_to_lanes_plain, bucket, delta_scan, delta_scan_plain, \
+        levels_to_validity, levels_to_validity_plain, page_dict_bytes, \
+        page_dict_bytes_plain, page_dict_fixed, page_dict_fixed_plain, \
+        plain_bytes_from_blob, plain_bytes_from_blob_plain, \
+        plan_delta_i64, planes_to_words_plain, scatter_deltas, \
+        scatter_deltas_plain
     from tpuparquet_torch.kernels.device import _plan_plane_words, \
         _put_all, _Stager
     from tpuparquet_torch.kernels.hybrid import expand_hybrid, \
@@ -896,6 +1092,72 @@ def time_kernels(groups, mix_groups, groups4, groups_s, dev,
         raise AssertionError("K10 url page: wrong bytes")
     print(f"K10 page: {nn} values, {nb} bytes out (cap {cap}), blob "
           f"{out_cap} bytes", flush=True)
+
+    # K11: the largest scattered width class of the sensor table's ts page
+    # (row group 0), unpacked by K6 as on the main path and placed into
+    # the page's delta stream.  One PyTorch call computes the same
+    # placement: index_put_ of the kept lanes, as int64, at the masked
+    # grid
+    cols_t, _ = groups_t[0]
+    plan = plan_delta_i64(encode_delta_binary_packed(cols_t["ts"]))
+    w, words, starts, takes, n_vals, _, _ = max(
+        (gr for gr in plan.groups if gr[2] is not None), key=lambda gr: gr[4])
+    k = starts.size
+    mb = n_vals // k
+    out_len = plan.total - 1
+    words_d, st_d, tk_d = _stage([words, starts, takes], dev)
+    lo_d, hi_d = unpack_u64(words_d, w, n_vals)
+    lane = np.arange(mb)[None, :]
+    grid = starts.astype(np.int64)[:, None] + lane
+    keep = (lane < takes[:, None]) & (grid < out_len)
+    n_keep = int(keep.sum())
+    keep_d = torch.from_numpy(keep.reshape(-1)).to(dev)
+    pos_d = torch.from_numpy(grid[keep]).to(dev)
+    v64_d = ((hi_d.to(torch.int64) << 32)
+             | (lo_d.to(torch.int64) & 0xFFFFFFFF))[keep_d]
+    d64 = torch.zeros(out_len, dtype=torch.int64, device=dev)
+    kern = [torch.zeros(out_len, dtype=torch.int32, device=dev)
+            for _ in range(2)]
+    plain = [torch.zeros_like(kern[0]) for _ in range(2)]
+
+    def k11():
+        scatter_deltas(lo_d, hi_d, st_d, tk_d, n_vals, *kern, out_len)
+        return tuple(kern)
+
+    def k11_plain():
+        scatter_deltas_plain(lo_d, hi_d, st_d, tk_d, n_vals, *plain,
+                             out_len)
+        return tuple(plain)
+
+    row("scatter_deltas", "tpuparquet_torch/csrc/delta_scatter.cu",
+        "tpuparquet/kernels/decode.py:491",
+        k11, k11_plain, 8 * n_vals + 8 * k + 8 * n_keep, 6 * n_vals,
+        library=lambda: d64.index_put_((pos_d,), v64_d))
+    placed = ((kern[1].to(torch.int64) << 32)
+              | (kern[0].to(torch.int64) & 0xFFFFFFFF))[pos_d]
+    if not torch.equal(placed, v64_d):
+        raise AssertionError("K11 ts page: lanes not at their targets")
+    print(f"K11 page: width {w}, {k} miniblocks of {mb}, {n_keep} lanes "
+          f"placed, {len(plan.groups)} width classes, "
+          f"{sum(gr[2] is not None for gr in plan.groups)} scattered",
+          flush=True)
+
+    # K12: the sensor table's reading page (row group 0): 8 byte streams
+    # of the non-null doubles.  One PyTorch call computes the transpose
+    reading = cols_t["reading"]
+    count = reading.size
+    raw = np.frombuffer(encode_byte_stream_split(reading), np.uint8)
+    (raw_d,) = _stage([raw], dev)
+    row("bss_to_lanes", "tpuparquet_torch/csrc/bss_to_lanes.cu",
+        "tpuparquet/kernels/decode.py:82",
+        lambda: bss_to_lanes(raw_d, count, 8, 2),
+        lambda: bss_to_lanes_plain(raw_d, count, 8, 2),
+        2 * raw.nbytes, 12 * 2 * count,
+        library=lambda: raw_d.view(8, count).t().contiguous())
+    got = bss_to_lanes(raw_d, count, 8, 2)
+    if not np.array_equal(got.cpu().numpy().view(np.float64), reading):
+        raise AssertionError("K12 reading page: wrong values")
+    print(f"K12 page: {count} doubles, {raw.nbytes} bytes", flush=True)
     return out
 
 
@@ -937,15 +1199,14 @@ def _same_values(got, want) -> bool:
 
 
 def _check_read(label, reader, got, groups) -> int:
-    """Every value, def level and mask against the generator's
-    ``[(columns, {optional column: mask})]``; row group 0 against the
-    CPU run buffer for buffer.  Returns the value count."""
-    from tpuparquet_torch.kernels.device import read_row_group_device
-
+    """Every value, rep and def level and mask against the generator's
+    ``[(columns, {optional column: mask})]`` (flat columns: all rep
+    levels 0); row group 0 against the CPU run buffer for buffer.
+    Returns the value count."""
     for (rg, out), (cols, masks) in zip(got, groups):
         rows = next(iter(out.values())).num_values
         for name, col in out.items():
-            vals, _rep, dl = col.to_numpy()
+            vals, rep, dl = col.to_numpy()
             if not _same_values(vals, cols[name]):
                 raise AssertionError(f"{label} row group {rg} {name}: "
                                      "values differ")
@@ -958,6 +1219,67 @@ def _check_read(label, reader, got, groups) -> int:
             want_mask = np.ones(rows, bool) if mask is None else mask
             if not np.array_equal(col.mask.cpu().numpy(), want_mask):
                 raise AssertionError(f"{label} row group {rg} {name}: mask")
+            if rep.any():
+                raise AssertionError(f"{label} row group {rg} {name}: "
+                                     "rep levels of a flat column")
+    _same_as_cpu(label, reader, got)
+    n_values = sum(cc.meta_data.num_values for rg in reader.meta.row_groups
+                   for cc in rg.columns)
+    print(f"{label}: {n_values} values match the generator; row group 0 "
+          "matches the cpu run buffer for buffer", flush=True)
+    return n_values
+
+
+def _want_list_levels(offs, row_mask, elem_mask):
+    """Rep and def levels of config 3's ``optional group (LIST) {
+    repeated group list { optional element } }`` (max def 3), worked out
+    slot by slot from the generator: a row of ``c`` elements takes
+    ``max(c, 1)`` slots; a null row's slot has def 0, an empty row's def
+    1, a null element def 2, a value def 3."""
+    counts = np.diff(offs)
+    slots = np.maximum(counts, 1)
+    row_of_slot = np.repeat(np.arange(counts.size), slots)
+    first = np.zeros(slots.sum(), bool)
+    first[np.cumsum(slots) - slots] = True
+    rep = np.where(first, 0, 1).astype(np.int32)
+    dl = np.empty(slots.sum(), np.int32)
+    has = counts[row_of_slot] > 0
+    dl[~has] = np.where(row_mask[row_of_slot[~has]], 1, 0)
+    dl[has] = np.where(elem_mask, 3, 2)
+    return rep, dl
+
+
+def _check_list_read(label, reader, got, groups) -> int:
+    """Config 3's read: every value, rep and def level and the mask
+    against the generator's ``[(columns, masks, offsets,
+    element_masks)]``; row group 0 against the CPU run buffer for buffer.
+    Returns the level-slot count."""
+    for (rg, out), (cols, masks, offs, elems) in zip(got, groups):
+        col = out["events.list.element"]
+        vals, rep, dl = col.to_numpy()
+        want_rep, want_dl = _want_list_levels(offs["events"], masks["events"],
+                                              elems["events"])
+        if not _same_values(vals, cols["events"]):
+            raise AssertionError(f"{label} row group {rg}: values differ")
+        if not np.array_equal(rep, want_rep):
+            raise AssertionError(f"{label} row group {rg}: rep levels")
+        if not np.array_equal(dl, want_dl):
+            raise AssertionError(f"{label} row group {rg}: def levels")
+        if not np.array_equal(col.mask.cpu().numpy(), want_dl == 3):
+            raise AssertionError(f"{label} row group {rg}: mask")
+    _same_as_cpu(label, reader, got)
+    n_slots = sum(cc.meta_data.num_values for rg in reader.meta.row_groups
+                  for cc in rg.columns)
+    print(f"{label}: {n_slots} level slots match the generator; row group "
+          "0 matches the cpu run buffer for buffer", flush=True)
+    return n_slots
+
+
+def _same_as_cpu(label, reader, got) -> None:
+    """Row group 0 read on the card against the CPU run, buffer for
+    buffer (rep levels included)."""
+    from tpuparquet_torch.kernels.device import read_row_group_device
+
     cpu = read_row_group_device(reader, 0, device="cpu")
     for name, col in got[0][1].items():
         a, b = col.padded_buffers(), cpu[name].padded_buffers()
@@ -966,11 +1288,6 @@ def _check_read(label, reader, got, groups) -> int:
                 for k in a):
             raise AssertionError(f"{label} row group 0 {name}: cuda and cpu "
                                  "buffers differ")
-    n_values = sum(cc.meta_data.num_values for rg in reader.meta.row_groups
-                   for cc in rg.columns)
-    print(f"{label}: {n_values} values match the generator; row group 0 "
-          "matches the cpu run buffer for buffer", flush=True)
-    return n_values
 
 
 def _routing(label, st, want: dict) -> None:
@@ -1025,8 +1342,8 @@ def main(argv=None) -> int:
     from tpuparquet_torch.io.reader import FileReader
     from tpuparquet_torch.kernels import bitunpack, decode, hybrid, snappy
     from tpuparquet_torch.kernels._lib import build_kernels
-    from tpuparquet_torch.native import bytes_native, pack_native, \
-        plane_native
+    from tpuparquet_torch.native import bytes_native, delta_native, \
+        hybrid_native, pack_native, plane_native
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -1044,9 +1361,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build_s = build_kernels()
     _snappy()
-    pack_native()
-    plane_native()
-    bytes_native()
+    for native in (hybrid_native, pack_native, delta_native, plane_native,
+                   bytes_native):
+        native()
     print(f"build: kernels {build_s:.2f} s, with the C host helpers "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -1065,7 +1382,9 @@ def main(argv=None) -> int:
                 "delta_scan": decode.delta_scan,
                 "expand_tokens": snappy.expand_tokens,
                 "page_dict_bytes": decode.page_dict_bytes,
-                "plain_bytes_from_blob": decode.plain_bytes_from_blob}
+                "plain_bytes_from_blob": decode.plain_bytes_from_blob,
+                "scatter_deltas": decode.scatter_deltas,
+                "bss_to_lanes": decode.bss_to_lanes}
     total_launches = dict.fromkeys(wrappers, 0)
     g = args.groups
 
@@ -1156,11 +1475,59 @@ def main(argv=None) -> int:
     for k, c in launches.items():
         total_launches[k] += c
     _best_of("string mix", reader_s, dev, n_s)
-    print(f"launches over the five reads: {total_launches}", flush=True)
+    del reader_s, blob_s
+
+    # phase 3e: config 3 (DELTA_BINARY_PACKED timestamps in a nullable
+    # LIST), default transports
+    t0 = time.perf_counter()
+    blob3, groups3 = build_config3(args.values, g)
+    print(f"config 3: {g} row groups, {len(blob3)} bytes, written in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    reader3 = FileReader(blob3)
+    got, launches, st = _drive(reader3, dev, wrappers)
+    print(f"config 3 launches: {launches}", flush=True)
+    n3 = _check_list_read("config 3", reader3, got, groups3)
+    del got, groups3
+    _routing("config 3", st, {"pages_device_snappy": 0,
+                              "pages_device_delta_lanes": 0,
+                              "pages_device_planes": 0})
+    _need("config 3", launches, ["unpack_u32", "delta_scan",
+                                 "levels_to_validity"])
+    for k, c in launches.items():
+        total_launches[k] += c
+    _best_of("config 3", reader3, dev, n3,
+             note=" (the JAX package: 139,788,640 on bench.py's own file)")
+    del reader3, blob3
+
+    # phase 3f: the sensor table, default transports
+    t0 = time.perf_counter()
+    blob_t, groups_t = build_sensors(args.values // 4 // g, g)
+    print(f"sensor table: {g} row groups, {len(blob_t)} bytes, written in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    reader_t = FileReader(blob_t)
+    got, launches, st = _drive(reader_t, dev, wrappers)
+    print(f"sensor table launches: {launches}", flush=True)
+    n_t = _check_read("sensor table", reader_t, got, groups_t)
+    del got
+    _routing("sensor table", st, {"pages_device_snappy": 0,
+                                  "pages_device_delta_lanes": 0,
+                                  "pages_device_planes": 0})
+    _need("sensor table", launches, ["scatter_deltas", "bss_to_lanes",
+                                     "delta_scan", "levels_to_validity"])
+    _need_any("sensor table", launches, ["unpack_u32", "unpack_u64"])
+    if launches["bss_to_lanes"] != 2 * g:
+        raise AssertionError(f"sensor table: {launches['bss_to_lanes']} K12 "
+                             f"launches, expected one per BSS page ({2 * g})")
+    for k, c in launches.items():
+        total_launches[k] += c
+    _best_of("sensor table", reader_t, dev, n_t,
+             note=" (the JAX package: 195,888,708 on the same generator)")
+    del reader_t, blob_t
+    print(f"launches over the seven reads: {total_launches}", flush=True)
 
     # phase 4: kernel times at the main paths' shapes
-    kernels = time_kernels(groups, mix_groups, groups4, groups_s, dev,
-                           total_launches)
+    kernels = time_kernels(groups, mix_groups, groups4, groups_s, groups_t,
+                           dev, total_launches)
     _need("the main paths", total_launches, list(wrappers))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

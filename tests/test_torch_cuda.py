@@ -41,7 +41,7 @@ def cuda():
 
 
 def test_kernels_match_plain_versions(cuda):
-    """K1-K10 against their plain versions, bit for bit (the checks of
+    """K1-K12 against their plain versions, bit for bit (the checks of
     chip_smoke.py's phase 2)."""
     chip_smoke.check_kernels(cuda)
 
@@ -67,6 +67,16 @@ def test_bytes_kernel_matches_plain_version(cuda, check):
     torch.cuda.synchronize(cuda)
 
 
+@pytest.mark.parametrize("check", ["_check_delta_scatter", "_check_bss"])
+def test_delta_and_bss_kernels_match_plain_versions(cuda, check):
+    """K11 (scatter_deltas: int32 and int64 lanes, miniblocks of 32 and
+    64, a partial last miniblock, targets past ``out_len``; whole bursty
+    delta streams at block 256) and K12 (bss_to_lanes: 4, 6 and 8
+    streams, counts not a multiple of 32)."""
+    getattr(chip_smoke, check)(np.random.default_rng(3), cuda)
+    torch.cuda.synchronize(cuda)
+
+
 def _same_buffers(reader, out, groups):
     for rg, cols_out in out:
         cpu = read_row_group_device(reader, rg, device="cpu")
@@ -81,10 +91,12 @@ def _same_buffers(reader, out, groups):
 
 
 def _launches(names):
-    fns = {"K5": decode.planes_to_words, "K6": bitunpack.unpack_u64,
+    fns = {"K1": bitunpack.unpack_u32, "K4": decode.levels_to_validity,
+           "K5": decode.planes_to_words, "K6": bitunpack.unpack_u64,
            "K7": decode.delta_scan, "K8": snappy.expand_tokens,
            "K9": decode.page_dict_bytes,
-           "K10": decode.plain_bytes_from_blob}
+           "K10": decode.plain_bytes_from_blob,
+           "K11": decode.scatter_deltas, "K12": decode.bss_to_lanes}
     return {k: fns[k].launches for k in names}
 
 
@@ -114,6 +126,47 @@ def test_string_mix_on_card(cuda, monkeypatch):
     _same_buffers(reader, out, groups)
     assert st.pages_device_snappy == 4
     assert all(after[k] == before[k] + 4 for k in after)
+
+
+def test_sensor_table_on_card(cuda, monkeypatch):
+    """The sensor table at 100,000 rows a group: bursty timestamps and the
+    optional sequence through K1/K6, K11 and K7, the readings through K12
+    (one launch per BYTE_STREAM_SPLIT page)."""
+    for k in chip_smoke.TRANSPORT_ENV:
+        monkeypatch.delenv(k, raising=False)
+    blob, groups = chip_smoke.build_sensors(100_000, 2)
+    reader = FileReader(io.BytesIO(blob))
+    before = _launches(["K7", "K11", "K12"])
+    with collect_stats() as st:
+        out = list(read_row_groups_device(reader))
+    after = _launches(["K7", "K11", "K12"])
+    _same_buffers(reader, out, groups)
+    assert (st.pages_device_snappy, st.pages_device_delta_lanes,
+            st.pages_device_planes) == (0, 0, 0)
+    assert after["K12"] == before["K12"] + 4
+    assert after["K11"] > before["K11"] and after["K7"] > before["K7"]
+
+
+def test_config3_on_card(cuda, monkeypatch):
+    """Config 3 at 100,000 rows a group: rep and def levels, deltas and
+    validity on the card, buffer for buffer with the CPU run and level
+    for level with the generator."""
+    for k in chip_smoke.TRANSPORT_ENV:
+        monkeypatch.delenv(k, raising=False)
+    blob, groups = chip_smoke.build_config3(600_000, 2)
+    reader = FileReader(io.BytesIO(blob))
+    before = _launches(["K1", "K4", "K7"])
+    out = list(read_row_groups_device(reader))
+    after = _launches(["K1", "K4", "K7"])
+    for rg, cols_out in out:
+        cpu = read_row_group_device(reader, rg, device="cpu")
+        for name, col in cols_out.items():
+            a, b = col.padded_buffers(), cpu[name].padded_buffers()
+            assert a.keys() == b.keys() and "rep_levels" in a
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    chip_smoke._check_list_read("config 3", reader, out, groups)
+    assert all(after[k] > before[k] for k in after)
 
 
 def test_transports_on_card_match_cpu_buffer_for_buffer(cuda, monkeypatch):

@@ -120,6 +120,8 @@ def _jax_buffers(col) -> dict:
            "mask": None if col._mask_p is None else np.asarray(col._mask_p),
            "positions": (None if col._pos_p is None
                          else np.asarray(col._pos_p)),
+           "rep_levels": (None if col._rep_p is None
+                          else np.asarray(col._rep_p)),
            "def_levels": (None if col._def_p is None
                           else np.asarray(col._def_p))}
     if col.offsets is not None:
@@ -340,33 +342,25 @@ def test_out_of_range_dictionary_index_rejected():
         read_row_group_device(FileReader(bytes(blob)), 0, device="cpu")
 
 
-@pytest.mark.parametrize("what", ["gzip", "list", "delta", "bss"])
+@pytest.mark.parametrize("what", ["gzip", "dlba", "dba", "boolean"])
 def test_unsupported_input_raises_not_implemented(what):
-    """Inputs of later slices raise: another codec, a nested LIST (rep
-    levels), DELTA_BINARY_PACKED int64, BYTE_STREAM_SPLIT doubles."""
-    v = np.arange(100, dtype=np.int64)
-    groups = [({"v": v}, {})]
+    """Inputs of later slices raise: another codec, DELTA_LENGTH_BYTE_ARRAY
+    and DELTA_BYTE_ARRAY strings, a BOOLEAN column."""
+    groups = [({"v": np.arange(100, dtype=np.int64)}, {})]
     schema, codec, kw = "message m { required int64 v; }", JaxCodec.SNAPPY, {}
     if what == "gzip":
         codec = JaxCodec.GZIP
-    elif what == "delta":
-        kw = {"column_encodings": {"v": JaxEncoding.DELTA_BINARY_PACKED}}
-    elif what == "bss":
-        schema = "message m { required double v; }"
-        groups = [({"v": np.linspace(0, 1, 100)}, {})]
-        kw = {"column_encodings": {"v": JaxEncoding.BYTE_STREAM_SPLIT}}
-    if what == "list":
-        buf = io.BytesIO()
-        w = JaxFileWriter(buf, """message m { optional group l (LIST) {
-            repeated group list { optional int64 element; } } }""",
-                          codec=codec)
-        w.write_columns({"l": v}, offsets={"l": np.arange(0, 101, 4)},
-                        masks={"l": np.ones(25, bool)},
-                        element_masks={"l": np.ones(100, bool)})
-        w.close()
-        blob = buf.getvalue()
-    else:
-        blob = _write(JaxFileWriter, codec, groups, schema=schema, **kw)
+    elif what in ("dlba", "dba"):
+        schema = "message m { required binary v; }"
+        groups = [({"v": JaxByteArrayColumn.from_list(
+            [b"x%d" % i for i in range(100)])}, {})]
+        kw = {"column_encodings": {"v": JaxEncoding.DELTA_LENGTH_BYTE_ARRAY
+                                   if what == "dlba"
+                                   else JaxEncoding.DELTA_BYTE_ARRAY}}
+    elif what == "boolean":
+        schema = "message m { required boolean v; }"
+        groups = [({"v": np.arange(100) % 3 == 0}, {})]
+    blob = _write(JaxFileWriter, codec, groups, schema=schema, **kw)
     with pytest.raises(NotImplementedError):
         read_row_group_device(FileReader(blob), 0, device="cpu")
 

@@ -39,8 +39,10 @@ from tpuparquet_torch.cpu.bitpack import pack
 from tpuparquet_torch.format.metadata import CompressionCodec, Type
 from tpuparquet_torch.kernels import device as pdev
 from tpuparquet_torch.kernels.bitunpack import pad_to_words, unpack_u64
+from tpuparquet_torch.cpu.delta import encode_delta_binary_packed
 from tpuparquet_torch.kernels.decode import DeltaPlan, bucket, \
-    expand_delta_i32, expand_delta_i64, planes_to_words, u8_to_u32_words_at
+    expand_delta_i32, expand_delta_i64, plan_delta_i32, plan_delta_i64, \
+    planes_to_words, u8_to_u32_words_at
 from tpuparquet_torch.kernels.snappy import decompress_device, \
     expand_tokens, expand_tokens_words, plan_tokens
 
@@ -292,13 +294,25 @@ def test_expand_delta_matches_jax(lanes):
 
 
 def test_scattered_delta_group_not_supported():
-    z = torch.zeros(4, dtype=torch.int32)
-    plan = DeltaPlan([(4, z, z[:1], z[:1] + 1, 32, 0, 0)], z[:1], z[:1], 128,
-                     0, 33)
-    with pytest.raises(NotImplementedError):
-        expand_delta_i64(plan)
-    with pytest.raises(NotImplementedError):
-        expand_delta_i32(plan)
+    """A width class whose miniblocks do not land back to back (a
+    DELTA_BINARY_PACKED page's) is placed by K11's plain version, for
+    int64 and int32 alike: the rebuild gives the values back."""
+    rng = np.random.default_rng(5)
+    gaps = np.where(rng.random(4000) < 0.5, 3, 1 << 20)
+    vals = np.cumsum(np.repeat(gaps, 32)).astype(np.int64)
+    for plan_fn, expand, v in ((plan_delta_i64, expand_delta_i64, vals),
+                               (plan_delta_i32, expand_delta_i32,
+                                vals.astype(np.int32))):
+        plan = plan_fn(encode_delta_binary_packed(v))
+        assert any(g[2] is not None for g in plan.groups)
+        dev_plan = DeltaPlan(
+            [(w, _t(words), None if st is None else _t(st),
+              None if tk is None else _t(tk), nv, s0, nt)
+             for w, words, st, tk, nv, s0, nt in plan.groups],
+            _t(plan.md_lo), _t(plan.md_hi), plan.block_size, plan.first,
+            plan.total)
+        np.testing.assert_array_equal(
+            expand(dev_plan).numpy().view(v.dtype), v)
 
 
 @pytest.mark.parametrize("name", sorted(BLOCKS))

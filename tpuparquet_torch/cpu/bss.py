@@ -1,0 +1,26 @@
+"""BYTE_STREAM_SPLIT (NumPy): the k bytes of each k-byte value go to k
+separate streams, stream b holding byte b of every value in order.  The
+encoding of the Parquet format for floating-point data (Encodings.md,
+"Byte Stream Split"); both directions are one transpose."""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["decode_byte_stream_split", "encode_byte_stream_split"]
+
+
+def encode_byte_stream_split(values: np.ndarray) -> bytes:
+    v = np.ascontiguousarray(values)
+    k = v.dtype.itemsize
+    return v.view(np.uint8).reshape(-1, k).T.tobytes()
+
+
+def decode_byte_stream_split(data, count: int, dtype) -> np.ndarray:
+    dt = np.dtype(dtype)
+    k = dt.itemsize
+    need = count * k
+    if len(data) < need:
+        raise ValueError("BYTE_STREAM_SPLIT: input too short")
+    streams = np.frombuffer(data, dtype=np.uint8, count=need).reshape(k, count)
+    return np.ascontiguousarray(streams.T).reshape(-1).view(dt)

@@ -8,9 +8,13 @@ Wire format: a stream of runs, each headed by a uvarint ``h``:
 
 Level streams of V1 pages carry a 4-byte LE total-length prefix.  Decode
 parses the run structure once into a run table (:func:`scan_hybrid`,
-the host pass of the device plan) and expands it with vectorized ops
-(:func:`expand_scan`); encode chooses RLE for constant stretches of at
-least 8 values, bit-packing elsewhere.
+the host pass of the device plan) and expands it (:func:`expand_scan`);
+encode (:func:`encode_hybrid`) chooses RLE for constant stretches of at
+least 8 values, bit-packing elsewhere.  Widths up to 32 (levels,
+dictionary indices) scan, expand and encode in C (``csrc/hybrid.c``,
+``csrc/pack.c``), as the JAX package does; the Python scan and the
+vectorised expand below are the plain versions the tests hold the C
+passes to, and take wider values.
 """
 
 from __future__ import annotations
@@ -19,8 +23,8 @@ import struct
 
 import numpy as np
 
-from ..varint import read_uvarint, write_uvarint
-from .bitpack import pack, unpack
+from ..varint import read_uvarint
+from .bitpack import unpack
 
 __all__ = [
     "as_uint32",
@@ -46,7 +50,17 @@ def scan_hybrid(data, count: int, width: int, pos: int = 0):
     Returns ``(run_ends, run_is_rle, run_value, run_bp_start, bp_bytes,
     n_bp_values, end_pos)``: ``run_ends`` is the cumulative output count
     per run, ``bp_bytes`` the concatenated bit-packed segments and
-    ``run_bp_start`` each run's value offset into that stream."""
+    ``run_bp_start`` each run's value offset into that stream.  Widths up
+    to 32 take the C scanner."""
+    if width <= 32:
+        from ..native import hybrid_native
+
+        return hybrid_native().scan(data, count, width, pos)
+    return _scan_hybrid_py(data, count, width, pos)
+
+
+def _scan_hybrid_py(data, count: int, width: int, pos: int = 0):
+    """The run-header scan in Python (widths past 32)."""
     buf = data.tobytes() if isinstance(data, np.ndarray) else bytes(data)
     vbytes = (width + 7) // 8
     vmask = (1 << width) - 1 if width else 0
@@ -99,7 +113,9 @@ def scan_hybrid(data, count: int, width: int, pos: int = 0):
 
 def expand_scan(run_ends, run_is_rle, run_value, run_bp_start, bp_bytes,
                 n_bp: int, count: int, width: int) -> np.ndarray:
-    """Expand a run table to ``count`` u32 values (vectorized)."""
+    """Expand a run table to ``count`` u32 values: one fill or unpack for a
+    single run, one repeat when every run is RLE, else one C pass (widths
+    up to 32) or a vectorised search over the runs."""
     if count == 0 or len(run_ends) == 0:
         return np.zeros(count, dtype=np.uint32)
     if len(run_ends) == 1:
@@ -109,6 +125,13 @@ def expand_scan(run_ends, run_is_rle, run_value, run_bp_start, bp_bytes,
     if run_is_rle.all():
         lens = np.diff(run_ends, prepend=np.int32(0))
         return np.repeat(run_value.astype(np.uint32), lens)[:count]
+    from ..native import pack_native
+
+    out = pack_native().hybrid_expand(
+        (run_ends, run_is_rle, run_value, run_bp_start, bp_bytes, n_bp),
+        count, width)
+    if out is not None:
+        return out
     unpacked = (unpack(bp_bytes, n_bp, width) if n_bp
                 else np.zeros(1, dtype=np.uint32))
     idx = np.arange(count, dtype=np.int64)
@@ -121,55 +144,23 @@ def expand_scan(run_ends, run_is_rle, run_value, run_bp_start, bp_bytes,
                     unpacked[bp_pos]).astype(np.uint32)
 
 
-_MIN_RLE_RUN = 8  # break even vs bit-packing for typical widths
-
-
 def encode_hybrid(values, width: int) -> bytes:
     """Encode values with RLE for constant stretches >= 8, else
-    bit-packing.  Bit-packed runs cover groups of 8 values; the final
-    partial group is padded with zeros (readers stop at the count)."""
-    v = np.asarray(values).astype(np.uint64)
+    bit-packing, in one C pass (``csrc/hybrid.c``), byte for byte the JAX
+    package's stream.  Bit-packed runs cover groups of 8 values; the final
+    partial group is padded with zeros (readers stop at the count).  The
+    streams carry levels and dictionary indices: widths 0..32."""
+    v = np.asarray(values)
+    if not 0 <= width <= 32:
+        raise ValueError(f"hybrid width {width} out of range 0..32")
     if width == 0 or v.size == 0:
         return b""
-    out = bytearray()
-    vbytes = (width + 7) // 8
-    # constant runs via change points; only runs long enough for RLE are
-    # visited in Python (random data has ~n runs)
-    change = np.nonzero(np.diff(v))[0] + 1
-    starts = np.concatenate(([0], change))
-    ends = np.concatenate((change, [v.size]))
-    long_runs = np.nonzero(ends - starts >= _MIN_RLE_RUN)[0]
+    from ..native import hybrid_native
 
-    def emit_bitpacked(lo: int, hi: int) -> None:
-        n = hi - lo
-        if n <= 0:
-            return
-        groups = (n + 7) // 8
-        padded = np.zeros(groups * 8, dtype=np.uint64)
-        padded[:n] = v[lo:hi]
-        write_uvarint(out, (groups << 1) | 1)
-        out.extend(pack(padded, width))
-
-    # bit-packed runs must cover a multiple of 8 values, so the boundary
-    # in front of an RLE run is rounded to the pending-group edge and
-    # the overhang carved off the front of the RLE run
-    pending = 0
-    for ri in long_runs:
-        s = int(starts[ri])
-        e = int(ends[ri])
-        flush_end = s
-        if (flush_end - pending) % 8:
-            flush_end = min(pending + ((s - pending + 7) // 8) * 8, e)
-        emit_bitpacked(pending, flush_end)
-        if e - flush_end >= 1:
-            if width < 64 and int(v[s]) >> width:
-                raise ValueError(
-                    f"value {int(v[s])} does not fit in {width} bits")
-            write_uvarint(out, (e - flush_end) << 1)
-            out.extend(int(v[s]).to_bytes(vbytes, "little"))
-        pending = e
-    emit_bitpacked(pending, v.size)
-    return bytes(out)
+    u = v.astype(np.uint64)  # negatives wrap high and are refused
+    if bool((u >> np.uint64(32)).any()):
+        raise ValueError(f"value {int(u.max())} does not fit in {width} bits")
+    return hybrid_native().encode32(u.astype(np.uint32), width)
 
 
 def encode_hybrid_prefixed(values, width: int) -> bytes:

@@ -1,21 +1,23 @@
-"""Schema DSL, flat subset: ``message m { required|optional <type> x; }``.
+"""Schema DSL, the subset this package reads and writes.
 
-The parquet-mr style text form of a schema, cut to what the flat path
-needs: one message of primitive fields, each ``required`` or
-``optional``, typed ``int32``, ``int64``, ``float``, ``double`` or
-``binary``; a binary field may carry the ``(STRING)`` annotation (written
-as the UTF8 converted type).  Groups, repeated fields, other types and
-annotations raise :class:`NotImplementedError` naming what was found, so
-a schema this package cannot decode is refused at the door rather than
-misread.
+The parquet-mr style text form of a schema: one message of fields, each
+``required``, ``optional`` or ``repeated``; a field is a group (``group
+name [(LIST)] { ... }``) or a primitive typed ``int32``, ``int64``,
+``float``, ``double`` or ``binary``.  A binary field may carry
+``(STRING)`` (written as the UTF8 converted type) and an int64 field
+``(TIMESTAMP(MILLIS|MICROS, true|false))``, which sets the TIMESTAMP
+logical type and its converted type, as the JAX package's parser does.
+Other types, annotations and field ids raise
+:class:`NotImplementedError` naming what was found, so a schema this
+package cannot decode is refused at the door rather than misread.
 """
 
 from __future__ import annotations
 
 import re
 
-from .metadata import ConvertedType, FieldRepetitionType, SchemaElement, \
-    Type
+from .metadata import ConvertedType, FieldRepetitionType, LogicalType, \
+    MicroSeconds, MilliSeconds, SchemaElement, TimestampType, TimeUnit, Type
 
 __all__ = [
     "ColumnDefinition",
@@ -85,12 +87,17 @@ class SchemaDefinition:
 
 
 _TOKEN_RE = re.compile(
-    r"(?P<ws>\s+)|(?P<ident>[A-Za-z_][A-Za-z0-9_]*)|(?P<punct>[{};()])")
+    r"(?P<ws>\s+)|(?P<ident>[A-Za-z_][A-Za-z0-9_]*)|(?P<punct>[{};(),])")
 
 _TYPES = {"int32": Type.INT32, "int64": Type.INT64, "float": Type.FLOAT,
           "double": Type.DOUBLE, "binary": Type.BYTE_ARRAY}
 _REPETITIONS = {"required": FieldRepetitionType.REQUIRED,
-                "optional": FieldRepetitionType.OPTIONAL}
+                "optional": FieldRepetitionType.OPTIONAL,
+                "repeated": FieldRepetitionType.REPEATED}
+_TIME_UNITS = {"MILLIS": (ConvertedType.TIMESTAMP_MILLIS, "MILLIS",
+                          MilliSeconds),
+               "MICROS": (ConvertedType.TIMESTAMP_MICROS, "MICROS",
+                          MicroSeconds)}
 
 
 def _tokenize(text: str) -> list:
@@ -111,8 +118,8 @@ def _tokenize(text: str) -> list:
 
 
 def parse_schema_definition(text: str) -> SchemaDefinition:
-    """Parse the flat DSL subset; raises SchemaParseError with a line
-    number, NotImplementedError for constructs outside the subset."""
+    """Parse the DSL subset; raises SchemaParseError with a line number,
+    NotImplementedError for constructs outside the subset."""
     toks = _tokenize(text)
     i = 0
 
@@ -124,25 +131,76 @@ def parse_schema_definition(text: str) -> SchemaDefinition:
         i += 1
         return tok
 
-    word, line = take("'message'")
-    if word != "message":
-        raise SchemaParseError(f"expected 'message', got {word!r}", line)
-    name, _ = take("message name")
-    root = ColumnDefinition(SchemaElement(name=name))
-    if take("'{'")[0] != "{":
-        raise SchemaParseError("expected '{'", line)
-    while True:
+    def expect(word: str, line):
+        got, line = take(f"{word!r}")
+        if got != word:
+            raise SchemaParseError(f"expected {word!r}, got {got!r}", line)
+        return line
+
+    def timestamp(fname: str, se: SchemaElement, line) -> None:
+        expect("(", line)
+        unit, line = take("time unit")
+        if unit not in _TIME_UNITS:
+            raise NotImplementedError(
+                f"field {fname!r}: TIMESTAMP unit {unit!r} is not supported "
+                "by tpuparquet_torch (MILLIS, MICROS)")
+        sep, line = take("','")
+        if sep != ",":
+            raise SchemaParseError(f"expected ',', got {sep!r}", line)
+        utc, line = take("boolean")
+        if utc not in ("true", "false"):
+            raise SchemaParseError(f"invalid boolean {utc!r} for TIMESTAMP",
+                                   line)
+        expect(")", line)
+        ct, member, cls = _TIME_UNITS[unit]
+        tu = TimeUnit()
+        setattr(tu, member, cls())
+        se.logicalType = LogicalType(TIMESTAMP=TimestampType(
+            isAdjustedToUTC=utc == "true", unit=tu))
+        se.converted_type = ct
+
+    def annotation(fname: str, ptype, se: SchemaElement, line) -> None:
+        ann, line = take("annotation")
+        if ann == "STRING" and ptype == Type.BYTE_ARRAY:
+            se.converted_type = ConvertedType.UTF8
+        elif ann == "TIMESTAMP" and ptype == Type.INT64:
+            timestamp(fname, se, line)
+        else:
+            raise NotImplementedError(
+                f"field {fname!r}: annotation {ann!r} is not supported by "
+                "tpuparquet_torch (STRING on binary, TIMESTAMP on int64)")
+        expect(")", line)
+
+    def field() -> ColumnDefinition:
         word, line = take("field or '}'")
-        if word == "}":
-            break
         rep = _REPETITIONS.get(word)
         if rep is None:
-            if word == "repeated":
-                raise NotImplementedError(
-                    "repeated fields are not supported by tpuparquet_torch")
             raise SchemaParseError(f"invalid field repetition {word!r}",
                                    line)
         tname, line = take("type")
+        if tname == "group":
+            gname, line = take("group name")
+            se = SchemaElement(repetition_type=rep, name=gname)
+            tok, line = take("'{'")
+            if tok == "(":
+                ann, line = take("converted type")
+                if ann != "LIST":
+                    raise NotImplementedError(
+                        f"group {gname!r}: annotation {ann!r} is not "
+                        "supported by tpuparquet_torch (LIST only)")
+                se.converted_type = ConvertedType.LIST
+                expect(")", line)
+                tok, line = take("'{'")
+            if tok != "{":
+                raise SchemaParseError(f"expected '{{', got {tok!r}", line)
+            col = ColumnDefinition(se)
+            while i < len(toks) and toks[i][0] != "}":
+                col.children.append(field())
+            expect("}", line)
+            if not col.children:
+                raise SchemaValidationError(f"group {gname!r} is empty")
+            se.num_children = len(col.children)
+            return col
         ptype = _TYPES.get(tname)
         if ptype is None:
             raise NotImplementedError(
@@ -151,19 +209,22 @@ def parse_schema_definition(text: str) -> SchemaDefinition:
         fname, line = take("field name")
         se = SchemaElement(type=ptype, repetition_type=rep, name=fname)
         end, line = take("';'")
-        if end == "(" and ptype == Type.BYTE_ARRAY:
-            ann, line = take("annotation")
-            if ann != "STRING" or take("')'")[0] != ")":
-                raise NotImplementedError(
-                    f"field {fname!r}: annotation {ann!r} is not supported "
-                    "by tpuparquet_torch (STRING only)")
-            se.converted_type = ConvertedType.UTF8
+        if end == "(":
+            annotation(fname, ptype, se, line)
             end, line = take("';'")
         if end != ";":
             raise NotImplementedError(
-                f"field {fname!r}: annotations and field ids are not "
-                "supported by tpuparquet_torch")
-        root.children.append(ColumnDefinition(se))
+                f"field {fname!r}: field ids are not supported by "
+                "tpuparquet_torch")
+        return ColumnDefinition(se)
+
+    line = expect("message", None)
+    name, _ = take("message name")
+    root = ColumnDefinition(SchemaElement(name=name))
+    expect("{", line)
+    while i < len(toks) and toks[i][0] != "}":
+        root.children.append(field())
+    expect("}", line)
     if i != len(toks):
         raise SchemaParseError(f"trailing content {toks[i][0]!r}",
                                toks[i][1])

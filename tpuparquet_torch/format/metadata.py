@@ -5,9 +5,10 @@ type)`` tuples mirroring ``parquet.thrift`` — and a single generic
 compact-protocol encoder/decoder in this module walks the declarations.
 Unknown fields are skipped on read (forward compatibility), absent
 optional fields are omitted on write.  This copy declares the structs the
-flat int32/int64 read and write path touches; fields it does not declare
-(logical types, page indexes, bloom filters, encryption) are skipped on
-read and never written.
+read and write paths touch, with the logical types of the list and
+timestamp annotations; fields it does not declare (other logical types,
+page indexes, bloom filters, encryption) are skipped on read and never
+written.
 
 Enums carry the exact numeric values from the spec (``parquet.thrift``:
 ``Type`` block at :32, ``ConvertedType`` :48, ``FieldRepetitionType`` :182,
@@ -22,7 +23,9 @@ from .compact import CT, CompactReader, CompactWriter
 
 __all__ = [
     "Type", "ConvertedType", "FieldRepetitionType", "Encoding",
-    "CompressionCodec", "PageType", "Statistics", "SchemaElement",
+    "CompressionCodec", "PageType", "Statistics", "ListType",
+    "MilliSeconds", "MicroSeconds", "NanoSeconds", "TimeUnit",
+    "TimestampType", "LogicalType", "SchemaElement",
     "DataPageHeader", "IndexPageHeader", "DictionaryPageHeader",
     "DataPageHeaderV2", "PageHeader", "KeyValue", "ColumnMetaData",
     "ColumnChunk", "RowGroup", "FileMetaData",
@@ -379,6 +382,46 @@ class Statistics(ThriftStruct):
     ]
 
 
+class ListType(ThriftStruct):
+    FIELDS = []
+
+
+class MilliSeconds(ThriftStruct):
+    FIELDS = []
+
+
+class MicroSeconds(ThriftStruct):
+    FIELDS = []
+
+
+class NanoSeconds(ThriftStruct):
+    FIELDS = []
+
+
+class TimeUnit(ThriftStruct):
+    """Union: exactly one of MILLIS/MICROS/NANOS is set."""
+
+    FIELDS = [
+        (1, "MILLIS", _S(MilliSeconds)),
+        (2, "MICROS", _S(MicroSeconds)),
+        (3, "NANOS", _S(NanoSeconds)),
+    ]
+
+
+class TimestampType(ThriftStruct):
+    FIELDS = [(1, "isAdjustedToUTC", BOOL), (2, "unit", _S(TimeUnit))]
+
+
+class LogicalType(ThriftStruct):
+    """Union (parquet.thrift:322-344), cut to the members this package
+    writes; the others are skipped on read."""
+
+    FIELDS = [
+        (3, "LIST", _S(ListType)),
+        (8, "TIMESTAMP", _S(TimestampType)),
+    ]
+
+
 class SchemaElement(ThriftStruct):
     FIELDS = [
         (1, "type", _TEnum(Type)),
@@ -390,6 +433,7 @@ class SchemaElement(ThriftStruct):
         (7, "scale", I32),
         (8, "precision", I32),
         (9, "field_id", I32),
+        (10, "logicalType", _S(LogicalType)),
     ]
 
 

@@ -1,11 +1,14 @@
 """Column-chunk write: dictionary policy, statistics, pages.
 
-:func:`write_chunk` emits a dictionary page when the dictionary pays
-(the JAX package's policy: at most ``MAX_DICT_ENTRIES - 1`` distinct
-values, and dictionary + packed indices smaller than the PLAIN values),
-then one data page (V1, or V2 with ``data_page_v2=True``), and returns the
-``ColumnChunk`` metadata with sizes including page headers, statistics
-and the encodings list.
+:func:`write_chunk` emits a dictionary page when the column is written
+PLAIN and the dictionary pays (the JAX package's policy: at most
+``MAX_DICT_ENTRIES - 1`` distinct values, and dictionary + packed indices
+smaller than the PLAIN values), then one data page (V1, or V2 with
+``data_page_v2=True``) with the rep and def levels of every slot, and
+returns the ``ColumnChunk`` metadata with sizes including page headers,
+statistics and the encodings list.  A column written with another
+encoding (DELTA_BINARY_PACKED, BYTE_STREAM_SPLIT) skips the dictionary,
+as in the JAX writer.
 """
 
 from __future__ import annotations
@@ -106,17 +109,20 @@ def _statistics(ptype: Type, src, null_count: int, distinct):
     return st
 
 
-def write_chunk(out, node, column, dl: np.ndarray, *, codec,
-                page_crc: bool = True, null_count: int = 0,
+def write_chunk(out, node, column, rep, dl: np.ndarray, *, codec,
+                encoding: Encoding = Encoding.PLAIN, page_crc: bool = True,
+                null_count: int = 0, num_rows: int | None = None,
                 data_page_v2: bool = False) -> ColumnChunk:
-    """Write one flat column chunk at the current position of ``out`` (a
+    """Write one column chunk at the current position of ``out`` (a
     position-tracking binary stream).  ``column`` holds the non-null
     values (an array of the physical dtype, or a
-    :class:`ByteArrayColumn`), ``dl`` the definition level of every
-    slot."""
+    :class:`ByteArrayColumn`), ``rep``/``dl`` the repetition and
+    definition level of every slot (``rep`` None for a flat column),
+    ``num_rows`` the records (default: one per slot)."""
     ptype = Type(node.element.type)
     pos0 = out.tell()
-    dictionary, indices = _maybe_dictionary(column)
+    dictionary, indices = (_maybe_dictionary(column)
+                           if encoding == Encoding.PLAIN else (None, None))
     total_comp = total_uncomp = 0
     dict_page_offset = None
     distinct = None
@@ -133,15 +139,17 @@ def write_chunk(out, node, column, dl: np.ndarray, *, codec,
     page_column = indices if dictionary is not None else column
     if data_page_v2:
         c, u = write_data_page_v2(
-            out, node, page_column, dl, codec, null_count=null_count,
-            dictionary_size=distinct, statistics=stats, page_crc=page_crc)
+            out, node, page_column, rep, dl, codec, null_count=null_count,
+            num_rows=len(dl) if num_rows is None else num_rows,
+            encoding=encoding, dictionary_size=distinct, statistics=stats,
+            page_crc=page_crc)
     else:
         c, u = write_data_page_v1(
-            out, node, page_column, dl, codec, dictionary_size=distinct,
-            statistics=stats, page_crc=page_crc)
+            out, node, page_column, rep, dl, codec, encoding=encoding,
+            dictionary_size=distinct, statistics=stats, page_crc=page_crc)
     total_comp += c
     total_uncomp += u
-    encodings = [Encoding.RLE, Encoding.PLAIN]
+    encodings = [Encoding.RLE, encoding]
     if dictionary is not None:
         encodings.append(Encoding.RLE_DICTIONARY)
     cm = ColumnMetaData(

@@ -1,5 +1,5 @@
-"""Data pages v1 and v2 and the dictionary page: CRC, level split, page
-writers.
+"""Data pages v1 and v2 and the dictionary page: CRC, level split, value
+encoders, page writers.
 
 Layouts:
 
@@ -24,6 +24,8 @@ import zlib
 import numpy as np
 
 from ..compress import compress_block
+from ..cpu.bss import encode_byte_stream_split
+from ..cpu.delta import encode_delta_binary_packed
 from ..cpu.hybrid import as_uint32, encode_hybrid, encode_hybrid_prefixed, \
     scan_hybrid
 from ..cpu.plain import encode_plain
@@ -42,6 +44,8 @@ from ..format.metadata import (
 )
 
 __all__ = [
+    "SUPPORTED_DATA_ENCODINGS",
+    "encode_values",
     "page_crc32",
     "verify_page_crc",
     "scan_levels_v1",
@@ -51,6 +55,19 @@ __all__ = [
     "write_data_page_v2",
     "write_dictionary_page",
 ]
+
+
+# Value encodings a column of each physical type may be written with, cut
+# from the JAX package's table to the types this package writes
+SUPPORTED_DATA_ENCODINGS = {
+    Type.INT32: {Encoding.PLAIN, Encoding.DELTA_BINARY_PACKED,
+                 Encoding.BYTE_STREAM_SPLIT},
+    Type.INT64: {Encoding.PLAIN, Encoding.DELTA_BINARY_PACKED,
+                 Encoding.BYTE_STREAM_SPLIT},
+    Type.FLOAT: {Encoding.PLAIN, Encoding.BYTE_STREAM_SPLIT},
+    Type.DOUBLE: {Encoding.PLAIN, Encoding.BYTE_STREAM_SPLIT},
+    Type.BYTE_ARRAY: {Encoding.PLAIN},
+}
 
 
 def page_crc32(*segments) -> int:
@@ -100,21 +117,24 @@ def scan_levels_v1(raw, n: int, max_level: int, pos: int,
     return sc, pos + 4 + size
 
 
-def scan_levels_v2(payload, h: DataPageHeaderV2, n: int, max_def: int):
-    """Split a flat column's V2 page into its def-level run table and
-    values block.  Returns ``(scan | None, values offset)``; the levels
-    are read from the uncompressed prefix, without a length prefix.
-    Raises ValueError when the header's level lengths overrun the
-    page."""
+def scan_levels_v2(payload, h: DataPageHeaderV2, n: int, max_rep: int,
+                   max_def: int):
+    """Split a V2 page into its level run tables and values block.
+    Returns ``(rep scan | None, def scan | None, values offset)``; the
+    levels are read from the uncompressed prefix (rep first), without a
+    length prefix.  Raises ValueError when the header's level lengths
+    overrun the page."""
     rl_len = h.repetition_levels_byte_length or 0
     dl_len = h.definition_levels_byte_length or 0
     if rl_len < 0 or dl_len < 0 or rl_len + dl_len > len(payload):
         raise ValueError("V2 level lengths exceed page size")
-    sc = None
+    rl = dl = None
+    if max_rep:
+        rl = scan_hybrid(payload[:rl_len], n, int(max_rep).bit_length())
     if max_def:
-        sc = scan_hybrid(payload[rl_len : rl_len + dl_len], n,
+        dl = scan_hybrid(payload[rl_len : rl_len + dl_len], n,
                          int(max_def).bit_length())
-    return sc, rl_len + dl_len
+    return rl, dl, rl_len + dl_len
 
 
 def encode_dict_indices(indices, dict_size: int) -> bytes:
@@ -129,23 +149,42 @@ def _header_bytes(ph: PageHeader) -> bytes:
     return w.getvalue()
 
 
-def write_data_page_v1(out, node, column, dl, codec, *,
-                       dictionary_size=None, statistics=None,
-                       page_crc=True) -> tuple[int, int]:
-    """Append a V1 data page of a flat column; returns (compressed,
-    uncompressed) sizes including the header bytes.  ``column`` holds
-    the non-null values, or their dictionary indices when
-    ``dictionary_size`` is given."""
+def encode_values(ptype: Type, encoding: Encoding, column) -> bytes:
+    """Non-dictionary value encode of a page's non-null values."""
+    if encoding == Encoding.PLAIN:
+        return encode_plain(ptype, column)
+    if encoding == Encoding.DELTA_BINARY_PACKED:
+        return encode_delta_binary_packed(column, is32=(ptype == Type.INT32))
+    if encoding == Encoding.BYTE_STREAM_SPLIT:
+        return encode_byte_stream_split(np.asarray(column))
+    raise ValueError(f"unsupported value encoding {encoding!r}")
+
+
+def _page_values(node, column, encoding, dictionary_size):
+    """(encoded values, page encoding)."""
+    if dictionary_size is not None:
+        return (encode_dict_indices(column, dictionary_size),
+                Encoding.RLE_DICTIONARY)
+    return encode_values(Type(node.element.type), encoding, column), encoding
+
+
+def write_data_page_v1(out, node, column, rep, dl, codec, *,
+                       encoding=Encoding.PLAIN, dictionary_size=None,
+                       statistics=None, page_crc=True) -> tuple[int, int]:
+    """Append a V1 data page; returns (compressed, uncompressed) sizes
+    including the header bytes.  ``column`` holds the non-null values
+    (encoded with ``encoding``), or their dictionary indices when
+    ``dictionary_size`` is given; ``rep``/``dl`` the levels of every slot
+    (``rep`` is read only for a repeated column)."""
     body = bytearray()
+    if node.max_rep_level:
+        body += encode_hybrid_prefixed(as_uint32(rep),
+                                       int(node.max_rep_level).bit_length())
     if node.max_def_level:
         body += encode_hybrid_prefixed(as_uint32(dl),
                                        int(node.max_def_level).bit_length())
-    if dictionary_size is not None:
-        body += encode_dict_indices(column, dictionary_size)
-        enc = Encoding.RLE_DICTIONARY
-    else:
-        body += encode_plain(Type(node.element.type), column)
-        enc = Encoding.PLAIN
+    values_b, enc = _page_values(node, column, encoding, dictionary_size)
+    body += values_b
     comp = compress_block(codec, bytes(body))
     ph = PageHeader(
         type=PageType.DATA_PAGE,
@@ -166,42 +205,41 @@ def write_data_page_v1(out, node, column, dl, codec, *,
     return len(hdr) + len(comp), len(hdr) + len(body)
 
 
-def write_data_page_v2(out, node, column, dl, codec, *, null_count: int,
+def write_data_page_v2(out, node, column, rep, dl, codec, *, null_count: int,
+                       num_rows: int, encoding=Encoding.PLAIN,
                        dictionary_size=None, statistics=None,
                        page_crc=True) -> tuple[int, int]:
-    """Append a V2 data page of a flat column (arguments as
-    :func:`write_data_page_v1`); the CRC covers the level bytes and the
-    compressed values as they appear in the file."""
+    """Append a V2 data page (arguments as :func:`write_data_page_v1`;
+    ``num_rows`` counts records, not level slots); the CRC covers the
+    level bytes and the compressed values as they appear in the file."""
+    rl_b = (encode_hybrid(as_uint32(rep), int(node.max_rep_level).bit_length())
+            if node.max_rep_level else b"")
     dl_b = (encode_hybrid(as_uint32(dl), int(node.max_def_level).bit_length())
             if node.max_def_level else b"")
-    if dictionary_size is not None:
-        values_b = encode_dict_indices(column, dictionary_size)
-        enc = Encoding.RLE_DICTIONARY
-    else:
-        values_b = encode_plain(Type(node.element.type), column)
-        enc = Encoding.PLAIN
+    values_b, enc = _page_values(node, column, encoding, dictionary_size)
     comp = compress_block(codec, values_b)
     ph = PageHeader(
         type=PageType.DATA_PAGE_V2,
-        uncompressed_page_size=len(dl_b) + len(values_b),
-        compressed_page_size=len(dl_b) + len(comp),
-        crc=page_crc32(dl_b, comp) if page_crc else None,
+        uncompressed_page_size=len(rl_b) + len(dl_b) + len(values_b),
+        compressed_page_size=len(rl_b) + len(dl_b) + len(comp),
+        crc=page_crc32(rl_b, dl_b, comp) if page_crc else None,
         data_page_header_v2=DataPageHeaderV2(
             num_values=len(dl),
             num_nulls=null_count,
-            num_rows=len(dl),
+            num_rows=num_rows,
             encoding=enc,
             definition_levels_byte_length=len(dl_b),
-            repetition_levels_byte_length=0,
+            repetition_levels_byte_length=len(rl_b),
             is_compressed=codec != CompressionCodec.UNCOMPRESSED,
             statistics=statistics,
         ),
     )
     hdr = _header_bytes(ph)
     out.write(hdr)
+    out.write(rl_b)
     out.write(dl_b)
     out.write(comp)
-    return (len(hdr) + len(dl_b) + len(comp),
+    return (len(hdr) + ph.compressed_page_size,
             len(hdr) + ph.uncompressed_page_size)
 
 

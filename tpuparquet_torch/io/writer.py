@@ -1,24 +1,30 @@
-"""FileWriter: the columnar write path for flat schemas of int32, int64,
-float, double and binary columns.
+"""FileWriter: the columnar write path for int32, int64, float, double
+and binary columns, flat or in a LIST (one repeated level).
 
 ``write_columns`` takes whole columns (non-null values only: arrays, or
 :class:`~tpuparquet_torch.cpu.plain.ByteArrayColumn` for binary leaves)
-plus validity masks for optional columns and writes one row group: one
-column chunk per leaf, each a dictionary page when it pays and one data
-page (V1, or V2 with ``data_page_v2=True``), SNAPPY or UNCOMPRESSED, with
-statistics and page CRCs — the JAX package writer's policy for these
-columns.
+plus validity masks for optional columns, and for a LIST column its row
+offsets and null-row and null-element masks, and writes one row group:
+one column chunk per leaf, each a dictionary page when it is written
+PLAIN and the dictionary pays, and one data page (V1, or V2 with
+``data_page_v2=True``), SNAPPY or UNCOMPRESSED, with statistics and page
+CRCs — the JAX package writer's policy for these columns.
+``column_encodings`` writes a column DELTA_BINARY_PACKED or
+BYTE_STREAM_SPLIT instead of PLAIN.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..cpu.levels import list_levels
 from ..cpu.plain import PHYSICAL_DTYPES, ByteArrayColumn
 from ..format.footer import MAGIC, write_footer
-from ..format.metadata import CompressionCodec, FileMetaData, RowGroup, Type
+from ..format.metadata import CompressionCodec, Encoding, FileMetaData, \
+    RowGroup, Type
 from ..format.schema import Schema
 from .chunk import write_chunk
+from .pages import SUPPORTED_DATA_ENCODINGS
 
 __all__ = ["FileWriter"]
 
@@ -49,21 +55,37 @@ class FileWriter:
     """Streaming Parquet writer over a binary file object.
 
     ``schema`` is a :class:`Schema` or a DSL string
-    (``message m { required int64 a; optional int32 b; }``).  Use as a
-    context manager or call :meth:`close`."""
+    (``message m { required int64 a; optional int32 b; }``);
+    ``column_encodings`` maps a leaf's dotted name to its value encoding
+    (default PLAIN).  Use as a context manager or call :meth:`close`."""
 
     def __init__(self, f, schema, *,
                  codec: CompressionCodec = CompressionCodec.UNCOMPRESSED,
-                 page_crc: bool = True, data_page_v2: bool = False):
+                 page_crc: bool = True, data_page_v2: bool = False,
+                 column_encodings: dict | None = None):
         self._f = f
         self._pos = 0
         self.schema = (schema if isinstance(schema, Schema)
                        else Schema.from_string(schema))
+        tops = [leaf.path[0] for leaf in self.schema.leaves]
         for leaf in self.schema.leaves:
-            if leaf.max_rep_level or len(leaf.path) != 1:
+            if len(leaf.path) != 1 and not leaf.max_rep_level:
                 raise NotImplementedError(
-                    f"column {leaf.flat_name!r}: only flat columns are "
-                    "supported by tpuparquet_torch")
+                    f"column {leaf.flat_name!r}: nested struct columns are "
+                    "not supported by tpuparquet_torch")
+            if leaf.max_rep_level and tops.count(leaf.path[0]) > 1:
+                raise NotImplementedError(
+                    f"column {leaf.flat_name!r}: repeated groups of several "
+                    "leaves are not supported by tpuparquet_torch")
+        self.column_encodings = {k: Encoding(v) for k, v in
+                                 (column_encodings or {}).items()}
+        for path, enc in self.column_encodings.items():
+            leaf = self.schema.leaf(path)
+            if leaf is None:
+                raise ValueError(f"no such column {path!r}")
+            if enc not in SUPPORTED_DATA_ENCODINGS[Type(leaf.type)]:
+                raise ValueError(f"encoding {enc.name} not allowed for "
+                                 f"column {path!r} ({leaf.type.name})")
         self.codec = CompressionCodec(codec)
         self.page_crc = page_crc
         self.data_page_v2 = data_page_v2
@@ -79,49 +101,77 @@ class FileWriter:
     def tell(self) -> int:
         return self._pos
 
-    def write_columns(self, columns: dict, *, masks: dict | None = None):
+    def write_columns(self, columns: dict, *, masks: dict | None = None,
+                      offsets: dict | None = None,
+                      element_masks: dict | None = None):
         """Write one row group.  ``columns`` maps leaf name -> the
         column's **non-null** values (an integer or float array, or a
         ByteArrayColumn for a binary leaf); ``masks`` maps an optional
-        leaf's name -> bool validity per row."""
+        leaf's name -> bool validity per row.
+
+        A LIST column is keyed by its top-level field name: ``columns``
+        holds its non-null elements, ``offsets`` the ``n_rows + 1`` slot
+        ranges of its rows, ``masks`` its null rows (whose ranges must be
+        empty) and ``element_masks`` its valid element slots; the levels
+        are derived as the JAX writer derives them
+        (:func:`~tpuparquet_torch.cpu.levels.list_levels`)."""
         if self._closed:
             raise ValueError("writer is closed")
         masks = masks or {}
         prepared = []
         n_rows = None
         for leaf in self.schema.leaves:
-            if leaf.name not in columns:
-                raise ValueError(f"missing column {leaf.name!r}")
-            vals = _column_values(leaf, columns[leaf.name])
-            mask = masks.get(leaf.name)
-            if mask is not None:
-                if leaf.max_def_level == 0:
-                    raise ValueError(
-                        f"column {leaf.name!r} is required; a validity "
-                        "mask is not allowed")
-                mask = np.asarray(mask, dtype=bool)
-                rows = mask.size
-                if int(mask.sum()) != len(vals):
-                    raise ValueError(
-                        f"column {leaf.name!r}: {len(vals)} values vs "
-                        f"{int(mask.sum())} valid mask entries")
-                dl = mask.astype(np.int32) * leaf.max_def_level
+            rep = None
+            if leaf.max_rep_level:
+                key = leaf.path[0]
+                if key not in columns:
+                    raise ValueError(f"missing column {key!r}")
+                if offsets is None or key not in offsets:
+                    raise ValueError(f"repeated column {key!r} needs "
+                                     "offsets= (row -> element ranges)")
+                rep, dl, rows, n_vals = list_levels(
+                    leaf, offsets[key], masks.get(key),
+                    (element_masks or {}).get(key))
+                vals = _column_values(leaf, columns[key])
+                if len(vals) != n_vals:
+                    raise ValueError(f"column {key!r}: {len(vals)} values vs "
+                                     f"{n_vals} non-null elements")
             else:
-                rows = len(vals)
-                dl = np.full(rows, leaf.max_def_level, dtype=np.int32)
+                if leaf.name not in columns:
+                    raise ValueError(f"missing column {leaf.name!r}")
+                vals = _column_values(leaf, columns[leaf.name])
+                mask = masks.get(leaf.name)
+                if mask is not None:
+                    if leaf.max_def_level == 0:
+                        raise ValueError(
+                            f"column {leaf.name!r} is required; a validity "
+                            "mask is not allowed")
+                    mask = np.asarray(mask, dtype=bool)
+                    rows = mask.size
+                    if int(mask.sum()) != len(vals):
+                        raise ValueError(
+                            f"column {leaf.name!r}: {len(vals)} values vs "
+                            f"{int(mask.sum())} valid mask entries")
+                    dl = mask.astype(np.int32) * leaf.max_def_level
+                else:
+                    rows = len(vals)
+                    dl = np.full(rows, leaf.max_def_level, dtype=np.int32)
             if n_rows is None:
                 n_rows = rows
             elif n_rows != rows:
                 raise ValueError("column row counts differ")
-            prepared.append((leaf, vals, dl, rows - len(vals)))
+            prepared.append((leaf, vals, rep, dl, dl.size - len(vals)))
         if self._pos == 0:
             self.write(MAGIC)
         chunks = []
         total_bytes = total_comp = 0
-        for leaf, vals, dl, nulls in prepared:
-            cc = write_chunk(self, leaf, vals, dl, codec=self.codec,
-                             page_crc=self.page_crc, null_count=nulls,
-                             data_page_v2=self.data_page_v2)
+        for leaf, vals, rep, dl, nulls in prepared:
+            cc = write_chunk(
+                self, leaf, vals, rep, dl, codec=self.codec,
+                encoding=self.column_encodings.get(leaf.flat_name,
+                                                   Encoding.PLAIN),
+                page_crc=self.page_crc, null_count=nulls, num_rows=n_rows,
+                data_page_v2=self.data_page_v2)
             total_bytes += cc.meta_data.total_uncompressed_size
             total_comp += cc.meta_data.total_compressed_size
             chunks.append(cc)

@@ -37,6 +37,8 @@ KERNELS = {
                       _L, _P, _P],
     "dict_bytes": [_P, _L, _P, _L, _P, _I, _L, _L, _P, _P, _P, _P, _L, _P],
     "bytes_from_blob": [_P, _L, _P, _L, _I, _P, _L, _P],
+    "delta_scatter": [_P, _P, _P, _P, _L, _L, _P, _P, _L, _P],
+    "bss_to_lanes": [_P, _L, _I, _I, _P, _P],
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,7 +1,9 @@
 """Device value decode: PLAIN staging, dictionary pages (K3 fixed-width,
 K9 BYTE_ARRAY), validity (K4), the PLAIN wire transports' rebuilds: byte
-planes (K5) and delta lanes (K7, after K1 or K6), and BYTE_ARRAY values
-gathered out of a device-snappy page (K10).
+planes (K5) and delta lanes (K7, after K1 or K6), BYTE_ARRAY values
+gathered out of a device-snappy page (K10), DELTA_BINARY_PACKED pages
+(K1 or K6, K11 places scattered width classes, K7) and BYTE_STREAM_SPLIT
+pages (K12).
 
 Hosts stage padded, fixed-shape buffers (page words, run tables); the
 device expands them.  Output sizes are padded to power-of-two buckets
@@ -16,10 +18,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..cpu.delta import scan_delta_structure
+from ..native import delta_native
 from ._lib import check_tensor, i64_to_lanes, i64_to_u32_bits, \
     lanes_to_i64, launch, stream_of, u32_to_i64
-from .bitunpack import _check_words, unpack_u32, unpack_u32_plain, \
-    unpack_u64
+from .bitunpack import _check_words, pad_to_words, unpack_u32, \
+    unpack_u32_plain, unpack_u64
 from .hybrid import _check_table, expand_hybrid, expand_hybrid_plain
 
 __all__ = [
@@ -32,6 +36,9 @@ __all__ = [
     "planes_to_words", "planes_to_words_plain",
     "DeltaPlan", "delta_scan", "delta_scan_plain",
     "expand_delta_i32", "expand_delta_i64",
+    "plan_delta_i32", "plan_delta_i64",
+    "scatter_deltas", "scatter_deltas_plain",
+    "bss_to_lanes", "bss_to_lanes_plain",
     "u8_to_u32_words_at",
 ]
 
@@ -567,31 +574,139 @@ def delta_scan(dlo: torch.Tensor, dhi, md_lo: torch.Tensor, md_hi,
 delta_scan.launches = 0
 
 
+# ----------------------------------------------------------------------
+# DELTA_BINARY_PACKED pages: host plan, K11 placement
+# ----------------------------------------------------------------------
+
+def _plan_delta(data, pos: int, max_width: int) -> DeltaPlan:
+    """Parse a DELTA_BINARY_PACKED stream's headers and group its
+    miniblock payloads by bit width, so the device unpacks each width
+    class in one call — the JAX package's ``_plan_delta``, rule for rule.
+    ``max_width`` is the column's physical width (a wider miniblock is
+    malformed).  A width class whose miniblocks land back to back is
+    contiguous (``starts``/``takes`` None; its deltas fill ``[start,
+    start + n_take)``); otherwise it ships per-miniblock int32 starts and
+    take counts, from which K11 places it."""
+    st = scan_delta_structure(data, pos, max_width=max_width)
+    mb_size = st.mb_size
+    buf = (data if isinstance(data, np.ndarray)
+           else np.frombuffer(data, dtype=np.uint8))
+    md_u = np.asarray(st.md_blocks, dtype=np.int64).view(np.uint64)
+    md_lo = (md_u & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    md_hi = (md_u >> np.uint64(32)).astype(np.uint32)
+    groups = []
+    for w, src_contig, p_w, s_w, t_w, dst_contig in st.grouped():
+        nbytes = mb_size * w // 8
+        k = len(p_w)
+        if src_contig:
+            packed = buf[p_w[0] : p_w[0] + nbytes * k]
+        else:
+            packed = delta_native().gather_segments(buf, p_w, nbytes)
+        n_vals = mb_size * k
+        words = pad_to_words(packed, w, n_vals).reshape(-1)
+        if dst_contig:  # only the globally-last miniblock can be partial
+            groups.append((w, words, None, None, n_vals, int(s_w[0]),
+                           int(t_w.sum())))
+        else:
+            groups.append((w, words, s_w.astype(np.int32),
+                           t_w.astype(np.int32), n_vals, 0, 0))
+    return DeltaPlan(groups, md_lo, md_hi, st.block_size, st.first, st.total)
+
+
+def plan_delta_i32(data, pos: int = 0) -> DeltaPlan:
+    """Plan of an int32 DELTA_BINARY_PACKED stream (widths 0..32)."""
+    return _plan_delta(data, pos, 32)
+
+
+def plan_delta_i64(data, pos: int = 0) -> DeltaPlan:
+    """Plan of an int64 DELTA_BINARY_PACKED stream (widths 0..64)."""
+    return _plan_delta(data, pos, 64)
+
+
+def scatter_deltas_plain(lo, hi, starts, takes, n_vals: int, dlo, dhi,
+                         out_len: int) -> None:
+    """Plain PyTorch version of K11 (in place)."""
+    k = starts.numel()
+    mb = n_vals // max(k, 1)
+    lane = torch.arange(mb, dtype=torch.int64, device=lo.device)[None, :]
+    pos = starts.to(torch.int64)[:, None] + lane
+    keep = ((lane < takes.to(torch.int64)[:, None]) & (pos >= 0)
+            & (pos < out_len)).reshape(-1)
+    pos = pos.reshape(-1)[keep]
+    dlo.index_put_((pos,), lo[: k * mb][keep])
+    if dhi is not None:
+        dhi.index_put_((pos,), hi[: k * mb][keep])
+
+
+def scatter_deltas(lo: torch.Tensor, hi, starts: torch.Tensor,
+                   takes: torch.Tensor, n_vals: int, dlo: torch.Tensor, dhi,
+                   out_len: int) -> None:
+    """Place one scattered width class of a delta stream, in place: its
+    ``k`` miniblocks of ``mb = n_vals // k`` unpacked lanes (``lo``, and
+    ``hi`` for int64, u32 bits in int32 tensors), lane ``j`` of miniblock
+    ``m`` at ``starts[m] + j`` of ``dlo`` (and ``dhi``) for ``j <
+    takes[m]``; a target outside ``[0, out_len)`` is dropped, as the
+    reference's ``.at[].set(mode="drop")`` drops it (``_scatter_grid``).
+    CUDA tensors launch K11; CPU tensors take the plain version."""
+    wide = hi is not None
+    if wide != (dhi is not None):
+        raise ValueError("hi and dhi go together")
+    k = starts.numel()
+    mb = n_vals // max(k, 1)
+    if takes.numel() != k or lo.numel() < k * mb \
+            or (wide and hi.numel() < k * mb) \
+            or not 0 <= out_len <= dlo.numel() \
+            or (wide and dhi.numel() < out_len):
+        raise ValueError(f"{k} miniblocks of {mb} lanes do not fit their "
+                         "buffers")
+    dev = lo.device
+    if dev.type == "cpu":
+        scatter_deltas_plain(lo, hi, starts, takes, n_vals, dlo, dhi, out_len)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    for name, t in (("lo", lo), ("starts", starts), ("takes", takes),
+                    ("dlo", dlo)) + ((("hi", hi), ("dhi", dhi)) if wide
+                                     else ()):
+        check_tensor(t, name, torch.int32, dev)
+    launch("delta_scatter", lo.data_ptr(), hi.data_ptr() if wide else None,
+           starts.data_ptr(), takes.data_ptr(), k, mb, dlo.data_ptr(),
+           dhi.data_ptr() if wide else None, out_len, stream_of(dlo))
+    scatter_deltas.launches += 1
+
+
+scatter_deltas.launches = 0
+
+
 def _placed_deltas(plan: DeltaPlan, n_deltas: int, wide: bool):
-    """Unpack each width class (K1, or K6 above width 32) into its
-    contiguous slice of the zero-initialised delta stream."""
+    """Unpack each width class (K1, or K6 above width 32 and for int64)
+    into the zero-initialised delta stream: a contiguous class into its
+    slice, a scattered one by K11.  The int32 stream holds ``max(n_deltas,
+    1)`` deltas, as the reference's, and K11 drops past that length; the
+    int64 stream holds ``n_deltas``."""
     dev = plan.md_lo.device
-    dlo = torch.zeros(n_deltas, dtype=torch.int32, device=dev)
-    dhi = torch.zeros(n_deltas, dtype=torch.int32, device=dev) \
+    out_len = n_deltas if wide else max(n_deltas, 1)
+    dlo = torch.zeros(out_len, dtype=torch.int32, device=dev)
+    dhi = torch.zeros(out_len, dtype=torch.int32, device=dev) \
         if wide else None
-    for w, words, starts, _takes, n_vals, start, n_take in plan.groups:
-        if starts is not None:
-            raise NotImplementedError(
-                "scattered delta groups (DELTA_BINARY_PACKED pages) are not "
-                "supported by tpuparquet_torch yet")
+    for w, words, starts, takes, n_vals, start, n_take in plan.groups:
         if wide:
             lo, hi = unpack_u64(words, w, n_vals)
-            dhi[start : start + n_take] = hi[:n_take]
         else:
-            lo = unpack_u32(words, w, n_vals)
+            lo, hi = unpack_u32(words, w, n_vals), None
+        if starts is not None:
+            scatter_deltas(lo, hi, starts, takes, n_vals, dlo, dhi, out_len)
+            continue
+        if wide:
+            dhi[start : start + n_take] = hi[:n_take]
         dlo[start : start + n_take] = lo[:n_take]
     return dlo, dhi
 
 
 def expand_delta_i32(plan: DeltaPlan) -> torch.Tensor:
     """Rebuild ``plan.total`` int32 values as ``(total,)`` u32 (an int32
-    tensor): unpack each width class (K1), place it, add min_delta and
-    scan mod 2^32 (K7).  ``md_hi`` is not read."""
+    tensor): unpack each width class (K1), place it (K11 when scattered),
+    add min_delta and scan mod 2^32 (K7).  ``md_hi`` is not read."""
     if plan.total == 0:
         return torch.zeros(0, dtype=torch.int32, device=plan.md_lo.device)
     dlo, _ = _placed_deltas(plan, plan.total - 1, False)
@@ -602,10 +717,51 @@ def expand_delta_i32(plan: DeltaPlan) -> torch.Tensor:
 def expand_delta_i64(plan: DeltaPlan) -> torch.Tensor:
     """Rebuild ``plan.total`` int64 values as flat ``(2 * total,)``
     interleaved (lo, hi) u32 — the DeviceColumn INT64 layout: unpack each
-    width class (K1 or K6), place it, add min_delta and scan mod 2^64
-    (K7)."""
+    width class (K1 or K6), place it (K11 when scattered), add min_delta
+    and scan mod 2^64 (K7)."""
     if plan.total == 0:
         return torch.zeros(0, dtype=torch.int32, device=plan.md_lo.device)
     dlo, dhi = _placed_deltas(plan, plan.total - 1, True)
     return delta_scan(dlo, dhi, plan.md_lo, plan.md_hi, plan.block_size,
                       plan.first, plan.total)
+
+
+# ----------------------------------------------------------------------
+# K12: BYTE_STREAM_SPLIT pages
+# ----------------------------------------------------------------------
+
+def bss_to_lanes_plain(raw, count: int, k: int, lanes: int) -> torch.Tensor:
+    """Plain PyTorch version of K12: the reference's transpose."""
+    rows = raw[: k * count].reshape(k, count).t().to(torch.int64)
+    if k != 4 * lanes:
+        rows = torch.nn.functional.pad(rows, (0, 4 * lanes - k))
+    b = rows.reshape(count, lanes, 4)
+    return i64_to_u32_bits((b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16)
+                            | (b[..., 3] << 24)).reshape(-1))
+
+
+def bss_to_lanes(raw: torch.Tensor, count: int, k: int,
+                 lanes: int) -> torch.Tensor:
+    """BYTE_STREAM_SPLIT decode: ``k`` byte streams of ``count`` bytes
+    (the first ``k * count`` bytes of the u8 tensor ``raw``) -> flat
+    ``(count * lanes,)`` little-endian u32 lane words (an int32 tensor);
+    word ``i * lanes + l`` holds bytes ``raw[(4l + b) * count + i]`` for
+    ``b < 4``, zero where ``4l + b >= k``.  CUDA tensors launch K12; CPU
+    tensors take the plain version."""
+    if not 0 < k <= 4 * lanes or count < 0 or raw.numel() < k * count:
+        raise ValueError(f"{k} streams of {count} bytes do not fit "
+                         f"{raw.numel()} bytes and {lanes} lanes")
+    dev = raw.device
+    if dev.type == "cpu":
+        return bss_to_lanes_plain(raw, count, k, lanes)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    check_tensor(raw, "raw", torch.uint8, dev)
+    out = torch.empty(count * lanes, dtype=torch.int32, device=dev)
+    launch("bss_to_lanes", raw.data_ptr(), count, k, lanes, out.data_ptr(),
+           stream_of(out))
+    bss_to_lanes.launches += 1
+    return out
+
+
+bss_to_lanes.launches = 0

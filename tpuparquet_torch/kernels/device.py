@@ -1,20 +1,24 @@
 """Device decode orchestration: column chunks -> device-resident columns.
 
-The port of ``tpuparquet/kernels/device.py``'s read path for flat
-columns: the host walks page headers, verifies CRCs, decompresses pages
-and builds run-table plans (:func:`plan_chunk_device`); one pinned host
+The port of ``tpuparquet/kernels/device.py``'s read path: the host walks
+page headers, verifies CRCs, decompresses pages and builds run-table
+plans (:func:`plan_chunk_device`); one pinned host
 slab per row group carries every column's plans and page words to the
 device in one non-blocking copy (:func:`_put_all`); the deferred
 per-page ops launch the kernels and the row group ends in one fence
 (:func:`_finish_row_group`).  The result is a :class:`DeviceColumn` per
 column, in the JAX package's buffer layout — flat 1-D u32 lanes, or u8
 bytes with int32 offsets for BYTE_ARRAY, bucket-padded, same logical
-lengths — so the two compare buffer for buffer.
+lengths, rep and def levels — so the two compare buffer for buffer.
 
 Covered: data pages v1 and v2 (levels outside compression, the
-``num_nulls`` cross-check); UNCOMPRESSED and SNAPPY; required and
-optional flat INT32, INT64, FLOAT, DOUBLE and BYTE_ARRAY columns; PLAIN
-and PLAIN_DICTIONARY/RLE_DICTIONARY; page CRCs.  Fixed-width PLAIN pages
+``num_nulls`` cross-check); UNCOMPRESSED and SNAPPY; required, optional
+and repeated INT32, INT64, FLOAT, DOUBLE and BYTE_ARRAY columns (rep
+levels in both page versions, any ``max_rep_level``); PLAIN and
+PLAIN_DICTIONARY/RLE_DICTIONARY; DELTA_BINARY_PACKED on INT32 and INT64
+(K1 or K6 per width class, K11 placing scattered classes, K7);
+BYTE_STREAM_SPLIT on INT32, INT64, FLOAT and DOUBLE (K12); page CRCs.
+Fixed-width PLAIN pages
 take the JAX package's three wire transports under its switches and
 defaults, read per plan: byte planes (``TPQ_DEVICE_PLANES``, K5), delta
 lanes (``TPQ_DEVICE_DELTA``, integers only: K1/K6 then K7) and snappy
@@ -24,8 +28,8 @@ decompressed words.  BYTE_ARRAY dictionary pages decode with K9; a
 snappy PLAIN BYTE_ARRAY page whose token tables fit the reference's
 budget ships them instead of its bytes, and K10 gathers the values out
 of K8's expansion; other PLAIN BYTE_ARRAY pages ship their value bytes.
-Anything else (repeated columns, other types and encodings, other
-codecs) raises NotImplementedError.
+Anything else (BOOLEAN, INT96 and FIXED_LEN_BYTE_ARRAY, the other
+encodings, other codecs) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from ..stats import current_stats
 from .bitunpack import pad_to_words
 from .decode import (
     DeltaPlan,
+    bss_to_lanes,
     bucket,
     expand_delta_i32,
     expand_delta_i64,
@@ -59,6 +64,8 @@ from .decode import (
     page_plain_fixed_levels_tbl,
     plain_bytes_from_blob,
     plain_fixed_to_lanes,
+    plan_delta_i32,
+    plan_delta_i64,
     planes_to_words,
     stage_u32,
 )
@@ -85,22 +92,24 @@ class DeviceColumn:
     with ``offsets`` (int32, ``n_packed + 1`` entries, as the reference
     holds them on a device without 64-bit integers) and ``n_bytes``;
     ``mask``/``positions`` map record slots to packed values;
-    ``def_levels`` keep the nulls.  Buffers are stored bucket-padded (the
+    ``rep_levels``/``def_levels`` keep the nesting and the nulls.  Buffers are stored bucket-padded (the
     shape the page kernels emit) with logical lengths ``num_values``
     (record slots) and ``n_packed`` (non-null values); the accessors slice
     lazily and materialise implicit streams (all-zero levels, all-valid
     masks) on demand."""
 
     __slots__ = ("ptype", "num_values", "n_packed", "offsets", "n_bytes",
-                 "_data_p", "_mask_p", "_pos_p", "_def_p", "_cache")
+                 "_data_p", "_mask_p", "_pos_p", "_rep_p", "_def_p",
+                 "_cache")
 
     def __init__(self, ptype, data, mask, positions, def_levels,
                  num_values: int, n_packed: int, offsets=None,
-                 n_bytes: int | None = None):
+                 n_bytes: int | None = None, rep_levels=None):
         self.ptype = Type(ptype)
         self._data_p = data
         self._mask_p = mask
         self._pos_p = positions
+        self._rep_p = rep_levels
         self._def_p = def_levels
         self.num_values = num_values
         self.n_packed = n_packed
@@ -147,7 +156,7 @@ class DeviceColumn:
     @property
     def rep_levels(self):
         return self._sliced(
-            "rep", None, self.num_values,
+            "rep", self._rep_p, self.num_values,
             lambda: torch.zeros(self.num_values, dtype=torch.int32,
                                 device=self.device))
 
@@ -170,6 +179,7 @@ class DeviceColumn:
         out = {}
         for name, t in (("data", self._data_p), ("offsets", self.offsets),
                         ("mask", self._mask_p), ("positions", self._pos_p),
+                        ("rep_levels", self._rep_p),
                         ("def_levels", self._def_p)):
             if t is not None:
                 a = t.cpu().numpy()
@@ -186,15 +196,16 @@ class DeviceColumn:
             n = max(limit, 0)
             nn = n if self._mask_p is None \
                 else int(self._mask_p[:n].sum().item())
-        dl = (np.zeros(n, dtype=np.int32) if self._def_p is None
-              else self._def_p[:n].cpu().numpy())
+        rl, dl = [np.zeros(n, dtype=np.int32) if t is None
+                  else t[:n].cpu().numpy()
+                  for t in (self._rep_p, self._def_p)]
         if self.offsets is not None:
             offs = self.offsets[: nn + 1].cpu().numpy().astype(np.int64)
             data = self._data_p[: int(offs[-1])].cpu().numpy()
-            return ByteArrayColumn(offs, data), np.zeros(n, np.int32), dl
+            return ByteArrayColumn(offs, data), rl, dl
         flat = self._data_p[: nn * self.lanes].cpu().numpy()
         vals = flat.view(_NP_DTYPES[self.ptype])
-        return vals, np.zeros(n, dtype=np.int32), dl
+        return vals, rl, dl
 
 
 def device_column_from_jax_numpy(col_np: dict,
@@ -203,9 +214,10 @@ def device_column_from_jax_numpy(col_np: dict,
 
     ``col_np`` maps ``ptype``, ``num_values``, ``n_packed`` and the
     padded buffers ``data`` (u32, or u8 for BYTE_ARRAY), ``mask``,
-    ``positions``, ``def_levels`` (None where the JAX column holds none)
-    — the JAX column's ``_data_p``/``_mask_p``/``_pos_p``/``_def_p`` as
-    numpy — and, for BYTE_ARRAY, ``offsets`` and ``n_bytes``."""
+    ``positions``, ``rep_levels``, ``def_levels`` (None, or absent, where
+    the JAX column holds none) — the JAX column's ``_data_p``/``_mask_p``/
+    ``_pos_p``/``_rep_p``/``_def_p`` as numpy — and, for BYTE_ARRAY,
+    ``offsets`` and ``n_bytes``."""
     def t(a, dtype):
         if a is None:
             return None
@@ -224,7 +236,8 @@ def device_column_from_jax_numpy(col_np: dict,
         t(col_np.get("def_levels"), torch.int32),
         int(col_np["num_values"]), int(col_np["n_packed"]),
         offsets=t(offsets, torch.int32),
-        n_bytes=None if n_bytes is None else int(n_bytes))
+        n_bytes=None if n_bytes is None else int(n_bytes),
+        rep_levels=t(col_np.get("rep_levels"), torch.int32))
 
 
 # ----------------------------------------------------------------------
@@ -468,22 +481,38 @@ def _plan_delta_lane_words(seg, count: int, ptype: Type):
 
 
 def _stage_delta_plan(plan: DeltaPlan, stager: _Stager, need_hi: bool):
-    """Stage the transport's DeltaPlan (contiguous groups): packed words
-    padded, the per-block min_delta lanes exact (the hi lane only for
-    int64).  Returns ``build(staged) -> DeltaPlan`` over the device
-    buffers."""
-    specs = [(w, stager.add(words), words.size, n_vals, start, n_take)
-             for w, words, _starts, _takes, n_vals, start, n_take
-             in plan.groups]
-    lo_h = stager.add(plan.md_lo, pad=False)
-    hi_h = stager.add(plan.md_hi, pad=False) if need_hi else None
+    """Stage a DeltaPlan as the JAX package does: each width class's
+    packed words padded; a scattered class's per-miniblock starts and
+    takes exact (padding would corrupt the scatter targets); the
+    per-block min_delta lanes exact, the hi lane only for int64, and
+    neither when the stream has no block.  Returns ``build(staged,
+    device=None) -> DeltaPlan`` over the device buffers (``device`` is
+    needed only when no min_delta staged)."""
+    specs = []
+    for w, words, starts, takes, n_vals, start, n_take in plan.groups:
+        wh = stager.add(words)
+        if starts is None:
+            specs.append((w, wh, words.size, None, None, n_vals, start,
+                          n_take))
+        else:
+            specs.append((w, wh, words.size, stager.add(starts, pad=False),
+                          stager.add(takes, pad=False), n_vals, 0, 0))
+    has_md = plan.md_lo.size > 0
+    lo_h = stager.add(plan.md_lo, pad=False) if has_md else None
+    hi_h = stager.add(plan.md_hi, pad=False) if has_md and need_hi else None
     meta = (plan.block_size, plan.first, plan.total)
 
-    def build(s, _specs=tuple(specs), _lo=lo_h, _hi=hi_h, _meta=meta):
-        groups = [(w, s[wh][:nw], None, None, n_vals, start, n_take)
-                  for w, wh, nw, n_vals, start, n_take in _specs]
-        return DeltaPlan(groups, s[_lo], None if _hi is None else s[_hi],
-                         *_meta)
+    def build(s, device=None, _specs=tuple(specs), _lo=lo_h, _hi=hi_h,
+              _meta=meta):
+        groups = [(w, s[wh][:nw], None if sh is None else s[sh],
+                   None if th is None else s[th], n_vals, start, n_take)
+                  for w, wh, nw, sh, th, n_vals, start, n_take in _specs]
+        if device is None:  # only a stream without blocks needs it
+            device = s[_lo].device
+        none = torch.zeros(0, dtype=torch.int32, device=device)
+        md_lo = none if _lo is None else s[_lo]
+        md_hi = None if not need_hi else none if _hi is None else s[_hi]
+        return DeltaPlan(groups, md_lo, md_hi, *_meta)
 
     return build
 
@@ -801,10 +830,6 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
             f"column {col_path!r}: physical type {ptype.name} is not "
             "supported by tpuparquet_torch (INT32, INT64, FLOAT, DOUBLE and "
             "BYTE_ARRAY only)")
-    if node.max_rep_level:
-        raise NotImplementedError(
-            f"column {col_path!r}: repeated columns are not supported by "
-            "tpuparquet_torch")
     start = cm.data_page_offset
     if cm.dictionary_page_offset is not None:
         start = min(start, cm.dictionary_page_offset)
@@ -812,6 +837,7 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
     end = start + cm.total_compressed_size
     r = CompactReader(blob, start, end)
     vlanes = _LANES.get(ptype)
+    max_rep = node.max_rep_level
     max_def = node.max_def_level
     dwidth = max_def.bit_length()
     total = cm.num_values
@@ -876,16 +902,21 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
             n = h.num_values
             enc = Encoding(h.encoding)
             snappy = snappy and enc == Encoding.PLAIN
-            if snappy and not max_def and not is_bytes:
-                # a required PLAIN page holds no level bytes, so planning
-                # needs nothing from the payload: decompression is
-                # deferred to the transports' competition
+            if snappy and not max_rep and not max_def and not is_bytes:
+                # a flat required PLAIN page holds no level bytes, so
+                # planning needs nothing from the payload: decompression
+                # is deferred to the transports' competition
                 values_comp = (payload, ph.uncompressed_page_size, 0)
                 values_seg = dl_scan = None
             else:
                 raw = decompress_block(cm.codec, payload,
                                        ph.uncompressed_page_size)
-                dl_scan, pos = scan_levels_v1(raw, n, max_def, 0,
+                pos = 0
+                if max_rep:  # the rep stream comes first
+                    rl_scan, pos = scan_levels_v1(
+                        raw, n, max_rep, pos, h.repetition_level_encoding)
+                    _defer_rep_levels(ops, stager, rl_scan, n, max_rep)
+                dl_scan, pos = scan_levels_v1(raw, n, max_def, pos,
                                               h.definition_level_encoding)
                 values_seg = raw[pos:]
                 # with levels, the host scans them from its own copy, and
@@ -907,7 +938,10 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
             snappy = snappy and enc == Encoding.PLAIN
             # V2 keeps the levels outside compression: planning needs only
             # the level bytes, and the values block decompresses on its own
-            dl_scan, vpos = scan_levels_v2(payload, h, n, max_def)
+            rl_scan, dl_scan, vpos = scan_levels_v2(payload, h, n, max_rep,
+                                                    max_def)
+            if rl_scan is not None:
+                _defer_rep_levels(ops, stager, rl_scan, n, max_rep)
             values_seg = payload[vpos:]
             if h.is_compressed is not False:
                 comp = (values_seg, ph.uncompressed_page_size - vpos, 0)
@@ -977,19 +1011,30 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
                 plan_words = lambda s, _wh=wh: s[_wh]  # noqa: E731
             ops.append(_plain_page_op(plan_words, dl_ref, n, non_null,
                                       dwidth, vlanes))
+        elif enc == Encoding.DELTA_BINARY_PACKED and ptype in (Type.INT32,
+                                                                Type.INT64):
+            ops.append(_delta_page_op(values_seg, ptype, dl_ref, n, non_null,
+                                      dwidth, stager))
+        elif enc == Encoding.BYTE_STREAM_SPLIT and not is_bytes:
+            ops.append(_bss_page_op(values_seg, dl_ref, n, non_null, dwidth,
+                                    vlanes, stager))
         else:
             raise NotImplementedError(
-                f"column {col_path!r}: encoding {enc.name} is not "
-                "supported by tpuparquet_torch (PLAIN and dictionary only)")
+                f"column {col_path!r}: encoding {enc.name} of "
+                f"{ptype.name} is not supported by tpuparquet_torch "
+                "(PLAIN, dictionary, DELTA_BINARY_PACKED on INT32 and "
+                "INT64, BYTE_STREAM_SPLIT on fixed-width types)")
         if chunk_bytes > _I32_MAX:
             raise ValueError(f"{chunk_bytes} bytes of BYTE_ARRAY values "
                              "overflow the int32 offsets of the device "
                              "layout")
 
     def finish(staged, device) -> DeviceColumn:
-        parts = {"val": [], "bytes": [], "def": []}
+        parts = {"val": [], "bytes": [], "rep": [], "def": [],
+                 "device": device}
         for op in ops:
             op(staged, parts)
+        rl, _ = _merge_parts(parts["rep"])
         dl, _ = _merge_parts(parts["def"])
         mask = positions = None
         if max_def and dl is not None:
@@ -1003,12 +1048,12 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
                 offsets = offsets.pin_memory().to(device, non_blocking=True)
             return DeviceColumn(ptype, data, mask, positions, dl, total,
                                 offs.size - 1, offsets=offsets,
-                                n_bytes=n_bytes)
+                                n_bytes=n_bytes, rep_levels=rl)
         data, n_packed = _merge_parts(parts["val"], lanes=vlanes or 1)
         if data is None:
             data = torch.zeros(0, dtype=torch.int32, device=device)
         return DeviceColumn(ptype, data, mask, positions, dl, total,
-                            n_packed)
+                            n_packed, rep_levels=rl)
 
     return finish
 
@@ -1167,6 +1212,66 @@ def _plain_page_op(get_words, dl_ref, n, non_null, dwidth, lanes):
         parts["val"].append((vals, non_null))
 
     return op
+
+
+def _delta_page_op(values_seg, ptype, dl_ref, n, non_null, dwidth,
+                   stager: _Stager):
+    """Deferred DELTA_BINARY_PACKED page: the def stream expands on its
+    own, the stream's plan stages (:func:`_stage_delta_plan`) and the
+    values rebuild on the device, sliced to the page's non-null count."""
+    i64 = ptype == Type.INT64
+    plan = plan_delta_i64(values_seg) if i64 else plan_delta_i32(values_seg)
+    build = _stage_delta_plan(plan, stager, need_hi=i64)
+
+    def op(s, parts):
+        if dl_ref is not None:
+            parts["def"].append((_expand_def(s, dl_ref, dwidth), n))
+        p = build(s, parts["device"])
+        words = (expand_delta_i64(p)[: 2 * non_null] if i64
+                 else expand_delta_i32(p)[:non_null])
+        parts["val"].append((words, non_null))
+
+    return op
+
+
+def _bss_page_op(values_seg, dl_ref, n, non_null, dwidth, lanes,
+                 stager: _Stager):
+    """Deferred BYTE_STREAM_SPLIT page: the first ``non_null * 4 * lanes``
+    bytes stage padded and K12 turns them into lane words; a page without
+    values stages nothing."""
+    k = 4 * lanes
+    raw = (values_seg.reshape(-1) if isinstance(values_seg, np.ndarray)
+           else np.frombuffer(values_seg, dtype=np.uint8))
+    if raw.size < non_null * k:
+        raise ValueError("BYTE_STREAM_SPLIT: input too short")
+    rh = stager.add(raw[: non_null * k]) if non_null else None
+
+    def op(s, parts):
+        if dl_ref is not None:
+            parts["def"].append((_expand_def(s, dl_ref, dwidth), n))
+        if rh is not None:
+            parts["val"].append((bss_to_lanes(s[rh], non_null, k, lanes),
+                                 non_null))
+
+    return op
+
+
+def _defer_rep_levels(ops, stager: _Stager, scan, n: int,
+                      max_rep: int) -> None:
+    """Register a page's rep-level stream (its def stream rides the page's
+    own op): its values are checked against ``max_rep`` on the host, its
+    plan stages, and K1 or K2 expands it on the device, as the reference's
+    ``_defer_levels(..., "rep", ...)``."""
+    width = max_rep.bit_length()
+    count_eq_scan(scan, width, max_rep, validate_max=True)
+    args, cnt, nbp, single = plan_stream_args(scan, n, width)
+    hs = stager.add_many(args, pad=False)
+
+    def op(s, parts):
+        parts["rep"].append((expand_hybrid(s[hs[0]], s[hs[1]], cnt, width,
+                                           nbp, single), n))
+
+    ops.append(op)
 
 
 def _expand_def(s, dl_ref, dwidth):

@@ -20,8 +20,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..cpu.bitpack import pack, unpack
+from ..cpu.bitpack import pack
 from ..cpu.hybrid import expand_scan
+from ..native import hybrid_native, pack_native
 from ._lib import check_tensor, i64_to_u32_bits, launch, stream_of, \
     u32_to_i64
 from .bitunpack import _check_words, pad_to_words, unpack_u32, \
@@ -111,9 +112,9 @@ def plan_stream_args(scan, count: int, width: int, expanded=None):
 
     When the stream's run table plus its bit-packed segments (bucket
     padded, as shipped) weigh more than a plain bit-packing of all its
-    values, the host expands the runs (or takes the caller's
-    ``expanded`` values) and re-packs them as ONE bit-packed run
-    (``single=True``)."""
+    values, the host re-packs the runs as ONE bit-packed run
+    (``single=True``): in one C pass from the run table, or from the
+    caller's ``expanded`` values."""
     from .decode import bucket
 
     def bp_wire(n_vals: int) -> int:
@@ -126,9 +127,16 @@ def plan_stream_args(scan, count: int, width: int, expanded=None):
             bp_wire(n_bp) if n_bp else 0)
         new_wire = 16 * bucket(1) + bp_wire(count)
         if old_wire > new_wire:
-            vals = (expanded if expanded is not None
-                    else expand_scan(*scan[:6], count, width))
-            packed = np.frombuffer(pack(vals[:count], width), dtype=np.uint8)
+            packed = None
+            if expanded is None:
+                # run table -> packed bits in one C pass, no expanded
+                # intermediate
+                packed = pack_native().hybrid_repack(scan, count, width)
+            if packed is None:
+                vals = (expanded if expanded is not None
+                        else expand_scan(*scan[:6], count, width))
+                packed = np.frombuffer(pack(vals[:count], width),
+                                       dtype=np.uint8)
             scan = (np.array([count], dtype=np.int32),
                     np.zeros(1, dtype=bool),
                     np.zeros(1, dtype=np.uint32),
@@ -141,22 +149,15 @@ def plan_stream_args(scan, count: int, width: int, expanded=None):
 
 def _bp_lane_stats(scan, width: int, target: int):
     """(max value | None, count == target) over a scan's consumed
-    bit-packed lanes (per-run 8-group padding excluded)."""
+    bit-packed lanes (per-run 8-group padding excluded), in one C
+    pass."""
     ends, is_rle, _, bp_starts, bp_bytes, n_bp, _pos = scan
     lens = np.diff(ends, prepend=np.int32(0))
     bp = ~is_rle
     if not bp.any() or not n_bp:
         return None, 0
-    unpacked = unpack(bp_bytes, n_bp, width)
-    delta = np.zeros(n_bp + 1, dtype=np.int64)
-    starts = bp_starts[bp].astype(np.int64)
-    np.add.at(delta, starts, 1)
-    np.add.at(delta, starts + lens[bp], -1)
-    active = np.cumsum(delta[:-1]) > 0
-    if not active.any():
-        return None, 0
-    return (int(unpacked[active].max()),
-            int(((unpacked == target) & active).sum()))
+    return hybrid_native().bp_stats(bp_bytes, width, bp_starts[bp], lens[bp],
+                                    target)
 
 
 def count_eq_scan(scan, width: int, target: int,

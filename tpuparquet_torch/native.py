@@ -1,14 +1,19 @@
-"""Host C helpers: bit packing, strided lane/byte-plane passes and the
-BYTE_ARRAY passes.
+"""Host C helpers: hybrid run scans, bit packing, DELTA_BINARY_PACKED
+structure, strided lane/byte-plane passes and the BYTE_ARRAY passes.
 
-``csrc/pack.c`` packs the delta-lane transport's offsets,
-``csrc/plane.c`` scans and gathers the strided lanes and byte planes of
-the plane transport, and ``csrc/bytes.c`` scans PLAIN BYTE_ARRAY length
-prefixes, gathers and emits variable-length values and interns them for
-the writer's dictionary, one C pass each (the numpy or Python
-formulations cost several passes, or a loop per value).  Each compiles
-with the host C compiler at first use and loads with ctypes.  There is
-no numpy fallback: without a compiler they raise.
+``csrc/hybrid.c`` scans hybrid run headers into run tables, takes the
+max and value counts of their bit-packed lanes and encodes hybrid
+streams for the writer; ``csrc/pack.c`` packs bits (the delta-lane
+transport's offsets, DELTA_BINARY_PACKED miniblocks) and expands or
+re-packs run tables; ``csrc/delta.c`` walks the blocks of a
+DELTA_BINARY_PACKED stream and gathers its miniblocks; ``csrc/plane.c``
+scans and gathers the strided lanes and byte planes of the plane
+transport, and ``csrc/bytes.c`` scans PLAIN BYTE_ARRAY length prefixes,
+gathers and emits variable-length values and interns them for the
+writer's dictionary, one C pass each (the numpy or Python formulations
+cost several passes, or a loop per value).  Each compiles with the host
+C compiler at first use and loads with ctypes.  There is no numpy
+fallback: without a compiler they raise.
 """
 
 from __future__ import annotations
@@ -19,8 +24,9 @@ import threading
 
 import numpy as np
 
-__all__ = ["NativeBytes", "NativePack", "NativePlane", "TOO_MANY_DISTINCT",
-           "bytes_native", "pack_native", "plane_native"]
+__all__ = ["NativeBytes", "NativeDelta", "NativeHybrid", "NativePack",
+           "NativePlane", "TOO_MANY_DISTINCT", "bytes_native",
+           "delta_native", "hybrid_native", "pack_native", "plane_native"]
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -47,13 +53,133 @@ def _native(stem: str, cls):
         return got
 
 
+def _u8(buf) -> np.ndarray:
+    return np.ascontiguousarray(np.frombuffer(buf, dtype=np.uint8)
+                                if not isinstance(buf, np.ndarray)
+                                else buf.reshape(-1).view(np.uint8))
+
+
+def hybrid_encode_cap(count: int, width: int) -> int:
+    """Output bound of one hybrid encode of ``count`` ``width``-bit
+    values: packed groups, per-group headers and slack."""
+    groups = (count + 7) // 8
+    return groups * width + 5 * (groups + 2) + 32
+
+
+class NativeHybrid:
+    """ctypes bindings of ``csrc/hybrid.c``."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._scan = lib.tpq_hybrid_scan
+        self._scan.restype = ctypes.c_int
+        self._scan.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                               ctypes.c_size_t, ctypes.c_int64, ctypes.c_int,
+                               _P, _P, _P, _P, ctypes.c_int64, _P,
+                               ctypes.c_size_t,
+                               ctypes.POINTER(ctypes.c_int64),
+                               ctypes.POINTER(ctypes.c_int64),
+                               ctypes.POINTER(ctypes.c_size_t),
+                               ctypes.POINTER(ctypes.c_size_t)]
+        self._bp_stats = lib.tpq_bp_stats
+        self._bp_stats.restype = ctypes.c_int
+        self._bp_stats.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                   ctypes.c_int, _P, _P, ctypes.c_int64,
+                                   ctypes.c_uint32,
+                                   ctypes.POINTER(ctypes.c_uint32),
+                                   ctypes.POINTER(ctypes.c_int64)]
+        self._encode32 = lib.tpq_hybrid_encode32
+        self._encode32.restype = _LL
+        self._encode32.argtypes = [_P, _LL, ctypes.c_int, _P, _LL,
+                                   ctypes.POINTER(_LL)]
+
+    def scan(self, buf, count: int, width: int, pos: int = 0):
+        """Run table of ``count`` ``width``-bit values (width <= 32) from
+        byte ``pos``: ``(run_ends, run_is_rle, run_value, run_bp_start,
+        bp_bytes, n_bp_values, end_pos)``, as
+        :func:`~tpuparquet_torch.cpu.hybrid.scan_hybrid` returns it."""
+        data = _u8(buf)
+        # every run takes at least one header byte
+        cap_runs = max(min(count, max(data.size - pos, 0)) + 1, 1)
+        bp_cap = max(data.size - pos, 1)
+        ends = np.empty(cap_runs, dtype=np.int32)
+        is_rle = np.empty(cap_runs, dtype=np.uint8)
+        value = np.empty(cap_runs, dtype=np.uint32)
+        bp_start = np.empty(cap_runs, dtype=np.int32)
+        bp_out = np.empty(bp_cap, dtype=np.uint8)
+        n_runs = ctypes.c_int64()
+        n_bp = ctypes.c_int64()
+        bp_len = ctypes.c_size_t()
+        end_pos = ctypes.c_size_t()
+        rc = self._scan(data.ctypes.data_as(ctypes.c_char_p), data.size, pos,
+                        count, width, ends.ctypes.data, is_rle.ctypes.data,
+                        value.ctypes.data, bp_start.ctypes.data, cap_runs,
+                        bp_out.ctypes.data, bp_cap, ctypes.byref(n_runs),
+                        ctypes.byref(n_bp), ctypes.byref(bp_len),
+                        ctypes.byref(end_pos))
+        if rc == -1:
+            raise ValueError("truncated hybrid run")
+        if rc == -2:
+            raise ValueError("zero-length RLE run")
+        if rc == -6:
+            raise ValueError("RLE run value exceeds bit width")
+        if rc != 0:
+            raise ValueError(f"hybrid scan failed (rc={rc})")
+        r = int(n_runs.value)
+        return (ends[:r], is_rle[:r].astype(bool), value[:r], bp_start[:r],
+                bp_out[: bp_len.value], int(n_bp.value), int(end_pos.value))
+
+    def bp_stats(self, bp_bytes, width: int, starts, lens, target: int = 0):
+        """``(max value or None, count of target)`` over the consumed lanes
+        of bit-packed segments (``starts``/``lens`` in lanes)."""
+        bp = _u8(bp_bytes)
+        s = np.ascontiguousarray(starts, dtype=np.int64)
+        ln = np.ascontiguousarray(lens, dtype=np.int64)
+        mx = ctypes.c_uint32()
+        cnt = ctypes.c_int64()
+        rc = self._bp_stats(bp.ctypes.data_as(ctypes.c_char_p), bp.size,
+                            width, s.ctypes.data, ln.ctypes.data, s.size,
+                            target, ctypes.byref(mx), ctypes.byref(cnt))
+        if rc == 1:
+            return None, 0
+        if rc != 0:
+            raise ValueError(f"bit-packed segment out of bounds (rc={rc})")
+        return int(mx.value), int(cnt.value)
+
+    def encode32(self, values: np.ndarray, width: int) -> bytes:
+        """Hybrid encode of u32 values at ``width`` (1..32), byte for byte
+        :func:`~tpuparquet_torch.cpu.hybrid.encode_hybrid`'s output;
+        raises on a value that does not fit."""
+        v = np.ascontiguousarray(values, dtype=np.uint32)
+        cap = hybrid_encode_cap(v.size, width)
+        out = np.empty(cap, dtype=np.uint8)
+        out_len = _LL()
+        rc = self._encode32(v.ctypes.data, v.size, width, out.ctypes.data,
+                            cap, ctypes.byref(out_len))
+        if rc == -1:
+            raise ValueError(
+                f"value {int(v.max())} does not fit in {width} bits")
+        if rc != 0:
+            raise ValueError(f"hybrid encode failed (rc={rc})")
+        return out[: out_len.value].tobytes()
+
+
 class NativePack:
-    """ctypes binding of ``tpq_pack64``."""
+    """ctypes bindings of ``csrc/pack.c``."""
 
     def __init__(self, lib: ctypes.CDLL):
         self._pack64 = lib.tpq_pack64
         self._pack64.restype = _LL
         self._pack64.argtypes = [_P, _LL, ctypes.c_int, _P]
+        self._delta_emit = lib.tpq_delta_emit
+        self._delta_emit.restype = _LL
+        self._delta_emit.argtypes = [_P, _P, _LL, _LL, _P, _LL, _LL, _P, _LL,
+                                     ctypes.POINTER(_LL)]
+        self._expand = lib.tpq_hybrid_expand32
+        self._repack = lib.tpq_hybrid_repack
+        for fn in (self._expand, self._repack):
+            fn.restype = _LL
+            fn.argtypes = [_P, _P, _P, _P, _LL, _P, _LL, _LL, _LL,
+                           ctypes.c_int, _P]
 
     def pack(self, values: np.ndarray, width: int) -> np.ndarray:
         """LSB-first pack of a contiguous uint64 array; raises on a
@@ -68,6 +194,136 @@ class NativePack:
         if rc != 0:
             raise ValueError(f"bit width {width} out of range 1..64")
         return out[:n]
+
+    def delta_emit(self, adj, widths, mb_size: int, min_deltas,
+                   n_miniblocks: int) -> np.ndarray:
+        """The per-block body of a DELTA_BINARY_PACKED stream (zigzag
+        min_delta varints, width bytes, packed miniblocks) in one pass."""
+        a = np.ascontiguousarray(adj, dtype=np.uint64).reshape(-1)
+        w = np.ascontiguousarray(widths, dtype=np.uint8)
+        md = np.ascontiguousarray(min_deltas, dtype=np.int64)
+        packed_bytes = int((w.astype(np.int64) * mb_size).sum()) // 8
+        cap = packed_bytes + md.size * (10 + n_miniblocks) + 16
+        out = np.empty(cap, dtype=np.uint8)
+        out_len = _LL()
+        rc = self._delta_emit(a.ctypes.data, w.ctypes.data, w.size, mb_size,
+                              md.ctypes.data, md.size, n_miniblocks,
+                              out.ctypes.data, cap, ctypes.byref(out_len))
+        if rc != 0:
+            raise ValueError(f"delta emit failed (rc={rc})")
+        return out[: out_len.value]
+
+    @staticmethod
+    def _run_table(scan, count: int, width: int):
+        """C-ready run table of a scan, or None for the shapes the C
+        passes do not take: widths past 32, no runs, or a table that
+        does not cover ``count`` (no valid scan gives one)."""
+        ends, is_rle, value, bp_start, bp_bytes = scan[:5]
+        if not 0 < width <= 32 or not len(ends) or int(ends[-1]) < count:
+            return None
+        return (np.ascontiguousarray(ends, dtype=np.int32),
+                np.ascontiguousarray(is_rle, dtype=np.uint8),
+                np.ascontiguousarray(value, dtype=np.uint32),
+                np.ascontiguousarray(bp_start, dtype=np.int32),
+                _u8(bp_bytes))
+
+    def hybrid_expand(self, scan, count: int, width: int):
+        """A scan's run table expanded to ``(count,)`` u32 values, or
+        None for the shapes :meth:`_run_table` refuses."""
+        t = self._run_table(scan, count, width)
+        if t is None:
+            return None
+        ends, rle, val, bps, bp = t
+        out = np.empty(count, dtype=np.uint32)
+        rc = self._expand(ends.ctypes.data, rle.ctypes.data, val.ctypes.data,
+                          bps.ctypes.data, ends.size, bp.ctypes.data, bp.size,
+                          int(scan[5]), count, width, out.ctypes.data)
+        if rc != 0:
+            raise ValueError(f"hybrid expand failed (rc={rc})")
+        return out
+
+    def hybrid_repack(self, scan, count: int, width: int):
+        """A scan's values re-packed as ONE bit-packed run of ``count``
+        lanes (bytes), without the expanded intermediate; None for the
+        shapes :meth:`_run_table` refuses."""
+        t = self._run_table(scan, count, width)
+        if t is None:
+            return None
+        ends, rle, val, bps, bp = t
+        n = (count * width + 7) // 8
+        out = np.empty(n + 8, dtype=np.uint8)  # word-writer slack
+        rc = self._repack(ends.ctypes.data, rle.ctypes.data, val.ctypes.data,
+                          bps.ctypes.data, ends.size, bp.ctypes.data, bp.size,
+                          int(scan[5]), count, width, out.ctypes.data)
+        if rc == -1:
+            raise ValueError(
+                f"value {int(val.max())} does not fit in {width} bits")
+        if rc != 0:
+            raise ValueError(f"hybrid repack failed (rc={rc})")
+        return out[:n]
+
+
+class NativeDelta:
+    """ctypes bindings of ``csrc/delta.c``."""
+
+    _ERRORS = {-1: "truncated uvarint",
+               -5: "truncated miniblock width list",
+               -7: "truncated miniblock payload",
+               -9: "uvarint too long"}
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._scan = lib.tpq_delta_scan_blocks
+        self._scan.restype = _LL
+        self._scan.argtypes = [_P, _LL, _LL, _LL, _LL, _LL, ctypes.c_int,
+                               _P, _P, _P, _P, _LL, _LL, ctypes.POINTER(_LL),
+                               ctypes.POINTER(_LL), ctypes.POINTER(_LL)]
+        self._gather = lib.tpq_gather_segments
+        self._gather.restype = _LL
+        self._gather.argtypes = [_P, _LL, _P, _LL, _LL, _P]
+
+    def gather_segments(self, src, positions, nbytes: int) -> np.ndarray:
+        """The ``nbytes``-byte segments of ``src`` at ``positions``,
+        concatenated."""
+        buf = _u8(src)
+        pos = np.ascontiguousarray(positions, dtype=np.int64)
+        out = np.empty(pos.size * nbytes, dtype=np.uint8)
+        if self._gather(buf.ctypes.data, buf.size, pos.ctypes.data, pos.size,
+                        nbytes, out.ctypes.data) != 0:
+            raise ValueError("miniblock payload out of bounds")
+        return out
+
+    def scan_blocks(self, data, pos: int, n_deltas: int, mb_size: int,
+                    n_miniblocks: int, max_width: int):
+        """The block loop of a DELTA stream whose four header varints end
+        at ``pos``: ``(md_blocks, mb_w, mb_pos, mb_start, end_pos)``;
+        raises ValueError with the Python scanner's messages."""
+        buf = _u8(data)
+        block_size = mb_size * n_miniblocks
+        # the caps are bounded by the bytes left too: each block takes at
+        # least 1 + n_miniblocks bytes and each recorded miniblock at
+        # least mb_size / 8, so a corrupt total cannot size the tables
+        max_blocks = max(buf.size - pos, 0) // (1 + n_miniblocks) + 2
+        cap_blocks = min(n_deltas // block_size + 2, max_blocks)
+        max_mb = max(buf.size - pos, 0) // max(mb_size // 8, 1) + 2
+        cap_mb = min(cap_blocks * n_miniblocks + 2, max_mb)
+        md = np.empty(cap_blocks, dtype=np.int64)
+        w = np.empty(cap_mb, dtype=np.int32)
+        p = np.empty(cap_mb, dtype=np.int64)
+        s = np.empty(cap_mb, dtype=np.int64)
+        nb, nm, end = _LL(), _LL(), _LL()
+        rc = self._scan(buf.ctypes.data, buf.size, pos, n_deltas, mb_size,
+                        n_miniblocks, max_width, md.ctypes.data,
+                        w.ctypes.data, p.ctypes.data, s.ctypes.data,
+                        cap_blocks, cap_mb, ctypes.byref(nb),
+                        ctypes.byref(nm), ctypes.byref(end))
+        if rc == -6:
+            raise ValueError(f"delta miniblock width > {max_width} for this "
+                             "column's physical type")
+        if rc != 0:
+            raise ValueError(self._ERRORS.get(rc,
+                                              f"delta scan failed (rc={rc})"))
+        b, m = int(nb.value), int(nm.value)
+        return md[:b], w[:m], p[:m], s[:m], int(end.value)
 
 
 class NativePlane:
@@ -127,12 +383,6 @@ class NativePlane:
 
 # intern_var's answer when a column has more distinct values than the cap
 TOO_MANY_DISTINCT = object()
-
-
-def _u8(buf) -> np.ndarray:
-    return np.ascontiguousarray(np.frombuffer(buf, dtype=np.uint8)
-                                if not isinstance(buf, np.ndarray)
-                                else buf.reshape(-1).view(np.uint8))
 
 
 class NativeBytes:
@@ -234,6 +484,16 @@ class NativeBytes:
 def bytes_native() -> NativeBytes:
     """The BYTE_ARRAY passes (raises without a C compiler)."""
     return _native("bytes", NativeBytes)
+
+
+def delta_native() -> NativeDelta:
+    """The DELTA_BINARY_PACKED block scan (raises without a C compiler)."""
+    return _native("delta", NativeDelta)
+
+
+def hybrid_native() -> NativeHybrid:
+    """The hybrid run scanner (raises without a C compiler)."""
+    return _native("hybrid", NativeHybrid)
 
 
 def pack_native() -> NativePack:
