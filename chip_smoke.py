@@ -2,12 +2,15 @@
 
     python3 chip_smoke.py [--values N] [--groups G]
 
-1. Builds the port's twelve CUDA kernels (K1-K12) and its C host helpers
-   (snappy, hybrid run scans, bit packing, the DELTA_BINARY_PACKED block
-   walk, lane planes, BYTE_ARRAY passes) from the sources in this
-   checkout, one compiler process per source, in parallel.
+1. Builds the port's thirteen CUDA kernels (K1-K13) and its C host
+   helpers (snappy, hybrid run scans, bit packing, the DELTA_BINARY_PACKED
+   block walk and the DELTA_BYTE_ARRAY passes, lane planes, BYTE_ARRAY
+   passes) from the sources in this checkout, one compiler process per
+   source, in parallel.
 2. Holds every kernel against its plain PyTorch version on the card, bit
-   for bit over the whole (padded) output.
+   for bit over the whole (padded) output: K13 at row lengths 3, 9, 12,
+   16 and 22, K3 at 3 and 4 lanes, K12 with k != 4 * lanes, K8 on the
+   copy graph of front-coded strings and rows.
 3. Writes the NYC-Taxi-shaped config-2 file of ``bench.py`` (seed 42, 8
    row groups, 50,000,000 values by default) with the port's writer and
    reads it through ``read_row_groups_device`` on the card with the
@@ -34,11 +37,23 @@
    optional int32 sequence beside BYTE_STREAM_SPLIT float and double
    readings; 8 row groups of 1,562,500 rows): K11 places the scattered
    miniblock width classes, K12 turns the byte streams into lanes.
+   3g. A Spark-style table (seed 19; V1, 8 row groups of 1,250,000 rows):
+   INT96 event times (byte planes at 3 lanes, K5) and dictionary
+   midnights (K3 at 3 lanes), an optional BOOLEAN (K1 at width 1, K4),
+   optional DECIMAL(38, 18) and UUID fixed_len_byte_array(16) columns
+   (PLAIN rows shipped as lane words).
+   3h. A parquet-mr v2 table (seed 23; data page V2, 8 row groups of
+   1,000,000 rows): RLE booleans (K1/K2), DELTA_BYTE_ARRAY sorted URLs
+   (K8), random session ids (assembled on the host) and DECIMAL(38, 9)
+   rows (K8 then K13), DELTA_LENGTH_BYTE_ARRAY notes.  K8 must launch
+   once per URL and amount page, K13 once per amount page, and no
+   session page may take K8.
 4. Times each kernel at the main paths' page shapes with CUDA events,
    beside its memory/operation bound, its plain version and, where one
-   PyTorch call computes the function or its core, that call.
+   PyTorch call computes the function or its core, that call; K8 also
+   on a URL page of 3h.
 
-Every kernel must have launched on the paths of phases 3 to 3f; the
+Every kernel must have launched on the paths of phases 3 to 3h; the
 counts are set to 0 just before each path's read and read just after.
 Exits non-zero, printing no result, when CUDA is unavailable or any
 phase fails.  The last line is
@@ -110,6 +125,23 @@ SENSORS_SCHEMA = """message sensors {
     optional int32 seq;
     required float temp;
     optional double reading;
+}"""
+
+SPARK_SCHEMA = """message spark_schema {
+    required int96 event_ts;
+    required int96 load_date;
+    optional boolean is_member;
+    optional fixed_len_byte_array(16) amount (DECIMAL(38, 18));
+    required fixed_len_byte_array(16) id (UUID);
+}"""
+
+MR_V2_SCHEMA = """message mr_v2 {
+    required boolean flag;
+    optional boolean opt_in;
+    required binary url (STRING);
+    required binary session (STRING);
+    required fixed_len_byte_array(16) amount (DECIMAL(38, 9));
+    required binary note;
 }"""
 
 
@@ -356,6 +388,153 @@ def build_sensors(rows: int, n_groups: int, data_page_v2: bool = False):
            "temp": _encoding("BYTE_STREAM_SPLIT"),
            "reading": _encoding("BYTE_STREAM_SPLIT")}
     return _write(SENSORS_SCHEMA, groups, None, data_page_v2=data_page_v2,
+                  column_encodings=enc), groups
+
+
+# Julian day number of 2024-01-01, and the nanoseconds of a day: an INT96
+# timestamp is the nanoseconds of its day (a little-endian int64) then the
+# Julian day (a little-endian int32), as Spark and Impala write it
+_JULIAN_2024 = 2_460_311
+_NANOS_PER_DAY = 86_400 * 10**9
+
+
+def _int96(days: np.ndarray, nanos: np.ndarray) -> np.ndarray:
+    """INT96 timestamps as ``(N, 3)`` u32 words."""
+    n = nanos.astype(np.uint64)
+    out = np.empty((days.size, 3), dtype=np.uint32)
+    out[:, 0] = n & np.uint64(0xFFFFFFFF)
+    out[:, 1] = n >> np.uint64(32)
+    out[:, 2] = days
+    return out
+
+
+def _be_rows(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """16-byte big-endian two's complement rows of ``hi * 2^64 + lo``
+    (``hi`` int64, ``lo`` uint64): the DECIMAL form of a
+    fixed_len_byte_array(16)."""
+    out = np.empty((hi.size, 16), dtype=np.uint8)
+    out[:, :8] = hi.astype(">i8").view(np.uint8).reshape(-1, 8)
+    out[:, 8:] = lo.astype(">u8").view(np.uint8).reshape(-1, 8)
+    return out
+
+
+def spark_groups(rows: int, n_groups: int, seed: int = 19):
+    """The Spark-style table's generator: ``event_ts`` (INT96 event
+    times about 10 ms apart from 2024-01-01, rolling over midnight into
+    the next Julian day), ``load_date`` (INT96 midnights of 30 days),
+    ``is_member`` (10% nulls), ``amount`` (DECIMAL(38, 18) as 16-byte
+    big-endian two's complement below 2^94 in magnitude, 5% nulls) and
+    ``id`` (random 16-byte UUIDs).  Returns ``[(columns, masks)]``."""
+    rng = np.random.default_rng(seed)
+    midnights = _int96(_JULIAN_2024 + np.arange(30), np.zeros(30, np.int64))
+    t = 0
+    groups = []
+    for _ in range(n_groups):
+        ns = t + np.cumsum(rng.integers(1, 20_000_000, size=rows))
+        t = int(ns[-1])
+        member_mask = rng.random(rows) >= 0.1
+        amount_mask = rng.random(rows) >= 0.05
+        k = int(amount_mask.sum())
+        cols = {
+            "event_ts": _int96(_JULIAN_2024 + ns // _NANOS_PER_DAY,
+                               ns % _NANOS_PER_DAY),
+            "load_date": midnights[rng.integers(0, 30, size=rows)],
+            "is_member": rng.random(int(member_mask.sum())) < 0.35,
+            "amount": _be_rows(rng.integers(-2**30, 2**30, size=k),
+                               rng.integers(0, 2**63, size=k,
+                                            dtype=np.uint64) * 2),
+            "id": rng.integers(0, 256, size=(rows, 16), dtype=np.uint8),
+        }
+        groups.append((cols, {"is_member": member_mask,
+                              "amount": amount_mask}))
+    return groups
+
+
+def build_spark(n_values: int, n_groups: int):
+    """The Spark-style table: V1, SNAPPY, ``n_values // 5 // n_groups``
+    rows a group, every column as the writer's defaults leave it (PLAIN,
+    or dictionary where it pays), as parquet-mr V1 writes a Spark table.
+    Returns (file bytes, groups)."""
+    groups = spark_groups(n_values // 5 // n_groups, n_groups)
+    return _write(SPARK_SCHEMA, groups, None), groups
+
+
+_SHOP = b"https://shop.example.com/catalog/"
+_NOTES = [b"ok", b"late", b"gift wrap", b"leave at door", b"call first",
+          b"fragile", b"", b"returned", b"second attempt", b"signed"]
+
+
+def _with_digits(prefix, digits: np.ndarray):
+    """``(offsets, data)`` of each prefix string followed by its row of
+    ASCII digits."""
+    p_offs, p_data = prefix
+    lp = np.diff(p_offs)
+    offs = np.zeros(lp.size + 1, dtype=np.int64)
+    np.cumsum(lp + digits.shape[1], out=offs[1:])
+    data = np.empty(int(offs[-1]), dtype=np.uint8)
+    dst = (np.arange(p_data.size, dtype=np.int64)
+           - np.repeat(p_offs[:-1], lp) + np.repeat(offs[:-1], lp))
+    data[dst] = p_data
+    data[(offs[:-1] + lp)[:, None] + np.arange(digits.shape[1])] = digits
+    return offs, data
+
+
+def mr_v2_groups(rows: int, n_groups: int, seed: int = 23):
+    """The parquet-mr v2 table's generator: ``flag`` (runs of 100-5,000
+    equal booleans), ``opt_in`` (20% nulls), ``url`` (sorted: 64 catalog
+    paths, then a 9-digit item number rising through the file),
+    ``session`` (32 random hex digits), ``amount`` (DECIMAL(38, 9) below
+    2^40 as 16-byte big-endian rows: at least 11 shared leading zero
+    bytes) and ``note`` (short strings), strings as ``(offsets, data)``.
+    Returns ``[(columns, masks)]``."""
+    rng = np.random.default_rng(seed)
+    paths = [_SHOP + b"dept-%02d/%s/item-" % (c, b"x" * (c % 9))
+             for c in range(64)]
+    hexd = np.frombuffer(b"0123456789abcdef", dtype=np.uint8)
+    groups = []
+    for g in range(n_groups):
+        runs = rng.integers(100, 5_000, size=rows // 100 + 1)
+        flag = np.repeat(np.arange(runs.size) % 2 == 0, runs)[:rows]
+        opt_mask = rng.random(rows) >= 0.2
+        item = np.arange(g * rows, (g + 1) * rows, dtype=np.int64)
+        digits = (48 + (item[:, None] // 10 ** np.arange(8, -1, -1)) % 10
+                  ).astype(np.uint8)
+        raw = rng.integers(0, 256, size=(rows, 16), dtype=np.uint8)
+        session = np.stack([hexd[raw >> 4], hexd[raw & 15]], axis=2)
+        cols = {
+            "flag": flag,
+            "opt_in": rng.random(int(opt_mask.sum())) < 0.6,
+            "url": _with_digits(_bytes_col(
+                paths, np.sort(rng.integers(0, 64, size=rows))), digits),
+            "session": (np.arange(rows + 1, dtype=np.int64) * 32,
+                        session.reshape(-1)),
+            "amount": _be_rows(np.zeros(rows, np.int64),
+                               rng.integers(0, 2**40, size=rows,
+                                            dtype=np.uint64)),
+            "note": _bytes_col(_NOTES, rng.integers(0, len(_NOTES),
+                                                    size=rows)),
+        }
+        groups.append((cols, {"opt_in": opt_mask}))
+    return groups
+
+
+MR_V2_ENCODINGS = {"flag": "RLE", "opt_in": "RLE",
+                   "url": "DELTA_BYTE_ARRAY", "session": "DELTA_BYTE_ARRAY",
+                   "amount": "DELTA_BYTE_ARRAY",
+                   "note": "DELTA_LENGTH_BYTE_ARRAY"}
+
+
+def build_mr_v2(n_values: int, n_groups: int):
+    """The parquet-mr v2 table: data page V2, SNAPPY, ``n_values * 4 //
+    25 // n_groups`` rows a group (48,000,000 slots at 50,000,000), each
+    column in the encoding parquet-mr's ``DefaultV2ValuesWriterFactory``
+    picks for its type (RLE booleans, DELTA_BYTE_ARRAY binary and
+    fixed-length columns; ``note`` DELTA_LENGTH_BYTE_ARRAY).  Returns
+    (file bytes, groups)."""
+    groups = _port_columns(mr_v2_groups(n_values * 4 // 25 // n_groups,
+                                        n_groups))
+    enc = {k: _encoding(v) for k, v in MR_V2_ENCODINGS.items()}
+    return _write(MR_V2_SCHEMA, groups, None, data_page_v2=True,
                   column_encodings=enc), groups
 
 
@@ -743,6 +922,100 @@ def _check_bss(rng, dev) -> None:
                   bss_to_lanes_plain(raw.cpu(), count, k, lanes))
 
 
+def _check_flba(rng, dev) -> None:
+    """K13 against its plain version and the host's row padding, at row
+    lengths that fill whole lanes and that leave a partial last lane."""
+    from tpuparquet_torch.kernels.decode import flba_bytes_to_lanes, \
+        flba_bytes_to_lanes_plain
+    from tpuparquet_torch.kernels.device import _stage_byte_rows_np
+
+    for length in (3, 9, 12, 16, 22):
+        for count in (1, 1000, 100_003):
+            raw = rng.integers(0, 256, size=count * length + 5,
+                               dtype=np.uint8)
+            got = flba_bytes_to_lanes(_t(raw, dev), count, length)
+            _same(f"K13 L {length} count {count}", got,
+                  flba_bytes_to_lanes_plain(_t(raw, "cpu"), count, length))
+            want = _stage_byte_rows_np(
+                raw[: count * length].reshape(count, length))
+            if not np.array_equal(got.cpu().numpy().view(np.uint32), want):
+                raise AssertionError(f"K13 L {length}: wrong words")
+
+
+def _check_new_shapes(rng, dev) -> None:
+    """K3 at 3 and 4 lanes (INT96 and FIXED_LEN_BYTE_ARRAY(16)
+    dictionaries, staged padded to a length that is no multiple of the
+    lanes), K12 with k != 4 * lanes, and K8 on the copy graph of
+    front-coded strings (zero-length prefix tokens included), then K13
+    on front-coded rows."""
+    from tpuparquet_torch.cpu.delta import encode_delta_byte_array
+    from tpuparquet_torch.cpu.plain import ByteArrayColumn
+    from tpuparquet_torch.kernels.decode import bss_to_lanes, \
+        bss_to_lanes_plain, bucket, page_dict_fixed, page_dict_fixed_plain
+    from tpuparquet_torch.kernels.device import _plan_dba_page, _put_all, \
+        _Stager
+    from tpuparquet_torch.kernels.snappy import expand_tokens, \
+        expand_tokens_plain
+
+    for lanes in (3, 4):
+        # 30 values staged as the planner stages them: bucket(30 * lanes)
+        d = _t(rng.integers(0, 2**32, size=128, dtype=np.uint32), dev)
+        for w, single in ((5, False), (5, True), (6, False)):
+            idx = _runny(rng, 20_000, w)
+            bp, tbl, cnt, nbp = _stream(idx, w, dev)
+            if single:
+                bp = _one_run(idx, w, cnt, dev)
+            _same(f"K3 lanes {lanes} width {w} single {single}",
+                  page_dict_fixed(d, bp, tbl, cnt, w, nbp, lanes, single),
+                  page_dict_fixed_plain(d, bp, tbl, cnt, w, nbp, lanes,
+                                        single))
+    for k, lanes in ((9, 3), (16, 4)):
+        for count in (1, 1000, 1_000_003):
+            raw = _t(rng.integers(0, 256, size=k * count + 3,
+                                  dtype=np.uint8), dev)
+            _same(f"K12 k {k} lanes {lanes} count {count}",
+                  bss_to_lanes(raw, count, k, lanes),
+                  bss_to_lanes_plain(raw.cpu(), count, k, lanes))
+    groups = mr_v2_groups(30_000, 1)[0][0]
+    for name, flba in (("url", None), ("amount", 16)):
+        if flba is None:
+            col = ByteArrayColumn(*groups[name])
+            # a run of values sharing no prefix: zero-length copy tokens
+            col = ByteArrayColumn(
+                np.concatenate([col.offsets, col.offsets[-1]
+                                + np.arange(1, 41) * 3]),
+                np.concatenate([col.data, rng.integers(
+                    0, 256, size=120, dtype=np.uint8)]))
+            want = col
+        else:
+            rows = groups[name]
+            col = ByteArrayColumn(np.arange(len(rows) + 1) * flba,
+                                  rows.reshape(-1))
+        n = len(col)
+        seg = np.frombuffer(encode_delta_byte_array(col), np.uint8)
+        stg = _Stager()
+        op, _ = _plan_dba_page(seg, flba, None, n, n, 0, stg)
+        (staged,), _slab = _put_all([stg], dev)
+        te, ts, lits = staged
+        expanded = int(col.offsets[-1])
+        out_cap = bucket(expanded)
+        steps = max(int(np.ceil(np.log2(max(expanded, 2)))), 1)
+        got = expand_tokens(te, ts, lits, out_cap, steps)
+        _same(f"K8 front coding {name}", got, expand_tokens_plain(
+            te.cpu(), ts.cpu(), lits.cpu(), out_cap, steps))
+        if not np.array_equal(got[:expanded].cpu().numpy(), col.data):
+            raise AssertionError(f"K8 front coding {name}: wrong bytes")
+        parts = {"val": [], "bytes": [], "def": [], "device": dev}
+        op(staged, parts)
+        if flba is None:
+            if not np.array_equal(parts["bytes"][0][1][:expanded].cpu()
+                                  .numpy(), want.data):
+                raise AssertionError("DELTA_BYTE_ARRAY strings: wrong bytes")
+        elif not np.array_equal(parts["val"][0][0].cpu().numpy().view(
+                np.uint8).reshape(n, 16), rows):
+            raise AssertionError("DELTA_BYTE_ARRAY rows: wrong words")
+
+
 def check_kernels(dev) -> None:
     """Phase 2: every kernel against its plain version on the card."""
     from tpuparquet_torch.cpu.bitpack import pack
@@ -808,6 +1081,8 @@ def check_kernels(dev) -> None:
     _check_bytes_from_blob(rng, dev)
     _check_delta_scatter(rng, dev)
     _check_bss(rng, dev)
+    _check_flba(rng, dev)
+    _check_new_shapes(rng, dev)
     if dev.type == "cuda":  # a fault during a run surfaces here
         torch.cuda.synchronize(dev)
 
@@ -844,8 +1119,8 @@ def _stage(arrays, dev):
     return [_t(a, dev) for a in arrays]
 
 
-def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, dev,
-                 launches) -> list:
+def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
+                 dev, launches) -> list:
     """Phase 4: each kernel at the main paths' page shapes."""
     from tpuparquet_torch.compress import compress_block
     from tpuparquet_torch.cpu.bss import encode_byte_stream_split
@@ -857,19 +1132,23 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, dev,
     from tpuparquet_torch.format.metadata import CompressionCodec, Type
     from tpuparquet_torch.kernels.bitunpack import pad_to_words, \
         unpack_u32, unpack_u32_plain, unpack_u64, unpack_u64_plain
+    from tpuparquet_torch.cpu.delta import encode_delta_byte_array
+    from tpuparquet_torch.cpu.plain import ByteArrayColumn
     from tpuparquet_torch.kernels.decode import bss_to_lanes, \
         bss_to_lanes_plain, bucket, delta_scan, delta_scan_plain, \
+        flba_bytes_to_lanes, flba_bytes_to_lanes_plain, \
         levels_to_validity, levels_to_validity_plain, page_dict_bytes, \
         page_dict_bytes_plain, page_dict_fixed, page_dict_fixed_plain, \
         plain_bytes_from_blob, plain_bytes_from_blob_plain, \
         plan_delta_i64, planes_to_words_plain, scatter_deltas, \
         scatter_deltas_plain
-    from tpuparquet_torch.kernels.device import _plan_plane_words, \
-        _put_all, _Stager
+    from tpuparquet_torch.kernels.device import _plan_dba_page, \
+        _plan_plane_words, _put_all, _Stager
     from tpuparquet_torch.kernels.hybrid import expand_hybrid, \
         expand_hybrid_plain, plan_stream_args
     from tpuparquet_torch.kernels.snappy import expand_tokens, \
-        expand_tokens_words, expand_tokens_words_plain, plan_tokens
+        expand_tokens_plain, expand_tokens_words, \
+        expand_tokens_words_plain, plan_tokens
     from tpuparquet_torch.native import pack_native
 
     cols, pay_mask = groups[0]
@@ -1158,6 +1437,64 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, dev,
     if not np.array_equal(got.cpu().numpy().view(np.float64), reading):
         raise AssertionError("K12 reading page: wrong values")
     print(f"K12 page: {count} doubles, {raw.nbytes} bytes", flush=True)
+
+    # K13: the parquet-mr v2 table's amount page (row group 0): its
+    # DELTA_BYTE_ARRAY tables planned as the reader plans them, expanded
+    # by K8 into the rows K13 reads.  One PyTorch call computes the same
+    # words: the rows zero-padded to whole lanes (F.pad), viewed as int32
+    def dba_page(col, flba):
+        n = len(col)
+        seg = np.frombuffer(encode_delta_byte_array(col), np.uint8)
+        stg = _Stager()
+        _plan_dba_page(seg, flba, None, n, n, 0, stg)
+        (staged,), _slab = _put_all([stg], dev)
+        _sync(dev)
+        expanded = int(col.offsets[-1])
+        return (staged, bucket(expanded),
+                max(int(np.ceil(np.log2(max(expanded, 2)))), 1), expanded)
+
+    cols_v2, _ = groups_v2[0]
+    rows = cols_v2["amount"]
+    na, length = rows.shape
+    lanes = (length + 3) // 4
+    (te_d, ts_d, lits_d), cap, steps, _ = dba_page(
+        ByteArrayColumn(np.arange(na + 1) * length, rows.reshape(-1)),
+        length)
+    blob_d = expand_tokens(te_d, ts_d, lits_d, cap, steps)
+    row("flba_bytes_to_lanes", "tpuparquet_torch/csrc/flba_to_lanes.cu",
+        "tpuparquet/kernels/decode.py:99",
+        lambda: flba_bytes_to_lanes(blob_d, na, length),
+        lambda: flba_bytes_to_lanes_plain(blob_d, na, length),
+        na * length + 4 * lanes * na, 8 * lanes * na,
+        library=lambda: torch.nn.functional.pad(
+            blob_d[: na * length].view(na, length),
+            (0, 4 * lanes - length)).view(torch.int32))
+    got = flba_bytes_to_lanes(blob_d, na, length)
+    if not np.array_equal(got.cpu().numpy().view(np.uint8).reshape(
+            na, 4 * lanes)[:, :length], rows):
+        raise AssertionError("K13 amount page: wrong rows")
+    print(f"K13 page: {na} rows of {length} bytes, {lits_d.numel()} "
+          f"suffix bytes", flush=True)
+
+    # K8 again on the same table's url page: the front-coding copy graph
+    # of sorted URLs, one copy and one literal token a value (printed
+    # here; the kernels line keeps K8's row of the tok page)
+    url = cols_v2["url"]
+    (te_d, ts_d, lits_d), cap, steps, expanded = dba_page(url, None)
+    got, want = (expand_tokens(te_d, ts_d, lits_d, cap, steps),
+                 expand_tokens_plain(te_d, ts_d, lits_d, cap, steps))
+    err = _max_err(got, want)
+    if err or not np.array_equal(got[:expanded].cpu().numpy(), url.data):
+        raise AssertionError("K8 url page: wrong bytes")
+    bound, by = _bound_ms(te_d.numel() * 8 + lits_d.numel() + expanded,
+                          expanded)
+    ms = _time_ms(lambda: expand_tokens(te_d, ts_d, lits_d, cap, steps))
+    plain_ms = _time_ms(lambda: expand_tokens_plain(te_d, ts_d, lits_d, cap,
+                                                    steps), reps=5)
+    print(f"expand_tokens on the url page ({len(url)} values, {expanded} "
+          f"bytes out, {lits_d.numel()} suffix bytes, {steps} rounds): "
+          f"{ms:.4f} ms (bound {bound:.4f} ms by {by}; plain "
+          f"{plain_ms:.4f} ms; max_abs_err {err})", flush=True)
     return out
 
 
@@ -1318,6 +1655,23 @@ def _best_of(label, reader, dev, n_values, reps: int = 3, note: str = ""):
           f"bytes_staged {phases.bytes_staged}{note}", flush=True)
 
 
+def _launches_by_column(reader, dev, wrappers) -> dict:
+    """Row group 0 again, each column finished on its own, the counts set
+    to 0 before each: ``{column: {kernel: launches}}`` (kernels that
+    launched)."""
+    from tpuparquet_torch.kernels.device import _finish_row_group, \
+        _plan_row_group
+
+    out = {}
+    for item in _plan_row_group(reader, 0):
+        for fn in wrappers.values():
+            fn.launches = 0
+        _finish_row_group([item], dev)
+        out[item[0]] = {k: fn.launches for k, fn in wrappers.items()
+                        if fn.launches}
+    return out
+
+
 def _need(label, launches, names) -> None:
     missing = [k for k in names if launches[k] == 0]
     if missing:
@@ -1384,7 +1738,8 @@ def main(argv=None) -> int:
                 "page_dict_bytes": decode.page_dict_bytes,
                 "plain_bytes_from_blob": decode.plain_bytes_from_blob,
                 "scatter_deltas": decode.scatter_deltas,
-                "bss_to_lanes": decode.bss_to_lanes}
+                "bss_to_lanes": decode.bss_to_lanes,
+                "flba_bytes_to_lanes": decode.flba_bytes_to_lanes}
     total_launches = dict.fromkeys(wrappers, 0)
     g = args.groups
 
@@ -1523,11 +1878,73 @@ def main(argv=None) -> int:
     _best_of("sensor table", reader_t, dev, n_t,
              note=" (the JAX package: 195,888,708 on the same generator)")
     del reader_t, blob_t
-    print(f"launches over the seven reads: {total_launches}", flush=True)
+
+    # phase 3g: the Spark-style table (INT96, BOOLEAN, FIXED_LEN_BYTE_ARRAY;
+    # V1), default transports
+    t0 = time.perf_counter()
+    blob_k, groups_k = build_spark(args.values, g)
+    print(f"spark table: {g} row groups, {len(blob_k)} bytes, written in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    reader_k = FileReader(blob_k)
+    got, launches, st = _drive(reader_k, dev, wrappers)
+    print(f"spark table launches: {launches}", flush=True)
+    n_k = _check_read("spark table", reader_k, got, groups_k)
+    del got, groups_k
+    _routing("spark table", st, {"pages_device_snappy": 0,
+                                 "pages_device_delta_lanes": 0,
+                                 "pages_device_planes": g})
+    _need("spark table", launches, ["planes_to_words", "page_dict_fixed",
+                                    "unpack_u32", "levels_to_validity"])
+    for k, c in launches.items():
+        total_launches[k] += c
+    _best_of("spark table", reader_k, dev, n_k)
+    del reader_k, blob_k
+
+    # phase 3h: the parquet-mr v2 table (RLE booleans, DELTA_BYTE_ARRAY
+    # strings and rows, DELTA_LENGTH_BYTE_ARRAY; data page V2), default
+    # transports
+    t0 = time.perf_counter()
+    blob_v2, groups_v2 = build_mr_v2(args.values, g)
+    print(f"parquet-mr v2 table: {g} row groups, {len(blob_v2)} bytes, "
+          f"written in {time.perf_counter() - t0:.2f} s", flush=True)
+    reader_v2 = FileReader(blob_v2)
+    got, launches, st = _drive(reader_v2, dev, wrappers)
+    print(f"parquet-mr v2 table launches: {launches}", flush=True)
+    n_v2 = _check_read("parquet-mr v2 table", reader_v2, got, groups_v2)
+    del got
+    _routing("parquet-mr v2 table", st, {"pages_device_snappy": 0,
+                                         "pages_device_delta_lanes": 0,
+                                         "pages_device_planes": 0})
+    _need("parquet-mr v2 table", launches, ["levels_to_validity"])
+    _need_any("parquet-mr v2 table", launches,
+              ["unpack_u32", "expand_hybrid"])
+    # one K8 launch per device-route DELTA_BYTE_ARRAY page (url, amount)
+    # and one K13 launch per amount page; session pages assemble on the
+    # host
+    if (launches["expand_tokens"], launches["flba_bytes_to_lanes"]) != \
+            (2 * g, g):
+        raise AssertionError(
+            f"parquet-mr v2 table: {launches['expand_tokens']} K8 and "
+            f"{launches['flba_bytes_to_lanes']} K13 launches, expected "
+            f"{2 * g} and {g}")
+    by_column = _launches_by_column(reader_v2, dev, wrappers)
+    print(f"parquet-mr v2 table row group 0 launches by column: "
+          f"{by_column}", flush=True)
+    want_k8 = {"url": 1, "session": 0, "amount": 1}
+    if {k: by_column[k].get("expand_tokens", 0) for k in want_k8} \
+            != want_k8 or by_column["amount"].get(
+                "flba_bytes_to_lanes") != 1:
+        raise AssertionError("parquet-mr v2 table: DELTA_BYTE_ARRAY pages "
+                             "took other routes than the gate gives")
+    for k, c in launches.items():
+        total_launches[k] += c
+    _best_of("parquet-mr v2 table", reader_v2, dev, n_v2)
+    del reader_v2, blob_v2
+    print(f"launches over the nine reads: {total_launches}", flush=True)
 
     # phase 4: kernel times at the main paths' shapes
     kernels = time_kernels(groups, mix_groups, groups4, groups_s, groups_t,
-                           dev, total_launches)
+                           groups_v2, dev, total_launches)
     _need("the main paths", total_launches, list(wrappers))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

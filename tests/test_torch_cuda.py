@@ -41,7 +41,7 @@ def cuda():
 
 
 def test_kernels_match_plain_versions(cuda):
-    """K1-K12 against their plain versions, bit for bit (the checks of
+    """K1-K13 against their plain versions, bit for bit (the checks of
     chip_smoke.py's phase 2)."""
     chip_smoke.check_kernels(cuda)
 
@@ -77,6 +77,15 @@ def test_delta_and_bss_kernels_match_plain_versions(cuda, check):
     torch.cuda.synchronize(cuda)
 
 
+@pytest.mark.parametrize("check", ["_check_flba", "_check_new_shapes"])
+def test_slice5_shapes_match_plain_versions(cuda, check):
+    """K13 (flba_bytes_to_lanes at row lengths 3, 9, 12, 16 and 22), K3
+    at 3 and 4 lanes over a padded dictionary, K12 with k = 9 and 16 over
+    3 and 4 lanes, K8 on front-coded strings and rows."""
+    getattr(chip_smoke, check)(np.random.default_rng(4), cuda)
+    torch.cuda.synchronize(cuda)
+
+
 def _same_buffers(reader, out, groups):
     for rg, cols_out in out:
         cpu = read_row_group_device(reader, rg, device="cpu")
@@ -96,7 +105,9 @@ def _launches(names):
            "K7": decode.delta_scan, "K8": snappy.expand_tokens,
            "K9": decode.page_dict_bytes,
            "K10": decode.plain_bytes_from_blob,
-           "K11": decode.scatter_deltas, "K12": decode.bss_to_lanes}
+           "K11": decode.scatter_deltas, "K12": decode.bss_to_lanes,
+           "K3": decode.page_dict_fixed,
+           "K13": decode.flba_bytes_to_lanes}
     return {k: fns[k].launches for k in names}
 
 
@@ -232,3 +243,37 @@ def test_read_on_card_matches_cpu_buffer_for_buffer(cuda, monkeypatch):
                       for rg in reader.meta.row_groups for cc in rg.columns)
     assert (k1, k3, k4) == (2, dict_chunks, 2)
     assert 0 <= k2 <= dict_chunks
+
+
+def test_parquet_mr_v2_table_on_card(cuda, monkeypatch):
+    """The parquet-mr v2 table at 100,000 rows a group: RLE booleans,
+    front-coded URLs through K8 and DECIMAL rows through K8 then K13, the
+    session ids assembled on the host, on the card buffer for buffer
+    with the CPU run."""
+    for k in chip_smoke.TRANSPORT_ENV:
+        monkeypatch.delenv(k, raising=False)
+    blob, groups = chip_smoke.build_mr_v2(1_250_000, 2)
+    reader = FileReader(io.BytesIO(blob))
+    before = _launches(["K8", "K13"])
+    out = list(read_row_groups_device(reader))
+    after = _launches(["K8", "K13"])
+    _same_buffers(reader, out, groups)
+    assert after["K8"] == before["K8"] + 4
+    assert after["K13"] == before["K13"] + 2
+
+
+def test_spark_table_on_card(cuda, monkeypatch):
+    """The Spark-style table at 100,000 rows a group: INT96 planes (K5 at
+    3 lanes) and dictionary (K3 at 3 lanes), optional BOOLEAN (K1) and
+    fixed-length rows, on the card buffer for buffer with the CPU run."""
+    for k in chip_smoke.TRANSPORT_ENV:
+        monkeypatch.delenv(k, raising=False)
+    blob, groups = chip_smoke.build_spark(1_000_000, 2)
+    reader = FileReader(io.BytesIO(blob))
+    before = _launches(["K3", "K5"])
+    with collect_stats() as st:
+        out = list(read_row_groups_device(reader))
+    after = _launches(["K3", "K5"])
+    _same_buffers(reader, out, groups)
+    assert st.pages_device_planes == 2
+    assert all(after[k] > before[k] for k in after)

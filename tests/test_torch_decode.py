@@ -135,6 +135,13 @@ def test_levels_to_validity_matches_jax(n, max_def):
 
 
 def test_dictionary_shape_checked():
+    """A dictionary must hold one whole value; a staged one holds its
+    values then padding, which need not fill a whole value (a padded
+    3-lane INT96 dictionary), as the reference floors ``n_dict``."""
     with pytest.raises(ValueError):
-        page_dict_fixed(torch.zeros(3, dtype=torch.int32), None, None, 10, 0,
+        page_dict_fixed(torch.zeros(1, dtype=torch.int32), None, None, 10, 0,
                         0, lanes=2)
+    d = torch.arange(7, dtype=torch.int32)
+    np.testing.assert_array_equal(
+        page_dict_fixed(d, None, None, 4, 0, 0, lanes=3).numpy(),
+        np.tile([0, 1, 2], 4))

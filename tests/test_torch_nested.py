@@ -102,7 +102,7 @@ def test_schema_elements_match_jax_parser(schema):
     "message m { optional group l (MAP) { repeated int32 k; } }",
     "message m { required int64 t (TIMESTAMP(NANOS, true)); }",
     "message m { required int32 t (TIMESTAMP(MILLIS, true)); }",
-    "message m { required boolean b; }",
+    "message m { required int32 d (DATE); }",
 ])
 def test_schema_outside_the_subset_raises(text):
     with pytest.raises(NotImplementedError):

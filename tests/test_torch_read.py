@@ -342,14 +342,17 @@ def test_out_of_range_dictionary_index_rejected():
         read_row_group_device(FileReader(bytes(blob)), 0, device="cpu")
 
 
-@pytest.mark.parametrize("what", ["gzip", "dlba", "dba", "boolean"])
+@pytest.mark.parametrize("what", ["gzip", "zstd", "lz4_raw", "dlba", "dba",
+                                  "boolean"])
 def test_unsupported_input_raises_not_implemented(what):
-    """Inputs of later slices raise: another codec, DELTA_LENGTH_BYTE_ARRAY
-    and DELTA_BYTE_ARRAY strings, a BOOLEAN column."""
+    """Inputs of later slices raise: the codecs other than UNCOMPRESSED
+    and SNAPPY.  DELTA_LENGTH_BYTE_ARRAY and DELTA_BYTE_ARRAY strings and
+    a BOOLEAN column, which earlier slices refused, now read as the JAX
+    package reads them."""
     groups = [({"v": np.arange(100, dtype=np.int64)}, {})]
     schema, codec, kw = "message m { required int64 v; }", JaxCodec.SNAPPY, {}
-    if what == "gzip":
-        codec = JaxCodec.GZIP
+    if what in ("gzip", "zstd", "lz4_raw"):
+        codec = JaxCodec[what.upper()]
     elif what in ("dlba", "dba"):
         schema = "message m { required binary v; }"
         groups = [({"v": JaxByteArrayColumn.from_list(
@@ -361,8 +364,17 @@ def test_unsupported_input_raises_not_implemented(what):
         schema = "message m { required boolean v; }"
         groups = [({"v": np.arange(100) % 3 == 0}, {})]
     blob = _write(JaxFileWriter, codec, groups, schema=schema, **kw)
-    with pytest.raises(NotImplementedError):
-        read_row_group_device(FileReader(blob), 0, device="cpu")
+    if codec != JaxCodec.SNAPPY:
+        with pytest.raises(NotImplementedError):
+            read_row_group_device(FileReader(blob), 0, device="cpu")
+        return
+    ours, _, _ = _read_both(blob)
+    got, want = ours[0]["v"].to_numpy()[0], groups[0][0]["v"]
+    if what == "boolean":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_array_equal(got.offsets, want.offsets)
+        np.testing.assert_array_equal(got.data, want.data)
 
 
 # ----------------------------------------------------------------------

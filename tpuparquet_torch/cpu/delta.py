@@ -1,4 +1,6 @@
-"""DELTA_BINARY_PACKED (NumPy, with the block walk in C).
+"""DELTA_BINARY_PACKED (NumPy, with the block walk in C), and the two
+string encodings built on it: DELTA_LENGTH_BYTE_ARRAY and
+DELTA_BYTE_ARRAY.
 
 Wire format: header = ``block_size`` uvarint, ``miniblocks_per_block``
 uvarint, ``total_value_count`` uvarint, ``first_value`` zigzag varint;
@@ -11,20 +13,34 @@ two's-complement wraparound at the target width.
 planner (``kernels/decode.py plan_delta_i32/_i64``) and the decoder here
 both start from its per-miniblock bookkeeping, so their validation
 cannot drift.  Encoder defaults: block 128, 4 miniblocks of 32.
+
+DELTA_LENGTH_BYTE_ARRAY is the values' lengths (DELTA_BINARY_PACKED) then
+their bytes back to back; DELTA_BYTE_ARRAY (front coding) is each value's
+prefix length shared with the value before it (DELTA_BINARY_PACKED) then
+the suffixes as DELTA_LENGTH_BYTE_ARRAY.  The front-coded fill and the
+writer's prefix pass run in C (``csrc/delta.c``): both walk the values
+one after another.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..native import delta_native, pack_native
+from ..native import bytes_native, delta_native, pack_native
 from ..varint import read_uvarint, read_zigzag, write_uvarint, write_zigzag
 from .bitpack import unpack
+from .plain import ByteArrayColumn
 
 __all__ = [
     "DeltaStructure",
+    "assemble_delta_byte_array",
     "decode_delta_binary_packed",
+    "decode_delta_byte_array",
+    "decode_delta_length_byte_array",
     "encode_delta_binary_packed",
+    "encode_delta_byte_array",
+    "encode_delta_length_byte_array",
+    "scan_delta_length_byte_array",
     "scan_delta_structure",
     "widths_from_max",
 ]
@@ -198,3 +214,82 @@ def encode_delta_binary_packed(values, block_size: int = 128,
     body = pack_native().delta_emit(mb, widths, mb_size, min_deltas,
                                     n_miniblocks)
     return bytes(out) + body.tobytes()
+
+
+# -- DELTA_LENGTH_BYTE_ARRAY ------------------------------------------------
+
+def scan_delta_length_byte_array(data, count: int, pos: int = 0):
+    """Validated DLBA structure without materialising the payload:
+    ``(int64 offsets, data_pos)``, the bytes being ``data[data_pos :
+    data_pos + offsets[-1]]``.  Shared by the decoder and the device
+    planner, so their validation cannot drift."""
+    lengths, pos = decode_delta_binary_packed(data, np.int64, pos)
+    if lengths.size != count:
+        raise ValueError(
+            f"DELTA_LENGTH_BYTE_ARRAY: length stream has {lengths.size} "
+            f"entries, expected {count}")
+    if (lengths < 0).any():
+        raise ValueError("negative byte-array length")
+    offsets = np.zeros(count + 1, dtype=np.int64)
+    np.cumsum(lengths, out=offsets[1:])
+    if pos + int(offsets[-1]) > len(data):
+        raise ValueError("DELTA_LENGTH_BYTE_ARRAY: truncated data section")
+    return offsets, pos
+
+
+def decode_delta_length_byte_array(data, count: int, pos: int = 0):
+    """``(ByteArrayColumn, end_pos)``: the lengths, then the bytes."""
+    offsets, pos = scan_delta_length_byte_array(data, count, pos)
+    total = int(offsets[-1])
+    payload = np.frombuffer(data, dtype=np.uint8, count=total, offset=pos)
+    return ByteArrayColumn(offsets, payload.copy()), pos + total
+
+
+def encode_delta_length_byte_array(values: ByteArrayColumn) -> bytes:
+    return (encode_delta_binary_packed(values.lengths())
+            + values.data[int(values.offsets[0]):
+                          int(values.offsets[-1])].tobytes())
+
+
+# -- DELTA_BYTE_ARRAY (front coding) ----------------------------------------
+
+def assemble_delta_byte_array(prefix_lens, suffix_offsets,
+                              suffix_data) -> ByteArrayColumn:
+    """Front-coded values rebuilt from the parsed streams (validation
+    included), in one C pass; shared by the decoder and the device
+    planner's host-assembly route."""
+    total_lens = prefix_lens + np.diff(suffix_offsets)
+    offsets = np.zeros(len(prefix_lens) + 1, dtype=np.int64)
+    np.cumsum(total_lens, out=offsets[1:])
+    out = delta_native().dba_assemble(prefix_lens, suffix_offsets,
+                                      suffix_data, offsets,
+                                      int(offsets[-1]))
+    return ByteArrayColumn(offsets, out)
+
+
+def decode_delta_byte_array(data, count: int, pos: int = 0):
+    """``(ByteArrayColumn, end_pos)``: prefix lengths, suffixes, then the
+    front-coded fill."""
+    prefix_lens, pos = decode_delta_binary_packed(data, np.int64, pos)
+    if prefix_lens.size != count:
+        raise ValueError("DELTA_BYTE_ARRAY: prefix count mismatch")
+    suffixes, pos = decode_delta_length_byte_array(data, count, pos)
+    return assemble_delta_byte_array(prefix_lens, suffixes.offsets,
+                                     suffixes.data), pos
+
+
+def encode_delta_byte_array(values: ByteArrayColumn) -> bytes:
+    """Front coding: each value's prefix shared with the one before it
+    (one C pass), then the suffixes gathered in one C pass — byte for
+    byte the JAX package's stream."""
+    offs = np.asarray(values.offsets, dtype=np.int64)
+    prefix = delta_native().common_prefix(values.data, offs)
+    starts = offs[:-1] + prefix
+    lens = np.diff(offs) - prefix
+    suffix_offs = np.zeros(offs.size, dtype=np.int64)
+    np.cumsum(lens, out=suffix_offs[1:])
+    suffixes = bytes_native().gather_var(values.data, starts, lens,
+                                         int(suffix_offs[-1]))
+    return (encode_delta_binary_packed(prefix)
+            + encode_delta_length_byte_array(
+                ByteArrayColumn(suffix_offs, suffixes)))

@@ -5,9 +5,10 @@ The dictionary lists the distinct values in the order they first occur
 ``tpuparquet/cpu/dictionary.py``), and the indices give each value's
 position in it.  Integers with a small value range intern through a
 dense table, other fixed-width values through ``np.unique`` re-ranked by
-first occurrence, and byte columns in one C pass (``csrc/bytes.c``
-``tpq_intern_var``) that stops as soon as the distinct count passes the
-caller's cap.
+first occurrence, ``(N, L)`` rows (FIXED_LEN_BYTE_ARRAY bytes, INT96
+words) through a vectorised row hash checked byte for byte, and byte
+columns in one C pass (``csrc/bytes.c`` ``tpq_intern_var``) that stops as
+soon as the distinct count passes the caller's cap.
 """
 
 from __future__ import annotations
@@ -48,6 +49,54 @@ def _build_int_dictionary_smallrange(arr: np.ndarray):
     return uniq, lookup[off].astype(np.int32)
 
 
+def _hash_rows(rows: np.ndarray) -> np.ndarray:
+    """FNV-style hash of each row of a (k, L) u8 matrix, over u64 words
+    (the tail zero-padded), one multiply-add pass per 8 row bytes."""
+    k, L = rows.shape
+    nw = (L + 7) // 8
+    padded = np.zeros((k, nw * 8), dtype=np.uint8)
+    padded[:, :L] = rows
+    words = padded.view("<u8")
+    h = np.full(k, np.uint64(1469598103934665603 + 31 * L), dtype=np.uint64)
+    prime = np.uint64(1099511628211)
+    for j in range(nw):
+        h = (h ^ words[:, j]) * prime
+    return h
+
+
+def _unique_rows_table(rows: np.ndarray, h: np.ndarray):
+    """``(first_idx, inverse)`` by an O(k) slot table over the hashes, or
+    None when two distinct rows share a slot (every row is compared with
+    its slot's first occupant): the caller then takes the exact path."""
+    k = rows.shape[0]
+    tbits = max(16, min(22, (4 * k - 1).bit_length()))
+    slot = ((h * np.uint64(0x9E3779B97F4A7C15))
+            >> np.uint64(64 - tbits)).astype(np.int64)
+    first = np.full(1 << tbits, k, dtype=np.int64)
+    # reversed scatter keeps the last write: the smallest original index
+    first[slot[::-1]] = np.arange(k - 1, -1, -1, dtype=np.int64)
+    if not np.array_equal(rows[first[slot]], rows):
+        return None
+    present = first < k
+    return first[present], (np.cumsum(present) - 1)[slot]
+
+
+def _unique_rows(rows: np.ndarray):
+    """``(first_idx, inverse)`` over the distinct rows of a (k, L) u8
+    matrix, in some order (callers re-rank by first occurrence): the
+    hash table at 4,096 rows and up, else, or on a collision, an exact
+    memcmp unique."""
+    if rows.shape[0] >= 4096:
+        out = _unique_rows_table(rows, _hash_rows(rows))
+        if out is not None:
+            return out
+    view = np.ascontiguousarray(rows).view(
+        np.dtype((np.void, rows.shape[1]))).reshape(-1)
+    _, first_idx, inv = np.unique(view, return_index=True,
+                                  return_inverse=True)
+    return first_idx, inv.reshape(-1)
+
+
 def _gather_bytes(values: ByteArrayColumn,
                   idx: np.ndarray) -> ByteArrayColumn:
     """The values at ``idx``, as a new column (one C gather)."""
@@ -78,10 +127,17 @@ def intern_byte_column(values: ByteArrayColumn, max_distinct: int):
 
 def build_dictionary(values):
     """``(dictionary, int32 indices)`` in first-occurrence order, for an
-    integer or float array or a :class:`ByteArrayColumn` (uncapped)."""
+    integer or float array, ``(N, L)`` rows or a :class:`ByteArrayColumn`
+    (uncapped)."""
     if isinstance(values, ByteArrayColumn):
         return intern_byte_column(values, max(len(values), 1))
     arr = np.asarray(values)
+    if arr.ndim == 2:
+        rows = np.ascontiguousarray(arr).view(np.uint8).reshape(
+            arr.shape[0], -1)
+        first_idx, inv = _unique_rows(rows)
+        order, rank = _first_occurrence_rank(first_idx)
+        return arr[first_idx[order]], rank[inv].astype(np.int32)
     if arr.dtype.kind in "iu" and arr.size:
         out = _build_int_dictionary_smallrange(arr)
         if out is not None:

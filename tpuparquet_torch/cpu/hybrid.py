@@ -6,7 +6,8 @@ Wire format: a stream of runs, each headed by a uvarint ``h``:
 * ``h & 1 == 0``: RLE run of ``h >> 1`` copies of one value stored in
   ``ceil(width / 8)`` little-endian bytes.
 
-Level streams of V1 pages carry a 4-byte LE total-length prefix.  Decode
+Level streams of V1 pages, and the values of an RLE-encoded BOOLEAN page,
+carry a 4-byte LE total-length prefix.  Decode
 parses the run structure once into a run table (:func:`scan_hybrid`,
 the host pass of the device plan) and expands it (:func:`expand_scan`);
 encode (:func:`encode_hybrid`) chooses RLE for constant stretches of at
@@ -30,6 +31,8 @@ __all__ = [
     "as_uint32",
     "scan_hybrid",
     "expand_scan",
+    "decode_hybrid",
+    "decode_hybrid_prefixed",
     "encode_hybrid",
     "encode_hybrid_prefixed",
 ]
@@ -142,6 +145,26 @@ def expand_scan(run_ends, run_is_rle, run_value, run_bp_start, bp_bytes,
                         max(n_bp - 1, 0))
     return np.where(run_is_rle[run], run_value[run],
                     unpacked[bp_pos]).astype(np.uint32)
+
+
+def decode_hybrid(data, count: int, width: int, pos: int = 0) -> np.ndarray:
+    """Exactly ``count`` ``width``-bit values as u32 (scan, then expand);
+    trailing bytes are ignored."""
+    if width == 0:
+        return np.zeros(count, dtype=np.uint32)
+    return expand_scan(*scan_hybrid(data, count, width, pos)[:6], count,
+                       width)
+
+
+def decode_hybrid_prefixed(data, count: int, width: int, pos: int = 0):
+    """The 4-byte-length-prefixed form: ``(values, end_pos)``."""
+    if pos + 4 > len(data):
+        raise ValueError("truncated hybrid length prefix")
+    (size,) = struct.unpack_from("<I", data, pos)
+    end = pos + 4 + size
+    if end > len(data):
+        raise ValueError(f"hybrid stream length {size} exceeds buffer")
+    return decode_hybrid(data[pos + 4 : end], count, width), end
 
 
 def encode_hybrid(values, width: int) -> bytes:

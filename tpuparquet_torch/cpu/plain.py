@@ -1,10 +1,12 @@
-"""PLAIN codec for INT32, INT64, FLOAT, DOUBLE and BYTE_ARRAY.
+"""PLAIN codec for every physical type.
 
 Fixed-width values are little-endian on the wire, which is native on
 every platform the port targets, so their decode is a zero-copy
-reinterpret of the buffer.  BYTE_ARRAY values are ``(u32-LE length,
-bytes)`` records; they decode to offsets + data (:class:`ByteArrayColumn`,
-the Arrow layout the device path keeps) with one C pass over the length
+reinterpret of the buffer: INT96 as ``(N, 3)`` u32 words,
+FIXED_LEN_BYTE_ARRAY as ``(N, L)`` u8 rows.  BOOLEAN packs one bit a
+value, LSB first.  BYTE_ARRAY values are ``(u32-LE length, bytes)``
+records; they decode to offsets + data (:class:`ByteArrayColumn`, the
+Arrow layout the device path keeps) with one C pass over the length
 prefixes and one C gather (``csrc/bytes.c``).
 """
 
@@ -13,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..format.metadata import Type
+from .bitpack import pack, unpack
 
 __all__ = ["PHYSICAL_DTYPES", "ByteArrayColumn", "decode_plain",
            "encode_plain"]
@@ -64,44 +67,54 @@ class ByteArrayColumn:
         return f"ByteArrayColumn(n={len(self)}, nbytes={self.data.size})"
 
 
-def _dtype(ptype) -> np.dtype:
-    dt = PHYSICAL_DTYPES.get(Type(ptype))
-    if dt is None:
-        raise NotImplementedError(
-            f"physical type {Type(ptype).name} is not supported by "
-            "tpuparquet_torch (INT32, INT64, FLOAT, DOUBLE and BYTE_ARRAY "
-            "only)")
-    return dt
-
-
-def decode_plain(ptype, data, count: int):
+def decode_plain(ptype, data, count: int, type_length: int | None = None):
     """Decode ``count`` PLAIN values: a zero-copy view for fixed-width
-    types, a :class:`ByteArrayColumn` (its own copy of the bytes) for
-    BYTE_ARRAY.  Trailing bytes are ignored."""
+    types (``type_length`` bytes a row for FIXED_LEN_BYTE_ARRAY), a bool
+    array for BOOLEAN, a :class:`ByteArrayColumn` (its own copy of the
+    bytes) for BYTE_ARRAY.  Trailing bytes are ignored."""
     buf = np.frombuffer(data, dtype=np.uint8)
-    if Type(ptype) == Type.BYTE_ARRAY:
+    ptype = Type(ptype)
+    if ptype == Type.BOOLEAN:
+        return unpack(buf, count, 1).astype(np.bool_)
+    if ptype in (Type.INT96, Type.FIXED_LEN_BYTE_ARRAY):
+        row = 12 if ptype == Type.INT96 else type_length
+        if not row:
+            raise ValueError("FIXED_LEN_BYTE_ARRAY requires type_length")
+        if buf.size < count * row:
+            raise ValueError(f"PLAIN {ptype.name}: input too short")
+        rows = buf[: count * row].reshape(count, row)
+        return rows.view("<u4") if ptype == Type.INT96 else rows
+    if ptype == Type.BYTE_ARRAY:
         from ..native import bytes_native
 
         nat = bytes_native()
         positions, offsets = nat.byte_array_scan(buf, count)
         return ByteArrayColumn(offsets, nat.gather_var(
             buf, positions, offsets[1:] - offsets[:-1], int(offsets[-1])))
-    dt = _dtype(ptype)
+    dt = PHYSICAL_DTYPES[ptype]
     need = count * dt.itemsize
     if buf.size < need:
         raise ValueError(
-            f"PLAIN {Type(ptype).name}: need {need} bytes for {count} "
+            f"PLAIN {ptype.name}: need {need} bytes for {count} "
             f"values, have {buf.size}")
     return buf[:need].view(dt)
 
 
 def encode_plain(ptype, values) -> bytes:
-    """PLAIN-encode an array (fixed-width types) or a
+    """PLAIN-encode an array (fixed-width types: a bool array, ``(N, 3)``
+    u32 INT96 words, ``(N, L)`` u8 FIXED_LEN_BYTE_ARRAY rows) or a
     :class:`ByteArrayColumn` (BYTE_ARRAY, one C pass)."""
-    if Type(ptype) == Type.BYTE_ARRAY:
+    ptype = Type(ptype)
+    if ptype == Type.BYTE_ARRAY:
         from ..native import bytes_native
 
         return bytes_native().byte_array_emit(values.data,
                                               values.offsets).tobytes()
-    return np.ascontiguousarray(np.asarray(values, dtype=_dtype(ptype))) \
+    if ptype == Type.BOOLEAN:
+        return pack(np.asarray(values, dtype=np.bool_).astype(np.uint8), 1)
+    if ptype == Type.INT96:
+        return np.ascontiguousarray(values, dtype="<u4").tobytes()
+    if ptype == Type.FIXED_LEN_BYTE_ARRAY:
+        return np.ascontiguousarray(values, dtype=np.uint8).tobytes()
+    return np.ascontiguousarray(values, dtype=PHYSICAL_DTYPES[ptype]) \
         .tobytes()

@@ -1,4 +1,5 @@
-/* DELTA_BINARY_PACKED block scanner and miniblock gather.
+/* DELTA_BINARY_PACKED block scanner and miniblock gather; the
+ * DELTA_BYTE_ARRAY (front coding) fill and its writer's prefix pass.
  *
  * The structure pass of cpu/delta.py scan_delta_structure walks min_delta
  * zigzag varints and per-miniblock width bytes: a Python loop costs about
@@ -9,6 +10,10 @@
  * size the output arrays.  tpq_gather_segments concatenates one width
  * class's miniblock payloads for the device planner
  * (kernels/decode.py _plan_delta) when they do not lie back to back.
+ * tpq_dba_assemble rebuilds front-coded values, each from its
+ * predecessor, which is sequential by nature; tpq_common_prefix measures
+ * the prefix each value shares with the one before it (the writer's side:
+ * a Python loop over a million values took minutes).
  *
  * Return codes of the scan: 0 ok, -1 truncated varint, -5 truncated
  * width list, -6 width > max_width, -7 truncated payload, -8 output cap
@@ -105,4 +110,67 @@ long long tpq_delta_scan_blocks(
     *n_mb_out = nm;
     *end_pos_out = pos;
     return 0;
+}
+
+/* Front-coded DELTA_BYTE_ARRAY reconstruction: value i = the first
+ * prefix_lens[i] bytes of value i-1 (from the OUTPUT, inherently
+ * sequential) + its suffix bytes.  out_offsets are precomputed
+ * cumulative total lengths (count+1 entries).  Returns 0, or -1 first
+ * prefix nonzero / -2 prefix longer than the previous value / -3 a
+ * suffix out of bounds, with *err_index set. */
+long long tpq_dba_assemble(const int64_t *prefix_lens,
+                           const int64_t *suffix_offs,
+                           const uint8_t *suffix_data,
+                           long long suffix_len,
+                           const int64_t *out_offsets, long long count,
+                           uint8_t *out, long long *err_index) {
+    long long prev_start = 0, prev_len = 0;
+    for (long long i = 0; i < count; i++) {
+        long long start = out_offsets[i];
+        long long plen = prefix_lens[i];
+        if (i == 0 && plen != 0) {
+            *err_index = i;
+            return -1;
+        }
+        if (plen < 0 || plen > prev_len) {
+            *err_index = i;
+            return -2;
+        }
+        long long slen = suffix_offs[i + 1] - suffix_offs[i];
+        if (slen < 0 || suffix_offs[i] < 0
+            || suffix_offs[i] + slen > suffix_len
+            || start + plen + slen != out_offsets[i + 1]) {
+            *err_index = i;
+            return -3;
+        }
+        if (plen)
+            __builtin_memcpy(out + start, out + prev_start,
+                             (size_t)plen);
+        __builtin_memcpy(out + start + plen,
+                         suffix_data + suffix_offs[i], (size_t)slen);
+        prev_start = start;
+        prev_len = plen + slen;
+    }
+    return 0;
+}
+
+/* prefix[i] = the length of the longest common prefix of values i-1 and
+ * i (prefix[0] = 0), values given as offsets (count+1 entries) into data.
+ * The offsets are the caller's own, already validated. */
+void tpq_common_prefix(const uint8_t *data, const int64_t *offsets,
+                       long long count, int64_t *prefix) {
+    for (long long i = 0; i < count; i++) {
+        if (i == 0) {
+            prefix[0] = 0;
+            continue;
+        }
+        const uint8_t *a = data + offsets[i - 1];
+        const uint8_t *b = data + offsets[i];
+        long long la = offsets[i] - offsets[i - 1];
+        long long lb = offsets[i + 1] - offsets[i];
+        long long lim = la < lb ? la : lb, n = 0;
+        while (n < lim && a[n] == b[n])
+            n++;
+        prefix[i] = n;
+    }
 }

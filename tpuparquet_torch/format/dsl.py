@@ -2,12 +2,16 @@
 
 The parquet-mr style text form of a schema: one message of fields, each
 ``required``, ``optional`` or ``repeated``; a field is a group (``group
-name [(LIST)] { ... }``) or a primitive typed ``int32``, ``int64``,
-``float``, ``double`` or ``binary``.  A binary field may carry
-``(STRING)`` (written as the UTF8 converted type) and an int64 field
+name [(LIST)] { ... }``) or a primitive typed ``boolean``, ``int32``,
+``int64``, ``int96``, ``float``, ``double``, ``binary`` or
+``fixed_len_byte_array(N)``.  A binary field may carry ``(STRING)``
+(written as the UTF8 converted type), an int64 field
 ``(TIMESTAMP(MILLIS|MICROS, true|false))``, which sets the TIMESTAMP
-logical type and its converted type, as the JAX package's parser does.
-Other types, annotations and field ids raise
+logical type and its converted type, a binary, fixed-length, int32 or
+int64 field ``(DECIMAL(precision, scale))`` (the DECIMAL logical and
+converted types, ``precision`` and ``scale`` on the element) and a
+``fixed_len_byte_array(16)`` field ``(UUID)``, as the JAX package's
+parser does.  Other types, annotations and field ids raise
 :class:`NotImplementedError` naming what was found, so a schema this
 package cannot decode is refused at the door rather than misread.
 """
@@ -16,8 +20,9 @@ from __future__ import annotations
 
 import re
 
-from .metadata import ConvertedType, FieldRepetitionType, LogicalType, \
-    MicroSeconds, MilliSeconds, SchemaElement, TimestampType, TimeUnit, Type
+from .metadata import ConvertedType, DecimalType, FieldRepetitionType, \
+    LogicalType, MicroSeconds, MilliSeconds, SchemaElement, TimestampType, \
+    TimeUnit, Type, UUIDType
 
 __all__ = [
     "ColumnDefinition",
@@ -87,10 +92,15 @@ class SchemaDefinition:
 
 
 _TOKEN_RE = re.compile(
-    r"(?P<ws>\s+)|(?P<ident>[A-Za-z_][A-Za-z0-9_]*)|(?P<punct>[{};(),])")
+    r"(?P<ws>\s+)|(?P<ident>[A-Za-z_][A-Za-z0-9_]*)|(?P<num>[0-9]+)"
+    r"|(?P<punct>[{};(),])")
 
-_TYPES = {"int32": Type.INT32, "int64": Type.INT64, "float": Type.FLOAT,
-          "double": Type.DOUBLE, "binary": Type.BYTE_ARRAY}
+_TYPES = {"boolean": Type.BOOLEAN, "int32": Type.INT32, "int64": Type.INT64,
+          "int96": Type.INT96, "float": Type.FLOAT, "double": Type.DOUBLE,
+          "binary": Type.BYTE_ARRAY,
+          "fixed_len_byte_array": Type.FIXED_LEN_BYTE_ARRAY}
+_DECIMAL_TYPES = (Type.BYTE_ARRAY, Type.FIXED_LEN_BYTE_ARRAY, Type.INT32,
+                  Type.INT64)
 _REPETITIONS = {"required": FieldRepetitionType.REQUIRED,
                 "optional": FieldRepetitionType.OPTIONAL,
                 "repeated": FieldRepetitionType.REPEATED}
@@ -159,16 +169,40 @@ def parse_schema_definition(text: str) -> SchemaDefinition:
             isAdjustedToUTC=utc == "true", unit=tu))
         se.converted_type = ct
 
+    def number(what: str) -> int:
+        tok, line = take(what)
+        if not tok.isdigit():
+            raise SchemaParseError(f"expected {what}, got {tok!r}", line)
+        return int(tok)
+
+    def decimal(se: SchemaElement, line) -> None:
+        expect("(", line)
+        precision = number("precision")
+        expect(",", line)
+        scale = number("scale")
+        expect(")", line)
+        se.logicalType = LogicalType(DECIMAL=DecimalType(scale=scale,
+                                                         precision=precision))
+        se.scale = scale
+        se.precision = precision
+        se.converted_type = ConvertedType.DECIMAL
+
     def annotation(fname: str, ptype, se: SchemaElement, line) -> None:
         ann, line = take("annotation")
         if ann == "STRING" and ptype == Type.BYTE_ARRAY:
             se.converted_type = ConvertedType.UTF8
         elif ann == "TIMESTAMP" and ptype == Type.INT64:
             timestamp(fname, se, line)
+        elif ann == "DECIMAL" and ptype in _DECIMAL_TYPES:
+            decimal(se, line)
+        elif (ann == "UUID" and ptype == Type.FIXED_LEN_BYTE_ARRAY
+              and se.type_length == 16):
+            se.logicalType = LogicalType(UUID=UUIDType())
         else:
             raise NotImplementedError(
                 f"field {fname!r}: annotation {ann!r} is not supported by "
-                "tpuparquet_torch (STRING on binary, TIMESTAMP on int64)")
+                "tpuparquet_torch (STRING on binary, TIMESTAMP on int64, "
+                "DECIMAL, UUID on fixed_len_byte_array(16))")
         expect(")", line)
 
     def field() -> ColumnDefinition:
@@ -205,9 +239,15 @@ def parse_schema_definition(text: str) -> SchemaDefinition:
         if ptype is None:
             raise NotImplementedError(
                 f"column type {tname!r} is not supported by "
-                "tpuparquet_torch (int32, int64, float, double, binary)")
+                "tpuparquet_torch")
+        type_length = None
+        if ptype == Type.FIXED_LEN_BYTE_ARRAY:
+            expect("(", line)
+            type_length = number("byte length")
+            expect(")", line)
         fname, line = take("field name")
-        se = SchemaElement(type=ptype, repetition_type=rep, name=fname)
+        se = SchemaElement(type=ptype, type_length=type_length,
+                           repetition_type=rep, name=fname)
         end, line = take("';'")
         if end == "(":
             annotation(fname, ptype, se, line)

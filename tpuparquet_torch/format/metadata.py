@@ -5,8 +5,8 @@ type)`` tuples mirroring ``parquet.thrift`` — and a single generic
 compact-protocol encoder/decoder in this module walks the declarations.
 Unknown fields are skipped on read (forward compatibility), absent
 optional fields are omitted on write.  This copy declares the structs the
-read and write paths touch, with the logical types of the list and
-timestamp annotations; fields it does not declare (other logical types,
+read and write paths touch, with the logical types of the list,
+timestamp, decimal and UUID annotations; fields it does not declare (other logical types,
 page indexes, bloom filters, encryption) are skipped on read and never
 written.
 
@@ -25,7 +25,8 @@ __all__ = [
     "Type", "ConvertedType", "FieldRepetitionType", "Encoding",
     "CompressionCodec", "PageType", "Statistics", "ListType",
     "MilliSeconds", "MicroSeconds", "NanoSeconds", "TimeUnit",
-    "TimestampType", "LogicalType", "SchemaElement",
+    "TimestampType", "DecimalType", "UUIDType", "LogicalType",
+    "SchemaElement",
     "DataPageHeader", "IndexPageHeader", "DictionaryPageHeader",
     "DataPageHeaderV2", "PageHeader", "KeyValue", "ColumnMetaData",
     "ColumnChunk", "RowGroup", "FileMetaData",
@@ -412,13 +413,23 @@ class TimestampType(ThriftStruct):
     FIELDS = [(1, "isAdjustedToUTC", BOOL), (2, "unit", _S(TimeUnit))]
 
 
+class DecimalType(ThriftStruct):
+    FIELDS = [(1, "scale", I32), (2, "precision", I32)]
+
+
+class UUIDType(ThriftStruct):
+    FIELDS = []
+
+
 class LogicalType(ThriftStruct):
     """Union (parquet.thrift:322-344), cut to the members this package
     writes; the others are skipped on read."""
 
     FIELDS = [
         (3, "LIST", _S(ListType)),
+        (5, "DECIMAL", _S(DecimalType)),
         (8, "TIMESTAMP", _S(TimestampType)),
+        (14, "UUID", _S(UUIDType)),
     ]
 
 

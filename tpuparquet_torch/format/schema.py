@@ -44,6 +44,11 @@ class SchemaNode:
         return self.element.type
 
     @property
+    def type_length(self) -> int | None:
+        """Byte length of a FIXED_LEN_BYTE_ARRAY leaf, else None."""
+        return self.element.type_length
+
+    @property
     def is_leaf(self) -> bool:
         return self.element.type is not None
 

@@ -7,8 +7,12 @@ smaller than the PLAIN values), then one data page (V1, or V2 with
 ``data_page_v2=True``) with the rep and def levels of every slot, and
 returns the ``ColumnChunk`` metadata with sizes including page headers,
 statistics and the encodings list.  A column written with another
-encoding (DELTA_BINARY_PACKED, BYTE_STREAM_SPLIT) skips the dictionary,
-as in the JAX writer.
+encoding (RLE, the DELTA encodings, BYTE_STREAM_SPLIT), a BOOLEAN column
+(PLAIN is already a bit a value) and a writer that disallows
+dictionaries skip the dictionary, as in the JAX writer.  Statistics
+follow the JAX policy: INT96 has no defined order and carries counts
+only; FIXED_LEN_BYTE_ARRAY bounds are the unsigned-lexicographic extreme
+rows, without the deprecated signed min/max fields.
 """
 
 from __future__ import annotations
@@ -68,7 +72,7 @@ def _maybe_dictionary(column):
             return None, None
         return _size_gate(column, *out, n)
     arr = column
-    if n > 4096:
+    if n > 4096 and arr.ndim == 1:
         # strictly monotonic values are all distinct: reject without a
         # sort (elementwise compares — a diff could wrap)
         a, b = arr[1:], arr[:-1]
@@ -79,31 +83,56 @@ def _maybe_dictionary(column):
         # sample that already fails the gates proves the intern would
         # be discarded (random floats reject here)
         sample = arr[:: n // 65536][:65536]
-        ds = int(np.unique(sample).size)
+        ds = int(np.unique(sample, axis=0 if arr.ndim == 2 else None)
+                 .shape[0])
         width = max((ds - 1).bit_length(), 1)
         if ds >= MAX_DICT_ENTRIES or \
-                ds * arr.itemsize + n * width // 8 >= arr.nbytes:
+                ds * (arr.nbytes // n) + n * width // 8 >= arr.nbytes:
             return None, None
     return _size_gate(column, *build_dictionary(arr), n)
+
+
+def _lex_min_max(rows: np.ndarray):
+    """The (min, max) rows of a (k, L) u8 matrix in unsigned byte order,
+    as bytes: candidates narrow one big-endian 8-byte word at a time."""
+    k, length = rows.shape
+    nw = (length + 7) // 8
+    padded = np.zeros((k, 8 * nw), dtype=np.uint8)
+    padded[:, :length] = rows
+    words = padded.view(">u8")
+    out = []
+    for pick in (np.min, np.max):
+        cand = np.arange(k)
+        for j in range(nw):
+            col = words[cand, j]
+            cand = cand[col == pick(col)]
+            if cand.size == 1:
+                break
+        out.append(rows[cand[0]].tobytes())
+    return out
 
 
 def _statistics(ptype: Type, src, null_count: int, distinct):
     """Chunk statistics over ``src`` (the dictionary when there is one:
     every value appears in it).  Floats ignore NaN; bytes carry min/max
-    only over a dictionary (a PLAIN byte chunk writes counts only), and
+    only over a dictionary (a PLAIN byte chunk writes counts only),
+    fixed-length bytes lexicographic bounds, INT96 none, and byte types
     no deprecated signed-order min/max."""
     mn = mx = None
     if isinstance(src, ByteArrayColumn):
         if distinct is not None and len(src):
             vals = src.to_list()
             mn, mx = min(vals), max(vals)
-    else:
+    elif ptype == Type.FIXED_LEN_BYTE_ARRAY:
+        if len(src):
+            mn, mx = _lex_min_max(src)
+    elif ptype != Type.INT96:
         vals = src[~np.isnan(src)] if src.dtype.kind == "f" else src
         if vals.size:
             mn, mx = vals.min().tobytes(), vals.max().tobytes()
     st = Statistics(null_count=null_count, distinct_count=distinct,
                     min_value=mn, max_value=mx)
-    if ptype != Type.BYTE_ARRAY:
+    if ptype not in (Type.BYTE_ARRAY, Type.FIXED_LEN_BYTE_ARRAY):
         st.min = st.min_value
         st.max = st.max_value
     return st
@@ -112,7 +141,8 @@ def _statistics(ptype: Type, src, null_count: int, distinct):
 def write_chunk(out, node, column, rep, dl: np.ndarray, *, codec,
                 encoding: Encoding = Encoding.PLAIN, page_crc: bool = True,
                 null_count: int = 0, num_rows: int | None = None,
-                data_page_v2: bool = False) -> ColumnChunk:
+                data_page_v2: bool = False,
+                allow_dict: bool = True) -> ColumnChunk:
     """Write one column chunk at the current position of ``out`` (a
     position-tracking binary stream).  ``column`` holds the non-null
     values (an array of the physical dtype, or a
@@ -122,7 +152,8 @@ def write_chunk(out, node, column, rep, dl: np.ndarray, *, codec,
     ptype = Type(node.element.type)
     pos0 = out.tell()
     dictionary, indices = (_maybe_dictionary(column)
-                           if encoding == Encoding.PLAIN else (None, None))
+                           if allow_dict and encoding == Encoding.PLAIN
+                           and ptype != Type.BOOLEAN else (None, None))
     total_comp = total_uncomp = 0
     dict_page_offset = None
     distinct = None

@@ -25,10 +25,11 @@ import numpy as np
 
 from ..compress import compress_block
 from ..cpu.bss import encode_byte_stream_split
-from ..cpu.delta import encode_delta_binary_packed
+from ..cpu.delta import encode_delta_binary_packed, \
+    encode_delta_byte_array, encode_delta_length_byte_array
 from ..cpu.hybrid import as_uint32, encode_hybrid, encode_hybrid_prefixed, \
     scan_hybrid
-from ..cpu.plain import encode_plain
+from ..cpu.plain import ByteArrayColumn, encode_plain
 from ..errors import CorruptPageError
 from ..format.compact import CompactWriter
 from ..format.metadata import (
@@ -57,16 +58,21 @@ __all__ = [
 ]
 
 
-# Value encodings a column of each physical type may be written with, cut
-# from the JAX package's table to the types this package writes
+# Value encodings a column of each physical type may be written with, as
+# in the JAX package's table
 SUPPORTED_DATA_ENCODINGS = {
+    Type.BOOLEAN: {Encoding.PLAIN, Encoding.RLE},
     Type.INT32: {Encoding.PLAIN, Encoding.DELTA_BINARY_PACKED,
                  Encoding.BYTE_STREAM_SPLIT},
     Type.INT64: {Encoding.PLAIN, Encoding.DELTA_BINARY_PACKED,
                  Encoding.BYTE_STREAM_SPLIT},
+    Type.INT96: {Encoding.PLAIN},
     Type.FLOAT: {Encoding.PLAIN, Encoding.BYTE_STREAM_SPLIT},
     Type.DOUBLE: {Encoding.PLAIN, Encoding.BYTE_STREAM_SPLIT},
-    Type.BYTE_ARRAY: {Encoding.PLAIN},
+    Type.BYTE_ARRAY: {Encoding.PLAIN, Encoding.DELTA_LENGTH_BYTE_ARRAY,
+                      Encoding.DELTA_BYTE_ARRAY},
+    Type.FIXED_LEN_BYTE_ARRAY: {Encoding.PLAIN, Encoding.DELTA_BYTE_ARRAY,
+                                Encoding.BYTE_STREAM_SPLIT},
 }
 
 
@@ -149,12 +155,27 @@ def _header_bytes(ph: PageHeader) -> bytes:
     return w.getvalue()
 
 
+def _rows_as_bytes(column) -> ByteArrayColumn:
+    """``(N, L)`` FIXED_LEN_BYTE_ARRAY rows as a byte column."""
+    n, length = column.shape
+    return ByteArrayColumn(np.arange(n + 1, dtype=np.int64) * length,
+                           np.ascontiguousarray(column).reshape(-1))
+
+
 def encode_values(ptype: Type, encoding: Encoding, column) -> bytes:
     """Non-dictionary value encode of a page's non-null values."""
     if encoding == Encoding.PLAIN:
         return encode_plain(ptype, column)
+    if encoding == Encoding.RLE:  # BOOLEAN only
+        return encode_hybrid_prefixed(np.asarray(column, dtype=np.uint32), 1)
     if encoding == Encoding.DELTA_BINARY_PACKED:
         return encode_delta_binary_packed(column, is32=(ptype == Type.INT32))
+    if encoding == Encoding.DELTA_LENGTH_BYTE_ARRAY:
+        return encode_delta_length_byte_array(column)
+    if encoding == Encoding.DELTA_BYTE_ARRAY:
+        return encode_delta_byte_array(
+            _rows_as_bytes(column) if ptype == Type.FIXED_LEN_BYTE_ARRAY
+            else column)
     if encoding == Encoding.BYTE_STREAM_SPLIT:
         return encode_byte_stream_split(np.asarray(column))
     raise ValueError(f"unsupported value encoding {encoding!r}")

@@ -1,16 +1,20 @@
-"""FileWriter: the columnar write path for int32, int64, float, double
-and binary columns, flat or in a LIST (one repeated level).
+"""FileWriter: the columnar write path for every physical type, flat or
+in a LIST (one repeated level).
 
-``write_columns`` takes whole columns (non-null values only: arrays, or
+``write_columns`` takes whole columns (non-null values only: a bool
+array for BOOLEAN, an integer or float array, ``(N, 3)`` u32 words for
+INT96, ``(N, L)`` u8 rows for FIXED_LEN_BYTE_ARRAY, a
 :class:`~tpuparquet_torch.cpu.plain.ByteArrayColumn` for binary leaves)
 plus validity masks for optional columns, and for a LIST column its row
 offsets and null-row and null-element masks, and writes one row group:
 one column chunk per leaf, each a dictionary page when it is written
-PLAIN and the dictionary pays, and one data page (V1, or V2 with
+PLAIN and the dictionary pays (never for BOOLEAN, and not at all with
+``allow_dict=False``), and one data page (V1, or V2 with
 ``data_page_v2=True``), SNAPPY or UNCOMPRESSED, with statistics and page
 CRCs — the JAX package writer's policy for these columns.
-``column_encodings`` writes a column DELTA_BINARY_PACKED or
-BYTE_STREAM_SPLIT instead of PLAIN.
+``column_encodings`` writes a column with another encoding the JAX
+package's table allows for its type: RLE (BOOLEAN), DELTA_BINARY_PACKED,
+DELTA_LENGTH_BYTE_ARRAY, DELTA_BYTE_ARRAY or BYTE_STREAM_SPLIT.
 """
 
 from __future__ import annotations
@@ -37,8 +41,21 @@ def _column_values(leaf, values):
             raise TypeError(f"column {leaf.name!r}: expected a "
                             "ByteArrayColumn")
         return values
-    dt = PHYSICAL_DTYPES[leaf.type]
     vals = np.asarray(values)
+    if leaf.type == Type.BOOLEAN:
+        if vals.ndim != 1 or vals.dtype != np.bool_:
+            raise TypeError(f"column {leaf.name!r}: expected a 1-D bool "
+                            "array")
+        return vals
+    if leaf.type in (Type.INT96, Type.FIXED_LEN_BYTE_ARRAY):
+        int96 = leaf.type == Type.INT96
+        width, kind = (3, "u32") if int96 else (leaf.type_length, "u8")
+        if vals.ndim != 2 or vals.shape[1] != width or vals.dtype != (
+                np.dtype("<u4") if int96 else np.uint8):
+            raise TypeError(f"column {leaf.name!r}: expected (N, {width}) "
+                            f"{kind} rows")
+        return vals
+    dt = PHYSICAL_DTYPES[leaf.type]
     if vals.ndim != 1 or vals.dtype.kind not in ("f" if dt.kind == "f"
                                                  else "iu"):
         raise TypeError(f"column {leaf.name!r}: expected a 1-D "
@@ -57,12 +74,14 @@ class FileWriter:
     ``schema`` is a :class:`Schema` or a DSL string
     (``message m { required int64 a; optional int32 b; }``);
     ``column_encodings`` maps a leaf's dotted name to its value encoding
-    (default PLAIN).  Use as a context manager or call :meth:`close`."""
+    (default PLAIN); ``allow_dict=False`` writes PLAIN columns without a
+    dictionary.  Use as a context manager or call :meth:`close`."""
 
     def __init__(self, f, schema, *,
                  codec: CompressionCodec = CompressionCodec.UNCOMPRESSED,
                  page_crc: bool = True, data_page_v2: bool = False,
-                 column_encodings: dict | None = None):
+                 column_encodings: dict | None = None,
+                 allow_dict: bool = True):
         self._f = f
         self._pos = 0
         self.schema = (schema if isinstance(schema, Schema)
@@ -89,6 +108,7 @@ class FileWriter:
         self.codec = CompressionCodec(codec)
         self.page_crc = page_crc
         self.data_page_v2 = data_page_v2
+        self.allow_dict = allow_dict
         self.row_groups: list[RowGroup] = []
         self.total_rows = 0
         self._closed = False
@@ -105,8 +125,8 @@ class FileWriter:
                       offsets: dict | None = None,
                       element_masks: dict | None = None):
         """Write one row group.  ``columns`` maps leaf name -> the
-        column's **non-null** values (an integer or float array, or a
-        ByteArrayColumn for a binary leaf); ``masks`` maps an optional
+        column's **non-null** values (in the representation the module
+        docstring lists for the leaf's type); ``masks`` maps an optional
         leaf's name -> bool validity per row.
 
         A LIST column is keyed by its top-level field name: ``columns``
@@ -171,7 +191,7 @@ class FileWriter:
                 encoding=self.column_encodings.get(leaf.flat_name,
                                                    Encoding.PLAIN),
                 page_crc=self.page_crc, null_count=nulls, num_rows=n_rows,
-                data_page_v2=self.data_page_v2)
+                data_page_v2=self.data_page_v2, allow_dict=self.allow_dict)
             total_bytes += cc.meta_data.total_uncompressed_size
             total_comp += cc.meta_data.total_compressed_size
             chunks.append(cc)

@@ -39,6 +39,7 @@ KERNELS = {
     "bytes_from_blob": [_P, _L, _P, _L, _I, _P, _L, _P],
     "delta_scatter": [_P, _P, _P, _P, _L, _L, _P, _P, _L, _P],
     "bss_to_lanes": [_P, _L, _I, _I, _P, _P],
+    "flba_to_lanes": [_P, _L, _I, _I, _P, _P],
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

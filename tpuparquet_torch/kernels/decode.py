@@ -2,8 +2,8 @@
 K9 BYTE_ARRAY), validity (K4), the PLAIN wire transports' rebuilds: byte
 planes (K5) and delta lanes (K7, after K1 or K6), BYTE_ARRAY values
 gathered out of a device-snappy page (K10), DELTA_BINARY_PACKED pages
-(K1 or K6, K11 places scattered width classes, K7) and BYTE_STREAM_SPLIT
-pages (K12).
+(K1 or K6, K11 places scattered width classes, K7), BYTE_STREAM_SPLIT
+pages (K12) and FIXED_LEN_BYTE_ARRAY rows rebuilt on the device (K13).
 
 Hosts stage padded, fixed-shape buffers (page words, run tables); the
 device expands them.  Output sizes are padded to power-of-two buckets
@@ -39,6 +39,7 @@ __all__ = [
     "plan_delta_i32", "plan_delta_i64",
     "scatter_deltas", "scatter_deltas_plain",
     "bss_to_lanes", "bss_to_lanes_plain",
+    "flba_bytes_to_lanes", "flba_bytes_to_lanes_plain",
     "u8_to_u32_words_at",
 ]
 
@@ -96,14 +97,16 @@ def page_dict_fixed(dictionary: torch.Tensor, i_bp, i_tbl, icnt: int,
                     isingle: bool = False) -> torch.Tensor:
     """Decode one dictionary-encoded page: expand the index stream
     (``icnt`` slots, width ``iw``; ``iw == 0`` means every index is 0 and
-    ``i_bp``/``i_tbl`` may be None), clamp each index to ``n_dict - 1``,
-    gather ``lanes`` u32 words per value from the flat ``(n_dict *
-    lanes,)`` dictionary.  CUDA tensors launch K3, which unpacks a
-    single bit-packed run itself; a run table is expanded by K2 first
-    and reaches K3 as a run of width 32.  CPU tensors take the plain
+    ``i_bp``/``i_tbl`` may be None), clamp each index to ``n_dict - 1``
+    (``n_dict = dictionary.numel() // lanes``), gather ``lanes`` u32 words
+    per value from the flat dictionary.  CUDA tensors launch K3, which
+    unpacks a single bit-packed run itself; a run table is expanded by K2
+    first and reaches K3 as a run of width 32.  CPU tensors take the plain
     version."""
+    # as the reference: n_dict is the staged length's whole values (a
+    # padded 3-lane dictionary need not be a multiple of 3 words)
     n_dict = dictionary.numel() // lanes
-    if n_dict == 0 or dictionary.numel() % lanes:
+    if n_dict == 0:
         raise ValueError("dictionary must hold n_dict >= 1 values of "
                          f"{lanes} lanes")
     if iw:
@@ -733,11 +736,7 @@ def expand_delta_i64(plan: DeltaPlan) -> torch.Tensor:
 def bss_to_lanes_plain(raw, count: int, k: int, lanes: int) -> torch.Tensor:
     """Plain PyTorch version of K12: the reference's transpose."""
     rows = raw[: k * count].reshape(k, count).t().to(torch.int64)
-    if k != 4 * lanes:
-        rows = torch.nn.functional.pad(rows, (0, 4 * lanes - k))
-    b = rows.reshape(count, lanes, 4)
-    return i64_to_u32_bits((b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16)
-                            | (b[..., 3] << 24)).reshape(-1))
+    return _words_of_bytes(rows, lanes)
 
 
 def bss_to_lanes(raw: torch.Tensor, count: int, k: int,
@@ -765,3 +764,54 @@ def bss_to_lanes(raw: torch.Tensor, count: int, k: int,
 
 
 bss_to_lanes.launches = 0
+
+
+# ----------------------------------------------------------------------
+# K13: FIXED_LEN_BYTE_ARRAY rows on the device -> lane words
+# ----------------------------------------------------------------------
+
+def _words_of_bytes(rows: torch.Tensor, lanes: int) -> torch.Tensor:
+    """``(count, k)`` bytes (k <= 4 * lanes, as int64), zero-padded to
+    whole lanes, as flat little-endian u32 words (an int32 tensor)."""
+    count, k = rows.shape
+    if k != 4 * lanes:
+        rows = torch.nn.functional.pad(rows, (0, 4 * lanes - k))
+    b = rows.reshape(count, lanes, 4)
+    return i64_to_u32_bits((b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16)
+                            | (b[..., 3] << 24)).reshape(-1))
+
+
+def flba_bytes_to_lanes_plain(raw, count: int,
+                              type_length: int) -> torch.Tensor:
+    """Plain PyTorch version of K13: the reference's reshape, pad and
+    combine."""
+    rows = raw[: count * type_length].reshape(count, type_length)
+    return _words_of_bytes(rows.to(torch.int64), (type_length + 3) // 4)
+
+
+def flba_bytes_to_lanes(raw: torch.Tensor, count: int,
+                        type_length: int) -> torch.Tensor:
+    """``count`` FIXED_LEN_BYTE_ARRAY rows of ``type_length`` bytes, back
+    to back at the start of the u8 tensor ``raw`` -> flat ``(count *
+    lanes,)`` little-endian u32 words (an int32 tensor), ``lanes =
+    ceil(type_length / 4)``: word ``i * lanes + j`` holds bytes ``raw[i *
+    type_length + 4j + b]``, zero past the row.  CUDA tensors launch K13;
+    CPU tensors take the plain version."""
+    if type_length < 1 or count < 0 or raw.numel() < count * type_length:
+        raise ValueError(f"{count} rows of {type_length} bytes do not fit "
+                         f"{raw.numel()} bytes")
+    dev = raw.device
+    if dev.type == "cpu":
+        return flba_bytes_to_lanes_plain(raw, count, type_length)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    check_tensor(raw, "raw", torch.uint8, dev)
+    lanes = (type_length + 3) // 4
+    out = torch.empty(count * lanes, dtype=torch.int32, device=dev)
+    launch("flba_to_lanes", raw.data_ptr(), count, type_length, lanes,
+           out.data_ptr(), stream_of(out))
+    flba_bytes_to_lanes.launches += 1
+    return out
+
+
+flba_bytes_to_lanes.launches = 0

@@ -13,34 +13,50 @@ lengths, rep and def levels — so the two compare buffer for buffer.
 
 Covered: data pages v1 and v2 (levels outside compression, the
 ``num_nulls`` cross-check); UNCOMPRESSED and SNAPPY; required, optional
-and repeated INT32, INT64, FLOAT, DOUBLE and BYTE_ARRAY columns (rep
-levels in both page versions, any ``max_rep_level``); PLAIN and
-PLAIN_DICTIONARY/RLE_DICTIONARY; DELTA_BINARY_PACKED on INT32 and INT64
+and repeated columns of every physical type (rep levels in both page
+versions, any ``max_rep_level``); PLAIN and
+PLAIN_DICTIONARY/RLE_DICTIONARY (K3 at 1 lane for BOOLEAN, INT32 and
+FLOAT, 2 for INT64 and DOUBLE, 3 for INT96, ``ceil(L / 4)`` for
+FIXED_LEN_BYTE_ARRAY(L); K9 for BYTE_ARRAY); RLE BOOLEAN values (a
+width-1 hybrid stream, K1 or K2); DELTA_BINARY_PACKED on INT32 and INT64
 (K1 or K6 per width class, K11 placing scattered classes, K7);
-BYTE_STREAM_SPLIT on INT32, INT64, FLOAT and DOUBLE (K12); page CRCs.
-Fixed-width PLAIN pages
+BYTE_STREAM_SPLIT on INT32, INT64, FLOAT, DOUBLE and FIXED_LEN_BYTE_ARRAY
+(K12); DELTA_LENGTH_BYTE_ARRAY (the value bytes ship as they are) and
+DELTA_BYTE_ARRAY on BYTE_ARRAY and FIXED_LEN_BYTE_ARRAY (below); page
+CRCs.  Fixed-width PLAIN pages of the lane types (INT32, INT64, INT96,
+FLOAT, DOUBLE)
 take the JAX package's three wire transports under its switches and
 defaults, read per plan: byte planes (``TPQ_DEVICE_PLANES``, K5), delta
 lanes (``TPQ_DEVICE_DELTA``, integers only: K1/K6 then K7) and snappy
 tokens (``TPQ_DEVICE_SNAPPY``, K8), which compete on wire bytes page by
 page exactly as in the reference; a page no transport wins ships its
-decompressed words.  BYTE_ARRAY dictionary pages decode with K9; a
+decompressed words.  PLAIN BOOLEAN pages ship their bit-packed words and
+K1 unpacks them; PLAIN FIXED_LEN_BYTE_ARRAY pages ship their rows padded
+to whole lanes; both go outside the slab, as the reference uploads them.
+BYTE_ARRAY dictionary pages decode with K9; a
 snappy PLAIN BYTE_ARRAY page whose token tables fit the reference's
 budget ships them instead of its bytes, and K10 gathers the values out
 of K8's expansion; other PLAIN BYTE_ARRAY pages ship their value bytes.
-Anything else (BOOLEAN, INT96 and FIXED_LEN_BYTE_ARRAY, the other
-encodings, other codecs) raises NotImplementedError.
+A DELTA_BYTE_ARRAY page ships one copy token (its prefix, read from the
+previous value) and one literal token (its suffix) a value, which K8
+resolves, then K13 turns FIXED_LEN_BYTE_ARRAY rows into lane words;
+a page whose front coding does not expand its bytes is assembled on the
+host instead (``dba-host``).  Other encodings and codecs raise
+NotImplementedError.
 """
 
 from __future__ import annotations
 
 import os
+import struct
 import time
 
 import numpy as np
 import torch
 
 from ..compress import decompress_block, snappy_single_literal_view
+from ..cpu.delta import assemble_delta_byte_array, \
+    decode_delta_binary_packed, scan_delta_length_byte_array
 from ..cpu.hybrid import expand_scan, scan_hybrid
 from ..cpu.plain import ByteArrayColumn, decode_plain
 from ..errors import CorruptChunkError, CorruptPageError, ScanError
@@ -50,13 +66,14 @@ from ..format.metadata import CompressionCodec, Encoding, PageHeader, \
 from ..io.pages import scan_levels_v1, scan_levels_v2, verify_page_crc
 from ..native import pack_native, plane_native
 from ..stats import current_stats
-from .bitunpack import pad_to_words
+from .bitunpack import pad_to_words, unpack_u32
 from .decode import (
     DeltaPlan,
     bss_to_lanes,
     bucket,
     expand_delta_i32,
     expand_delta_i64,
+    flba_bytes_to_lanes,
     levels_to_validity,
     page_dict_bytes,
     page_dict_fixed,
@@ -77,18 +94,64 @@ __all__ = ["DeviceColumn", "device_column_from_jax_numpy",
            "plan_chunk_device", "read_row_group_device",
            "read_row_groups_device"]
 
-_LANES = {Type.INT32: 1, Type.FLOAT: 1, Type.INT64: 2, Type.DOUBLE: 2}
+# u32 lanes a value of the types the PLAIN wire transports carry
+_LANES = {Type.INT32: 1, Type.FLOAT: 1, Type.INT64: 2, Type.DOUBLE: 2,
+          Type.INT96: 3}
 _DICT_ENCODINGS = (Encoding.PLAIN_DICTIONARY, Encoding.RLE_DICTIONARY)
 _NP_DTYPES = {Type.INT32: np.dtype("<i4"), Type.INT64: np.dtype("<i8"),
               Type.FLOAT: np.dtype("<f4"), Type.DOUBLE: np.dtype("<f8")}
 _I32_MAX = (1 << 31) - 1
 
 
+def _flba_lanes(type_length: int) -> int:
+    return (type_length + 3) // 4
+
+
+def _lanes_for(ptype: Type, type_length) -> int:
+    """u32 words a value in the flat device layout (fixed-width types):
+    one for BOOLEAN (0 or 1), ``ceil(L / 4)`` for FIXED_LEN_BYTE_ARRAY(L),
+    else :data:`_LANES`."""
+    if ptype == Type.BOOLEAN:
+        return 1
+    if ptype == Type.FIXED_LEN_BYTE_ARRAY:
+        return _flba_lanes(type_length)
+    return _LANES[ptype]
+
+
+def _stage_byte_rows_np(arr: np.ndarray) -> np.ndarray:
+    """``(N, L)`` u8 rows (or INT96 words) -> flat ``(N * lanes,)`` u32,
+    each row zero-padded to whole little-endian u32 lanes."""
+    if arr.shape[0] == 0:
+        return np.zeros(0, dtype=np.uint32)
+    rows = arr.view(np.uint8).reshape(arr.shape[0], -1)
+    lanes = _flba_lanes(rows.shape[1])
+    padded = np.zeros((rows.shape[0], 4 * lanes), dtype=np.uint8)
+    padded[:, : rows.shape[1]] = rows
+    return padded.view("<u4").reshape(-1)
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` outside the slab, as the reference
+    uploads string offsets, PLAIN BOOLEAN words and FIXED_LEN_BYTE_ARRAY
+    rows (so not in ``bytes_staged``): pinned, and on the card a
+    non-blocking copy that the row group's fence completes.  4-byte
+    arrays arrive as int32 bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.itemsize == 4:
+        a = a.view(np.int32)
+    t = torch.from_numpy(a if a.flags.writeable else a.copy())
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 class DeviceColumn:
     """Device-resident decoded column.
 
     ``data``: flat ``(n_packed * lanes,)`` u32 lanes (an int32 tensor,
-    same bits) of the non-null values, or for BYTE_ARRAY their u8 bytes
+    same bits) of the non-null values (BOOLEAN as 0 or 1, INT96 as its
+    three words, FIXED_LEN_BYTE_ARRAY(``type_length``) as its bytes
+    zero-padded to whole lanes), or for BYTE_ARRAY their u8 bytes
     with ``offsets`` (int32, ``n_packed + 1`` entries, as the reference
     holds them on a device without 64-bit integers) and ``n_bytes``;
     ``mask``/``positions`` map record slots to packed values;
@@ -98,14 +161,16 @@ class DeviceColumn:
     lazily and materialise implicit streams (all-zero levels, all-valid
     masks) on demand."""
 
-    __slots__ = ("ptype", "num_values", "n_packed", "offsets", "n_bytes",
-                 "_data_p", "_mask_p", "_pos_p", "_rep_p", "_def_p",
-                 "_cache")
+    __slots__ = ("ptype", "type_length", "num_values", "n_packed", "offsets",
+                 "n_bytes", "_data_p", "_mask_p", "_pos_p", "_rep_p",
+                 "_def_p", "_cache")
 
     def __init__(self, ptype, data, mask, positions, def_levels,
                  num_values: int, n_packed: int, offsets=None,
-                 n_bytes: int | None = None, rep_levels=None):
+                 n_bytes: int | None = None, rep_levels=None,
+                 type_length: int | None = None):
         self.ptype = Type(ptype)
+        self.type_length = type_length
         self._data_p = data
         self._mask_p = mask
         self._pos_p = positions
@@ -120,7 +185,8 @@ class DeviceColumn:
     @property
     def lanes(self) -> int | None:
         """u32 words per value; None for BYTE_ARRAY."""
-        return None if self.offsets is not None else _LANES[self.ptype]
+        return None if self.offsets is not None \
+            else _lanes_for(self.ptype, self.type_length)
 
     @property
     def device(self) -> torch.device:
@@ -204,8 +270,20 @@ class DeviceColumn:
             data = self._data_p[: int(offs[-1])].cpu().numpy()
             return ByteArrayColumn(offs, data), rl, dl
         flat = self._data_p[: nn * self.lanes].cpu().numpy()
-        vals = flat.view(_NP_DTYPES[self.ptype])
-        return vals, rl, dl
+        return self._flat_to_typed(flat.view(np.uint32)), rl, dl
+
+    def _flat_to_typed(self, flat: np.ndarray):
+        """Flat little-endian u32 lane words -> the oracle's values: bool,
+        ``(N, 3)`` u32 for INT96, ``(N, L)`` u8 rows for
+        FIXED_LEN_BYTE_ARRAY, else the physical dtype."""
+        if self.ptype == Type.BOOLEAN:
+            return flat.astype(bool)
+        if self.ptype == Type.INT96:
+            return flat.reshape(-1, 3)
+        if self.ptype == Type.FIXED_LEN_BYTE_ARRAY:
+            return flat.view(np.uint8).reshape(-1, 4 * self.lanes)[
+                :, : self.type_length]
+        return flat.view(_NP_DTYPES[self.ptype])
 
 
 def device_column_from_jax_numpy(col_np: dict,
@@ -217,7 +295,8 @@ def device_column_from_jax_numpy(col_np: dict,
     ``positions``, ``rep_levels``, ``def_levels`` (None, or absent, where
     the JAX column holds none) — the JAX column's ``_data_p``/``_mask_p``/
     ``_pos_p``/``_rep_p``/``_def_p`` as numpy — and, for BYTE_ARRAY,
-    ``offsets`` and ``n_bytes``."""
+    ``offsets`` and ``n_bytes``, for FIXED_LEN_BYTE_ARRAY
+    ``type_length``."""
     def t(a, dtype):
         if a is None:
             return None
@@ -237,7 +316,8 @@ def device_column_from_jax_numpy(col_np: dict,
         int(col_np["num_values"]), int(col_np["n_packed"]),
         offsets=t(offsets, torch.int32),
         n_bytes=None if n_bytes is None else int(n_bytes),
-        rep_levels=t(col_np.get("rep_levels"), torch.int32))
+        rep_levels=t(col_np.get("rep_levels"), torch.int32),
+        type_length=col_np.get("type_length"))
 
 
 # ----------------------------------------------------------------------
@@ -824,19 +904,20 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
     ptype = Type(cm.type)
     col_path = ".".join(cm.path_in_schema)
     is_bytes = ptype == Type.BYTE_ARRAY
-    if (ptype not in _LANES and not is_bytes) \
-            or Type(node.element.type) != ptype:
-        raise NotImplementedError(
-            f"column {col_path!r}: physical type {ptype.name} is not "
-            "supported by tpuparquet_torch (INT32, INT64, FLOAT, DOUBLE and "
-            "BYTE_ARRAY only)")
+    fixed = ptype in _LANES  # PLAIN pages of these take the transports
+    if Type(node.element.type) != ptype:
+        raise ValueError(f"column chunk type {ptype.name} differs from the "
+                         f"schema's {Type(node.element.type).name}")
+    type_length = node.type_length
+    if ptype == Type.FIXED_LEN_BYTE_ARRAY and not type_length:
+        raise ValueError("FIXED_LEN_BYTE_ARRAY requires type_length")
     start = cm.data_page_offset
     if cm.dictionary_page_offset is not None:
         start = min(start, cm.dictionary_page_offset)
     start -= base
     end = start + cm.total_compressed_size
     r = CompactReader(blob, start, end)
-    vlanes = _LANES.get(ptype)
+    vlanes = None if is_bytes else _lanes_for(ptype, type_length)
     max_rep = node.max_rep_level
     max_def = node.max_def_level
     dwidth = max_def.bit_length()
@@ -876,7 +957,7 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
                 raise ValueError("DICTIONARY_PAGE header missing its struct")
             raw = decompress_block(cm.codec, payload,
                                    ph.uncompressed_page_size)
-            arr = decode_plain(ptype, raw, dph.num_values)
+            arr = decode_plain(ptype, raw, dph.num_values, type_length)
             if is_bytes:
                 dict_lens = arr.lengths()
                 dict_len = dict_lens.size
@@ -884,7 +965,13 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
                           stager.add(arr.data))
             else:
                 dict_len = arr.shape[0]
-                dict_h = stager.add(arr.view("<u4"))
+                if ptype == Type.BOOLEAN:
+                    words = arr.astype(np.uint32)
+                elif ptype == Type.FIXED_LEN_BYTE_ARRAY:
+                    words = _stage_byte_rows_np(arr)
+                else:
+                    words = arr.view("<u4").reshape(-1)
+                dict_h = stager.add(words)
             if r.pos != cm.data_page_offset - base:
                 r.pos = cm.data_page_offset - base
             continue
@@ -902,7 +989,7 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
             n = h.num_values
             enc = Encoding(h.encoding)
             snappy = snappy and enc == Encoding.PLAIN
-            if snappy and not max_rep and not max_def and not is_bytes:
+            if snappy and not max_rep and not max_def and fixed:
                 # a flat required PLAIN page holds no level bytes, so
                 # planning needs nothing from the payload: decompression
                 # is deferred to the transports' competition
@@ -922,12 +1009,11 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
                 # with levels, the host scans them from its own copy, and
                 # the device may still take the values out of its own
                 # expansion of the tokens, at byte `pos`
-                if snappy:
-                    comp = (payload, ph.uncompressed_page_size, pos)
-                    if is_bytes:
-                        bytes_comp = comp
-                    else:
-                        values_comp = comp
+                comp = (payload, ph.uncompressed_page_size, pos)
+                if snappy and is_bytes:
+                    bytes_comp = comp
+                elif snappy and fixed:
+                    values_comp = comp
         elif kind == PageType.DATA_PAGE_V2:
             h = ph.data_page_header_v2
             if h is None or h.num_values is None or h.num_values < 0:
@@ -945,10 +1031,10 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
             values_seg = payload[vpos:]
             if h.is_compressed is not False:
                 comp = (values_seg, ph.uncompressed_page_size - vpos, 0)
-                if snappy and not is_bytes:
+                if snappy and fixed:
                     values_comp, values_seg = comp, None
                 else:
-                    if snappy:
+                    if snappy and is_bytes:
                         bytes_comp = comp
                     values_seg = decompress_block(cm.codec, comp[0], comp[1])
         else:
@@ -963,7 +1049,7 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
                              f"def levels ({n - non_null} nulls)")
         values_read += n
         plan_words = None
-        if enc == Encoding.PLAIN and not is_bytes:
+        if enc == Encoding.PLAIN and fixed:
             plan_words, values_seg = _plan_plain_transport(
                 cm.codec, values_seg, values_comp, non_null, ptype, stager)
 
@@ -1005,25 +1091,44 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
                                             dl_ref, n, dwidth, stager)
             chunk_bytes += nb
             ops.append(op)
-        elif enc == Encoding.PLAIN:
+        elif enc == Encoding.PLAIN and fixed:
             if plan_words is None:  # no transport won: the words ship
                 wh = stager.add(stage_u32(values_seg, non_null * vlanes))
                 plan_words = lambda s, _wh=wh: s[_wh]  # noqa: E731
             ops.append(_plain_page_op(plan_words, dl_ref, n, non_null,
                                       dwidth, vlanes))
+        elif enc == Encoding.PLAIN:  # BOOLEAN, FIXED_LEN_BYTE_ARRAY
+            ops.append(_plain_rows_op(values_seg, ptype, type_length,
+                                      dl_ref, n, non_null, dwidth))
         elif enc == Encoding.DELTA_BINARY_PACKED and ptype in (Type.INT32,
                                                                 Type.INT64):
             ops.append(_delta_page_op(values_seg, ptype, dl_ref, n, non_null,
                                       dwidth, stager))
-        elif enc == Encoding.BYTE_STREAM_SPLIT and not is_bytes:
+        elif enc == Encoding.BYTE_STREAM_SPLIT and ptype not in (
+                Type.BOOLEAN, Type.INT96, Type.BYTE_ARRAY):
+            k = type_length if ptype == Type.FIXED_LEN_BYTE_ARRAY \
+                else 4 * vlanes
             ops.append(_bss_page_op(values_seg, dl_ref, n, non_null, dwidth,
-                                    vlanes, stager))
+                                    k, vlanes, stager))
+        elif enc == Encoding.RLE and ptype == Type.BOOLEAN:
+            ops.append(_rle_bool_page_op(values_seg, dl_ref, n, non_null,
+                                         dwidth, stager))
+        elif enc == Encoding.DELTA_LENGTH_BYTE_ARRAY and is_bytes:
+            op, nb = _plan_dlba_page(values_seg, dl_ref, n, non_null, dwidth,
+                                     stager)
+            chunk_bytes += nb
+            ops.append(op)
+        elif enc == Encoding.DELTA_BYTE_ARRAY and (
+                is_bytes or ptype == Type.FIXED_LEN_BYTE_ARRAY):
+            op, nb = _plan_dba_page(values_seg, type_length if not is_bytes
+                                    else None, dl_ref, n, non_null, dwidth,
+                                    stager)
+            chunk_bytes += nb
+            ops.append(op)
         else:
             raise NotImplementedError(
                 f"column {col_path!r}: encoding {enc.name} of "
-                f"{ptype.name} is not supported by tpuparquet_torch "
-                "(PLAIN, dictionary, DELTA_BINARY_PACKED on INT32 and "
-                "INT64, BYTE_STREAM_SPLIT on fixed-width types)")
+                f"{ptype.name} is not supported by tpuparquet_torch")
         if chunk_bytes > _I32_MAX:
             raise ValueError(f"{chunk_bytes} bytes of BYTE_ARRAY values "
                              "overflow the int32 offsets of the device "
@@ -1041,19 +1146,14 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
             mask, positions = levels_to_validity(dl, max_def)
         if parts["bytes"]:
             data, offs, n_bytes = _merge_bytes(parts["bytes"])
-            offsets = torch.from_numpy(offs)
-            if device.type == "cuda":
-                # outside the slab, as the reference uploads them; the
-                # copy is done by the row group's fence
-                offsets = offsets.pin_memory().to(device, non_blocking=True)
             return DeviceColumn(ptype, data, mask, positions, dl, total,
-                                offs.size - 1, offsets=offsets,
+                                offs.size - 1, offsets=_upload(offs, device),
                                 n_bytes=n_bytes, rep_levels=rl)
         data, n_packed = _merge_parts(parts["val"], lanes=vlanes or 1)
         if data is None:
             data = torch.zeros(0, dtype=torch.int32, device=device)
         return DeviceColumn(ptype, data, mask, positions, dl, total,
-                            n_packed, rep_levels=rl)
+                            n_packed, rep_levels=rl, type_length=type_length)
 
     return finish
 
@@ -1111,8 +1211,7 @@ def _plan_dict_bytes_page(values_seg, width: int, non_null: int, dict_h,
     doh, ddh = dict_h
 
     def op(s, parts):
-        if dl_ref is not None:
-            parts["def"].append((_expand_def(s, dl_ref, dwidth), n))
+        _add_def(s, parts, dl_ref, dwidth, n)
         bp, tbl = (None, None) if idx_hs is None else \
             (s[idx_hs[0]], s[idx_hs[1]])
         data = page_dict_bytes(s[doh], s[ddh], bp, tbl, non_null, i_cnt,
@@ -1160,8 +1259,7 @@ def _plan_plain_bytes_page(values_seg, bytes_comp, non_null: int, dl_ref,
             return s[dh]
 
     def op(s, parts):
-        if dl_ref is not None:
-            parts["def"].append((_expand_def(s, dl_ref, dwidth), n))
+        _add_def(s, parts, dl_ref, dwidth, n)
         parts["bytes"].append((offs, get_data(s), nb))
 
     return op, nb
@@ -1187,8 +1285,7 @@ def _dict_page_op(dict_h, dl_ref, idx_ref, width, n, non_null, dwidth,
                 isingle=i_sg)
             parts["def"].append((dl, n))
         else:
-            if dl_ref is not None:
-                parts["def"].append((_expand_def(s, dl_ref, dwidth), n))
+            _add_def(s, parts, dl_ref, dwidth, n)
             vals = page_dict_fixed(s[dict_h], i_bp, i_tbl, i_cnt, width,
                                    i_nbp, lanes=lanes, isingle=i_sg)
         parts["val"].append((vals, non_null))
@@ -1224,8 +1321,7 @@ def _delta_page_op(values_seg, ptype, dl_ref, n, non_null, dwidth,
     build = _stage_delta_plan(plan, stager, need_hi=i64)
 
     def op(s, parts):
-        if dl_ref is not None:
-            parts["def"].append((_expand_def(s, dl_ref, dwidth), n))
+        _add_def(s, parts, dl_ref, dwidth, n)
         p = build(s, parts["device"])
         words = (expand_delta_i64(p)[: 2 * non_null] if i64
                  else expand_delta_i32(p)[:non_null])
@@ -1234,12 +1330,11 @@ def _delta_page_op(values_seg, ptype, dl_ref, n, non_null, dwidth,
     return op
 
 
-def _bss_page_op(values_seg, dl_ref, n, non_null, dwidth, lanes,
+def _bss_page_op(values_seg, dl_ref, n, non_null, dwidth, k, lanes,
                  stager: _Stager):
-    """Deferred BYTE_STREAM_SPLIT page: the first ``non_null * 4 * lanes``
-    bytes stage padded and K12 turns them into lane words; a page without
-    values stages nothing."""
-    k = 4 * lanes
+    """Deferred BYTE_STREAM_SPLIT page of ``k``-byte values: the first
+    ``non_null * k`` bytes stage padded and K12 turns them into lane
+    words; a page without values stages nothing."""
     raw = (values_seg.reshape(-1) if isinstance(values_seg, np.ndarray)
            else np.frombuffer(values_seg, dtype=np.uint8))
     if raw.size < non_null * k:
@@ -1247,13 +1342,163 @@ def _bss_page_op(values_seg, dl_ref, n, non_null, dwidth, lanes,
     rh = stager.add(raw[: non_null * k]) if non_null else None
 
     def op(s, parts):
-        if dl_ref is not None:
-            parts["def"].append((_expand_def(s, dl_ref, dwidth), n))
+        _add_def(s, parts, dl_ref, dwidth, n)
         if rh is not None:
             parts["val"].append((bss_to_lanes(s[rh], non_null, k, lanes),
                                  non_null))
 
     return op
+
+
+def _plain_rows_op(values_seg, ptype, type_length, dl_ref, n, non_null,
+                   dwidth):
+    """Deferred PLAIN page of BOOLEAN or FIXED_LEN_BYTE_ARRAY values, which
+    the reference uploads outside the stager (so not in
+    ``bytes_staged``): BOOLEAN ships its bit-packed words, padded to whole
+    32-value blocks, for K1 at width 1; FIXED_LEN_BYTE_ARRAY ships its rows
+    zero-padded to whole lanes."""
+    buf = (values_seg.reshape(-1) if isinstance(values_seg, np.ndarray)
+           else np.frombuffer(values_seg, dtype=np.uint8))
+    if ptype == Type.BOOLEAN:
+        host = pad_to_words(buf, 1, non_null).reshape(-1)
+    else:
+        if buf.size < non_null * type_length:
+            raise ValueError("PLAIN FIXED_LEN_BYTE_ARRAY: input too short")
+        host = _stage_byte_rows_np(
+            buf[: non_null * type_length].reshape(non_null, type_length))
+
+    def op(s, parts):
+        _add_def(s, parts, dl_ref, dwidth, n)
+        vals = _upload(host, parts["device"])
+        if ptype == Type.BOOLEAN:
+            vals = unpack_u32(vals, 1, non_null)
+        parts["val"].append((vals, non_null))
+
+    return op
+
+
+def _rle_bool_page_op(values_seg, dl_ref, n, non_null, dwidth,
+                      stager: _Stager):
+    """Deferred RLE page of BOOLEAN values: a length-prefixed width-1
+    hybrid stream, checked against the page and scanned as the V1 levels
+    are; its plan stages and K1 or K2 expands it into u32 value lanes."""
+    if len(values_seg) < 4:
+        raise ValueError("boolean RLE stream missing length")
+    (size,) = struct.unpack_from("<I", values_seg, 0)
+    if 4 + size > len(values_seg):
+        raise ValueError("boolean RLE length exceeds page")
+    hs = None
+    if non_null:
+        scan, _ = scan_levels_v1(values_seg, non_null, 1, 0)
+        args, cnt, nbp, single = plan_stream_args(scan, non_null, 1)
+        hs = stager.add_many(args, pad=False)
+
+    def op(s, parts):
+        _add_def(s, parts, dl_ref, dwidth, n)
+        if hs is not None:
+            parts["val"].append((expand_hybrid(s[hs[0]], s[hs[1]], cnt, 1,
+                                               nbp, single), non_null))
+
+    return op
+
+
+def _plan_dlba_page(values_seg, dl_ref, n, non_null, dwidth,
+                    stager: _Stager):
+    """Plan one DELTA_LENGTH_BYTE_ARRAY page: the host decodes the lengths
+    (validated as the CPU decoder validates them) and the value bytes
+    stage as they lie in the page.  Returns ``(op, value bytes)``."""
+    offs, dpos = scan_delta_length_byte_array(values_seg, non_null)
+    nb = int(offs[-1])
+    offs = _int32_offsets(offs)
+    dh = stager.add(np.frombuffer(values_seg, np.uint8, nb, dpos))
+
+    def op(s, parts):
+        _add_def(s, parts, dl_ref, dwidth, n)
+        parts["bytes"].append((offs, s[dh], nb))
+
+    return op, nb
+
+
+def _plan_dba_page(values_seg, flba_len, dl_ref, n, non_null, dwidth,
+                   stager: _Stager):
+    """Plan one DELTA_BYTE_ARRAY page (``flba_len``: the row length of a
+    FIXED_LEN_BYTE_ARRAY column, else None), as the reference does.
+
+    Front coding is the copy-resolution problem K8 solves: value ``i`` is
+    one copy token (its prefix, read from value ``i - 1``'s output start)
+    and one literal token (its suffix).  The page ships those tables and
+    the suffixes, K8 expands them, and for FIXED_LEN_BYTE_ARRAY K13 turns
+    the rows into lane words.  A page with no values, one whose expansion
+    would pass 2^30 bytes, or one whose expanded bytes are fewer than the
+    suffixes plus 8 bytes a value is assembled on the host instead and
+    ships its values (``dba-host``).  Returns ``(op, value bytes)``: the
+    bytes a BYTE_ARRAY page adds to the column, 0 for rows."""
+    prefix, ppos = decode_delta_binary_packed(values_seg, np.int64)
+    if prefix.size != non_null:
+        raise ValueError("DELTA_BYTE_ARRAY: prefix count mismatch")
+    soffs, spos = scan_delta_length_byte_array(values_seg, non_null, ppos)
+    if non_null:
+        if prefix[0] != 0:
+            raise ValueError("DELTA_BYTE_ARRAY: first prefix must be 0")
+        if (prefix < 0).any():
+            raise ValueError("DELTA_BYTE_ARRAY: negative prefix")
+    total_lens = prefix + np.diff(soffs)
+    if non_null > 1 and (prefix[1:] > total_lens[:-1]).any():
+        raise ValueError("DELTA_BYTE_ARRAY: prefix longer than previous value")
+    if flba_len is not None and non_null and not (
+            total_lens == flba_len).all():
+        raise ValueError("DELTA_BYTE_ARRAY: FLBA value length mismatch")
+    offs = np.zeros(non_null + 1, dtype=np.int64)
+    np.cumsum(total_lens, out=offs[1:])
+    expanded = int(offs[-1])
+    n_suffix = int(soffs[-1])
+    suffixes = np.frombuffer(values_seg, np.uint8, n_suffix, spos)
+    nb = 0 if flba_len is not None else expanded
+    if non_null == 0 or expanded > 1 << 30 \
+            or expanded < n_suffix + 8 * non_null:
+        col = assemble_delta_byte_array(prefix, soffs, suffixes)
+        if flba_len is not None:
+            host = _stage_byte_rows_np(
+                col.data[: non_null * flba_len].reshape(non_null, flba_len))
+
+            def op(s, parts):
+                _add_def(s, parts, dl_ref, dwidth, n)
+                parts["val"].append((_upload(host, parts["device"]),
+                                     non_null))
+        else:
+            dh = stager.add(col.data)
+            offs32 = _int32_offsets(col.offsets)
+
+            def op(s, parts):
+                _add_def(s, parts, dl_ref, dwidth, n)
+                parts["bytes"].append((offs32, s[dh], nb))
+
+        return op, nb
+    out_cap = bucket(expanded)
+    cap_t = bucket(2 * non_null)
+    te = np.full(cap_t, out_cap, dtype=np.int32)
+    ts = np.full(cap_t, -1, dtype=np.int32)
+    te[0 : 2 * non_null : 2] = (offs[:-1] + prefix).astype(np.int32)
+    te[1 : 2 * non_null : 2] = offs[1:].astype(np.int32)
+    prev_start = np.zeros(non_null, dtype=np.int64)
+    prev_start[1:] = offs[:-2]
+    ts[0 : 2 * non_null : 2] = prev_start.astype(np.int32)
+    ts[1 : 2 * non_null : 2] = (-soffs[:-1] - 1).astype(np.int32)
+    th = stager.add_many([te, ts], pad=False)
+    lh = stager.add(suffixes)
+    steps = max(int(np.ceil(np.log2(max(expanded, 2)))), 1)
+    offs32 = None if flba_len is not None else _int32_offsets(offs)
+
+    def op(s, parts):
+        _add_def(s, parts, dl_ref, dwidth, n)
+        out = expand_tokens(s[th[0]], s[th[1]], s[lh], out_cap, steps)
+        if flba_len is not None:
+            parts["val"].append((flba_bytes_to_lanes(out, non_null,
+                                                     flba_len), non_null))
+        else:
+            parts["bytes"].append((offs32, out, nb))
+
+    return op, nb
 
 
 def _defer_rep_levels(ops, stager: _Stager, scan, n: int,
@@ -1274,9 +1519,12 @@ def _defer_rep_levels(ops, stager: _Stager, scan, n: int,
     ops.append(op)
 
 
-def _expand_def(s, dl_ref, dwidth):
-    (dh, dt), d_cnt, d_nbp, d_sg = dl_ref
-    return expand_hybrid(s[dh], s[dt], d_cnt, dwidth, d_nbp, d_sg)
+def _add_def(s, parts, dl_ref, dwidth, n) -> None:
+    """Expand a page's def stream on its own (K1 or K2), if it has one."""
+    if dl_ref is not None:
+        (dh, dt), d_cnt, d_nbp, d_sg = dl_ref
+        parts["def"].append((expand_hybrid(s[dh], s[dt], d_cnt, dwidth,
+                                           d_nbp, d_sg), n))
 
 
 # ----------------------------------------------------------------------

@@ -6,7 +6,8 @@ max and value counts of their bit-packed lanes and encodes hybrid
 streams for the writer; ``csrc/pack.c`` packs bits (the delta-lane
 transport's offsets, DELTA_BINARY_PACKED miniblocks) and expands or
 re-packs run tables; ``csrc/delta.c`` walks the blocks of a
-DELTA_BINARY_PACKED stream and gathers its miniblocks; ``csrc/plane.c``
+DELTA_BINARY_PACKED stream and gathers its miniblocks, rebuilds
+DELTA_BYTE_ARRAY values and measures the writer's shared prefixes; ``csrc/plane.c``
 scans and gathers the strided lanes and byte planes of the plane
 transport, and ``csrc/bytes.c`` scans PLAIN BYTE_ARRAY length prefixes,
 gathers and emits variable-length values and interns them for the
@@ -280,6 +281,13 @@ class NativeDelta:
         self._gather = lib.tpq_gather_segments
         self._gather.restype = _LL
         self._gather.argtypes = [_P, _LL, _P, _LL, _LL, _P]
+        self._dba = lib.tpq_dba_assemble
+        self._dba.restype = _LL
+        self._dba.argtypes = [_P, _P, _P, _LL, _P, _LL, _P,
+                              ctypes.POINTER(_LL)]
+        self._prefix = lib.tpq_common_prefix
+        self._prefix.restype = None
+        self._prefix.argtypes = [_P, _P, _LL, _P]
 
     def gather_segments(self, src, positions, nbytes: int) -> np.ndarray:
         """The ``nbytes``-byte segments of ``src`` at ``positions``,
@@ -290,6 +298,42 @@ class NativeDelta:
         if self._gather(buf.ctypes.data, buf.size, pos.ctypes.data, pos.size,
                         nbytes, out.ctypes.data) != 0:
             raise ValueError("miniblock payload out of bounds")
+        return out
+
+    def dba_assemble(self, prefix_lens, suffix_offs, suffix_data,
+                     out_offsets, total: int) -> np.ndarray:
+        """Front-coded DELTA_BYTE_ARRAY fill in one pass (``total`` output
+        bytes); raises ValueError with the JAX assembler's messages on a
+        malformed stream."""
+        pl = np.ascontiguousarray(prefix_lens, dtype=np.int64)
+        so = np.ascontiguousarray(suffix_offs, dtype=np.int64)
+        sd = _u8(suffix_data)
+        oo = np.ascontiguousarray(out_offsets, dtype=np.int64)
+        out = np.empty(max(total, 1), dtype=np.uint8)[:total]
+        err = _LL()
+        rc = self._dba(pl.ctypes.data, so.ctypes.data, sd.ctypes.data,
+                       sd.size, oo.ctypes.data, pl.size, out.ctypes.data,
+                       ctypes.byref(err))
+        if rc == -1:
+            raise ValueError("DELTA_BYTE_ARRAY: first prefix must be 0")
+        if rc == -2:
+            raise ValueError(f"DELTA_BYTE_ARRAY: prefix {int(pl[err.value])} "
+                             "longer than previous value")
+        if rc != 0:
+            raise ValueError(f"DELTA_BYTE_ARRAY assembly failed (rc={rc})")
+        return out
+
+    def common_prefix(self, data, offsets) -> np.ndarray:
+        """int64 length of the prefix each value shares with the one
+        before it (0 for the first) over offsets + data."""
+        d = _u8(data)
+        offs = np.ascontiguousarray(offsets, dtype=np.int64)
+        n = offs.size - 1
+        if n > 0 and (int(offs[0]) < 0 or int(offs[-1]) > d.size
+                      or bool((offs[1:] < offs[:-1]).any())):
+            raise ValueError("byte-array offsets out of bounds")
+        out = np.empty(max(n, 1), dtype=np.int64)[:n]
+        self._prefix(d.ctypes.data, offs.ctypes.data, n, out.ctypes.data)
         return out
 
     def scan_blocks(self, data, pos: int, n_deltas: int, mb_size: int,
@@ -487,7 +531,8 @@ def bytes_native() -> NativeBytes:
 
 
 def delta_native() -> NativeDelta:
-    """The DELTA_BINARY_PACKED block scan (raises without a C compiler)."""
+    """The DELTA_BINARY_PACKED block scan and the DELTA_BYTE_ARRAY passes
+    (raises without a C compiler)."""
     return _native("delta", NativeDelta)
 
 
