@@ -2,15 +2,20 @@
 
     python3 chip_smoke.py [--values N] [--groups G]
 
-1. Builds the port's thirteen CUDA kernels (K1-K13) and its C host
-   helpers (snappy, hybrid run scans, bit packing, the DELTA_BINARY_PACKED
-   block walk and the DELTA_BYTE_ARRAY passes, lane planes, BYTE_ARRAY
-   passes) from the sources in this checkout, one compiler process per
-   source, in parallel.
+1. Builds the port's eighteen CUDA kernels (K1-K13 on the read path,
+   KE1-KE5 on the write path) and its C host helpers (snappy, hybrid run
+   scans, bit packing, the DELTA_BINARY_PACKED block walk and the
+   DELTA_BYTE_ARRAY passes, lane planes, BYTE_ARRAY passes) from the
+   sources in this checkout, one compiler process per source, in
+   parallel.
 2. Holds every kernel against its plain PyTorch version on the card, bit
    for bit over the whole (padded) output: K13 at row lengths 3, 9, 12,
    16 and 22, K3 at 3 and 4 lanes, K12 with k != 4 * lanes, K8 on the
-   copy graph of front-coded strings and rows.
+   copy graph of front-coded strings and rows; KE1 at widths 1, 7, 31,
+   32, 33, 63 and 64 (counts 1, 33 and 2^20 + 5, over a miniblock list),
+   KE2 with k 4 and 8 at 1 and 2 lanes, KE3 on wrapping int32 and
+   extreme int64 deltas, KE4 at ranges 1, 7 and 2^16 from a negative low
+   bound, KE5 on NaN, infinities, signed zeros and unsigned order.
 3. Writes the NYC-Taxi-shaped config-2 file of ``bench.py`` (seed 42, 8
    row groups, 50,000,000 values by default) with the port's writer and
    reads it through ``read_row_groups_device`` on the card with the
@@ -51,12 +56,23 @@
 4. Times each kernel at the main paths' page shapes with CUDA events,
    beside its memory/operation bound, its plain version and, where one
    PyTorch call computes the function or its core, that call; K8 also
-   on a URL page of 3h.
+   on a URL page of 3h; KE1-KE5 at phase 5's pages (phase 5 runs
+   first: its launches fill the KE rows).
+5. The write path: the sensor table of 3f and config 2 of 3 are read
+   on the card, every column goes through ``DeviceColumn.as_values()``
+   (optional columns with the mask of their read), and the writer that
+   made each file writes them back from the card (SNAPPY, the file's
+   encodings).  Each new file must equal the original byte for byte,
+   with 4 (sensor table: DELTA_BINARY_PACKED by KE3 and KE1,
+   BYTE_STREAM_SPLIT by KE2, statistics by KE5) and 2 (config 2: the two
+   PLAIN columns; the other three intern on the card, KE5 then KE4)
+   pages a row group encoded on the card.  The writes from DeviceValues
+   and from numpy are timed, best of 3.
 
-Every kernel must have launched on the paths of phases 3 to 3h; the
-counts are set to 0 just before each path's read and read just after.
-Exits non-zero, printing no result, when CUDA is unavailable or any
-phase fails.  The last line is
+Every kernel must have launched on the paths of phases 3 to 3h and 5;
+the counts are set to 0 just before each path's read or write and read
+just after.  Exits non-zero, printing no result, when CUDA is
+unavailable or any phase fails.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists the kernels with their launches on the main
 paths, times and bounds.
@@ -378,17 +394,19 @@ def sensor_groups(rows: int, n_groups: int, seed: int = 17):
     return groups
 
 
+SENSORS_ENCODINGS = {"ts": "DELTA_BINARY_PACKED",
+                     "seq": "DELTA_BINARY_PACKED",
+                     "temp": "BYTE_STREAM_SPLIT",
+                     "reading": "BYTE_STREAM_SPLIT"}
+
+
 def build_sensors(rows: int, n_groups: int, data_page_v2: bool = False):
     """The sensor table: ``ts`` and ``seq`` DELTA_BINARY_PACKED, ``temp``
     and ``reading`` BYTE_STREAM_SPLIT, SNAPPY, written with the port's
     writer.  Returns (file bytes, groups)."""
     groups = sensor_groups(rows, n_groups)
-    enc = {"ts": _encoding("DELTA_BINARY_PACKED"),
-           "seq": _encoding("DELTA_BINARY_PACKED"),
-           "temp": _encoding("BYTE_STREAM_SPLIT"),
-           "reading": _encoding("BYTE_STREAM_SPLIT")}
     return _write(SENSORS_SCHEMA, groups, None, data_page_v2=data_page_v2,
-                  column_encodings=enc), groups
+                  column_encodings=_encodings(SENSORS_ENCODINGS)), groups
 
 
 # Julian day number of 2024-01-01, and the nanoseconds of a day: an INT96
@@ -542,6 +560,10 @@ def _encoding(name: str):
     from tpuparquet_torch.format.metadata import Encoding
 
     return Encoding[name]
+
+
+def _encodings(names: dict) -> dict:
+    return {k: _encoding(v) for k, v in names.items()}
 
 
 def _u32(t: torch.Tensor) -> np.ndarray:
@@ -1016,6 +1038,114 @@ def _check_new_shapes(rng, dev) -> None:
             raise AssertionError("DELTA_BYTE_ARRAY rows: wrong words")
 
 
+def _check_pack_bits(rng, dev) -> None:
+    """KE1 against its plain version: widths 1, 7, 31, 32, 33, 63 and 64
+    at counts 1, 33 and 2^20 + 5, over lanes longer than the count (the
+    tail must pack as 0) and over a list of miniblocks, and against the
+    host packer."""
+    from tpuparquet_torch.cpu.bitpack import pack
+    from tpuparquet_torch.kernels.encode import pack_bits, pack_bits_plain
+
+    for w in (1, 7, 31, 32, 33, 63, 64):
+        for count in (1, 33, (1 << 20) + 5):
+            n_in = count + 40
+            v = rng.integers(0, 2**64 - 1, size=n_in, dtype=np.uint64,
+                             endpoint=True)
+            lo = _t((v & 0xFFFFFFFF).astype(np.uint32), dev)
+            hi = _t((v >> 32).astype(np.uint32), dev) if w > 32 else None
+            got = pack_bits(lo, hi, w, count)
+            _same(f"KE1 width {w} count {count}", got,
+                  pack_bits_plain(lo, hi, w, count))
+            mask = np.uint64(2**64 - 1 if w == 64 else (1 << w) - 1)
+            want = pack(v[:count] & mask, w)
+            if _u32(got).astype(np.uint32).tobytes()[: len(want)] != want:
+                raise AssertionError(f"KE1 width {w}: wrong words")
+            nb = (count + 31) // 32
+            sel = _t(rng.permutation(nb).astype(np.int32), dev)
+            _same(f"KE1 width {w} count {count} miniblocks",
+                  pack_bits(lo, hi, w, count, sel=sel),
+                  pack_bits_plain(lo, hi, w, count, sel=sel))
+
+
+def _check_encode(rng, dev) -> None:
+    """KE2-KE5 against their plain versions: KE2 with k 4 and 8 at 1 and
+    2 lanes; KE3 on int32 deltas that wrap and int64 extremes, at counts
+    2, 129 and 1,000,003 (and whole pages against the host encoder,
+    counts 1 and 2 included); KE4 at ranges 1, 7 and 2^16 with a
+    negative low bound; KE5 on NaN, all NaN, infinities, signed zeros
+    and unsigned order."""
+    from tpuparquet_torch.cpu.delta import encode_delta_binary_packed
+    from tpuparquet_torch.kernels.encode import bss_encode_device, \
+        bss_encode_plain, delta_encode_device, delta_phase1, \
+        delta_phase1_plain, dict_build, dict_build_plain, lanes_min_max, \
+        lanes_min_max_plain
+
+    for k, lanes in ((4, 1), (4, 2), (8, 2)):
+        for count in (1, 1001, (1 << 20) + 3):
+            flat = _t(rng.integers(0, 2**32, size=count * lanes + 5,
+                                   dtype=np.uint32), dev)
+            _same(f"KE2 k {k} lanes {lanes} count {count}",
+                  bss_encode_device(flat, count, k, lanes),
+                  bss_encode_plain(flat, count, k, lanes))
+    for dt in (np.int32, np.int64):
+        info = np.iinfo(dt)
+        for count in (1, 2, 129, 1_000_003):
+            v = rng.integers(info.min, info.max, size=count, dtype=dt,
+                             endpoint=True)
+            v[::5] = info.max
+            v[1::7] = info.min
+            flat = _t(v.view(np.uint32), dev)
+            is32 = dt == np.int32
+            if count >= 2:
+                got, want = (delta_phase1(flat, count, is32),
+                             delta_phase1_plain(flat, count, is32))
+                for i, (g, w_) in enumerate(zip(got, want)):
+                    _same(f"KE3 {dt.__name__} count {count} output {i}", g,
+                          w_)
+            if delta_encode_device(flat, count, is32) != \
+                    encode_delta_binary_packed(v, is32=is32):
+                raise AssertionError(f"KE3 {dt.__name__} count {count}: "
+                                     "page differs from the host encoder")
+    for dt in (np.int32, np.int64):
+        for span, lo in ((1, 0), (7, -3), (1 << 16, -(1 << 20))):
+            n = 3 * span + 100_000
+            v = (lo + rng.integers(0, span, size=n)).astype(dt)
+            flat = _t(v.view(np.uint32), dev)
+            lanes = v.itemsize // 4
+            go, gs, gi = dict_build(flat, lanes, n, lo & 0xFFFFFFFF, span)
+            wo, ws, wi = dict_build_plain(flat, lanes, n, lo & 0xFFFFFFFF,
+                                          span)
+            if gs != ws:
+                raise AssertionError(f"KE4 range {span}: {gs} entries, "
+                                     f"plain {ws}")
+            _same(f"KE4 {dt.__name__} range {span} order", go, wo)
+            _same(f"KE4 {dt.__name__} range {span} indices", gi, wi)
+    cases = [
+        (np.array([np.nan, 2.5, -1.0, np.nan], np.float32), "float"),
+        (np.full(1000, np.nan), "float"),
+        (np.array([np.inf, -np.inf, 0.0, np.nan]), "float"),
+        (np.array([0.0, -0.0, 0.0]), "float"),
+        (np.array([-0.0, 0.0], np.float32), "float"),
+        (np.array([np.nan] * 5 + [-0.0], np.float32), "float"),
+        (rng.normal(size=(1 << 20) + 7), "float"),
+        (np.array([1, -1, 5], np.int64), "unsigned"),
+        (np.array([1, -1, 5], np.int32), "unsigned"),
+        (rng.integers(-2**63, 2**63 - 1, size=(1 << 20) + 1), "signed"),
+        (rng.integers(-2**63, 2**63 - 1, size=(1 << 20) + 1), "unsigned"),
+        (rng.integers(-2**31, 2**31, size=999).astype(np.int32), "signed"),
+        (np.array([], np.float64), "float"),
+    ]
+    for v, order in cases:
+        lanes = v.itemsize // 4
+        flat = _t(v.view(np.uint32), dev) if v.size else \
+            torch.zeros(0, dtype=torch.int32, device=dev)
+        got, want = (lanes_min_max(flat, lanes, order),
+                     lanes_min_max_plain(flat, lanes, order))
+        if got != want:
+            raise AssertionError(f"KE5 {v.dtype} {order} ({v.size} "
+                                 f"values): {got}, plain {want}")
+
+
 def check_kernels(dev) -> None:
     """Phase 2: every kernel against its plain version on the card."""
     from tpuparquet_torch.cpu.bitpack import pack
@@ -1083,6 +1213,8 @@ def check_kernels(dev) -> None:
     _check_bss(rng, dev)
     _check_flba(rng, dev)
     _check_new_shapes(rng, dev)
+    _check_pack_bits(rng, dev)
+    _check_encode(rng, dev)
     if dev.type == "cuda":  # a fault during a run surfaces here
         torch.cuda.synchronize(dev)
 
@@ -1113,6 +1245,31 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> int:
         x, y = x.view(np.uint32), y.view(np.uint32)
     return int(np.abs(x.astype(np.int64) - y.astype(np.int64)).max()) \
         if x.size else 0
+
+
+def _kernel_row(out, launches, name, source, replaces, fn, plain, n_bytes,
+                n_ops, library=None):
+    """Hold a kernel against its plain version at a page shape, time both
+    (and the library call), and append its row of the kernels line."""
+    got, want = fn(), plain()
+    if isinstance(got, tuple):
+        err = max(_max_err(g, w) for g, w in zip(got, want))
+    else:
+        err = _max_err(got, want)
+    if err != 0:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version at the page shape (max abs diff "
+                             f"{err})")
+    bound, by = _bound_ms(n_bytes, n_ops)
+    ms, plain_ms = _time_ms(fn), _time_ms(plain, reps=5)
+    lib_ms = None if library is None else _time_ms(library)
+    out.append({"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
+    lib = "" if lib_ms is None else f"; library {lib_ms:.4f} ms"
+    print(f"{name}: {ms:.4f} ms (bound {bound:.4f} ms by {by}; plain "
+          f"{plain_ms:.4f} ms{lib}; max_abs_err {err})", flush=True)
 
 
 def _stage(arrays, dev):
@@ -1155,27 +1312,8 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
     n = pay_mask.size
     out = []
 
-    def row(name, source, replaces, fn, plain, n_bytes, n_ops,
-            library=None):
-        got, want = fn(), plain()
-        if isinstance(got, tuple):
-            err = max(_max_err(g, w) for g, w in zip(got, want))
-        else:
-            err = _max_err(got, want)
-        if err != 0:
-            raise AssertionError(f"{name}: kernel disagrees with its plain "
-                                 f"version at the page shape (max abs diff "
-                                 f"{err})")
-        bound, by = _bound_ms(n_bytes, n_ops)
-        ms, plain_ms = _time_ms(fn), _time_ms(plain, reps=5)
-        lib_ms = None if library is None else _time_ms(library)
-        out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": launches[name],
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
-        lib = "" if lib_ms is None else f"; library {lib_ms:.4f} ms"
-        print(f"{name}: {ms:.4f} ms (bound {bound:.4f} ms by {by}; plain "
-              f"{plain_ms:.4f} ms{lib}; max_abs_err {err})", flush=True)
+    def row(*args, **kw):
+        _kernel_row(out, launches, *args, **kw)
 
     # K1: payment_type's def-level stream, which the planner re-packs as
     # one bit-packed run (width 1, 2^21 slots)
@@ -1498,6 +1636,152 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
     return out
 
 
+def time_encode_kernels(dv_t, dv_2, dev, launches) -> list:
+    """Phase 4, the write side: KE1-KE5 at phase 5's page shapes (row
+    group 0 of the sensor table and of config 2, as read on the card).
+    The KE4 and KE5 times include reading their one or two result words
+    back, as the wrappers do."""
+    from tpuparquet_torch.cpu.delta import widths_from_max
+    from tpuparquet_torch.kernels.encode import bss_encode_device, \
+        bss_encode_plain, delta_phase1, delta_phase1_plain, dict_build, \
+        dict_build_plain, lanes_min_max, lanes_min_max_plain, pack_bits, \
+        pack_bits_plain
+
+    out = []
+
+    def row(*args, **kw):
+        _kernel_row(out, launches, *args, **kw)
+
+    # KE3: the sensor table's ts page (int64, bursty timestamps); one
+    # PyTorch call computes its core, the deltas (torch.diff)
+    ts = dv_t[0][0]["ts"].flat
+    count = ts.numel() // 2
+    nb = (count - 2) // 128 + 1
+    row("delta_phase1", "tpuparquet_torch/csrc/delta_encode.cu",
+        "tpuparquet/kernels/encode.py:195",
+        lambda: delta_phase1(ts, count, False),
+        lambda: delta_phase1_plain(ts, count, False),
+        8 * count + 8 * nb * (1 + 4 + 128), 12 * count,
+        library=lambda: torch.diff(ts.view(torch.int64)))
+    phase = delta_phase1(ts, count, False)
+    mb_max = (phase[2].cpu().numpy().view(np.uint32).astype(np.uint64)
+              | (phase[3].cpu().numpy().view(np.uint32).astype(np.uint64)
+                 << np.uint64(32)))
+    widths = widths_from_max(mb_max)
+    classes, sizes = np.unique(widths[widths > 0], return_counts=True)
+    w = int(classes[np.argmax(sizes)])
+    idx = np.nonzero(widths == w)[0]
+    sel = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    alo, ahi = phase[4], phase[5]
+    cnt = idx.size * 32
+    # KE1: the ts page's largest width class, packed over its miniblocks
+    row("pack_bits", "tpuparquet_torch/csrc/pack_bits.cu",
+        "tpuparquet/kernels/encode.py:104",
+        lambda: pack_bits(alo, ahi, w, cnt, sel=sel),
+        lambda: pack_bits_plain(alo, ahi, w, cnt, sel=sel),
+        cnt * (8 if w > 32 else 4) + 4 * idx.size + 4 * w * idx.size,
+        4 * cnt)
+    print(f"KE1 class: width {w}, {idx.size} of {widths.size} miniblocks "
+          f"({classes.size} width classes)", flush=True)
+    # KE2: the reading page (doubles), 8 byte streams; one PyTorch call
+    # computes the transpose
+    reading = dv_t[0][0]["reading"].flat
+    nr = reading.numel() // 2
+    row("bss_encode_device", "tpuparquet_torch/csrc/bss_encode.cu",
+        "tpuparquet/kernels/encode.py:146",
+        lambda: bss_encode_device(reading, nr, 8, 2),
+        lambda: bss_encode_plain(reading, nr, 8, 2),
+        16 * nr, 8 * nr,
+        library=lambda: reading.view(torch.uint8).view(nr, 8).t()
+        .contiguous())
+    # KE5: the reading page's float min/max (NaN skipped); torch.aminmax
+    # is timed only (its NaN handling differs)
+
+    def keys(got):
+        return torch.from_numpy(np.array(got, np.uint64).view(np.int64))
+
+    row("lanes_min_max", "tpuparquet_torch/csrc/min_max.cu",
+        "tpuparquet/kernels/encode.py:438",
+        lambda: keys(lanes_min_max(reading, 2, "float")),
+        lambda: keys(lanes_min_max_plain(reading, 2, "float")),
+        8 * nr + 16, 6 * nr,
+        library=lambda: torch.aminmax(reading.view(torch.float64)))
+    # KE4: config 2's passenger_count page; one PyTorch call computes the
+    # first-occurrence table (scatter_reduce_ "amin")
+    pc = dv_2[0][0]["passenger_count"]
+    n = pc.count
+    lo, hi = (int(x) for x in pc.min_max())
+    span = hi - lo + 1
+    off = pc.flat.to(torch.int64) - lo
+    ar = torch.arange(n, dtype=torch.int64, device=dev)
+    row("dict_build", "tpuparquet_torch/csrc/dict_build.cu",
+        "tpuparquet/kernels/encode.py:497",
+        lambda: dict_build(pc.flat, 1, n, lo & 0xFFFFFFFF, span)[::2],
+        lambda: dict_build_plain(pc.flat, 1, n, lo & 0xFFFFFFFF, span)[::2],
+        8 * n + 4 * span, 10 * n,
+        library=lambda: torch.full((span,), n, dtype=torch.int64,
+                                   device=dev).scatter_reduce_(
+            0, off, ar, "amin"))
+    print(f"KE4 page: {n} values over a range of {span}", flush=True)
+    return out
+
+
+def _device_groups(reader, dev) -> list:
+    """Every row group read on the card, each column as its
+    ``as_values()`` and each optional column's mask from the read:
+    ``[(columns, masks)]``, as ``_write`` takes them."""
+    from tpuparquet_torch.kernels.device import read_row_groups_device
+
+    groups = []
+    for _, cols in read_row_groups_device(reader, device=dev):
+        groups.append((
+            {name: col.as_values() for name, col in cols.items()},
+            {name: col.mask.cpu().numpy() for name, col in cols.items()
+             if reader.schema.leaf(name).max_def_level}))
+    _sync(dev)
+    return groups
+
+
+def check_write(label, blob, schema, encodings, dv_groups, wrappers,
+                want_pages: int) -> dict:
+    """Phase 5: write the card-resident row groups back with the writer
+    that made ``blob`` (SNAPPY, the file's encodings), the kernel counts
+    set to 0 just before; the file must equal ``blob`` byte for byte and
+    ``want_pages`` data pages must have encoded on the card.  Returns
+    the launches."""
+    from tpuparquet_torch.stats import collect_stats
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    with collect_stats() as st:
+        out = _write(schema, dv_groups, None, column_encodings=encodings)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    print(f"{label} write launches: {launches}; pages_device_encoded "
+          f"{st.pages_device_encoded}", flush=True)
+    if out != blob:
+        at = next((i for i, (a, b) in enumerate(zip(out, blob)) if a != b),
+                  min(len(out), len(blob)))
+        raise AssertionError(f"{label}: the file written from DeviceValues "
+                             f"differs from the original at byte {at} "
+                             f"({len(out)} vs {len(blob)} bytes)")
+    if st.pages_device_encoded != want_pages:
+        raise AssertionError(f"{label}: {st.pages_device_encoded} pages "
+                             f"encoded on the card, expected {want_pages}")
+    print(f"{label}: the file written from DeviceValues equals the "
+          f"original, {len(out)} bytes", flush=True)
+    return launches
+
+
+def _best_write(label, write, n_values, reps: int = 3) -> None:
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        write()
+        best = min(best, time.perf_counter() - t0)
+    print(f"{label} best of {reps}: {best:.4f} s, {n_values / best:.4e} "
+          "values/s", flush=True)
+
+
 def _sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -1694,7 +1978,8 @@ def main(argv=None) -> int:
 
     from tpuparquet_torch.compress import _snappy
     from tpuparquet_torch.io.reader import FileReader
-    from tpuparquet_torch.kernels import bitunpack, decode, hybrid, snappy
+    from tpuparquet_torch.kernels import bitunpack, decode, encode, hybrid, \
+        snappy
     from tpuparquet_torch.kernels._lib import build_kernels
     from tpuparquet_torch.native import bytes_native, delta_native, \
         hybrid_native, pack_native, plane_native
@@ -1739,7 +2024,12 @@ def main(argv=None) -> int:
                 "plain_bytes_from_blob": decode.plain_bytes_from_blob,
                 "scatter_deltas": decode.scatter_deltas,
                 "bss_to_lanes": decode.bss_to_lanes,
-                "flba_bytes_to_lanes": decode.flba_bytes_to_lanes}
+                "flba_bytes_to_lanes": decode.flba_bytes_to_lanes,
+                "pack_bits": encode.pack_bits,
+                "bss_encode_device": encode.bss_encode_device,
+                "delta_phase1": encode.delta_phase1,
+                "dict_build": encode.dict_build,
+                "lanes_min_max": encode.lanes_min_max}
     total_launches = dict.fromkeys(wrappers, 0)
     g = args.groups
 
@@ -1877,7 +2167,7 @@ def main(argv=None) -> int:
         total_launches[k] += c
     _best_of("sensor table", reader_t, dev, n_t,
              note=" (the JAX package: 195,888,708 on the same generator)")
-    del reader_t, blob_t
+    del reader_t
 
     # phase 3g: the Spark-style table (INT96, BOOLEAN, FIXED_LEN_BYTE_ARRAY;
     # V1), default transports
@@ -1942,9 +2232,53 @@ def main(argv=None) -> int:
     del reader_v2, blob_v2
     print(f"launches over the nine reads: {total_launches}", flush=True)
 
+    # phase 5: the write path.  Each file's row groups are read on the
+    # card, each column goes through as_values(), and the writer that
+    # made the file writes them back from the card: byte for byte the
+    # same file
+    sensor_enc = _encodings(SENSORS_ENCODINGS)
+    dv_t = _device_groups(FileReader(blob_t), dev)
+    launches = check_write("sensor table", blob_t, SENSORS_SCHEMA,
+                           sensor_enc, dv_t, wrappers, 4 * g)
+    _need("sensor table write", launches, ["pack_bits", "bss_encode_device",
+                                           "delta_phase1", "lanes_min_max"])
+    want = {"bss_encode_device": 2 * g, "delta_phase1": 2 * g,
+            "lanes_min_max": 4 * g, "dict_build": 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"sensor table write: launches {launches}, "
+                             f"expected {want}")
+    for k, c in launches.items():
+        total_launches[k] += c
+    _best_write("sensor table write from DeviceValues", lambda: _write(
+        SENSORS_SCHEMA, dv_t, None, column_encodings=sensor_enc), n_t)
+    _best_write("sensor table write from numpy", lambda: _write(
+        SENSORS_SCHEMA, groups_t, None, column_encodings=sensor_enc), n_t)
+    del blob_t
+    # config 2: device_dict_build's range gate (KE5) on all five columns;
+    # four pass it and intern (KE4), the size gate then drops
+    # trip_distance_mm's dictionary, and pickup_ts and trip_distance_mm
+    # write PLAIN from the card, their statistics by KE5
+    dv_2 = _device_groups(reader, dev)
+    launches = check_write("config 2", blob, SCHEMA, None, dv_2, wrappers,
+                           2 * g)
+    want = {"dict_build": 4 * g, "lanes_min_max": 7 * g, "pack_bits": 0,
+            "bss_encode_device": 0, "delta_phase1": 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"config 2 write: launches {launches}, "
+                             f"expected {want}")
+    for k, c in launches.items():
+        total_launches[k] += c
+    _best_write("config 2 write from DeviceValues",
+                lambda: _write(SCHEMA, dv_2, None), n_values)
+    _best_write("config 2 write from numpy",
+                lambda: _write(SCHEMA, groups, "payment_type"), n_values)
+    print(f"launches over the nine reads and two writes: {total_launches}",
+          flush=True)
+
     # phase 4: kernel times at the main paths' shapes
     kernels = time_kernels(groups, mix_groups, groups4, groups_s, groups_t,
                            groups_v2, dev, total_launches)
+    kernels += time_encode_kernels(dv_t, dv_2, dev, total_launches)
     _need("the main paths", total_launches, list(wrappers))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,7 @@ from tpuparquet_torch.io.reader import FileReader  # noqa: E402
 from tpuparquet_torch.kernels import (  # noqa: E402
     bitunpack,
     decode,
+    encode,
     hybrid,
     snappy,
 )
@@ -84,6 +85,54 @@ def test_slice5_shapes_match_plain_versions(cuda, check):
     3 and 4 lanes, K8 on front-coded strings and rows."""
     getattr(chip_smoke, check)(np.random.default_rng(4), cuda)
     torch.cuda.synchronize(cuda)
+
+
+@pytest.mark.parametrize("check", ["_check_pack_bits", "_check_encode"])
+def test_encode_kernels_match_plain_versions(cuda, check):
+    """KE1 (pack_bits at widths 1, 7, 31, 32, 33, 63 and 64, counts 1, 33
+    and 2^20 + 5, over a miniblock list) and KE2-KE5 (bss_encode_device,
+    delta_phase1 on wrapping int32 and extreme int64 deltas,
+    dict_build at ranges 1, 7 and 2^16 from a negative low bound,
+    lanes_min_max on NaN, infinities, signed zeros and unsigned order)."""
+    getattr(chip_smoke, check)(np.random.default_rng(5), cuda)
+    torch.cuda.synchronize(cuda)
+
+
+def _encode_launches():
+    return {k: getattr(encode, k).launches for k in (
+        "pack_bits", "bss_encode_device", "delta_phase1", "dict_build",
+        "lanes_min_max")}
+
+
+@pytest.mark.parametrize("table", ["sensors", "config2"])
+def test_write_from_card_is_byte_identical(cuda, monkeypatch, table):
+    """The write path on the card at 2,000,000 values: every row group
+    read on the card and written back from ``as_values()`` is the
+    original file byte for byte, with the pages and launches the
+    reference's routing gives (sensor table: KE1-KE3 and KE5; config 2:
+    KE5 on five columns, KE4 on four)."""
+    for k in chip_smoke.TRANSPORT_ENV:
+        monkeypatch.delenv(k, raising=False)
+    if table == "sensors":
+        blob, _ = chip_smoke.build_sensors(250_000, 2)
+        schema, enc = chip_smoke.SENSORS_SCHEMA, chip_smoke._encodings(
+            chip_smoke.SENSORS_ENCODINGS)
+        pages, want = 8, {"bss_encode_device": 4, "delta_phase1": 4,
+                          "lanes_min_max": 8, "dict_build": 0}
+    else:
+        blob, _ = chip_smoke.build_config2(2_000_000, 2)
+        schema, enc = chip_smoke.SCHEMA, None
+        pages, want = 4, {"dict_build": 8, "lanes_min_max": 14,
+                          "pack_bits": 0, "delta_phase1": 0}
+    dv = chip_smoke._device_groups(FileReader(io.BytesIO(blob)), cuda)
+    assert all(v.flat.device.type == "cuda" for c, _ in dv
+               for v in c.values())
+    wrappers = {k: getattr(encode, k) for k in _encode_launches()}
+    launches = chip_smoke.check_write(table, blob, schema, enc, dv, wrappers,
+                                      pages)
+    assert {k: launches[k] for k in want} == want
+    if table == "sensors":
+        assert launches["pack_bits"] > 0
 
 
 def _same_buffers(reader, out, groups):

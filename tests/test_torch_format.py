@@ -154,3 +154,66 @@ def test_port_writer_policy_matches_jax_encodings():
             [int(e) for e in b.meta_data.encodings]
         assert (a.meta_data.dictionary_page_offset is None) == \
             (b.meta_data.dictionary_page_offset is None)
+
+
+@pytest.mark.parametrize("ann,ptype,vals", [
+    ("INT(64, false)", "int64", np.array([1, -1, 5], np.int64)),
+    ("INT(32, false)", "int32", np.array([7, -2, 3, 0], np.int32)),
+    ("INT(16, false)", "int32", np.array([40000, 3, 65535], np.int32)),
+    ("INT(8, true)", "int32", np.array([-100, 3, 127], np.int32)),
+    ("INT(64,true)", "int64", np.array([5, -9, 2], np.int64)),
+])
+@pytest.mark.parametrize("allow_dict", [False, True])
+def test_int_annotation_stats_match_jax(ann, ptype, vals, allow_dict):
+    """``INT(bits, signed)`` sets the INTEGER logical and INT_n/UINT_n
+    converted types as the JAX DSL does; an unsigned column's chunk
+    statistics order as unsigned, keep the signed storage bytes and
+    carry no deprecated min/max — over the values or their dictionary,
+    equal to the JAX writer's."""
+    schema = f"message m {{ required {ptype} u ({ann}); }}"
+    metas = []
+    for cls, codec in ((FileWriter, CompressionCodec), (JaxFileWriter,
+                                                        JaxCodec)):
+        buf = io.BytesIO()
+        w = cls(buf, schema, codec=codec.SNAPPY, allow_dict=allow_dict)
+        w.write_columns({"u": vals})
+        w.close()
+        metas.append(JaxFileReader(io.BytesIO(buf.getvalue())).meta)
+    ours, theirs = metas
+    _same_struct(ours.schema[1], theirs.schema[1], "SchemaElement")
+    a = ours.row_groups[0].columns[0].meta_data
+    b = theirs.row_groups[0].columns[0].meta_data
+    assert a.statistics == b.statistics
+    assert a.encodings == b.encodings
+    if "false" in ann:
+        u = vals.view(np.uint32 if ptype == "int32" else np.uint64)
+        assert a.statistics.min_value == vals[np.argmin(u)].tobytes()
+        assert a.statistics.max_value == vals[np.argmax(u)].tobytes()
+        assert a.statistics.min is None
+
+
+def test_unsigned_leaf_takes_logical_values():
+    """An unsigned leaf takes its logical values (uint64 above 2^63) or
+    their signed storage, and writes the same file either way."""
+    logical = np.array([1, 2**64 - 1, 2**63 + 5], np.uint64)
+    blobs = []
+    for vals in (logical, logical.view(np.int64)):
+        buf = io.BytesIO()
+        with FileWriter(buf, "message m { required int64 u (INT(64, "
+                        "false)); }") as w:
+            w.write_columns({"u": vals})
+        blobs.append(buf.getvalue())
+    assert blobs[0] == blobs[1]
+    with pytest.raises(ValueError, match="out of range"):
+        FileWriter(io.BytesIO(), "message m { required int64 s; }") \
+            .write_columns({"s": logical})
+
+
+@pytest.mark.parametrize("text,err", [
+    ("message m { required int32 u (INT(64, false)); }", "INT(64"),
+    ("message m { required int64 u (INT(12, true)); }", "bitwidth 12"),
+    ("message m { required int64 u (INT(64, maybe)); }", "boolean"),
+])
+def test_int_annotation_rejects_bad_forms(text, err):
+    with pytest.raises(ValueError, match=err.replace("(", r"\(")):
+        Schema.from_string(text)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["unpack", "pack"]
+__all__ = ["unpack", "unpack_msb", "pack"]
 
 
 def _out_dtype(width: int):
@@ -70,6 +70,25 @@ def pack(values, width: int) -> bytes:
     vb = np.ascontiguousarray(v).view(np.uint8).reshape(-1, 8)
     bits = np.unpackbits(vb, axis=1, bitorder="little")[:, :width]
     return np.packbits(bits.reshape(-1), bitorder="little").tobytes()
+
+
+def unpack_msb(data, count: int, width: int) -> np.ndarray:
+    """Unpack the deprecated BIT_PACKED (MSB-first) level encoding: value
+    ``i`` is bits ``[i * width, (i + 1) * width)`` of the stream, most
+    significant bit of each byte first."""
+    if width == 0:
+        return np.zeros(count, dtype=np.uint32)
+    buf = np.frombuffer(data, dtype=np.uint8)
+    need_bits = count * width
+    need_bytes = (need_bits + 7) // 8
+    if len(buf) < need_bytes:
+        raise ValueError("bit-packed (msb) input too short")
+    bits = np.unpackbits(buf[:need_bytes], bitorder="big", count=need_bits)
+    lanes = bits.reshape(count, width).astype(_out_dtype(width))
+    weights = (np.uint64(1) << np.arange(width - 1, -1, -1,
+                                         dtype=np.uint64)).astype(
+        _out_dtype(width))
+    return lanes @ weights if width > 1 else lanes[:, 0]
 
 
 def _check_fits(v: np.ndarray, width: int) -> None:

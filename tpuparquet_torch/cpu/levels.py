@@ -1,4 +1,5 @@
-"""Repetition and definition levels of a LIST column from offsets.
+"""Repetition and definition levels of a LIST column from offsets, and
+the host decoder of the deprecated BIT_PACKED level encoding.
 
 The columnar form of one repeated level (the standard 3-level ``optional
 group f (LIST) { repeated group list { element } }``, or a bare repeated
@@ -15,7 +16,23 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["list_levels"]
+from .bitpack import unpack_msb
+
+__all__ = ["decode_levels_bitpacked", "list_levels"]
+
+
+def decode_levels_bitpacked(data, count: int, max_level: int) -> np.ndarray:
+    """Deprecated BIT_PACKED (MSB-first) levels at the width of
+    ``max_level``, as int32; raises ValueError on a level above
+    ``max_level`` or a short stream."""
+    if max_level == 0:
+        return np.zeros(count, dtype=np.int32)
+    out = unpack_msb(data, count, int(max_level).bit_length()).astype(
+        np.int32)
+    if out.size and out.max() > max_level:
+        raise ValueError(f"level value {int(out.max())} exceeds max level "
+                         f"{max_level}")
+    return out
 
 
 def _repeated_ancestor(leaf):

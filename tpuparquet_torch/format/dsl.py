@@ -10,10 +10,13 @@ name [(LIST)] { ... }``) or a primitive typed ``boolean``, ``int32``,
 logical type and its converted type, a binary, fixed-length, int32 or
 int64 field ``(DECIMAL(precision, scale))`` (the DECIMAL logical and
 converted types, ``precision`` and ``scale`` on the element) and a
-``fixed_len_byte_array(16)`` field ``(UUID)``, as the JAX package's
-parser does.  Other types, annotations and field ids raise
-:class:`NotImplementedError` naming what was found, so a schema this
-package cannot decode is refused at the door rather than misread.
+``fixed_len_byte_array(16)`` field ``(UUID)`` and an int32 or int64
+field ``(INT(8|16|32|64, true|false))`` (the INTEGER logical type and the
+``INT_n``/``UINT_n`` converted type; width 64 on int64, the others on
+int32), as the JAX package's parser does.  Other types, annotations and
+field ids raise :class:`NotImplementedError` naming what was found, so a
+schema this package cannot decode is refused at the door rather than
+misread.
 """
 
 from __future__ import annotations
@@ -21,8 +24,8 @@ from __future__ import annotations
 import re
 
 from .metadata import ConvertedType, DecimalType, FieldRepetitionType, \
-    LogicalType, MicroSeconds, MilliSeconds, SchemaElement, TimestampType, \
-    TimeUnit, Type, UUIDType
+    IntType, LogicalType, MicroSeconds, MilliSeconds, SchemaElement, \
+    TimestampType, TimeUnit, Type, UUIDType
 
 __all__ = [
     "ColumnDefinition",
@@ -187,6 +190,27 @@ def parse_schema_definition(text: str) -> SchemaDefinition:
         se.precision = precision
         se.converted_type = ConvertedType.DECIMAL
 
+    def integer(fname: str, ptype, se: SchemaElement, line) -> None:
+        expect("(", line)
+        width = number("bit width")
+        if width not in (8, 16, 32, 64):
+            raise SchemaParseError(f"INT: unsupported bitwidth {width}", line)
+        expect(",", line)
+        signed, line = take("boolean")
+        if signed not in ("true", "false"):
+            raise SchemaParseError(f"invalid boolean {signed!r} for INT",
+                                   line)
+        expect(")", line)
+        want = Type.INT64 if width == 64 else Type.INT32
+        if ptype != want:
+            raise SchemaValidationError(
+                f"field {fname} is annotated as INT({width}, ...) but "
+                f"element type is {ptype}")
+        se.logicalType = LogicalType(INTEGER=IntType(
+            bitWidth=width, isSigned=signed == "true"))
+        se.converted_type = ConvertedType[
+            ("INT_" if signed == "true" else "UINT_") + str(width)]
+
     def annotation(fname: str, ptype, se: SchemaElement, line) -> None:
         ann, line = take("annotation")
         if ann == "STRING" and ptype == Type.BYTE_ARRAY:
@@ -195,6 +219,8 @@ def parse_schema_definition(text: str) -> SchemaDefinition:
             timestamp(fname, se, line)
         elif ann == "DECIMAL" and ptype in _DECIMAL_TYPES:
             decimal(se, line)
+        elif ann == "INT" and ptype in (Type.INT32, Type.INT64):
+            integer(fname, ptype, se, line)
         elif (ann == "UUID" and ptype == Type.FIXED_LEN_BYTE_ARRAY
               and se.type_length == 16):
             se.logicalType = LogicalType(UUID=UUIDType())
@@ -202,7 +228,8 @@ def parse_schema_definition(text: str) -> SchemaDefinition:
             raise NotImplementedError(
                 f"field {fname!r}: annotation {ann!r} is not supported by "
                 "tpuparquet_torch (STRING on binary, TIMESTAMP on int64, "
-                "DECIMAL, UUID on fixed_len_byte_array(16))")
+                "DECIMAL, INT on int32/int64, UUID on "
+                "fixed_len_byte_array(16))")
         expect(")", line)
 
     def field() -> ColumnDefinition:

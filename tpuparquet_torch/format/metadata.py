@@ -6,9 +6,9 @@ compact-protocol encoder/decoder in this module walks the declarations.
 Unknown fields are skipped on read (forward compatibility), absent
 optional fields are omitted on write.  This copy declares the structs the
 read and write paths touch, with the logical types of the list,
-timestamp, decimal and UUID annotations; fields it does not declare (other logical types,
-page indexes, bloom filters, encryption) are skipped on read and never
-written.
+timestamp, decimal, integer and UUID annotations; fields it does not
+declare (other logical types, page indexes, bloom filters, encryption)
+are skipped on read and never written.
 
 Enums carry the exact numeric values from the spec (``parquet.thrift``:
 ``Type`` block at :32, ``ConvertedType`` :48, ``FieldRepetitionType`` :182,
@@ -25,7 +25,7 @@ __all__ = [
     "Type", "ConvertedType", "FieldRepetitionType", "Encoding",
     "CompressionCodec", "PageType", "Statistics", "ListType",
     "MilliSeconds", "MicroSeconds", "NanoSeconds", "TimeUnit",
-    "TimestampType", "DecimalType", "UUIDType", "LogicalType",
+    "TimestampType", "DecimalType", "IntType", "UUIDType", "LogicalType",
     "SchemaElement",
     "DataPageHeader", "IndexPageHeader", "DictionaryPageHeader",
     "DataPageHeaderV2", "PageHeader", "KeyValue", "ColumnMetaData",
@@ -417,6 +417,10 @@ class DecimalType(ThriftStruct):
     FIELDS = [(1, "scale", I32), (2, "precision", I32)]
 
 
+class IntType(ThriftStruct):
+    FIELDS = [(1, "bitWidth", I8), (2, "isSigned", BOOL)]
+
+
 class UUIDType(ThriftStruct):
     FIELDS = []
 
@@ -429,6 +433,7 @@ class LogicalType(ThriftStruct):
         (3, "LIST", _S(ListType)),
         (5, "DECIMAL", _S(DecimalType)),
         (8, "TIMESTAMP", _S(TimestampType)),
+        (10, "INTEGER", _S(IntType)),
         (14, "UUID", _S(UUIDType)),
     ]
 

@@ -80,6 +80,7 @@ class Schema:
     def __init__(self, root: SchemaNode):
         self.root = root
         self.leaves: list[SchemaNode] = []
+        self.selected: list[tuple[str, ...]] = []  # empty: all selected
         self._refresh()
 
     @classmethod
@@ -121,6 +122,38 @@ class Schema:
             if node.flat_name == flat_name:
                 return node
         return None
+
+    def _node_at(self, flat_name: str) -> SchemaNode | None:
+        node = self.root
+        for part in flat_name.split("."):
+            for c in node.children:
+                if c.name == part:
+                    node = c
+                    break
+            else:
+                return None
+        return node
+
+    def set_selected_columns(self, *flat_names: str) -> None:
+        """Restrict reading to the given dotted paths (and their
+        subtrees).  No arguments: select everything."""
+        sel = []
+        for fn in flat_names:
+            if self._node_at(fn) is None:
+                raise SchemaValidationError(
+                    f"column {fn!r} is not in the schema")
+            sel.append(tuple(fn.split(".")))
+        self.selected = sel
+
+    def is_selected(self, node: SchemaNode) -> bool:
+        """Selected when nothing is selected, or a selected path is a
+        prefix of the node's path or the node's path of a selected one."""
+        if not self.selected:
+            return True
+        path = node.path
+        return any(sel[: min(len(sel), len(path))]
+                   == path[: min(len(sel), len(path))]
+                   for sel in self.selected)
 
     def to_elements(self) -> list:
         out = []

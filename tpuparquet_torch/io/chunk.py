@@ -12,7 +12,15 @@ encoding (RLE, the DELTA encodings, BYTE_STREAM_SPLIT), a BOOLEAN column
 dictionaries skip the dictionary, as in the JAX writer.  Statistics
 follow the JAX policy: INT96 has no defined order and carries counts
 only; FIXED_LEN_BYTE_ARRAY bounds are the unsigned-lexicographic extreme
-rows, without the deprecated signed min/max fields.
+rows, without the deprecated signed min/max fields; an unsigned integer
+column (``UINT_n``, or ``INT(n, false)``) orders its bounds as unsigned,
+keeps them in the signed storage type, and writes no deprecated fields.
+
+A :class:`~tpuparquet_torch.kernels.encode.DeviceValues` column keeps its
+values on its device: its statistics (KE5) and, for a small-range
+integer column, its dictionary (:func:`~tpuparquet_torch.kernels.encode.
+device_dict_build`, whose index stream crosses to the host only once the
+size gate accepts it) compute there, as in the JAX writer.
 """
 
 from __future__ import annotations
@@ -24,17 +32,33 @@ from ..cpu.plain import ByteArrayColumn
 from ..format.metadata import (
     ColumnChunk,
     ColumnMetaData,
+    ConvertedType,
     Encoding,
+    SchemaElement,
     Statistics,
     Type,
 )
+from ..kernels.encode import DeviceValues, device_dict_build
 from ..native import TOO_MANY_DISTINCT
 from .pages import write_data_page_v1, write_data_page_v2, \
     write_dictionary_page
 
-__all__ = ["MAX_DICT_ENTRIES", "write_chunk"]
+__all__ = ["MAX_DICT_ENTRIES", "is_unsigned", "write_chunk"]
 
 MAX_DICT_ENTRIES = 1 << 15  # math.MaxInt16, as the JAX package
+
+_UNSIGNED = (ConvertedType.UINT_8, ConvertedType.UINT_16,
+             ConvertedType.UINT_32, ConvertedType.UINT_64)
+
+
+def is_unsigned(element: SchemaElement) -> bool:
+    """Unsigned statistics order: a UINT_n converted type or an unsigned
+    INTEGER logical type."""
+    if element.converted_type in _UNSIGNED:
+        return True
+    lt = element.logicalType
+    return lt is not None and lt.INTEGER is not None \
+        and not lt.INTEGER.isSigned
 
 
 def _column_size(column) -> int:
@@ -42,20 +66,23 @@ def _column_size(column) -> int:
     bytes, the array's bytes otherwise."""
     if isinstance(column, ByteArrayColumn):
         return int(column.data.size) + 4 * len(column)
+    if isinstance(column, DeviceValues):
+        return column.count * column.dtype.itemsize
     return int(column.nbytes)
 
 
 def _size_gate(column, dictionary, indices, n: int):
     """Keep the dictionary only when it pays: fewer than
     ``MAX_DICT_ENTRIES`` entries, and dictionary + packed indices
-    smaller than the PLAIN values."""
+    smaller than the PLAIN values.  ``indices`` may be a deferred pull
+    (the device intern's), taken only when the dictionary is kept."""
     dsize = len(dictionary)
     if dsize >= MAX_DICT_ENTRIES:
         return None, None
     width = max((dsize - 1).bit_length(), 1)
     if _column_size(dictionary) + n * width // 8 >= _column_size(column):
         return None, None
-    return dictionary, indices
+    return dictionary, indices() if callable(indices) else indices
 
 
 def _maybe_dictionary(column):
@@ -64,6 +91,10 @@ def _maybe_dictionary(column):
     n = len(column)
     if n == 0:
         return None, None
+    if isinstance(column, DeviceValues):
+        built = device_dict_build(column)
+        return (None, None) if built is None \
+            else _size_gate(column, *built, n)
     if isinstance(column, ByteArrayColumn):
         # capped at MAX - 1: a column reaching MAX distinct values aborts
         # the intern in O(cap) instead of paying for a discarded one
@@ -112,27 +143,39 @@ def _lex_min_max(rows: np.ndarray):
     return out
 
 
-def _statistics(ptype: Type, src, null_count: int, distinct):
+def _statistics(ptype: Type, src, null_count: int, distinct,
+                unsigned: bool = False):
     """Chunk statistics over ``src`` (the dictionary when there is one:
     every value appears in it).  Floats ignore NaN; bytes carry min/max
     only over a dictionary (a PLAIN byte chunk writes counts only),
-    fixed-length bytes lexicographic bounds, INT96 none, and byte types
+    fixed-length bytes lexicographic bounds, INT96 none; unsigned
+    integers order as unsigned; byte types and unsigned integers write
     no deprecated signed-order min/max."""
     mn = mx = None
-    if isinstance(src, ByteArrayColumn):
+    if isinstance(src, DeviceValues):
+        lo, hi = src.min_max(unsigned=unsigned)
+        if lo is not None:
+            mn, mx = lo.tobytes(), hi.tobytes()
+    elif isinstance(src, ByteArrayColumn):
         if distinct is not None and len(src):
             vals = src.to_list()
             mn, mx = min(vals), max(vals)
     elif ptype == Type.FIXED_LEN_BYTE_ARRAY:
         if len(src):
             mn, mx = _lex_min_max(src)
+    elif unsigned and ptype in (Type.INT32, Type.INT64):
+        if src.size:
+            u = src.view(np.uint32 if ptype == Type.INT32 else np.uint64)
+            mn = src[int(np.argmin(u))].tobytes()
+            mx = src[int(np.argmax(u))].tobytes()
     elif ptype != Type.INT96:
         vals = src[~np.isnan(src)] if src.dtype.kind == "f" else src
         if vals.size:
             mn, mx = vals.min().tobytes(), vals.max().tobytes()
     st = Statistics(null_count=null_count, distinct_count=distinct,
                     min_value=mn, max_value=mx)
-    if ptype not in (Type.BYTE_ARRAY, Type.FIXED_LEN_BYTE_ARRAY):
+    if not unsigned and ptype not in (Type.BYTE_ARRAY,
+                                      Type.FIXED_LEN_BYTE_ARRAY):
         st.min = st.min_value
         st.max = st.max_value
     return st
@@ -165,7 +208,8 @@ def write_chunk(out, node, column, rep, dl: np.ndarray, *, codec,
         total_comp += c
         total_uncomp += u
     stats = _statistics(ptype, column if dictionary is None else dictionary,
-                        null_count, distinct)
+                        null_count, distinct,
+                        unsigned=is_unsigned(node.element))
     data_page_offset = out.tell()
     page_column = indices if dictionary is not None else column
     if data_page_v2:

@@ -29,9 +29,11 @@ from ..cpu.delta import encode_delta_binary_packed, \
     encode_delta_byte_array, encode_delta_length_byte_array
 from ..cpu.hybrid import as_uint32, encode_hybrid, encode_hybrid_prefixed, \
     scan_hybrid
+from ..cpu.levels import decode_levels_bitpacked
 from ..cpu.plain import ByteArrayColumn, encode_plain
 from ..errors import CorruptPageError
 from ..format.compact import CompactWriter
+from ..kernels.encode import DeviceValues
 from ..format.metadata import (
     CompressionCodec,
     DataPageHeader,
@@ -101,26 +103,31 @@ def verify_page_crc(header: PageHeader, payload, *, column=None,
 
 def scan_levels_v1(raw, n: int, max_level: int, pos: int,
                    encoding=Encoding.RLE):
-    """Split one V1 level stream off a page body without expanding it.
+    """Split one V1 level stream off a page body.
 
-    Returns ``(scan | None, end pos)``: the run table of the
-    length-prefixed hybrid stream (None when ``max_level == 0``, which
-    has no stream).  The deprecated BIT_PACKED level encoding raises
-    NotImplementedError."""
+    Returns ``(scan | None, host levels | None, end pos)``: the run table
+    of a length-prefixed hybrid stream, left unexpanded, or the int32
+    levels of a deprecated BIT_PACKED stream (``ceil(n * width / 8)``
+    bytes, MSB-first), decoded on the host as the reference decodes them;
+    both None when ``max_level == 0``, which has no stream."""
     if max_level == 0:
-        return None, pos
+        return None, None, pos
+    width = int(max_level).bit_length()
+    if encoding == Encoding.BIT_PACKED:
+        nbytes = (n * width + 7) // 8
+        return (None, decode_levels_bitpacked(raw[pos : pos + nbytes], n,
+                                              max_level), pos + nbytes)
     if encoding != Encoding.RLE:
         raise NotImplementedError(
             f"level encoding {Encoding(encoding).name} is not supported "
-            "by tpuparquet_torch (RLE only)")
+            "by tpuparquet_torch (RLE, BIT_PACKED)")
     if pos + 4 > len(raw):
         raise ValueError("truncated hybrid length prefix")
     (size,) = struct.unpack_from("<I", raw, pos)
     if pos + 4 + size > len(raw):
         raise ValueError(f"hybrid stream length {size} exceeds page")
-    sc = scan_hybrid(raw[pos + 4 : pos + 4 + size], n,
-                     int(max_level).bit_length())
-    return sc, pos + 4 + size
+    sc = scan_hybrid(raw[pos + 4 : pos + 4 + size], n, width)
+    return sc, None, pos + 4 + size
 
 
 def scan_levels_v2(payload, h: DataPageHeaderV2, n: int, max_rep: int,
@@ -163,7 +170,12 @@ def _rows_as_bytes(column) -> ByteArrayColumn:
 
 
 def encode_values(ptype: Type, encoding: Encoding, column) -> bytes:
-    """Non-dictionary value encode of a page's non-null values."""
+    """Non-dictionary value encode of a page's non-null values; a
+    :class:`DeviceValues` encodes on its device (PLAIN,
+    DELTA_BINARY_PACKED, BYTE_STREAM_SPLIT) and counts
+    ``pages_device_encoded``."""
+    if isinstance(column, DeviceValues):
+        return column.encode(ptype, encoding)
     if encoding == Encoding.PLAIN:
         return encode_plain(ptype, column)
     if encoding == Encoding.RLE:  # BOOLEAN only

@@ -1,8 +1,10 @@
 """FileReader subset: footer, schema and column-chunk byte ranges.
 
 Opens a path, a bytes-like object or a ``BytesIO``; the file's bytes are
-held in memory and every chunk is a zero-copy view of them.  Decoding is
-the device path's job (``kernels/device.py``).
+held in memory and every chunk is a zero-copy view of them.  Column
+names after the source restrict reading to those dotted paths and their
+subtrees, as the reference's ``FileReader(source, *columns)``.  Decoding
+is the device path's job (``kernels/device.py``).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ __all__ = ["FileReader"]
 class FileReader:
     """Parquet file metadata + chunk access over an in-memory buffer."""
 
-    def __init__(self, source):
+    def __init__(self, source, *columns: str):
         if isinstance(source, (str, os.PathLike)):
             self.name = os.fspath(source)
             with open(source, "rb") as f:
@@ -34,12 +36,15 @@ class FileReader:
         self._buf = memoryview(buf)
         self.meta = read_file_metadata(io.BytesIO(buf))
         self.schema = Schema.from_elements(self.meta.schema)
+        if columns:
+            self.schema.set_selected_columns(*columns)
 
     def row_group_count(self) -> int:
         return len(self.meta.row_groups)
 
     def selected_chunks(self, rg):
-        """``[(path, node, cm)]`` for every column of a row group."""
+        """``[(path, node, cm)]`` for the selected columns of a row
+        group."""
         out = []
         for cc in rg.columns:
             cm = cc.meta_data
@@ -47,6 +52,8 @@ class FileReader:
             node = self.schema.leaf(path)
             if node is None:
                 raise ValueError(f"column {path!r} not in schema")
+            if not self.schema.is_selected(node):
+                continue
             out.append((path, node, cm))
         return out
 

@@ -4,7 +4,11 @@ in a LIST (one repeated level).
 ``write_columns`` takes whole columns (non-null values only: a bool
 array for BOOLEAN, an integer or float array, ``(N, 3)`` u32 words for
 INT96, ``(N, L)`` u8 rows for FIXED_LEN_BYTE_ARRAY, a
-:class:`~tpuparquet_torch.cpu.plain.ByteArrayColumn` for binary leaves)
+:class:`~tpuparquet_torch.cpu.plain.ByteArrayColumn` for binary leaves,
+or for an int32, int64, float or double leaf a
+:class:`~tpuparquet_torch.kernels.encode.DeviceValues` of its dtype,
+whose statistics, dictionary intern and PLAIN, DELTA_BINARY_PACKED and
+BYTE_STREAM_SPLIT pages compute on its device)
 plus validity masks for optional columns, and for a LIST column its row
 offsets and null-row and null-element masks, and writes one row group:
 one column chunk per leaf, each a dictionary page when it is written
@@ -27,7 +31,8 @@ from ..format.footer import MAGIC, write_footer
 from ..format.metadata import CompressionCodec, Encoding, FileMetaData, \
     RowGroup, Type
 from ..format.schema import Schema
-from .chunk import write_chunk
+from ..kernels.encode import DeviceValues
+from .chunk import is_unsigned, write_chunk
 from .pages import SUPPORTED_DATA_ENCODINGS
 
 __all__ = ["FileWriter"]
@@ -40,6 +45,14 @@ def _column_values(leaf, values):
         if not isinstance(values, ByteArrayColumn):
             raise TypeError(f"column {leaf.name!r}: expected a "
                             "ByteArrayColumn")
+        return values
+    if isinstance(values, DeviceValues):
+        # device values stay on the device: checked by dtype only
+        want = PHYSICAL_DTYPES.get(leaf.type) if leaf.type in (
+            Type.INT32, Type.INT64, Type.FLOAT, Type.DOUBLE) else None
+        if want is None or values.dtype != want:
+            raise TypeError(f"{leaf.type.name} column cannot take "
+                            f"DeviceValues[{values.dtype}]")
         return values
     vals = np.asarray(values)
     if leaf.type == Type.BOOLEAN:
@@ -60,11 +73,18 @@ def _column_values(leaf, values):
                                                  else "iu"):
         raise TypeError(f"column {leaf.name!r}: expected a 1-D "
                         f"{'float' if dt.kind == 'f' else 'integer'} array")
-    if dt.kind != "f" and vals.size and (
-            int(vals.min()) < np.iinfo(dt).min
-            or int(vals.max()) > np.iinfo(dt).max):
+    if dt.kind == "f":
+        return vals.astype(dt, copy=False)
+    # an unsigned leaf takes its logical values or their signed storage
+    udt = np.dtype(dt.str.replace("i", "u"))
+    unsigned = is_unsigned(leaf.element)
+    top = np.iinfo(udt if unsigned else dt).max
+    if vals.size and (int(vals.min()) < np.iinfo(dt).min
+                      or int(vals.max()) > top):
         raise ValueError(f"column {leaf.name!r}: values out of range for "
                          f"{leaf.type.name}")
+    if unsigned and vals.dtype.kind == "u":
+        return vals.astype(udt, copy=False).view(dt)
     return vals.astype(dt, copy=False)
 
 

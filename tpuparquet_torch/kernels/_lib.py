@@ -40,6 +40,12 @@ KERNELS = {
     "delta_scatter": [_P, _P, _P, _P, _L, _L, _P, _P, _L, _P],
     "bss_to_lanes": [_P, _L, _I, _I, _P, _P],
     "flba_to_lanes": [_P, _L, _I, _I, _P, _P],
+    "pack_bits": [_P, _P, _L, _P, _L, _I, _P, _P],
+    "bss_encode": [_P, _L, _I, _I, _P, _P],
+    "delta_encode": [_P, _L, _I, _L, _P, _P, _P, _P, _P, _P, _P],
+    "dict_build": [_P, _I, _L, ctypes.c_uint32, _L, _P, _P, _P, _P, _P, _P,
+                   _P],
+    "min_max": [_P, _L, _I, _I, _P, _P],
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -99,10 +99,15 @@ def page_dict_fixed(dictionary: torch.Tensor, i_bp, i_tbl, icnt: int,
     (``icnt`` slots, width ``iw``; ``iw == 0`` means every index is 0 and
     ``i_bp``/``i_tbl`` may be None), clamp each index to ``n_dict - 1``
     (``n_dict = dictionary.numel() // lanes``), gather ``lanes`` u32 words
-    per value from the flat dictionary.  CUDA tensors launch K3, which
+    per value from the flat dictionary; ``icnt == 0`` gives an empty
+    tensor without reading the dictionary.  CUDA tensors launch K3, which
     unpacks a single bit-packed run itself; a run table is expanded by K2
     first and reaches K3 as a run of width 32.  CPU tensors take the plain
     version."""
+    if icnt == 0:
+        # a page of nulls only (an all-null column's empty dictionary):
+        # no value to gather, as the reference's zero-length gather
+        return torch.zeros(0, dtype=torch.int32, device=dictionary.device)
     # as the reference: n_dict is the staged length's whole values (a
     # padded 3-lane dictionary need not be a multiple of 3 words)
     n_dict = dictionary.numel() // lanes

@@ -41,8 +41,12 @@ A DELTA_BYTE_ARRAY page ships one copy token (its prefix, read from the
 previous value) and one literal token (its suffix) a value, which K8
 resolves, then K13 turns FIXED_LEN_BYTE_ARRAY rows into lane words;
 a page whose front coding does not expand its bytes is assembled on the
-host instead (``dba-host``).  Other encodings and codecs raise
-NotImplementedError.
+host instead (``dba-host``).  V1 levels in the deprecated BIT_PACKED
+encoding decode on the host and stage as they are, as in the reference.
+Other encodings and codecs raise NotImplementedError.
+
+``DeviceColumn.as_values()`` hands a fixed-width column's packed values
+to the write path (``kernels/encode.py``) without moving them.
 """
 
 from __future__ import annotations
@@ -163,14 +167,18 @@ class DeviceColumn:
 
     __slots__ = ("ptype", "type_length", "num_values", "n_packed", "offsets",
                  "n_bytes", "_data_p", "_mask_p", "_pos_p", "_rep_p",
-                 "_def_p", "_cache")
+                 "_def_p", "_cache", "_device")
 
     def __init__(self, ptype, data, mask, positions, def_levels,
                  num_values: int, n_packed: int, offsets=None,
                  n_bytes: int | None = None, rep_levels=None,
-                 type_length: int | None = None):
+                 type_length: int | None = None, device=None):
         self.ptype = Type(ptype)
         self.type_length = type_length
+        # a chunk without pages keeps no data buffer (None), as the
+        # reference; ``data`` then reads as a 0-length tensor
+        self._device = data.device if data is not None \
+            else torch.device(device or "cpu")
         self._data_p = data
         self._mask_p = mask
         self._pos_p = positions
@@ -190,7 +198,7 @@ class DeviceColumn:
 
     @property
     def device(self) -> torch.device:
-        return self._data_p.device
+        return self._device
 
     def _sliced(self, key, padded, n, fill):
         got = self._cache.get(key)
@@ -203,7 +211,11 @@ class DeviceColumn:
     def data(self):
         n = self.n_bytes if self.offsets is not None \
             else self.n_packed * self.lanes
-        return self._sliced("data", self._data_p, n, None)
+        return self._sliced(
+            "data", self._data_p, n,
+            lambda: torch.zeros(0, dtype=torch.uint8 if self.offsets
+                                is not None else torch.int32,
+                                device=self.device))
 
     @property
     def mask(self):
@@ -267,10 +279,28 @@ class DeviceColumn:
                   for t in (self._rep_p, self._def_p)]
         if self.offsets is not None:
             offs = self.offsets[: nn + 1].cpu().numpy().astype(np.int64)
-            data = self._data_p[: int(offs[-1])].cpu().numpy()
+            data = self.data[: int(offs[-1])].cpu().numpy()
             return ByteArrayColumn(offs, data), rl, dl
-        flat = self._data_p[: nn * self.lanes].cpu().numpy()
+        flat = self.data[: nn * self.lanes].cpu().numpy()
         return self._flat_to_typed(flat.view(np.uint32)), rl, dl
+
+    def as_values(self):
+        """The packed values as a
+        :class:`~tpuparquet_torch.kernels.encode.DeviceValues` for
+        ``FileWriter.write_columns``: it shares this column's flat u32
+        lane layout (the sliced ``data``, ``n_packed * lanes`` words), so
+        no data moves.  int32, int64, float and double columns only; an
+        optional column's validity goes to ``write_columns`` separately
+        (``masks=``), the packed buffer being exactly the non-null
+        values."""
+        from .encode import DeviceValues
+
+        dt = None if self.offsets is not None else _NP_DTYPES.get(self.ptype)
+        if dt is None:
+            raise TypeError(
+                f"as_values supports int32/int64/float/double columns, "
+                f"not {self.ptype.name}")
+        return DeviceValues(self.data, dt)
 
     def _flat_to_typed(self, flat: np.ndarray):
         """Flat little-endian u32 lane words -> the oracle's values: bool,
@@ -317,7 +347,7 @@ def device_column_from_jax_numpy(col_np: dict,
         offsets=t(offsets, torch.int32),
         n_bytes=None if n_bytes is None else int(n_bytes),
         rep_levels=t(col_np.get("rep_levels"), torch.int32),
-        type_length=col_np.get("type_length"))
+        type_length=col_np.get("type_length"), device=device)
 
 
 # ----------------------------------------------------------------------
@@ -994,17 +1024,18 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
                 # planning needs nothing from the payload: decompression
                 # is deferred to the transports' competition
                 values_comp = (payload, ph.uncompressed_page_size, 0)
-                values_seg = dl_scan = None
+                values_seg = dl_scan = dl_host = None
             else:
                 raw = decompress_block(cm.codec, payload,
                                        ph.uncompressed_page_size)
                 pos = 0
                 if max_rep:  # the rep stream comes first
-                    rl_scan, pos = scan_levels_v1(
+                    rl_scan, rl_host, pos = scan_levels_v1(
                         raw, n, max_rep, pos, h.repetition_level_encoding)
-                    _defer_rep_levels(ops, stager, rl_scan, n, max_rep)
-                dl_scan, pos = scan_levels_v1(raw, n, max_def, pos,
-                                              h.definition_level_encoding)
+                    _defer_rep_levels(ops, stager, rl_scan, n, max_rep,
+                                      rl_host)
+                dl_scan, dl_host, pos = scan_levels_v1(
+                    raw, n, max_def, pos, h.definition_level_encoding)
                 values_seg = raw[pos:]
                 # with levels, the host scans them from its own copy, and
                 # the device may still take the values out of its own
@@ -1026,6 +1057,7 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
             # the level bytes, and the values block decompresses on its own
             rl_scan, dl_scan, vpos = scan_levels_v2(payload, h, n, max_rep,
                                                     max_def)
+            dl_host = None
             if rl_scan is not None:
                 _defer_rep_levels(ops, stager, rl_scan, n, max_rep)
             values_seg = payload[vpos:]
@@ -1041,7 +1073,9 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
             continue  # index pages carry nothing to decode
         non_null = (count_eq_scan(dl_scan, dwidth, max_def,
                                   validate_max=True)
-                    if dl_scan is not None else n)
+                    if dl_scan is not None
+                    else int((dl_host == max_def).sum())
+                    if dl_host is not None else n)
         if (kind == PageType.DATA_PAGE_V2 and dl_scan is not None
                 and h.num_nulls is not None
                 and n - h.num_nulls != non_null):
@@ -1059,6 +1093,10 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
                 dl_scan, n, dwidth)
             dl_ref = (stager.add_many(dl_args, pad=False), dl_cnt, dl_nbp,
                       dl_sg)
+        elif dl_host is not None:
+            # host-decoded BIT_PACKED levels stage as they are, and the
+            # page's value op then runs without a def stream of its own
+            ops.append(_host_levels_op("def", stager.add(dl_host), n))
 
         if enc in _DICT_ENCODINGS:
             if dict_h is None:
@@ -1150,10 +1188,9 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
                                 offs.size - 1, offsets=_upload(offs, device),
                                 n_bytes=n_bytes, rep_levels=rl)
         data, n_packed = _merge_parts(parts["val"], lanes=vlanes or 1)
-        if data is None:
-            data = torch.zeros(0, dtype=torch.int32, device=device)
         return DeviceColumn(ptype, data, mask, positions, dl, total,
-                            n_packed, rep_levels=rl, type_length=type_length)
+                            n_packed, rep_levels=rl, type_length=type_length,
+                            device=device)
 
     return finish
 
@@ -1389,7 +1426,7 @@ def _rle_bool_page_op(values_seg, dl_ref, n, non_null, dwidth,
         raise ValueError("boolean RLE length exceeds page")
     hs = None
     if non_null:
-        scan, _ = scan_levels_v1(values_seg, non_null, 1, 0)
+        scan, _, _ = scan_levels_v1(values_seg, non_null, 1, 0)
         args, cnt, nbp, single = plan_stream_args(scan, non_null, 1)
         hs = stager.add_many(args, pad=False)
 
@@ -1501,12 +1538,25 @@ def _plan_dba_page(values_seg, flba_len, dl_ref, n, non_null, dwidth,
     return op, nb
 
 
+def _host_levels_op(kind: str, handle: int, n: int):
+    """Deferred levels decoded on the host (BIT_PACKED): the staged int32
+    array is the page's level buffer."""
+    def op(s, parts):
+        parts[kind].append((s[handle], n))
+
+    return op
+
+
 def _defer_rep_levels(ops, stager: _Stager, scan, n: int,
-                      max_rep: int) -> None:
+                      max_rep: int, host=None) -> None:
     """Register a page's rep-level stream (its def stream rides the page's
     own op): its values are checked against ``max_rep`` on the host, its
     plan stages, and K1 or K2 expands it on the device, as the reference's
-    ``_defer_levels(..., "rep", ...)``."""
+    ``_defer_levels(..., "rep", ...)``; host-decoded levels (``host``,
+    BIT_PACKED) stage as they are."""
+    if scan is None:
+        ops.append(_host_levels_op("rep", stager.add(host), n))
+        return
     width = max_rep.bit_length()
     count_eq_scan(scan, width, max_rep, validate_max=True)
     args, cnt, nbp, single = plan_stream_args(scan, n, width)
@@ -1592,10 +1642,10 @@ def _finish_row_group(planned, device: torch.device):
     return out
 
 
-def read_row_group_device(reader, rg_index: int,
+def read_row_group_device(reader, rg_index: int, *,
                           device=None) -> dict[str, DeviceColumn]:
-    """Decode every column of one row group onto ``device`` (default: the
-    current CUDA device; raises when there is none — pass
+    """Decode the selected columns of one row group onto ``device``
+    (default: the current CUDA device; raises when there is none — pass
     ``device="cpu"`` to run the kernels' plain versions on the CPU)."""
     dev = _resolve_device(device)
     st = current_stats()
@@ -1606,11 +1656,13 @@ def read_row_group_device(reader, rg_index: int,
     return _finish_row_group(planned, dev)
 
 
-def read_row_groups_device(reader, device=None):
-    """Iterate ``(rg_index, {path: DeviceColumn})`` over every row group,
-    in order (planning is sequential in this port).  The device is
-    resolved at the call, so a missing GPU raises here, not at the first
-    row group."""
+def read_row_groups_device(reader, rg_indices=None, *, device=None):
+    """Iterate ``(rg_index, {path: DeviceColumn})`` over the row groups
+    ``rg_indices`` (default: all), in that order (planning is sequential
+    in this port).  The device is resolved at the call, so a missing GPU
+    raises here, not at the first row group."""
     dev = _resolve_device(device)
-    return ((i, read_row_group_device(reader, i, dev))
-            for i in range(reader.row_group_count()))
+    indices = list(range(reader.row_group_count()) if rg_indices is None
+                   else rg_indices)
+    return ((i, read_row_group_device(reader, i, device=dev))
+            for i in indices)

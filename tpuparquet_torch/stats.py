@@ -14,7 +14,9 @@ zero-padded to whole words; BYTE_ARRAY offsets, uploaded on their own
 as in the reference, are not counted), and the PLAIN pages each wire
 transport carried, under the JAX package's counter names
 (``pages_device_planes``, ``pages_device_delta_lanes``,
-``pages_device_snappy``).
+``pages_device_snappy``).  On the write side, ``pages_device_encoded``
+counts the data pages whose values encoded on the device
+(:class:`~tpuparquet_torch.kernels.encode.DeviceValues`), the JAX name.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ class DecodeStats:
     pages_device_planes: int = 0
     pages_device_delta_lanes: int = 0
     pages_device_snappy: int = 0
+    pages_device_encoded: int = 0
 
 
 _tls = threading.local()
