@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py [--values N] [--groups G]
 
-1. Builds the port's eighteen CUDA kernels (K1-K13 on the read path,
-   KE1-KE5 on the write path) and its C host helpers (snappy, hybrid run
+1. Builds the port's twenty-two CUDA kernels (K1-K13 on the read path,
+   KE1-KE5 on the write path, KS1-KS4 in the sharded scan) and its C
+   host helpers (snappy, hybrid run
    scans, bit packing, the DELTA_BINARY_PACKED block walk and the
    DELTA_BYTE_ARRAY passes, lane planes, BYTE_ARRAY passes) from the
    sources in this checkout, one compiler process per source, in
@@ -15,7 +16,11 @@
    32, 33, 63 and 64 (counts 1, 33 and 2^20 + 5, over a miniblock list),
    KE2 with k 4 and 8 at 1 and 2 lanes, KE3 on wrapping int32 and
    extreme int64 deltas, KE4 at ranges 1, 7 and 2^16 from a negative low
-   bound, KE5 on NaN, infinities, signed zeros and unsigned order.
+   bound, KE5 on NaN, infinities, signed zeros and unsigned order; KS1 at
+   1-4 lanes, all-null and without nulls, into a longer row; KS2 at
+   widths 0, 1, 7 and 32 on every slot of sp 1, 2 and 4 with indices
+   past the dictionary; KS3 with leading nulls and empty strings; KS4
+   with padding rows, on word and byte rows.
 3. Writes the NYC-Taxi-shaped config-2 file of ``bench.py`` (seed 42, 8
    row groups, 50,000,000 values by default) with the port's writer and
    reads it through ``read_row_groups_device`` on the card with the
@@ -56,8 +61,9 @@
 4. Times each kernel at the main paths' page shapes with CUDA events,
    beside its memory/operation bound, its plain version and, where one
    PyTorch call computes the function or its core, that call; K8 also
-   on a URL page of 3h; KE1-KE5 at phase 5's pages (phase 5 runs
-   first: its launches fill the KE rows).
+   on a URL page of 3h; KE1-KE5 at phase 5's pages and KS1-KS4 at
+   phase 6's shapes (phases 5 and 6 run first: their launches fill the
+   KE and KS rows).
 5. The write path: the sensor table of 3f and config 2 of 3 are read
    on the card, every column goes through ``DeviceColumn.as_values()``
    (optional columns with the mask of their read), and the writer that
@@ -68,8 +74,21 @@
    PLAIN columns; the other three intern on the card, KE5 then KE4)
    pages a row group encoded on the card.  The writes from DeviceValues
    and from numpy are timed, best of 3.
+6. The sharded scan: ``ShardedScan`` over config 2's file (6a) and
+   config 4's (6b) on the default mesh (1x1, the card), ``run()``, then
+   ``gather_column`` of every fixed-width column (KS1) and
+   ``gather_byte_column`` of both string columns (KS3), replicated and
+   with ``gather_to=0`` (KS4); every gathered unit equals the generator
+   (null slots 0 or empty) and the unit's own read.  6c does both again
+   on a 2x2 mesh of four slots on the card: every array equals 6a's and
+   6b's bit for bit, and the replicated gathers move 4x the bytes.  6d
+   runs ``sharded_dict_decode`` on both meshes (KS2, one launch a slot;
+   sp 1 and 2) over the index streams of config 2's dictionary columns
+   as the file holds them, each chunk's dictionary a lane group of one
+   dictionary; each unit equals its row group's read.  ``run()`` and
+   each gather are timed best of 3, with ``gather_reshard_s``.
 
-Every kernel must have launched on the paths of phases 3 to 3h and 5;
+Every kernel must have launched on the paths of phases 3 to 3h, 5 and 6;
 the counts are set to 0 just before each path's read or write and read
 just after.  Exits non-zero, printing no result, when CUDA is
 unavailable or any phase fails.  The last line is
@@ -1146,6 +1165,134 @@ def _check_encode(rng, dev) -> None:
                                  f"values): {got}, plain {want}")
 
 
+def _validity(mask: np.ndarray) -> np.ndarray:
+    """The positions of levels_to_validity: each slot's packed index, 0
+    for leading nulls."""
+    return np.maximum(np.cumsum(mask.astype(np.int32)) - 1, 0).astype(
+        np.int32)
+
+
+def _index_stream(rng, count: int, width: int) -> bytes:
+    """A hybrid index stream of ``count`` values, RLE and bit-packed runs
+    mixed; at width 0 one bit-packed group of 8 (no bytes), then an RLE
+    run of the rest."""
+    from tpuparquet_torch.cpu.hybrid import encode_hybrid
+
+    if width == 0:
+        return bytes([3]) + _varint((count - 8) << 1)
+    return encode_hybrid(_runny(rng, count, width).astype(np.uint32), width)
+
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while v >= 0x80:
+        out.append((v & 0x7F) | 0x80)
+        v >>= 7
+    out.append(v)
+    return bytes(out)
+
+
+def _step_inputs(batch, dictionary, dev):
+    """A stacked batch's arrays and a dictionary as the step's tensors on
+    ``dev``."""
+    from tpuparquet_torch.shard.mesh import _as_i32
+
+    return [_as_i32(a).to(dev) for a in batch.arrays()], \
+        _as_i32(dictionary).to(dev)
+
+
+def _check_shard_kernels(rng, dev) -> None:
+    """KS1-KS4 against their plain versions on the card."""
+    from tpuparquet_torch.kernels.decode import scatter_to_dense, \
+        scatter_to_dense_plain
+    from tpuparquet_torch.kernels.gather import byte_densify, \
+        byte_densify_plain, place_rows, place_rows_plain, spmd_step_slot, \
+        spmd_step_slot_plain
+    from tpuparquet_torch.kernels.hybrid import plan_hybrid
+    from tpuparquet_torch.shard.mesh import stack_hybrid_plans
+
+    n = 100_003
+    for lanes in (1, 2, 3, 4):
+        for kind, mask in (("some-null", rng.random(n) < 0.8),
+                           ("all-null", np.zeros(n, bool)),
+                           ("no-null", np.ones(n, bool))):
+            packed = _t(rng.integers(0, 2**32, size=int(mask.sum()) * lanes,
+                                     dtype=np.uint32), dev)
+            m, p = _t(mask, dev).view(torch.bool), _t(_validity(mask), dev)
+            want = scatter_to_dense_plain(packed, m, p, lanes)
+            _same(f"KS1 lanes {lanes} {kind}",
+                  scatter_to_dense(packed, m, p, lanes), want)
+            row = torch.full((n * lanes + 77,), -1, dtype=torch.int32,
+                             device=dev)
+            scatter_to_dense(packed, m, p, lanes, out=row)
+            _same(f"KS1 lanes {lanes} {kind} into a row", row,
+                  torch.cat([want, torch.zeros(77, dtype=torch.int32,
+                                               device=dev)]))
+            if kind == "no-null":
+                _same(f"KS1 lanes {lanes} without a mask",
+                      scatter_to_dense(packed, None, None, lanes), want)
+    # KS2: one batch a width, every slot of sp 1, 2 and 4, indices past
+    # the dictionary's end (D below 2^width)
+    for width in (0, 1, 7, 32):
+        counts = (50_000, 777, 4096, 33)
+        streams = [_index_stream(rng, c, width) for c in counts]
+        plans = [plan_hybrid(st, c, width) for st, c in zip(streams, counts)]
+        batch = stack_hybrid_plans(plans, n_units=4)
+        for lanes in (1, 3):
+            d_np = rng.integers(0, 2**32, size=(max((1 << min(width, 12)) - 3,
+                                                    2), lanes),
+                                dtype=np.uint32)
+            arrays, d = _step_inputs(batch, d_np, dev)
+            for sp in (1, 2, 4):
+                local = batch.count // sp
+                got = torch.full((4, batch.count, lanes), -1,
+                                 dtype=torch.int32, device=dev)
+                want = got.clone()
+                for r in range(2):
+                    blk = [a[2 * r : 2 * r + 2].contiguous() for a in arrays]
+                    for s_ in range(sp):
+                        spmd_step_slot(*blk, d, got, 2 * r, s_ * local,
+                                       local, width, batch.n_bp)
+                        spmd_step_slot_plain(*blk, d, want, 2 * r,
+                                             s_ * local, local, width,
+                                             batch.n_bp)
+                _same(f"KS2 width {width} lanes {lanes} sp {sp}", got, want)
+    # KS3: leading nulls, empty strings, no mask
+    for kind in ("nulls", "no-mask"):
+        n_packed = 70_001
+        lens = rng.integers(0, 12, size=n_packed)
+        lens[rng.random(n_packed) < 0.2] = 0  # empty strings
+        offs = np.zeros(n_packed + 1, np.int32)
+        np.cumsum(lens, out=offs[1:])
+        data = _t(rng.integers(0, 256, size=max(int(offs[-1]), 1),
+                               dtype=np.uint8)[: int(offs[-1])], dev)
+        if kind == "nulls":
+            mask = np.ones(n_packed + 9_000, bool)
+            mask[:17] = False  # leading nulls
+            mask[17 + rng.choice(n_packed + 8_983, 8_983, replace=False)] \
+                = False
+            m, p = _t(mask, dev).view(torch.bool), _t(_validity(mask), dev)
+        else:
+            mask, m, p = np.ones(n_packed, bool), None, None
+        L, B = mask.size + 1 + 50, int(offs[-1]) + 99
+        outs = []
+        for fn in (byte_densify, byte_densify_plain):
+            o = torch.full((L,), -1, dtype=torch.int32, device=dev)
+            b = torch.full((B,), 7, dtype=torch.uint8, device=dev)
+            fn(_t(offs, dev), n_packed, m, p, data, o, b)
+            outs.append((o, b))
+        _same(f"KS3 {kind} offsets", outs[0][0], outs[1][0])
+        _same(f"KS3 {kind} data", outs[0][1], outs[1][1])
+    # KS4: u_out > n_true, word and byte rows
+    for shape, dt in (((13, 2001), torch.int32), ((13, 3001), torch.uint8),
+                      ((13, 40, 3), torch.int32)):
+        x = torch.from_numpy(rng.integers(0, 200, size=shape).astype(
+            np.int32)).to(dt).to(dev)
+        rows = rng.permutation(13)[:9]
+        _same(f"KS4 {tuple(shape)} {dt}", place_rows(x, rows, 9, 16),
+              place_rows_plain(x, torch.from_numpy(rows).to(dev), 9, 16))
+
+
 def check_kernels(dev) -> None:
     """Phase 2: every kernel against its plain version on the card."""
     from tpuparquet_torch.cpu.bitpack import pack
@@ -1215,6 +1362,7 @@ def check_kernels(dev) -> None:
     _check_new_shapes(rng, dev)
     _check_pack_bits(rng, dev)
     _check_encode(rng, dev)
+    _check_shard_kernels(rng, dev)
     if dev.type == "cuda":  # a fault during a run surfaces here
         torch.cuda.synchronize(dev)
 
@@ -1967,6 +2115,381 @@ def _need_any(label, launches, names) -> None:
         raise AssertionError(f"{label} launched none of {names}")
 
 
+# ----------------------------------------------------------------------
+# Phase 6: the sharded scan
+# ----------------------------------------------------------------------
+
+def shard_meshes(dev) -> list:
+    """Phase 6's meshes: the default mesh (1x1: the one card) and a 2x2
+    mesh of four slots on the same device."""
+    from tpuparquet_torch.shard import make_mesh
+
+    one = make_mesh() if dev.type == "cuda" else make_mesh(devices=[dev])
+    if one.shape != {"rg": 1, "sp": 1} or one.devices[0, 0] != dev:
+        raise AssertionError(f"the default mesh is {one}, expected 1x1 on "
+                             f"{dev}")
+    return [("1x1", one), ("2x2", make_mesh(4, devices=[dev] * 4))]
+
+
+def _dense_fixed(values, mask, lanes: int) -> np.ndarray:
+    """Generator values as the gather's rows: null slots 0, u32 lanes."""
+    values = np.ascontiguousarray(values)
+    if mask is not None:
+        dense = np.zeros(mask.size, dtype=values.dtype)
+        dense[mask] = values
+        values = dense
+    return values.view(np.uint32).reshape(-1, lanes)
+
+
+def _dense_bytes(col, mask):
+    """``(offsets int32, bytes)`` of a generator string column with its
+    null slots as empty values."""
+    lens = np.diff(col.offsets)
+    if mask is not None:
+        dl = np.zeros(mask.size, np.int64)
+        dl[mask] = lens
+        lens = dl
+    offs = np.zeros(lens.size + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    return offs.astype(np.int32), np.asarray(col.data)
+
+
+def _check_fixed_gather(label, name, got, groups, results) -> None:
+    """A replicated gather_column against the generator and each unit's
+    own DeviceColumn: the unit's slots, then zeros."""
+    vals, counts = got
+    lanes = vals.shape[2]
+    for u, (cols, masks) in enumerate(groups):
+        want = _dense_fixed(cols[name], masks.get(name), lanes)
+        n = want.shape[0]
+        col = results[u][name]
+        own = _dense_fixed(col.to_numpy()[0], col.mask.cpu().numpy(), lanes)
+        if counts[u] != n or not np.array_equal(vals[u, :n], want) \
+                or not np.array_equal(own, want) or vals[u, n:].any():
+            raise AssertionError(f"{label} {name}: unit {u} differs from "
+                                 "the generator")
+
+
+def _check_bytes_gather(label, name, got, groups) -> None:
+    """A replicated gather_byte_column against the generator: every row's
+    offsets and bytes, then the edge padding and the zero bytes."""
+    offs, data, rows, nbytes = got
+    for u, (cols, masks) in enumerate(groups):
+        want_o, want_d = _dense_bytes(cols[name], masks.get(name))
+        n, nb = want_o.size - 1, want_d.size
+        if rows[u] != n or nbytes[u] != nb \
+                or not np.array_equal(offs[u, : n + 1], want_o) \
+                or (offs[u, n + 1:] != want_o[-1]).any() \
+                or not np.array_equal(data[u, :nb], want_d) \
+                or data[u, nb:].any():
+            raise AssertionError(f"{label} {name}: unit {u} differs from "
+                                 "the generator")
+
+
+def _as_host(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+def _same_gather(label, name, placed, rep) -> None:
+    """A placed gather equals the replicated one, array by array (the
+    placed values are int32 tensors holding the u32 bits)."""
+    for a, b in zip(placed, rep):
+        a = _as_host(a)
+        if a.dtype == np.int32 and b.dtype == np.uint32:
+            a = a.view(np.uint32)
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"{label} {name}: the gather to device 0 "
+                                 "differs from the replicated gather")
+
+
+def _best_gather(label, fn, reps: int = 3) -> None:
+    """Best of ``reps`` host-clock times of ``fn`` (which ends in a
+    synchronize), with the best pass's ``gather_reshard_s``."""
+    from tpuparquet_torch.stats import collect_stats
+
+    best, reshard = float("inf"), None
+    for _ in range(reps):
+        with collect_stats() as st:
+            t0 = time.perf_counter()
+            fn()
+            dt = time.perf_counter() - t0
+        if dt < best:
+            best, reshard = dt, st.gather_reshard_s
+    print(f"{label} best of {reps}: {best:.4f} s, gather_reshard_s "
+          f"{reshard:.6f}", flush=True)
+
+
+def _best_run(label, fn, reps: int = 3) -> None:
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    print(f"{label} best of {reps}: {best:.4f} s", flush=True)
+
+
+def check_sharded_scan(label, mesh, blob, groups, fixed, byte_cols, dev,
+                       wrappers, n_values) -> dict:
+    """Phases 6a-6c: ``ShardedScan`` over one file on ``mesh``, ``run()``,
+    then each column gathered replicated and to device 0 (KS1 or KS3,
+    KS4), the counts set to 0 just before; each unit checked against the
+    generator.  Then ``run()`` and each gather timed, best of 3.  Returns
+    ``{"out", "moved", "launches", "results"}``."""
+    from tpuparquet_torch.shard import ShardedScan
+    from tpuparquet_torch.stats import collect_stats
+
+    target = 0 if dev.type == "cuda" else dev
+    for fn in wrappers.values():
+        fn.launches = 0
+    scan = ShardedScan([blob], mesh=mesh)
+    results = scan.run()
+    out, moved = {}, {}
+    for name in fixed + byte_cols:
+        gather = (scan.gather_byte_column if name in byte_cols
+                  else scan.gather_column)
+        with collect_stats() as st:
+            rep = gather(results, name)
+        placed = gather(results, name, gather_to=target)
+        _sync(dev)
+        if name in byte_cols:
+            _check_bytes_gather(label, name, rep, groups)
+        else:
+            _check_fixed_gather(label, name, rep, groups, results)
+        _same_gather(label, name, placed, rep)
+        out[name], moved[name] = rep, st.gather_bytes_moved
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    print(f"{label} launches: {launches}; gather_bytes_moved (replicated) "
+          f"{moved}", flush=True)
+    print(f"{label}: {len(results)} units on {mesh}; every gathered unit "
+          "matches the generator, replicated and on device 0", flush=True)
+
+    def run():
+        scan.run()
+        _sync(dev)
+
+    _best_run(f"{label} run() ({n_values} values)", run)
+    for name in fixed + byte_cols:
+        gather = (scan.gather_byte_column if name in byte_cols
+                  else scan.gather_column)
+
+        def placed():
+            gather(results, name, gather_to=target)
+            _sync(dev)
+
+        _best_gather(f"{label} gather {name} replicated",
+                     lambda: gather(results, name))
+        _best_gather(f"{label} gather {name} to device 0", placed)
+    scan.close()
+    return {"out": out, "moved": moved, "launches": launches,
+            "results": results}
+
+
+def _same_as_first(label, got, first) -> None:
+    """6c: every gathered array of the 2x2 mesh equals the 1x1 mesh's, bit
+    for bit, and the replicated gathers moved 4 times the bytes (once a
+    slot; the assembly pads the units to a multiple of the slots, so with
+    8 units both meshes assemble 8 rows)."""
+    n = len(first["results"])
+    ratio = 4 * max(-(-n // 4) * 4, 4) / n
+    for name, rep in got["out"].items():
+        for a, b in zip(rep, first["out"][name]):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"{label} {name}: the 2x2 gather "
+                                     "differs from the 1x1 gather")
+        if got["moved"][name] != ratio * first["moved"][name]:
+            raise AssertionError(
+                f"{label} {name}: gather_bytes_moved {got['moved'][name]}, "
+                f"expected {ratio} x {first['moved'][name]}")
+    print(f"{label}: every gathered array equals the 1x1 mesh's bit for "
+          f"bit; the replicated gathers moved {ratio}x the bytes",
+          flush=True)
+
+
+def dict_index_streams(reader) -> dict:
+    """The dictionary-index streams of every dictionary-encoded column, as
+    the file holds them (one a data page, here one a chunk), with their
+    value counts: ``{column: (streams, counts, width, dictionary)}``.
+    Each chunk's dictionary, ``(D, lanes)`` u32, stands as lane group k of
+    one ``(D_max, chunks * lanes)`` dictionary, so lane group k of unit k
+    decodes chunk k."""
+    from tpuparquet_torch.compress import decompress_block
+    from tpuparquet_torch.cpu.plain import decode_plain
+    from tpuparquet_torch.format.compact import CompactReader
+    from tpuparquet_torch.format.metadata import PageHeader, PageType, \
+        Type, decode_struct
+    from tpuparquet_torch.io.pages import scan_levels_v1
+    from tpuparquet_torch.kernels.hybrid import count_eq_scan
+
+    out = {}
+    for path, node, _ in reader.selected_chunks(reader.meta.row_groups[0]):
+        streams, counts, dicts, widths = [], [], [], set()
+        for rg in reader.meta.row_groups:
+            cm = next(c for p, _, c in reader.selected_chunks(rg)
+                      if p == path)
+            if cm.dictionary_page_offset is None:
+                break
+            blob, _ = reader.chunk_blob(cm, path)
+            r = CompactReader(blob, 0, len(blob))
+            while r.pos < len(blob):
+                ph = decode_struct(PageHeader, r)
+                raw = decompress_block(cm.codec, np.frombuffer(
+                    blob[r.pos : r.pos + ph.compressed_page_size], np.uint8),
+                    ph.uncompressed_page_size)
+                r.pos += ph.compressed_page_size
+                if PageType(ph.type) == PageType.DICTIONARY_PAGE:
+                    vals = decode_plain(Type(cm.type), raw,
+                                        ph.dictionary_page_header.num_values)
+                    dicts.append(np.ascontiguousarray(vals).view(
+                        np.uint32).reshape(vals.shape[0], -1))
+                    continue
+                n = ph.data_page_header.num_values
+                dl, _, pos = scan_levels_v1(raw, n, node.max_def_level, 0)
+                width = max(node.max_def_level.bit_length(), 1)
+                non_null = n if dl is None else count_eq_scan(
+                    dl, width, node.max_def_level)
+                widths.add(int(raw[pos]))
+                streams.append(bytes(raw[pos + 1:]))
+                counts.append(non_null)
+        if not streams:
+            continue
+        if len(widths) != 1 or len(dicts) != len(streams):
+            raise AssertionError(f"{path}: {len(dicts)} dictionaries, "
+                                 f"{len(streams)} pages, widths {widths}")
+        width = widths.pop()
+        lanes = dicts[0].shape[1]
+        d_max = max(d.shape[0] for d in dicts)
+        stacked = np.zeros((d_max, lanes * len(dicts)), np.uint32)
+        for k, d in enumerate(dicts):
+            stacked[: d.shape[0], k * lanes : (k + 1) * lanes] = d
+        out[path] = (streams, counts, width, stacked)
+    return out
+
+
+def check_dict_decode(label, mesh, streams_by_col, results,
+                      wrappers) -> dict:
+    """Phase 6d: ``sharded_dict_decode`` of each column's streams on
+    ``mesh`` (KS2, one launch a slot), the counts set to 0 just before;
+    lane group k of unit k must equal the values of row group k's read
+    (``results``, one unit a row group).  Returns the launches."""
+    from tpuparquet_torch.shard import sharded_dict_decode
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for path, (streams, counts, width, dictionary) in \
+            streams_by_col.items():
+        got = sharded_dict_decode(mesh, streams, counts, width, dictionary)
+        lanes = dictionary.shape[1] // len(streams)
+        for k in range(len(streams)):
+            want = np.ascontiguousarray(results[k][path].to_numpy()[0]) \
+                .view(np.uint32).reshape(-1, lanes)
+            if not np.array_equal(got[k][:, k * lanes : (k + 1) * lanes],
+                                  want):
+                raise AssertionError(f"{label} {path}: unit {k} differs "
+                                     "from the chunk's values")
+    dt = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    print(f"{label}: {sum(len(v[0]) for v in streams_by_col.values())} "
+          f"streams of {list(streams_by_col)} decoded on {mesh} in "
+          f"{dt:.4f} s (planning, the copies and the checks included) "
+          f"equal the chunks' values; launches {launches}", flush=True)
+    return launches
+
+
+def time_shard_kernels(c2, c4, streams_by_col, dev, launches) -> list:
+    """Phase 4, the sharded scan: KS1-KS4 at phase 6's shapes (row group
+    0 of config 2 and config 4 as the 1x1 scan decoded them, the first
+    dictionary column's batch of 6d, config 2's pickup_ts block of the
+    2x2 mesh)."""
+    from tpuparquet_torch.kernels.decode import scatter_to_dense, \
+        scatter_to_dense_plain
+    from tpuparquet_torch.kernels.gather import byte_densify, \
+        byte_densify_plain, place_rows, place_rows_plain, spmd_step_slot, \
+        spmd_step_slot_plain
+    from tpuparquet_torch.kernels.hybrid import plan_hybrid
+    from tpuparquet_torch.shard.mesh import stack_hybrid_plans
+    from tpuparquet_torch.shard.scan import _shard_major
+
+    out = []
+
+    def row(*args, **kw):
+        _kernel_row(out, launches, *args, **kw)
+
+    # KS1: config 2's payment_type, unit 0 (5% nulls); one PyTorch call
+    # pair computes it: index_select, then where
+    col = c2["results"][0]["payment_type"]
+    packed, m, p = col.data, col.mask, col.positions
+    n, nn = col.num_values, col.n_packed
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    row("scatter_to_dense", "tpuparquet_torch/csrc/scatter_dense.cu",
+        "tpuparquet/kernels/decode.py:197 scatter_to_dense",
+        lambda: scatter_to_dense(packed, m, p, 1),
+        lambda: scatter_to_dense_plain(packed, m, p, 1),
+        n + 4 * n + 4 * nn + 4 * n, n,
+        library=lambda: torch.where(m, packed.index_select(0, p), zero))
+    # KS2: the first dictionary column's 6d batch, the one slot of the 1x1
+    # mesh (every unit, every position)
+    path, (streams, counts, width, dictionary) = next(iter(
+        streams_by_col.items()))
+    plans = [plan_hybrid(st, c, width) for st, c in zip(streams, counts)]
+    batch = stack_hybrid_plans(plans)
+    arrays, d = _step_inputs(batch, dictionary, dev)
+    U, cnt, lanes = batch.run_ends.shape[0], batch.count, dictionary.shape[1]
+
+    def step(fn):
+        o = torch.empty((U, cnt, lanes), dtype=torch.int32, device=dev)
+        fn(*arrays, d, o, 0, 0, cnt, width, batch.n_bp)
+        return o
+
+    in_bytes = sum(a.numel() * a.element_size() for a in arrays) \
+        + d.numel() * 4
+    print(f"KS2 shape: {path}, {U} units of {cnt} positions, width "
+          f"{width}, {lanes} lanes", flush=True)
+    row("spmd_step_slot", "tpuparquet_torch/csrc/spmd_step.cu",
+        "tpuparquet/shard/mesh.py:310 decode_step_spmd",
+        lambda: step(spmd_step_slot), lambda: step(spmd_step_slot_plain),
+        in_bytes + 4 * U * cnt * lanes, U * cnt * lanes)
+    # KS3: config 4's optional note, unit 0 (40% nulls); one PyTorch call
+    # computes its core, the running sum of the slot lengths
+    col = c4["results"][0]["note"]
+    offs, data = col.offsets[: col.n_packed + 1], col.data
+    m, p = col.mask, col.positions
+    n, nn, nb = col.num_values, col.n_packed, col.n_bytes
+    L, B = n + 1, nb
+
+    def densify(fn):
+        o = torch.empty(L, dtype=torch.int32, device=dev)
+        b = torch.empty(B, dtype=torch.uint8, device=dev)
+        fn(offs, nn, m, p, data, o, b)
+        return o, b
+
+    lens = torch.diff(offs)
+    dl = torch.where(m, lens[p.long()], torch.zeros_like(lens[:1]))
+    row("byte_densify", "tpuparquet_torch/csrc/byte_densify.cu",
+        "tpuparquet/shard/scan.py:1711 gather_byte_column (densify "
+        ":1748-1772)",
+        lambda: densify(byte_densify), lambda: densify(byte_densify_plain),
+        4 * (nn + 1) + n + 4 * n + nb + 4 * L + B, n,
+        library=lambda: torch.cumsum(dl, 0, dtype=torch.int32))
+    # KS4: config 2's pickup_ts as the 2x2 mesh assembles it (8 units,
+    # shard-major), permuted to unit order on device 0; one PyTorch call
+    # computes it: index_select
+    vals = c2["out"]["pickup_ts"][0]
+    _, _, perm = _shard_major(vals.shape[0], 2, 2)
+    x = torch.empty((vals.shape[0], vals[0].size), dtype=torch.int32,
+                    device=dev)
+    x[torch.from_numpy(perm).to(dev)] = torch.from_numpy(
+        vals.reshape(vals.shape[0], -1).view(np.int32)).to(dev)
+    rows_t = torch.from_numpy(perm).to(dev)
+    row("place_rows", "tpuparquet_torch/csrc/place_rows.cu",
+        "tpuparquet/shard/scan.py:1616 _place_streams (place :1631-1638)",
+        lambda: place_rows(x, perm, len(perm), len(perm)),
+        lambda: place_rows_plain(x, rows_t, len(perm), len(perm)),
+        2 * x.numel() * 4, x.numel(),
+        library=lambda: x.index_select(0, rows_t))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--values", type=int, default=50_000_000)
@@ -1978,8 +2501,8 @@ def main(argv=None) -> int:
 
     from tpuparquet_torch.compress import _snappy
     from tpuparquet_torch.io.reader import FileReader
-    from tpuparquet_torch.kernels import bitunpack, decode, encode, hybrid, \
-        snappy
+    from tpuparquet_torch.kernels import bitunpack, decode, encode, gather, \
+        hybrid, snappy
     from tpuparquet_torch.kernels._lib import build_kernels
     from tpuparquet_torch.native import bytes_native, delta_native, \
         hybrid_native, pack_native, plane_native
@@ -2029,7 +2552,11 @@ def main(argv=None) -> int:
                 "bss_encode_device": encode.bss_encode_device,
                 "delta_phase1": encode.delta_phase1,
                 "dict_build": encode.dict_build,
-                "lanes_min_max": encode.lanes_min_max}
+                "lanes_min_max": encode.lanes_min_max,
+                "scatter_to_dense": decode.scatter_to_dense,
+                "spmd_step_slot": gather.spmd_step_slot,
+                "byte_densify": gather.byte_densify,
+                "place_rows": gather.place_rows}
     total_launches = dict.fromkeys(wrappers, 0)
     g = args.groups
 
@@ -2100,7 +2627,7 @@ def main(argv=None) -> int:
         total_launches[k] += c
     _best_of("config 4", reader4, dev, n4,
              note=" (the JAX package: 225,490,944 on bench.py's own file)")
-    del reader4, blob4
+    del reader4
 
     # phase 3d: the string mix, default transports
     t0 = time.perf_counter()
@@ -2275,10 +2802,54 @@ def main(argv=None) -> int:
     print(f"launches over the nine reads and two writes: {total_launches}",
           flush=True)
 
+    # phase 6: the sharded scan over config 2's and config 4's files, on
+    # the 1x1 default mesh (6a, 6b) and a 2x2 mesh of four slots on the
+    # card (6c); then sharded_dict_decode on both (6d)
+    t_shard = time.perf_counter()
+    meshes = shard_meshes(dev)
+    g2 = [(c, {"payment_type": m}) for c, m in groups]
+    files = (("config 2", blob, g2, list(groups[0][0]), []),
+             ("config 4", blob4, groups4, ["fare", "tip"],
+              ["vendor", "note"]))
+    scans = {}
+    for mlabel, mesh in meshes:
+        for flabel, fblob, fgroups, fixed, byte_cols in files:
+            phase = {("1x1", "config 2"): "6a", ("1x1", "config 4"): "6b"}
+            label = f"{phase.get((mlabel, flabel), '6c')} {flabel} {mlabel}"
+            n_f = n_values if flabel == "config 2" else n4
+            got = check_sharded_scan(label, mesh, fblob, fgroups, fixed,
+                                     byte_cols, dev, wrappers, n_f)
+            _need(label, got["launches"], ["scatter_to_dense", "place_rows"]
+                  + (["byte_densify"] if byte_cols else []))
+            for k, c in got["launches"].items():
+                total_launches[k] += c
+            if mlabel == "2x2":
+                _same_as_first(label, got, scans[("1x1", flabel)])
+                del got["results"]
+            scans[(mlabel, flabel)] = got
+    streams_by_col = dict_index_streams(reader)
+    if not streams_by_col:
+        raise AssertionError("config 2 holds no dictionary-encoded column")
+    c2 = scans[("1x1", "config 2")]
+    for mlabel, mesh in meshes:
+        label = f"6d sharded_dict_decode {mlabel}"
+        launches = check_dict_decode(label, mesh, streams_by_col,
+                                     c2["results"], wrappers)
+        want = len(streams_by_col) * mesh.devices.size
+        if launches["spmd_step_slot"] != want:
+            raise AssertionError(f"{label}: {launches['spmd_step_slot']} KS2 "
+                                 f"launches, expected one a slot ({want})")
+        for k, c in launches.items():
+            total_launches[k] += c
+    print(f"phase 6 (the sharded scan): {time.perf_counter() - t_shard:.2f} "
+          "s", flush=True)
+
     # phase 4: kernel times at the main paths' shapes
     kernels = time_kernels(groups, mix_groups, groups4, groups_s, groups_t,
                            groups_v2, dev, total_launches)
     kernels += time_encode_kernels(dv_t, dv_2, dev, total_launches)
+    kernels += time_shard_kernels(c2, scans[("1x1", "config 4")],
+                                  streams_by_col, dev, total_launches)
     _need("the main paths", total_launches, list(wrappers))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

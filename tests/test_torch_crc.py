@@ -1,0 +1,128 @@
+"""The page CRC switch: ``FileReader(verify_crc=)`` and
+``TPQ_PAGE_CRC_VERIFY``, held against the JAX package.
+
+A file with one flipped byte in a data page reads in both packages when
+the check is off (the same, wrong, values) and raises in both when it is
+on; where both reads finish, ``pages_crc_verified`` and
+``crc_mismatches`` count the same in both.
+"""
+
+import io
+
+import numpy as np
+import pytest
+
+from tpuparquet import CompressionCodec as JaxCodec
+from tpuparquet import FileWriter as JaxFileWriter
+from tpuparquet.errors import CorruptPageError as JaxCorruptPageError
+from tpuparquet.io.reader import FileReader as JaxFileReader
+from tpuparquet.kernels.device import read_row_groups_device as \
+    jax_read_row_groups_device
+from tpuparquet.stats import collect_stats as jax_collect_stats
+from tpuparquet_torch.errors import CorruptPageError
+from tpuparquet_torch.io.reader import FileReader
+from tpuparquet_torch.kernels.device import read_row_groups_device
+from tpuparquet_torch.stats import collect_stats
+
+COUNTERS = ("pages_crc_verified", "crc_mismatches")
+
+
+def _file() -> bytes:
+    """Two row groups of a PLAIN int64 column (distinct values: no
+    dictionary) beside an optional int32, UNCOMPRESSED, page CRCs on."""
+    rng = np.random.default_rng(5)
+    buf = io.BytesIO()
+    w = JaxFileWriter(buf, "message m { required int64 a; optional int32 b; }",
+                      codec=JaxCodec.UNCOMPRESSED)
+    for _ in range(2):
+        for i in range(300):
+            row = {"a": int(rng.integers(-2**40, 2**40))}
+            if i % 4:
+                row["b"] = int(rng.integers(0, 1000))
+            w.add_data(row)
+        w.flush_row_group()
+    w.close()
+    return buf.getvalue()
+
+
+def _flipped() -> bytes:
+    """The file with the last byte of row group 1's ``a`` data page (the
+    high byte of its last value) flipped: the page still decodes."""
+    blob = bytearray(_file())
+    cm = FileReader(bytes(blob)).meta.row_groups[1].columns[0].meta_data
+    blob[cm.data_page_offset + cm.total_compressed_size - 1] ^= 0x40
+    return bytes(blob)
+
+
+def _read_both(blob: bytes, **kw):
+    """``(ours, theirs, our counters, their counters)``; each side's
+    values per row group and column."""
+    with jax_collect_stats() as jst:
+        theirs = {rg: {k: c.to_numpy() for k, c in cols.items()}
+                  for rg, cols in jax_read_row_groups_device(
+                      JaxFileReader(io.BytesIO(blob), **kw))}
+    with collect_stats() as st:
+        ours = {rg: {k: c.to_numpy() for k, c in cols.items()}
+                for rg, cols in read_row_groups_device(
+                    FileReader(blob, **kw), device="cpu")}
+    return (ours, theirs, {k: getattr(st, k) for k in COUNTERS},
+            {k: getattr(jst, k) for k in COUNTERS})
+
+
+def _assert_same(ours, theirs):
+    assert ours.keys() == theirs.keys()
+    for rg in ours:
+        assert ours[rg].keys() == theirs[rg].keys()
+        for name in ours[rg]:
+            for a, b in zip(ours[rg][name], theirs[rg][name]):
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                              err_msg=f"rg {rg} {name}")
+
+
+def test_intact_file_counts_verified_pages_as_reference():
+    ours, theirs, st, jst = _read_both(_file())
+    _assert_same(ours, theirs)
+    assert st == jst
+    assert st["pages_crc_verified"] > 0 and st["crc_mismatches"] == 0
+
+
+@pytest.mark.parametrize("how", ["argument", "environment"])
+def test_switch_off_reads_bad_crc_as_reference(how, monkeypatch):
+    kw = {}
+    if how == "argument":
+        kw["verify_crc"] = False
+    else:
+        monkeypatch.setenv("TPQ_PAGE_CRC_VERIFY", "0")
+    blob = _flipped()
+    ours, theirs, st, jst = _read_both(blob, **kw)
+    _assert_same(ours, theirs)
+    assert st == jst == {"pages_crc_verified": 0, "crc_mismatches": 0}
+    # the flip reached the values: they differ from the intact file's
+    intact, _, _, _ = _read_both(_file(), **kw)
+    assert not np.array_equal(ours[1]["a"][0], intact[1]["a"][0])
+
+
+@pytest.mark.parametrize("kw", [{}, {"verify_crc": True}])
+def test_switch_on_raises_as_reference(kw, monkeypatch):
+    """Both raise.  The port counts the mismatch; the reference's device
+    read drops the failing row group's collector (it merges a unit's
+    counters only when the unit succeeds), so its count stays 0."""
+    if not kw:
+        monkeypatch.setenv("TPQ_PAGE_CRC_VERIFY", "1")
+    blob = _flipped()
+    with jax_collect_stats() as jst:
+        with pytest.raises(JaxCorruptPageError):
+            list(jax_read_row_groups_device(
+                JaxFileReader(io.BytesIO(blob), **kw)))
+    with collect_stats() as st:
+        with pytest.raises(CorruptPageError, match="CRC"):
+            list(read_row_groups_device(FileReader(blob, **kw),
+                                        device="cpu"))
+    assert st.crc_mismatches == 1 and jst.crc_mismatches == 0
+
+
+def test_argument_overrides_environment(monkeypatch):
+    monkeypatch.setenv("TPQ_PAGE_CRC_VERIFY", "0")
+    with pytest.raises(CorruptPageError):
+        list(read_row_groups_device(FileReader(_flipped(), verify_crc=True),
+                                    device="cpu"))

@@ -326,3 +326,54 @@ def test_spark_table_on_card(cuda, monkeypatch):
     _same_buffers(reader, out, groups)
     assert st.pages_device_planes == 2
     assert all(after[k] > before[k] for k in after)
+
+
+def test_shard_kernels_match_plain_versions(cuda):
+    """KS1-KS4 against their plain versions (chip_smoke.py's phase 2)."""
+    chip_smoke._check_shard_kernels(np.random.default_rng(2), cuda)
+    torch.cuda.synchronize(cuda)
+
+
+def _shard_wrappers():
+    from tpuparquet_torch.kernels import gather
+
+    return {"scatter_to_dense": decode.scatter_to_dense,
+            "spmd_step_slot": gather.spmd_step_slot,
+            "byte_densify": gather.byte_densify,
+            "place_rows": gather.place_rows}
+
+
+@pytest.mark.parametrize("shape", ["1x1", "2x2"])
+def test_sharded_scan_on_card(cuda, shape):
+    """A small ShardedScan of config 2 and config 4 on cuda:0 (phase 6's
+    checks), equal to the same scan on a CPU mesh of the same shape, and
+    sharded_dict_decode through KS2."""
+    cpu = torch.device("cpu")
+    mesh = dict(chip_smoke.shard_meshes(cuda))[shape]
+    cpu_mesh = dict(chip_smoke.shard_meshes(cpu))[shape]
+    wrappers = _shard_wrappers()
+    blob, groups = chip_smoke.build_config2(800_000, 8)
+    blob4, groups4 = chip_smoke.build_config4(800_000, 8)
+    g2 = [(c, {"payment_type": m}) for c, m in groups]
+    for fblob, fgroups, fixed, byte_cols in (
+            (blob, g2, list(groups[0][0]), []),
+            (blob4, groups4, ["fare", "tip"], ["vendor", "note"])):
+        got = chip_smoke.check_sharded_scan(
+            shape, mesh, fblob, fgroups, fixed, byte_cols, cuda, wrappers, 1)
+        want = chip_smoke.check_sharded_scan(
+            shape, cpu_mesh, fblob, fgroups, fixed, byte_cols, cpu,
+            wrappers, 1)
+        assert got["moved"] == want["moved"]
+        for name, rep in got["out"].items():
+            for a, b in zip(rep, want["out"][name]):
+                np.testing.assert_array_equal(a, b)
+        assert got["launches"]["scatter_to_dense"] > 0
+        assert got["launches"]["place_rows"] > 0
+        assert got["launches"]["byte_densify"] == (
+            2 * 2 * len(groups4) if byte_cols else 0)
+        if fblob is blob:
+            results = got["results"]
+    streams = chip_smoke.dict_index_streams(FileReader(blob))
+    launches = chip_smoke.check_dict_decode(shape, mesh, streams, results,
+                                            wrappers)
+    assert launches["spmd_step_slot"] == len(streams) * mesh.devices.size

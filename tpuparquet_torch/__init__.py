@@ -15,8 +15,19 @@ built with ``nvcc`` at first use, and writes card-resident columns back
         values, rep, dl = columns["payment_type"].to_numpy()
         dv = columns["payment_type"].as_values()  # for write_columns
 
-Entry points run on the current CUDA device unless ``device="cpu"`` is
-passed, which runs every kernel's plain PyTorch version instead.
+Many files' row groups scan data-parallel over a mesh of devices
+(:class:`ShardedScan`), and a column gathers to every device or to the one
+that consumes it:
+
+    from tpuparquet_torch import ShardedScan, make_mesh
+
+    with ShardedScan(["a.parquet", "b.parquet"], mesh=make_mesh()) as scan:
+        units = scan.run()
+        values, counts = scan.gather_column(units, "fare")
+
+Entry points run on the current CUDA device unless ``device="cpu"`` (or
+a mesh of ``cpu`` slots) is passed, which runs every kernel's plain
+PyTorch version instead.
 """
 
 from .kernels.encode import (  # noqa: F401
@@ -25,4 +36,11 @@ from .kernels.encode import (  # noqa: F401
     delta_encode_device,
     pack_u32_device,
     pack_u64_device,
+)
+from .shard import (  # noqa: F401
+    ShardedScan,
+    gather_byte_column,
+    gather_column,
+    make_mesh,
+    sharded_dict_decode,
 )

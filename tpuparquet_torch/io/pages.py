@@ -18,6 +18,7 @@ over the page bytes as they appear in the file, stored as a signed i32.
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
@@ -48,6 +49,7 @@ from ..format.metadata import (
 
 __all__ = [
     "SUPPORTED_DATA_ENCODINGS",
+    "crc_verify_default",
     "encode_values",
     "page_crc32",
     "verify_page_crc",
@@ -87,18 +89,34 @@ def page_crc32(*segments) -> int:
     return crc - (1 << 32) if crc >= (1 << 31) else crc
 
 
-def verify_page_crc(header: PageHeader, payload, *, column=None,
-                    page=None) -> None:
-    """Check ``payload`` against ``header.crc`` when the header carries
-    one; raises :class:`CorruptPageError` on mismatch."""
-    if header.crc is None:
-        return
+def crc_verify_default() -> bool:
+    """Read-side gate: verify CRCs when a page header carries one?  On
+    unless ``TPQ_PAGE_CRC_VERIFY=0``; per reader,
+    ``FileReader(verify_crc=...)``."""
+    return os.environ.get("TPQ_PAGE_CRC_VERIFY", "1") != "0"
+
+
+def verify_page_crc(header: PageHeader, payload, *, enabled: bool = True,
+                    column=None, page=None) -> bool:
+    """Check ``payload`` against ``header.crc``; raises
+    :class:`CorruptPageError` on mismatch and counts ``crc_mismatches``.
+    Returns True when a CRC was present and checked (the caller counts
+    ``pages_crc_verified``); a no-op when the header has none or
+    ``enabled`` is false."""
+    if header.crc is None or not enabled:
+        return False
     want = header.crc & 0xFFFFFFFF
     got = zlib.crc32(payload) & 0xFFFFFFFF
     if got != want:
+        from ..stats import current_stats
+
+        st = current_stats()
+        if st is not None:
+            st.crc_mismatches += 1
         raise CorruptPageError(
             f"page CRC mismatch: header 0x{want:08x}, computed "
             f"0x{got:08x}", column=column, page=page)
+    return True
 
 
 def scan_levels_v1(raw, n: int, max_level: int, pos: int,

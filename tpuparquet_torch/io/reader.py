@@ -1,10 +1,12 @@
 """FileReader subset: footer, schema and column-chunk byte ranges.
 
-Opens a path, a bytes-like object or a ``BytesIO``; the file's bytes are
-held in memory and every chunk is a zero-copy view of them.  Column
-names after the source restrict reading to those dotted paths and their
-subtrees, as the reference's ``FileReader(source, *columns)``.  Decoding
-is the device path's job (``kernels/device.py``).
+Opens a path, a bytes-like object or a file object (read whole, from
+its start); the file's bytes are held in memory and every chunk is a
+zero-copy view of them.  Column names after the source restrict reading
+to those dotted paths and their subtrees, as the reference's
+``FileReader(source, *columns)``; ``verify_crc`` gates the page CRC
+check as there (None: the ``TPQ_PAGE_CRC_VERIFY`` default, on unless
+``0``).  Decoding is the device path's job (``kernels/device.py``).
 """
 
 from __future__ import annotations
@@ -22,14 +24,17 @@ __all__ = ["FileReader"]
 class FileReader:
     """Parquet file metadata + chunk access over an in-memory buffer."""
 
-    def __init__(self, source, *columns: str):
+    def __init__(self, source, *columns: str,
+                 verify_crc: bool | None = None):
+        self.verify_crc = verify_crc
         if isinstance(source, (str, os.PathLike)):
             self.name = os.fspath(source)
             with open(source, "rb") as f:
                 buf = f.read()
-        elif isinstance(source, io.BytesIO):
-            self.name = None
-            buf = source.getvalue()
+        elif hasattr(source, "read"):
+            self.name = getattr(source, "name", None)
+            source.seek(0)
+            buf = source.read()
         else:
             self.name = None
             buf = bytes(source)
@@ -38,6 +43,11 @@ class FileReader:
         self.schema = Schema.from_elements(self.meta.schema)
         if columns:
             self.schema.set_selected_columns(*columns)
+
+    def close(self) -> None:
+        """Release the file's bytes (columns already decoded keep their
+        device buffers)."""
+        self._buf = memoryview(b"")
 
     def row_group_count(self) -> int:
         return len(self.meta.row_groups)

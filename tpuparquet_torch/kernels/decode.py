@@ -3,7 +3,8 @@ K9 BYTE_ARRAY), validity (K4), the PLAIN wire transports' rebuilds: byte
 planes (K5) and delta lanes (K7, after K1 or K6), BYTE_ARRAY values
 gathered out of a device-snappy page (K10), DELTA_BINARY_PACKED pages
 (K1 or K6, K11 places scattered width classes, K7), BYTE_STREAM_SPLIT
-pages (K12) and FIXED_LEN_BYTE_ARRAY rows rebuilt on the device (K13).
+pages (K12) and FIXED_LEN_BYTE_ARRAY rows rebuilt on the device (K13);
+the sharded scan's densify of packed values to record slots (KS1).
 
 Hosts stage padded, fixed-shape buffers (page words, run tables); the
 device expands them.  Output sizes are padded to power-of-two buckets
@@ -41,6 +42,7 @@ __all__ = [
     "bss_to_lanes", "bss_to_lanes_plain",
     "flba_bytes_to_lanes", "flba_bytes_to_lanes_plain",
     "u8_to_u32_words_at",
+    "scatter_to_dense", "scatter_to_dense_plain",
 ]
 
 
@@ -820,3 +822,90 @@ def flba_bytes_to_lanes(raw: torch.Tensor, count: int,
 
 
 flba_bytes_to_lanes.launches = 0
+
+
+# ----------------------------------------------------------------------
+# KS1: packed values -> one value per record slot (the gather's densify)
+# ----------------------------------------------------------------------
+
+def _slot_count(packed, mask, positions, lanes: int) -> int:
+    if mask is not None:
+        return mask.numel()
+    if positions is not None:
+        return positions.numel()
+    return packed.numel() // lanes
+
+
+def scatter_to_dense_plain(packed, mask, positions,
+                           lanes: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of KS1 over flat ``(n_packed * lanes,)``
+    values (``mask``/``positions`` None: every slot valid, the
+    identity)."""
+    dev = packed.device
+    n = _slot_count(packed, mask, positions, lanes)
+    n_packed = packed.numel() // lanes
+    if n_packed == 0:
+        return torch.zeros(n * lanes, dtype=packed.dtype, device=dev)
+    pos = (torch.arange(n, device=dev) if positions is None
+           else positions.to(torch.int64)).clamp(0, n_packed - 1)
+    idx = (pos[:, None] * lanes
+           + torch.arange(lanes, dtype=torch.int64, device=dev)).reshape(-1)
+    vals = packed[idx]
+    if mask is None:
+        return vals
+    return torch.where(mask.repeat_interleave(lanes), vals,
+                       torch.zeros((), dtype=packed.dtype, device=dev))
+
+
+def scatter_to_dense(packed: torch.Tensor, mask, positions, lanes: int = 1,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """Inflate packed non-null values to one value per record slot, null
+    slots 0: ``out[i * lanes + l] = mask[i] ? packed[positions[i] * lanes
+    + l] : 0`` over ``n = len(mask)`` slots.  ``packed`` is flat with
+    ``lanes`` u32 words a value (the DeviceColumn layout); a 2-D ``(n,
+    lanes)`` input gives a 2-D output, as in the reference.  ``mask`` and
+    ``positions`` may be None for a column without nulls.  An empty
+    ``packed`` gives zeros without a gather.  ``out`` (flat, at least ``n *
+    lanes`` words; on the card the unit's row of the gathered block) is
+    filled whole, its tail with zeros.  CUDA tensors launch KS1; CPU
+    tensors take the plain version."""
+    if packed.dim() > 1:
+        if out is not None:
+            raise ValueError("out= takes a flat packed buffer")
+        lanes = packed.shape[1]
+        return scatter_to_dense(packed.reshape(-1), mask, positions,
+                                lanes).reshape(-1, lanes)
+    n = _slot_count(packed, mask, positions, lanes)
+    dev = packed.device
+    if out is not None and (out.device != dev or out.dtype != packed.dtype
+                            or out.dim() != 1 or not out.is_contiguous()
+                            or out.numel() < n * lanes):
+        raise ValueError(f"out must be a contiguous 1-D {packed.dtype} "
+                         f"tensor of at least {n * lanes} words on {dev}")
+    if dev.type == "cpu":
+        res = scatter_to_dense_plain(packed, mask, positions, lanes)
+        if out is None:
+            return res
+        out[: res.numel()] = res
+        out[res.numel():] = 0
+        return out
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    check_tensor(packed, "packed", torch.int32, dev)
+    if mask is not None:
+        check_tensor(mask, "mask", torch.bool, dev)
+    if positions is not None:
+        check_tensor(positions, "positions", torch.int32, dev)
+        if positions.numel() != n:
+            raise ValueError("mask and positions differ in length")
+    if out is None:
+        out = torch.empty(n * lanes, dtype=torch.int32, device=dev)
+    launch("scatter_dense", packed.data_ptr(), packed.numel() // lanes,
+           None if mask is None else mask.data_ptr(),
+           None if positions is None else positions.data_ptr(), n, lanes,
+           out.data_ptr(), out.numel(), stream_of(out))
+    scatter_to_dense.launches += 1
+    return out
+
+
+scatter_to_dense.launches = 0

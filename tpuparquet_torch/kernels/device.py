@@ -67,7 +67,8 @@ from ..errors import CorruptChunkError, CorruptPageError, ScanError
 from ..format.compact import CompactReader
 from ..format.metadata import CompressionCodec, Encoding, PageHeader, \
     PageType, Type, decode_struct
-from ..io.pages import scan_levels_v1, scan_levels_v2, verify_page_crc
+from ..io.pages import crc_verify_default, scan_levels_v1, scan_levels_v2, \
+    verify_page_crc
 from ..native import pack_native, plane_native
 from ..stats import current_stats
 from .bitunpack import pad_to_words, unpack_u32
@@ -924,13 +925,19 @@ def _int32_offsets(offs: np.ndarray) -> np.ndarray:
     return offs.astype(np.int32)
 
 
-def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
+def plan_chunk_device(blob, cm, node, base: int, stager: _Stager,
+                      verify_crc: bool | None = None):
     """Host phase of one column chunk: page-header walk, CRC checks,
     decompression, run-table scans, staging registration.  Returns
     ``finish(staged, device)``, which launches the page kernels and
     assembles the :class:`DeviceColumn`.  Offsets in ``cm`` are absolute;
-    ``blob`` starts at file offset ``base``.  Page CRCs are verified
-    whenever a header carries one."""
+    ``blob`` starts at file offset ``base``.  ``verify_crc`` gates the
+    check of page CRCs where a header carries one (None: the
+    ``TPQ_PAGE_CRC_VERIFY`` default); each page checked counts
+    ``pages_crc_verified``."""
+    if verify_crc is None:
+        verify_crc = crc_verify_default()
+    st = current_stats()
     ptype = Type(cm.type)
     col_path = ".".join(cm.path_in_schema)
     is_bytes = ptype == Type.BYTE_ARRAY
@@ -977,7 +984,9 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager):
                                    column=col_path, page=page_i)
         payload = np.frombuffer(
             blob[r.pos : r.pos + ph.compressed_page_size], dtype=np.uint8)
-        verify_page_crc(ph, payload, column=col_path, page=page_i)
+        if verify_page_crc(ph, payload, enabled=verify_crc, column=col_path,
+                           page=page_i) and st is not None:
+            st.pages_crc_verified += 1
         r.pos += ph.compressed_page_size
         page_i += 1
         kind = PageType(ph.type)
@@ -1608,7 +1617,9 @@ def _plan_row_group(reader, rg_index: int):
         stager = _Stager()
         blob, start = reader.chunk_blob(cm, path)
         try:
-            finish = plan_chunk_device(blob, cm, node, start, stager)
+            finish = plan_chunk_device(
+                blob, cm, node, start, stager,
+                verify_crc=getattr(reader, "verify_crc", None))
         except ScanError as e:
             raise e.annotate(column=path, file=reader.name,
                              row_group=rg_index)

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..cpu.bitpack import pack
-from ..cpu.hybrid import expand_scan
+from ..cpu.hybrid import expand_scan, scan_hybrid
 from ..native import hybrid_native, pack_native
 from ._lib import check_tensor, i64_to_u32_bits, launch, stream_of, \
     u32_to_i64
@@ -29,7 +29,8 @@ from .bitunpack import _check_words, pad_to_words, unpack_u32, \
     unpack_u32_plain
 
 __all__ = [
-    "HybridPlan", "plan_from_scan", "pack_plan", "plan_stream_args",
+    "HybridPlan", "plan_hybrid", "plan_from_scan", "pack_plan",
+    "plan_stream_args",
     "single_bp_scan", "count_eq_scan", "max_scan_value",
     "expand_hybrid", "expand_hybrid_plain",
 ]
@@ -51,6 +52,13 @@ class HybridPlan:
         self.count = count
         self.width = width
         self.n_bp_values = n_bp_values
+
+
+def plan_hybrid(data, count: int, width: int, pos: int = 0) -> HybridPlan:
+    """Run table of the hybrid stream in ``data`` from byte ``pos``: the
+    run headers scanned on the host, the bit-packed bytes staged as
+    padded u32 words."""
+    return plan_from_scan(scan_hybrid(data, count, width, pos), count, width)
 
 
 def plan_from_scan(scan, count: int, width: int) -> HybridPlan:

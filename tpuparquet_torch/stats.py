@@ -17,6 +17,17 @@ transport carried, under the JAX package's counter names
 ``pages_device_snappy``).  On the write side, ``pages_device_encoded``
 counts the data pages whose values encoded on the device
 (:class:`~tpuparquet_torch.kernels.encode.DeviceValues`), the JAX name.
+
+``pages_crc_verified`` counts the pages whose header CRC was checked and
+matched, ``crc_mismatches`` those that did not (the read then raises).
+The gathers of ``shard/scan.py`` count, as in the reference:
+``gather_bytes_moved``, the bytes of the gathered arrays that landed on
+their destinations, summed over the destination slots of the mesh
+(padding included; a replicated gather pays the array's bytes once per
+slot, even where slots share one card); ``gather_bytes_replicated``, the
+share of those that is a copy beyond the first; ``gather_reshard_s``, the
+wall of the reshard step (the copies between the mesh's devices and the
+placing kernel, after the rows were assembled).
 """
 
 from __future__ import annotations
@@ -38,6 +49,11 @@ class DecodeStats:
     pages_device_delta_lanes: int = 0
     pages_device_snappy: int = 0
     pages_device_encoded: int = 0
+    pages_crc_verified: int = 0
+    crc_mismatches: int = 0
+    gather_bytes_moved: int = 0
+    gather_bytes_replicated: int = 0
+    gather_reshard_s: float = 0.0
 
 
 _tls = threading.local()
