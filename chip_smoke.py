@@ -12,7 +12,13 @@
 2. Holds every kernel against its plain PyTorch version on the card, bit
    for bit over the whole (padded) output: K13 at row lengths 3, 9, 12,
    16 and 22, K3 at 3 and 4 lanes, K12 with k != 4 * lanes, K8 on the
-   copy graph of front-coded strings and rows; KE1 at widths 1, 7, 31,
+   copy graph of front-coded strings and rows and at the edges of its
+   tiles (a chain through 19 tiles, copies across tile edges, 4-byte
+   offsets from more than 64 KiB back, literals longer than a tile,
+   words at offsets 0, 1 and 3 of a block of 3 mod 4 bytes), K9 on a
+   value longer than its block's share, 5,000 empty values across block
+   edges, a tail read from the last slot's entry and indices past the
+   dictionary; KE1 at widths 1, 7, 31,
    32, 33, 63 and 64 (counts 1, 33 and 2^20 + 5, over a miniblock list),
    KE2 with k 4 and 8 at 1 and 2 lanes, KE3 on wrapping int32 and
    extreme int64 deltas, KE4 at ranges 1, 7 and 2^16 from a negative low
@@ -61,9 +67,12 @@
 4. Times each kernel at the main paths' page shapes with CUDA events,
    beside its memory/operation bound, its plain version and, where one
    PyTorch call computes the function or its core, that call; K8 also
-   on a URL page of 3h; KE1-KE5 at phase 5's pages and KS1-KS4 at
-   phase 6's shapes (phases 5 and 6 run first: their launches fill the
-   KE and KS rows).
+   on a URL page of 3h, and for both K8 pages the doubling rounds their
+   chains need beside the reference's ``steps``, the share of positions
+   that leave their tile, CUDA launches a call and bytes moved per
+   output byte (K9: launches and bytes too); KE1-KE5 at phase 5's pages
+   and KS1-KS4 at phase 6's shapes (phases 5 and 6 run first: their
+   launches fill the KE and KS rows).
 5. The write path: the sensor table of 3f and config 2 of 3 are read
    on the card, every column goes through ``DeviceColumn.as_values()``
    (optional columns with the mask of their read), and the writer that
@@ -743,13 +752,57 @@ def _check_delta_scan(rng, dev) -> None:
                 _same(f"K7 total {total} wide {wide} block {bs}", got, want)
 
 
-def _check_tokens(rng, dev) -> None:
+def hand_snappy(ops):
+    """A snappy block written op by op — ``bytes`` for a literal, an
+    ``(offset, length)`` pair for a copy with a 4-byte offset (tag 3,
+    length 1 to 64, offset at most the bytes so far) — and the bytes it
+    decodes to."""
+    from tpuparquet_torch.varint import write_uvarint
+
+    body, out = bytearray(), bytearray()
+    for op in ops:
+        if isinstance(op, (bytes, bytearray)):
+            n = len(op) - 1
+            if n < 60:
+                body.append(n << 2)
+            else:
+                nb = (n.bit_length() + 7) // 8
+                body.append((59 + nb) << 2)
+                body += n.to_bytes(nb, "little")
+            body += op
+            out += op
+        else:
+            off, ln = op
+            assert 0 < off <= len(out) and 1 <= ln <= 64
+            body.append(((ln - 1) << 2) | 3)
+            body += off.to_bytes(4, "little")
+            for _ in range(ln):
+                out.append(out[-off])
+    head = bytearray()
+    write_uvarint(head, len(out))
+    return bytes(head + body), np.frombuffer(bytes(out), np.uint8)
+
+
+def token_blocks(rng) -> dict:
+    """Snappy blocks whose copy graphs pin K8's edges, each as (block,
+    bytes): long chains, copies across its 16 KiB tiles, copies from more
+    than 64 KiB back (4-byte offsets, hand-made), literal tokens longer
+    than a tile, and a length of 3 mod 4."""
     from tpuparquet_torch.compress import compress_block
     from tpuparquet_torch.format.metadata import CompressionCodec
-    from tpuparquet_torch.kernels.snappy import expand_tokens, \
-        expand_tokens_plain, expand_tokens_words, \
-        expand_tokens_words_plain, plan_tokens
 
+    def lit(n):
+        return rng.integers(0, 256, size=n, dtype=np.uint8).tobytes()
+
+    far = [lit(70_000)]
+    size = 70_000
+    for k in range(1500):
+        off = (70_000, 65_537, 98_304)[k % 3]
+        if off > size:
+            off = 70_000
+        far.append((off, 64))
+        size += 64
+    far += [lit(999), (1, 64), (131_072, 33)]
     blocks = {
         "random": rng.integers(0, 256, size=100_003, dtype=np.uint8),
         "runs at offset 1": np.concatenate([
@@ -759,9 +812,32 @@ def _check_tokens(rng, dev) -> None:
         "repeated blocks": np.repeat(
             rng.integers(-2**62, 2**62, size=(800, 64)), 4,
             axis=0).reshape(-1).view(np.uint8),
+        # one chain through 19 tiles
+        "run over the tiles": np.concatenate([
+            rng.integers(0, 256, size=5, dtype=np.uint8),
+            np.full(300_001, 9, np.uint8)]),
+        # a 3001-byte period: copies cross every tile edge
+        "copies across tiles": np.tile(
+            rng.integers(0, 256, size=3001, dtype=np.uint8), 40),
+        "length 3 mod 4": np.tile(
+            rng.integers(0, 256, size=777, dtype=np.uint8), 91)[:70_003],
     }
-    for name, data in blocks.items():
-        comp = compress_block(CompressionCodec.SNAPPY, data)
+    out = {k: (compress_block(CompressionCodec.SNAPPY, v), v)
+           for k, v in blocks.items()}
+    out["copies past 64 KiB"] = hand_snappy(far)
+    out["literals over a tile"] = hand_snappy(
+        [lit(40_000)] + [(40_000, 64)] * 200 + [lit(50_000), (7, 60)])
+    return out
+
+
+def _check_tokens(rng, dev, names=None) -> None:
+    from tpuparquet_torch.kernels.snappy import expand_tokens, \
+        expand_tokens_plain, expand_tokens_words, \
+        expand_tokens_words_plain, plan_tokens
+
+    blocks = token_blocks(rng)
+    for name in names or blocks:
+        comp, data = blocks[name]
         te, ts, lp, out_cap, steps, out_len = plan_tokens(comp, data.size)
         dte, dts, dlp = _t(te, dev), _t(ts, dev), _t(lp, dev)
         cte, cts, clp = dte.cpu(), dts.cpu(), dlp.cpu()
@@ -770,7 +846,7 @@ def _check_tokens(rng, dev) -> None:
               expand_tokens_plain(cte, cts, clp, out_cap, steps))
         if not np.array_equal(blob[:out_len].cpu().numpy(), data):
             raise AssertionError(f"K8 {name}: wrong bytes")
-        for off in (0, 3):
+        for off in (0, 1, 3):
             nw = (out_len - off) // 4
             words = expand_tokens_words(dte, dts, dlp, out_cap, steps, off,
                                         nw)
@@ -783,13 +859,17 @@ def _check_tokens(rng, dev) -> None:
                 raise AssertionError(f"K8 {name} at {off}: wrong words")
 
 
-def _staged_dictionary(rng, n_entries: int, max_len: int):
+def _staged_dictionary(rng, n_entries: int, max_len: int, min_len: int = 0,
+                       empty=None):
     """A BYTE_ARRAY dictionary as the planner stages it: int32 offsets and
-    u8 data, each zero-padded to the JAX piece split's length.  Returns
-    (offsets, data, lengths)."""
+    u8 data, each zero-padded to the JAX piece split's length (entry
+    ``empty``, if given, is the empty string).  Returns (offsets, data,
+    lengths)."""
     from tpuparquet_torch.kernels.device import _padded_len
 
-    lens = rng.integers(0, max_len, size=n_entries, endpoint=True)
+    lens = rng.integers(min_len, max_len, size=n_entries, endpoint=True)
+    if empty is not None:
+        lens[empty] = 0
     offs = np.zeros(_padded_len(n_entries + 1), dtype=np.int32)
     offs[1 : n_entries + 1] = np.cumsum(lens)
     data = np.zeros(_padded_len(int(lens.sum()), 1), dtype=np.uint8)
@@ -798,28 +878,69 @@ def _staged_dictionary(rng, n_entries: int, max_len: int):
     return offs, data, lens
 
 
-def _check_dict_bytes(rng, dev) -> None:
+# K9's cases: (entries, max length, values, width, stream, options).
+# Options: "min_len" (every entry at least this long), "empty_run" (slots
+# a:b take entry 0, the empty string), "past" (every 7th index past the
+# dictionary's entries: onto its zero padding, or clamped), "tail" (the
+# index stream fills every slot of the bucket and the last one picks the
+# dictionary's last entry, which the bytes past the values' end read)
+DICT_BYTES_CASES = {
+    "single run": (200, 12, 20_000, 8, "single", {}),
+    "run table": (200, 12, 20_000, 8, "table", {}),
+    "width 0": (1, 9, 1000, 0, None, {}),
+    "empty blob": (5, 0, 3000, 3, "table", {}),
+    "exact bucket": (37, 30, 1024, 6, "single", {}),
+    "all null": (37, 30, 0, 6, "table", {}),
+    # 20,000 entries of up to 4,000 bytes: the staged data spans several
+    # 16 MB pieces
+    "16 MB pieces": (20_000, 4000, 3000, 15, "table", {}),
+    "value over a tile": (3, 90_000, 40, 2, "single",
+                          {"min_len": 70_000}),
+    "5000 empty values": (50, 20, 12_000, 6, "table",
+                          {"empty_run": (3000, 8000)}),
+    "tail reads the last entry": (37, 30, 3000, 6, "single",
+                                  {"tail": True}),
+    "indices past the dictionary": (37, 30, 3000, 7, "table",
+                                    {"past": True}),
+}
+
+
+def dict_bytes_case(rng, case):
+    """Staged dictionary and index slots of one of DICT_BYTES_CASES:
+    (offsets, data, values, index width, stream kind, slot indices)."""
+    n_ent, max_len, nn, w, how, opt = DICT_BYTES_CASES[case]
+    empty = 0 if "empty_run" in opt else None
+    offs, data, _ = _staged_dictionary(rng, n_ent, max_len,
+                                       opt.get("min_len", 0), empty)
+    idx = rng.integers(0, n_ent, size=nn).astype(np.uint32)
+    if nn:
+        idx[nn // 3 : nn // 3 + 50] = idx[0]  # a run
+    if "empty_run" in opt:
+        a, b = opt["empty_run"]
+        idx[a:b] = 0
+    if opt.get("past"):
+        idx[::7] = rng.integers(n_ent + 1, 1 << w, size=idx[::7].size)
+    if opt.get("tail"):
+        from tpuparquet_torch.kernels.decode import bucket
+
+        full = np.zeros(bucket(nn), np.uint32)
+        full[:nn] = idx
+        full[-1] = n_ent - 1
+        idx = full
+    if w == 0:
+        idx[:] = 0
+    return offs, data, nn, w, how, idx
+
+
+def _check_dict_bytes(rng, dev, cases=None) -> None:
     """K9 against its plain version over the whole padded output, and its
     values against a host gather."""
     from tpuparquet_torch.kernels.decode import bucket, page_dict_bytes, \
         page_dict_bytes_plain
 
-    cases = [  # (label, entries, max length, values, width, stream)
-        ("single run", 200, 12, 20_000, 8, "single"),
-        ("run table", 200, 12, 20_000, 8, "table"),
-        ("width 0", 1, 9, 1000, 0, None),
-        ("empty blob", 5, 0, 3000, 3, "table"),
-        ("exact bucket", 37, 30, 1024, 6, "single"),
-        ("all null", 37, 30, 0, 6, "table"),
-        # 20,000 entries of up to 4,000 bytes: the staged data spans
-        # several 16 MB pieces
-        ("16 MB pieces", 20_000, 4000, 3000, 15, "table"),
-    ]
-    for label, n_ent, max_len, nn, w, how in cases:
-        offs, data, lens = _staged_dictionary(rng, n_ent, max_len)
-        idx = _runny(rng, max(nn, 1), max(w, 1))[:nn] % n_ent
+    for label in cases or DICT_BYTES_CASES:
+        offs, data, nn, w, how, idx = dict_bytes_case(rng, label)
         if w == 0:
-            idx[:] = 0
             bp = tbl = None
             cnt, nbp, single = bucket(max(nn, 1)), 0, False
         else:
@@ -827,7 +948,10 @@ def _check_dict_bytes(rng, dev) -> None:
             single = how == "single"
             if single:
                 bp = _one_run(idx, w, cnt, dev)
-        total_b = int(lens[idx].sum())
+        # the staged lengths, at the indices as the kernel clamps them
+        slens = np.diff(offs)
+        k = np.minimum(idx[:nn].astype(np.int64), slens.size - 1)
+        total_b = int(slens[k].sum())
         cap = bucket(max(total_b, 1))
         doffs, ddata = _t(offs, dev), _t(data, dev)
         got = page_dict_bytes(doffs, ddata, bp, tbl, nn, cnt, w, nbp, cap,
@@ -835,10 +959,9 @@ def _check_dict_bytes(rng, dev) -> None:
         cpu = [None if t is None else t.cpu() for t in (bp, tbl)]
         _same(f"K9 {label}", got, page_dict_bytes_plain(
             doffs.cpu(), ddata.cpu(), *cpu, nn, cnt, w, nbp, cap, single))
-        starts = offs[idx].astype(np.int64)
         want = np.concatenate([data[a : a + n] for a, n in
-                               zip(starts, lens[idx])] or [np.zeros(0,
-                                                                    np.uint8)])
+                               zip(offs[k].astype(np.int64), slens[k])]
+                              or [np.zeros(0, np.uint8)])
         if not np.array_equal(got[:total_b].cpu().numpy(), want):
             raise AssertionError(f"K9 {label}: wrong bytes")
 
@@ -1424,6 +1547,65 @@ def _stage(arrays, dev):
     return [_t(a, dev) for a in arrays]
 
 
+def device_split(fn, reps: int = 10) -> str:
+    """The device time one call of ``fn`` spends in each CUDA kernel and
+    memset it launches, from a torch.profiler trace of ``reps`` calls."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as trace:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts = []
+    for ev in trace.key_averages():
+        us = ev.self_device_time_total / reps
+        if us > 0:
+            name = re.search(r"::(\w+)\(", ev.key)
+            parts.append(f"{name.group(1) if name else ev.key} {us:.1f} us")
+    return ", ".join(parts) or "no device time traced"
+
+
+def k8_design(te_d, ts_d, lits_d, out_cap: int, end: int) -> dict:
+    """What K8's design does on one page, from its token tables on the
+    card: the doubling rounds its copy chains need (the reference runs
+    ``steps`` whatever the data), the share of positions whose chain
+    leaves their tile (resolved after the tile kernel), its CUDA launches
+    per call, and the bytes it moves per output byte (tables and
+    literals read once, each byte written once, the unresolved bitmask
+    written and read, and for each unresolved position a 4-byte link
+    written and read back and its target's byte read) beside the
+    reference design's 8 * steps + 9."""
+    from tpuparquet_torch.kernels.snappy import TILE, _resolved_map, \
+        cuda_launches
+
+    m = _resolved_map(te_d, ts_d, out_cap, 0)[:end]
+    rounds = 0
+    while bool((m >= 0).any()):
+        nxt = m[torch.clamp(m, 0, end - 1).long()]
+        m = torch.where(m >= 0, nxt, m)
+        rounds += 1
+    # the last position of each chain (the one whose link is a literal)
+    m0 = _resolved_map(te_d, ts_d, out_cap, 0)[:end]
+    i = torch.arange(end, dtype=torch.int64, device=m0.device)
+    last = torch.where(m0 >= 0, m0.long(), i)
+    while True:  # doubling: the literal's positions point at themselves
+        nxt = last[last]
+        if torch.equal(nxt, last):
+            break
+        last = nxt
+    unresolved = float((last < (i // TILE) * TILE).float().mean())
+    n_tiles = -(-end // TILE)
+    tables = 4 * (te_d.numel() + ts_d.numel()) + lits_d.numel()
+    per_byte = (tables / end + 1 + (0.25 if n_tiles > 1 else 0.125)
+                + unresolved * 10)
+    return {"rounds": rounds, "unresolved": unresolved,
+            "launches": cuda_launches(end), "bytes_per_byte": per_byte}
+
+
 def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
                  dev, launches) -> list:
     """Phase 4: each kernel at the main paths' page shapes."""
@@ -1593,8 +1775,16 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
         lambda: expand_tokens_words(te_d, ts_d, lp_d, out_cap, steps, 0, nw),
         lambda: expand_tokens_words_plain(*cpu_tok, out_cap, steps, 0, nw),
         te.nbytes + ts.nbytes + lp.nbytes + 4 * nw, 4 * nw)
+    split = device_split(lambda: expand_tokens_words(
+        te_d, ts_d, lp_d, out_cap, steps, 0, nw))
+    print(f"K8 tok page, device time a call: {split}", flush=True)
+    dz = k8_design(te_d, ts_d, lp_d, out_cap, 4 * nw)
     print(f"K8 page: {te.size} tokens, {lp.size} literal bytes, out_cap "
-          f"{out_cap}, {steps} rounds", flush=True)
+          f"{out_cap}; chain depth {dz['rounds']} doubling rounds (the "
+          f"reference runs {steps}); {100 * dz['unresolved']:.2f}% of "
+          f"positions leave their tile; {dz['launches']} CUDA launches a "
+          f"call; {dz['bytes_per_byte']:.2f} bytes moved per output byte "
+          f"(the reference design {8 * steps + 9})", flush=True)
 
     # K9: config 4's vendor page (row group 0), planned as the reader
     # plans it: the dictionary staged padded, the indices expanded on the
@@ -1631,8 +1821,18 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
                           single)
     if not np.array_equal(got[:total_b].cpu().numpy(), vendor.data):
         raise AssertionError("K9 vendor page: wrong bytes")
+    split = device_split(lambda: page_dict_bytes(
+        doffs, ddata, bp_d, tbl_d, nn, cnt, w, nbp, cap, single))
+    print(f"K9 vendor page, device time a call: {split}", flush=True)
+    # the design's traffic: the packed indices read twice (sums, copy),
+    # each output byte written once, the block sums; the dictionary and
+    # its offsets are L2-resident
+    n_blocks = -(-cnt // 4096)
+    moved = 2 * bp.nbytes + cap + 4 * n_blocks * (n_blocks + 1)
     print(f"K9 page: {nn} values, {total_b} bytes out (cap {cap}), index "
-          f"width {w}, single run {single}", flush=True)
+          f"width {w}, single run {single}; 2 CUDA launches a call (the "
+          f"reference design 4); {moved / cap:.3f} bytes moved per output "
+          f"byte beside the dictionary's L2 reads", flush=True)
 
     # K10: the string mix's url page (row group 0): its PLAIN records,
     # snappy-compressed as the writer does, expanded by K8 into the blob
@@ -1777,6 +1977,15 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
     ms = _time_ms(lambda: expand_tokens(te_d, ts_d, lits_d, cap, steps))
     plain_ms = _time_ms(lambda: expand_tokens_plain(te_d, ts_d, lits_d, cap,
                                                     steps), reps=5)
+    split = device_split(
+        lambda: expand_tokens(te_d, ts_d, lits_d, cap, steps))
+    print(f"K8 url page, device time a call: {split}", flush=True)
+    dz = k8_design(te_d, ts_d, lits_d, cap, cap)
+    print(f"K8 url page: chain depth {dz['rounds']} doubling rounds (the "
+          f"reference runs {steps}); {100 * dz['unresolved']:.2f}% of "
+          f"positions leave their tile; {dz['launches']} CUDA launches a "
+          f"call; {dz['bytes_per_byte']:.2f} bytes moved per output byte "
+          f"(the reference design {8 * steps + 9})", flush=True)
     print(f"expand_tokens on the url page ({len(url)} values, {expanded} "
           f"bytes out, {lits_d.numel()} suffix bytes, {steps} rounds): "
           f"{ms:.4f} ms (bound {bound:.4f} ms by {by}; plain "

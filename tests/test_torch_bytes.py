@@ -47,9 +47,13 @@ def _t(a: np.ndarray) -> torch.Tensor:
                                    else np.int32).copy())
 
 
-def _staged_dictionary(rng, n_entries: int, max_len: int):
-    """int32 offsets and u8 data, zero-padded as the stager pads them."""
-    lens = rng.integers(0, max_len, size=n_entries, endpoint=True)
+def _staged_dictionary(rng, n_entries: int, max_len: int, min_len: int = 0,
+                       empty=None):
+    """int32 offsets and u8 data, zero-padded as the stager pads them
+    (entry ``empty``, if given, is the empty string)."""
+    lens = rng.integers(min_len, max_len, size=n_entries, endpoint=True)
+    if empty is not None:
+        lens[empty] = 0
     offs = np.zeros(_padded_len(n_entries + 1), dtype=np.int32)
     offs[1 : n_entries + 1] = np.cumsum(lens)
     n = int(lens.sum())
@@ -58,7 +62,13 @@ def _staged_dictionary(rng, n_entries: int, max_len: int):
     return offs, data, lens
 
 
-# (entries, max length, values, width, stream): the edge cases of K9
+# (entries, max length, values, width, stream[, options]): the edge cases
+# of K9.  Options: "min_len" (every entry at least this long: a value
+# longer than the kernel's 4096-value block writes), "empty_run" (slots
+# a:b take entry 0, the empty string, across a block edge), "past" (every
+# 7th index past the dictionary's entries: onto its zero padding, or
+# clamped), "tail" (the stream fills the bucket's slots past non_null and
+# the last picks the dictionary's last entry, which the tail reads)
 DICT_CASES = {
     "single run": (200, 12, 3000, 8, "single"),
     "run table": (200, 12, 3000, 8, "table"),
@@ -67,27 +77,50 @@ DICT_CASES = {
     "exact bucket": (37, 30, 1024, 6, "single"),
     "all null": (37, 30, 0, 6, "table"),
     "several pieces": (300, 20_000, 500, 9, "table"),
+    "value over a tile": (3, 90_000, 40, 2, "single", {"min_len": 70_000}),
+    "5000 empty values": (50, 20, 12_000, 6, "table",
+                          {"empty_run": (3000, 8000)}),
+    "tail reads the last entry": (37, 30, 3000, 6, "single", {"tail": True}),
+    "indices past the dictionary": (37, 30, 3000, 7, "single",
+                                    {"past": True}),
 }
 
 
 @pytest.mark.parametrize("case", sorted(DICT_CASES))
 def test_page_dict_bytes_matches_jax(case):
-    n_ent, max_len, nn, w, how = DICT_CASES[case]
+    n_ent, max_len, nn, w, how, *opt = DICT_CASES[case]
+    opt = opt[0] if opt else {}
     rng = np.random.default_rng(len(case))
-    offs, data, lens = _staged_dictionary(rng, n_ent, max_len)
+    offs, data, lens = _staged_dictionary(
+        rng, n_ent, max_len, opt.get("min_len", 0),
+        0 if "empty_run" in opt else None)
     idx = rng.integers(0, n_ent, size=nn).astype(np.uint32)
     if nn:
         idx[nn // 3 : nn // 3 + 50] = idx[0]  # a run
+    if "empty_run" in opt:
+        a, b = opt["empty_run"]
+        idx[a:b] = 0
+    if opt.get("past"):
+        idx[::7] = rng.integers(n_ent + 1, 1 << w, size=idx[::7].size)
+    slots = nn
+    if opt.get("tail"):
+        slots = bucket(nn)
+        idx = np.concatenate([idx, np.zeros(slots - nn, np.uint32)])
+        idx[-1] = n_ent - 1
     if how == "single":
         (bp, tbl), cnt, nbp, single = _one_run_plan(idx, w)
     elif how == "table":
-        sc = scan_hybrid(encode_hybrid(idx, w), nn, w)
-        (bp, tbl), cnt, nbp, single = plan_stream_args(sc, nn, w)
+        sc = scan_hybrid(encode_hybrid(idx, w), slots, w)
+        (bp, tbl), cnt, nbp, single = plan_stream_args(sc, slots, w)
     else:  # width 0: no stream
         bp = tbl = np.zeros(1, np.uint32)
         cnt, nbp, single = bucket(max(nn, 1)), 0, False
     assert single == (how == "single")
-    total_b = int(lens[idx].sum())
+    # the staged lengths at the indices as K9 clamps them
+    slens = np.diff(offs)
+    total_b = int(slens[np.minimum(idx[:nn], slens.size - 1)].sum())
+    if not opt:
+        assert total_b == int(lens[idx].sum())
     cap = bucket(max(total_b, 1))
     got = page_dict_bytes(_t(offs), _t(data), _t(bp) if w else None,
                           _t(tbl) if w else None, nn, cnt, w, nbp, cap,
@@ -98,6 +131,12 @@ def test_page_dict_bytes_matches_jax(case):
         isingle=single))
     assert got.dtype == torch.uint8 and got.shape == (cap,)
     np.testing.assert_array_equal(got.numpy(), want)
+    if opt.get("tail"):
+        # past the values' end: the last slot's entry, then its clamp
+        assert cnt == slots and total_b < cap
+        start = int(offs[n_ent - 1])
+        src = np.minimum(start + np.arange(cap - total_b), data.size - 1)
+        np.testing.assert_array_equal(got.numpy()[total_b:], data[src])
 
 
 def _one_run_plan(idx: np.ndarray, w: int):

@@ -68,6 +68,29 @@ def test_bytes_kernel_matches_plain_version(cuda, check):
     torch.cuda.synchronize(cuda)
 
 
+@pytest.mark.parametrize("name", ["run over the tiles", "copies across tiles",
+                                  "copies past 64 KiB",
+                                  "literals over a tile", "length 3 mod 4"])
+def test_snappy_tile_edges_match_plain_version(cuda, name):
+    """K8 where its design has edges: a chain through 19 16-KiB tiles,
+    copies across tile edges, 4-byte offsets from more than 64 KiB back,
+    literals longer than a tile, words at offsets 0, 1 and 3 of a block
+    of 3 mod 4 bytes; the whole padded output."""
+    chip_smoke._check_tokens(np.random.default_rng(4), cuda, [name])
+    torch.cuda.synchronize(cuda)
+
+
+@pytest.mark.parametrize("case", ["value over a tile", "5000 empty values",
+                                  "tail reads the last entry",
+                                  "indices past the dictionary"])
+def test_dict_bytes_block_edges_match_plain_version(cuda, case):
+    """K9 where its design has edges: a value longer than a block's
+    share, empty values across block edges, a tail read from the last
+    slot's entry past non_null, indices past the dictionary."""
+    chip_smoke._check_dict_bytes(np.random.default_rng(5), cuda, [case])
+    torch.cuda.synchronize(cuda)
+
+
 @pytest.mark.parametrize("check", ["_check_delta_scatter", "_check_bss"])
 def test_delta_and_bss_kernels_match_plain_versions(cuda, check):
     """K11 (scatter_deltas: int32 and int64 lanes, miniblocks of 32 and

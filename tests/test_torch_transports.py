@@ -154,8 +154,13 @@ def test_delta_planner_matches_jax(name):
 
 
 def _blocks():
+    """name -> (snappy block, its bytes): four compressed pages, then the
+    edges of K8's tiles (16 KiB of output a block): a chain through 19
+    tiles, copies across tile edges, hand-made copies with 4-byte offsets
+    from more than 64 KiB back, literal tokens longer than a tile, and a
+    length of 3 mod 4."""
     rng = np.random.default_rng(9)
-    return {
+    data = {
         "repeated": np.repeat(rng.integers(-2**62, 2**62, size=(300, 64)), 4,
                               axis=0).reshape(-1).view(np.uint8),
         "runs": np.concatenate([np.full(30_000, 3, np.uint8),
@@ -164,6 +169,14 @@ def _blocks():
         "random": rng.integers(0, 256, size=50_000).astype(np.uint8),
         "timestamps": PAGES["timestamps"][0].view(np.uint8),
     }
+    blocks = {k: (compress_block(CompressionCodec.SNAPPY, v), v)
+              for k, v in data.items()}
+    edges = chip_smoke.token_blocks(np.random.default_rng(10))
+    for k in ("run over the tiles", "copies across tiles",
+              "copies past 64 KiB", "literals over a tile",
+              "length 3 mod 4"):
+        blocks[k] = edges[k]
+    return blocks
 
 
 BLOCKS = _blocks()
@@ -171,8 +184,7 @@ BLOCKS = _blocks()
 
 @pytest.mark.parametrize("name", sorted(BLOCKS))
 def test_token_planner_matches_jax(name):
-    data = BLOCKS[name]
-    comp = compress_block(CompressionCodec.SNAPPY, data)
+    comp, data = BLOCKS[name]
     for a, b in zip(snappy_scan_tokens(comp), jax_scan_tokens(comp)):
         np.testing.assert_array_equal(a, b)
     s1, s2 = snappy_single_literal_view(comp), jax_single_literal(comp)
@@ -317,8 +329,7 @@ def test_scattered_delta_group_not_supported():
 
 @pytest.mark.parametrize("name", sorted(BLOCKS))
 def test_expand_tokens_matches_jax(name):
-    data = BLOCKS[name]
-    comp = compress_block(CompressionCodec.SNAPPY, data)
+    comp, data = BLOCKS[name]
     te, ts, lp, out_cap, steps, out_len = plan_tokens(comp, data.size)
     blob = expand_tokens(_t(te), _t(ts), _t(lp), out_cap, steps)
     jblob = jax_expand_tokens(jnp.asarray(te), jnp.asarray(ts),
@@ -326,7 +337,7 @@ def test_expand_tokens_matches_jax(name):
     # the whole bucket, tail included, is the JAX kernel's
     np.testing.assert_array_equal(blob.numpy(), np.asarray(jblob))
     np.testing.assert_array_equal(blob.numpy()[:out_len], data)
-    for off in (0, 1, 6):
+    for off in (0, 1, 3, 6):
         nw = (out_len - off) // 4
         words = expand_tokens_words(_t(te), _t(ts), _t(lp), out_cap, steps,
                                     off, nw)
@@ -343,9 +354,8 @@ def test_expand_tokens_matches_jax(name):
 
 
 def test_decompress_device_on_cpu():
-    data = BLOCKS["runs"]
-    out = decompress_device(compress_block(CompressionCodec.SNAPPY, data),
-                            data.size, device="cpu")
+    comp, data = BLOCKS["runs"]
+    out = decompress_device(comp, data.size, device="cpu")
     assert out.dtype == torch.uint8
     np.testing.assert_array_equal(out.numpy(), data)
 

@@ -33,9 +33,9 @@ KERNELS = {
     "planes_to_words": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P],
     "unpack_u64": [_P, _P, _P, _L, _I, _P],
     "delta_scan": [_P, _P, _P, _P, _I, _L, _L, _U64, _P, _P, _P],
-    "snappy_expand": [_P, _P, _I, _P, _L, ctypes.c_int32, _I, _P, _P, _L,
-                      _L, _P, _P],
-    "dict_bytes": [_P, _L, _P, _L, _P, _I, _L, _L, _P, _P, _P, _P, _L, _P],
+    "snappy_expand": [_P, _P, _I, _P, _L, ctypes.c_int32, _L, _L, _P, _P,
+                      _P, _P, _P],
+    "dict_bytes": [_P, _L, _P, _L, _P, _I, _L, _L, _P, _P, _L, _P],
     "bytes_from_blob": [_P, _L, _P, _L, _I, _P, _L, _P],
     "delta_scatter": [_P, _P, _P, _P, _L, _L, _P, _P, _L, _P],
     "bss_to_lanes": [_P, _L, _I, _I, _P, _P],

@@ -247,14 +247,13 @@ def page_dict_bytes(dict_offsets: torch.Tensor, dict_data: torch.Tensor,
         if not isingle:
             i_bp, iw = expand_hybrid(i_bp, i_tbl, icnt, iw, inbp), 32
         words_ptr = i_bp.data_ptr()
-    idx = torch.empty(icnt, dtype=torch.int32, device=dev)
-    out_offsets = torch.empty(icnt + 1, dtype=torch.int32, device=dev)
-    sums = torch.empty((icnt + 1023) // 1024, dtype=torch.int32, device=dev)
+    # one length sum per block of 4096 values (csrc/dict_bytes.cu)
+    sums = torch.empty(-(-icnt // 4096), dtype=torch.int32, device=dev)
     out = torch.empty(total_bytes, dtype=torch.uint8, device=dev)
     launch("dict_bytes", dict_offsets.data_ptr(), dict_offsets.numel(),
            dict_data.data_ptr(), dict_data.numel(), words_ptr, iw, non_null,
-           icnt, idx.data_ptr(), out_offsets.data_ptr(), sums.data_ptr(),
-           out.data_ptr(), total_bytes, stream_of(out))
+           icnt, sums.data_ptr(), out.data_ptr(), total_bytes,
+           stream_of(out))
     page_dict_bytes.launches += 1
     return out
 

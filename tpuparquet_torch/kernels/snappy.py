@@ -4,19 +4,16 @@ The port of ``tpuparquet/kernels/snappy.py``.  Two passes: the host C
 scanner (:func:`~tpuparquet_torch.compress.snappy_scan_tokens`) parses
 the tag stream into a token table plus the concatenated literal bytes —
 O(#tokens) host work, no output materialised — and the device resolves
-the copies in parallel (``csrc/snappy_expand.cu``):
-
-1. token lookup: each output byte finds its token by an upper-bound
-   search over the cumulative token ends;
-2. source map: literal bytes point (negatively) into the literal buffer,
-   copy bytes at a strictly earlier output position, so overlapping
-   copies form chains;
-3. pointer doubling: ``ceil(log2(n))`` rounds of ``m = m[m]`` shrink
-   every chain to its literal root;
-4. one gather from the literal buffer, as bytes (:func:`expand_tokens`)
-   or as little-endian u32 words from a byte offset
-   (:func:`expand_tokens_words`, which replaces the JAX package's
-   ``u8_to_u32_words(_at)`` pass).
+the copies in parallel (``csrc/snappy_expand.cu``).  Each output byte
+links to a literal byte or to a strictly earlier output byte, so
+overlapping copies form chains; the kernel resolves them tile by tile in
+shared memory, then only the chains that leave their tile, for as many
+rounds as the data needs, and writes the bytes (:func:`expand_tokens`)
+or little-endian u32 words from a byte offset
+(:func:`expand_tokens_words`, which replaces the JAX package's
+``u8_to_u32_words(_at)`` pass) straight from each tile.  The plain
+version keeps the reference's design: a token search per byte,
+``steps`` rounds of pointer doubling ``m = m[m]``, one gather.
 
 Only tokens and literals cross to the device, never the decompressed
 block.
@@ -33,7 +30,7 @@ from .decode import bucket, u8_to_u32_words_at
 
 __all__ = ["decompress_device", "expand_tokens", "expand_tokens_plain",
            "expand_tokens_words", "expand_tokens_words_plain",
-           "plan_tokens"]
+           "plan_tokens", "cuda_launches"]
 
 
 def plan_tokens(block, expected_size: int | None = None):
@@ -106,16 +103,33 @@ def _check_tables(te, ts, lits, out_cap: int) -> None:
         raise ValueError(f"out_cap {out_cap} out of the int32 range")
 
 
-def _launch(te, ts, lits, out_cap, steps, off, n_words, out):
+# csrc/snappy_expand.cu: output positions a tile kernel block resolves
+TILE = 16384
+
+
+def cuda_launches(end: int) -> int:
+    """CUDA launches of one K8 call that resolves ``end`` output
+    positions (``out_cap`` for a blob, ``off + 4 * n_words`` for words):
+    the tile kernel, and past one tile a memset, the rounds (one
+    cooperative launch) and the fix-up."""
+    tiles = -(-end // TILE)
+    return 4 if tiles > 1 else int(tiles > 0)
+
+
+def _launch(te, ts, lits, out_cap, off, n_words, out):
     dev = te.device
     check_tensor(te, "te", torch.int32, dev)
     check_tensor(ts, "ts", torch.int32, dev)
     check_tensor(lits, "lits", torch.uint8, dev)
-    m0 = torch.empty(out_cap, dtype=torch.int32, device=dev)
-    m1 = torch.empty(out_cap, dtype=torch.int32, device=dev)
+    end = out_cap if n_words < 0 else off + 4 * n_words
+    lk = torch.empty(max(end, 1), dtype=torch.int32, device=dev)
+    bits = torch.empty(4 * (-(-end // 32)) + 32, dtype=torch.int32,
+                       device=dev)
+    head = torch.empty(max(off, 1), dtype=torch.uint8, device=dev)
     launch("snappy_expand", te.data_ptr(), ts.data_ptr(), te.numel(),
-           lits.data_ptr(), lits.numel(), out_cap, steps, m0.data_ptr(),
-           m1.data_ptr(), off, n_words, out.data_ptr(), stream_of(out))
+           lits.data_ptr(), lits.numel(), out_cap, off, n_words,
+           out.data_ptr(), lk.data_ptr(), bits.data_ptr(), head.data_ptr(),
+           stream_of(out))
     expand_tokens.launches += 1
     return out
 
@@ -124,15 +138,19 @@ def expand_tokens(te: torch.Tensor, ts: torch.Tensor, lits: torch.Tensor,
                   out_cap: int, steps: int) -> torch.Tensor:
     """Resolve a token plan into the ``(out_cap,)`` u8 block (the caller
     slices to the real length; the tail past it holds what the clamps
-    give, as in the JAX package).  CUDA tensors launch K8; CPU tensors
-    take the plain version."""
+    give, as in the JAX package).  CUDA tensors launch K8, which resolves
+    every chain to its literal whatever ``steps`` says: the same bytes as
+    the plain version's ``steps`` rounds whenever those cover the longest
+    chain, as they do for every table :func:`plan_tokens` and the
+    DELTA_BYTE_ARRAY planner make.  CPU tensors take the plain
+    version."""
     _check_tables(te, ts, lits, out_cap)
     if te.device.type == "cpu":
         return expand_tokens_plain(te, ts, lits, out_cap, steps)
     if te.device.type != "cuda":
         raise ValueError(f"unsupported device {te.device}")
     out = torch.empty(out_cap, dtype=torch.uint8, device=te.device)
-    return _launch(te, ts, lits, out_cap, steps, 0, -1, out)
+    return _launch(te, ts, lits, out_cap, 0, -1, out)
 
 
 def expand_tokens_words(te: torch.Tensor, ts: torch.Tensor,
@@ -152,7 +170,7 @@ def expand_tokens_words(te: torch.Tensor, ts: torch.Tensor,
     if te.device.type != "cuda":
         raise ValueError(f"unsupported device {te.device}")
     out = torch.empty(n_words, dtype=torch.int32, device=te.device)
-    return _launch(te, ts, lits, out_cap, steps, off, n_words, out)
+    return _launch(te, ts, lits, out_cap, off, n_words, out)
 
 
 expand_tokens.launches = 0
