@@ -18,15 +18,19 @@
    words at offsets 0, 1 and 3 of a block of 3 mod 4 bytes), K9 on a
    value longer than its block's share, 5,000 empty values across block
    edges, a tail read from the last slot's entry and indices past the
-   dictionary; KE1 at widths 1, 7, 31,
-   32, 33, 63 and 64 (counts 1, 33 and 2^20 + 5, over a miniblock list),
-   KE2 with k 4 and 8 at 1 and 2 lanes, KE3 on wrapping int32 and
-   extreme int64 deltas, KE4 at ranges 1, 7 and 2^16 from a negative low
-   bound, KE5 on NaN, infinities, signed zeros and unsigned order; KS1 at
-   1-4 lanes, all-null and without nulls, into a longer row; KS2 at
-   widths 0, 1, 7 and 32 on every slot of sp 1, 2 and 4 with indices
-   past the dictionary; KS3 with leading nulls and empty strings; KS4
-   with padding rows, on word and byte rows.
+   dictionary; K7 at the edges of its 4,096-value tiles (totals 4095 to
+   8193 and 38 tiles), block sizes 1, 3, 127, 128, 256, the stream's
+   own and 2^21 + 2, and deltas read from views that are not 8-byte
+   aligned; KE1 at widths 1, 7, 31, 32, 33, 63 and 64 (counts 1, 33 and
+   2^20 + 5, over a miniblock list), KE2 with k 4 and 8 at 1 and 2
+   lanes, KE3 on wrapping int32 and extreme int64 deltas at the edges of
+   a warp's 4 blocks and a CTA's 32 and on values one word into their
+   buffer, KE4 at ranges 1, 7 and 2^16 from a negative low bound, KE5
+   on NaN, infinities, signed zeros and unsigned order; KS1 at 1-4
+   lanes, all-null and without nulls, into a longer row; KS2 at widths
+   0, 1, 7 and 32 on every slot of sp 1, 2 and 4 with indices past the
+   dictionary; KS3 with leading nulls and empty strings; KS4 with
+   padding rows, on word and byte rows.
 3. Writes the NYC-Taxi-shaped config-2 file of ``bench.py`` (seed 42, 8
    row groups, 50,000,000 values by default) with the port's writer and
    reads it through ``read_row_groups_device`` on the card with the
@@ -66,7 +70,10 @@
    session page may take K8.
 4. Times each kernel at the main paths' page shapes with CUDA events,
    beside its memory/operation bound, its plain version and, where one
-   PyTorch call computes the function or its core, that call; K8 also
+   PyTorch call computes the function or its core, that call; the
+   device time of one call of the kernel and of the library call from a
+   torch.profiler trace; K7 and KE3 also their CUDA launches a call and
+   the bytes they move a value; K8 also
    on a URL page of 3h, and for both K8 pages the doubling rounds their
    chains need beside the reference's ``steps``, the share of positions
    that leave their tile, CUDA launches a call and bytes moved per
@@ -726,30 +733,50 @@ def _check_unpack_u64(rng, dev) -> None:
                 raise AssertionError(f"K6 width {w}: wrong values")
 
 
-def _check_delta_scan(rng, dev) -> None:
+# K7's cases: (totals, block sizes, misaligned).  Its CTAs scan tiles of
+# 4,096 positions in rows of 128 (csrc/delta_scan.cu); block size "n" is
+# the whole stream's (n_deltas, 2^21 + 2 at the largest total); blocks
+# under 128 take the kernel's division; "misaligned" reads dlo and dhi
+# from views 1 and n + 3 words into their buffer, which the kernel loads
+# as scalars
+K7_CASES = {
+    "sizes": ((1, 2, 1025, (1 << 21) + 3), ("n", 128), False),
+    "tile edges": ((4095, 4096, 4097, 8192, 8193), (128, 256), False),
+    "many tiles": ((37 * 4096 + 515,), (128, 256, "n"), False),
+    "small blocks": ((5000,), (1, 3, 127), False),
+    "misaligned dlo": ((4097, 100_003), (128, 256), True),
+}
+
+
+def _check_delta_scan(rng, dev, names=None) -> None:
     from tpuparquet_torch.kernels.decode import delta_scan, delta_scan_plain
 
-    for total in (1, 2, 1025, (1 << 21) + 3):
-        n = total - 1
-        for wide in (False, True):
-            for bs in (max(n, 1), 128):
-                nb = -(-max(n, 1) // bs)
-                d = _t(rng.integers(0, 2**32, size=2 * n, dtype=np.uint32),
+    for name in names or K7_CASES:
+        totals, sizes, misaligned = K7_CASES[name]
+        for total, wide, bs in ((t, w, b) for t in totals
+                                for w in (False, True) for b in sizes):
+            n = total - 1
+            bs = max(n, 1) if bs == "n" else bs
+            nb = -(-max(n, 1) // bs)
+            d = _t(rng.integers(0, 2**32, size=2 * n + 3, dtype=np.uint32),
+                   dev)
+            md = rng.integers(-2**63, 0, size=nb, dtype=np.int64)
+            md_u = md.view(np.uint64)
+            md_lo = _t((md_u & np.uint64(0xFFFFFFFF)).astype(np.uint32),
                        dev)
-                md = rng.integers(-2**63, 0, size=nb, dtype=np.int64)
-                md_u = md.view(np.uint64)
-                md_lo = _t((md_u & np.uint64(0xFFFFFFFF)).astype(np.uint32),
-                           dev)
-                md_hi = _t((md_u >> np.uint64(32)).astype(np.uint32), dev)
-                dlo, dhi = d[:n], (d[n:] if wide else None)
-                mhi = md_hi if wide else None
-                first = int(rng.integers(-2**63, 2**63 - 1))
-                got = delta_scan(dlo, dhi, md_lo, mhi, bs, first, total)
-                want = delta_scan_plain(
-                    dlo.cpu(), None if dhi is None else dhi.cpu(),
-                    md_lo.cpu(), None if mhi is None else mhi.cpu(), bs,
-                    first, total)
-                _same(f"K7 total {total} wide {wide} block {bs}", got, want)
+            md_hi = _t((md_u >> np.uint64(32)).astype(np.uint32), dev)
+            dlo, dhi = ((d[1 : n + 1], d[n + 3 :]) if misaligned
+                        else (d[:n], d[n : 2 * n]))
+            dhi = dhi if wide else None
+            mhi = md_hi if wide else None
+            first = int(rng.integers(-2**63, 2**63 - 1))
+            got = delta_scan(dlo, dhi, md_lo, mhi, bs, first, total)
+            want = delta_scan_plain(
+                dlo.cpu(), None if dhi is None else dhi.cpu(),
+                md_lo.cpu(), None if mhi is None else mhi.cpu(), bs,
+                first, total)
+            _same(f"K7 {name}: total {total} wide {wide} block {bs}", got,
+                  want)
 
 
 def hand_snappy(ops):
@@ -1209,17 +1236,58 @@ def _check_pack_bits(rng, dev) -> None:
                   pack_bits_plain(lo, hi, w, count, sel=sel))
 
 
+# KE3's cases: (counts, offset).  A warp of csrc/delta_encode.cu takes 4
+# blocks of 128 deltas (512), a CTA 8 warps (4,096 deltas); count - 1
+# deltas.  "offset": the values start one word into their buffer, which
+# the kernel loads as scalars
+KE3_CASES = {
+    "sizes": ((1, 2, 129, 1_000_003), False),
+    "warp edges": ((512, 513, 514, 1025), False),
+    "CTA edges": ((4096, 4097, 4098, 8193), False),
+    "odd word offset": ((2, 4097, 100_003), True),
+}
+
+
+def _check_delta_phase1(rng, dev, names=None) -> None:
+    """KE3 against its plain version on int32 deltas that wrap and int64
+    extremes, and each page against the host encoder (counts 1 and 2
+    included)."""
+    from tpuparquet_torch.cpu.delta import encode_delta_binary_packed
+    from tpuparquet_torch.kernels.encode import delta_encode_device, \
+        delta_phase1, delta_phase1_plain
+
+    for name in names or KE3_CASES:
+        counts, offset = KE3_CASES[name]
+        for dt, count in ((d, c) for d in (np.int32, np.int64)
+                          for c in counts):
+            info = np.iinfo(dt)
+            v = rng.integers(info.min, info.max, size=count, dtype=dt,
+                             endpoint=True)
+            v[::5] = info.max
+            v[1::7] = info.min
+            words = v.view(np.uint32)
+            flat = (_t(np.concatenate([[7], words, [9]]).astype(np.uint32),
+                       dev)[1 : 1 + words.size] if offset else _t(words, dev))
+            is32 = dt == np.int32
+            label = f"KE3 {name}: {dt.__name__} count {count}"
+            if count >= 2:
+                got, want = (delta_phase1(flat, count, is32),
+                             delta_phase1_plain(flat, count, is32))
+                for i, (g, w_) in enumerate(zip(got, want)):
+                    _same(f"{label} output {i}", g, w_)
+            if delta_encode_device(flat, count, is32) != \
+                    encode_delta_binary_packed(v, is32=is32):
+                raise AssertionError(f"{label}: page differs from the host "
+                                     "encoder")
+
+
 def _check_encode(rng, dev) -> None:
     """KE2-KE5 against their plain versions: KE2 with k 4 and 8 at 1 and
-    2 lanes; KE3 on int32 deltas that wrap and int64 extremes, at counts
-    2, 129 and 1,000,003 (and whole pages against the host encoder,
-    counts 1 and 2 included); KE4 at ranges 1, 7 and 2^16 with a
-    negative low bound; KE5 on NaN, all NaN, infinities, signed zeros
-    and unsigned order."""
-    from tpuparquet_torch.cpu.delta import encode_delta_binary_packed
+    2 lanes; KE3 at every case of KE3_CASES; KE4 at ranges 1, 7 and 2^16
+    with a negative low bound; KE5 on NaN, all NaN, infinities, signed
+    zeros and unsigned order."""
     from tpuparquet_torch.kernels.encode import bss_encode_device, \
-        bss_encode_plain, delta_encode_device, delta_phase1, \
-        delta_phase1_plain, dict_build, dict_build_plain, lanes_min_max, \
+        bss_encode_plain, dict_build, dict_build_plain, lanes_min_max, \
         lanes_min_max_plain
 
     for k, lanes in ((4, 1), (4, 2), (8, 2)):
@@ -1229,25 +1297,7 @@ def _check_encode(rng, dev) -> None:
             _same(f"KE2 k {k} lanes {lanes} count {count}",
                   bss_encode_device(flat, count, k, lanes),
                   bss_encode_plain(flat, count, k, lanes))
-    for dt in (np.int32, np.int64):
-        info = np.iinfo(dt)
-        for count in (1, 2, 129, 1_000_003):
-            v = rng.integers(info.min, info.max, size=count, dtype=dt,
-                             endpoint=True)
-            v[::5] = info.max
-            v[1::7] = info.min
-            flat = _t(v.view(np.uint32), dev)
-            is32 = dt == np.int32
-            if count >= 2:
-                got, want = (delta_phase1(flat, count, is32),
-                             delta_phase1_plain(flat, count, is32))
-                for i, (g, w_) in enumerate(zip(got, want)):
-                    _same(f"KE3 {dt.__name__} count {count} output {i}", g,
-                          w_)
-            if delta_encode_device(flat, count, is32) != \
-                    encode_delta_binary_packed(v, is32=is32):
-                raise AssertionError(f"KE3 {dt.__name__} count {count}: "
-                                     "page differs from the host encoder")
+    _check_delta_phase1(rng, dev)
     for dt in (np.int32, np.int64):
         for span, lo in ((1, 0), (7, -3), (1 << 16, -(1 << 20))):
             n = 3 * span + 100_000
@@ -1521,7 +1571,9 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> int:
 def _kernel_row(out, launches, name, source, replaces, fn, plain, n_bytes,
                 n_ops, library=None):
     """Hold a kernel against its plain version at a page shape, time both
-    (and the library call), and append its row of the kernels line."""
+    (and the library call) with CUDA events and the kernel and library
+    call on the device (profiler), and append its row of the kernels
+    line.  Returns the kernel's :func:`device_split`."""
     got, want = fn(), plain()
     if isinstance(got, tuple):
         err = max(_max_err(g, w) for g, w in zip(got, want))
@@ -1534,39 +1586,70 @@ def _kernel_row(out, launches, name, source, replaces, fn, plain, n_bytes,
     bound, by = _bound_ms(n_bytes, n_ops)
     ms, plain_ms = _time_ms(fn), _time_ms(plain, reps=5)
     lib_ms = None if library is None else _time_ms(library)
+    split = device_split(fn)
     out.append({"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
-    lib = "" if lib_ms is None else f"; library {lib_ms:.4f} ms"
-    print(f"{name}: {ms:.4f} ms (bound {bound:.4f} ms by {by}; plain "
-          f"{plain_ms:.4f} ms{lib}; max_abs_err {err})", flush=True)
+    lib = "" if lib_ms is None else (
+        f"; library {lib_ms:.4f} ms, device {_us(device_split(library))} a "
+        "call")
+    print(f"{name}: {ms:.4f} ms, device {_us(split)} a call (bound "
+          f"{bound:.4f} ms by {by}; plain {plain_ms:.4f} ms{lib}; "
+          f"max_abs_err {err})", flush=True)
+    return split
 
 
 def _stage(arrays, dev):
     return [_t(a, dev) for a in arrays]
 
 
-def device_split(fn, reps: int = 10) -> str:
-    """The device time one call of ``fn`` spends in each CUDA kernel and
-    memset it launches, from a torch.profiler trace of ``reps`` calls."""
+def device_split(fn, reps: int = 10, tries: int = 3):
+    """What one call of ``fn`` does on the device, from a torch.profiler
+    trace: ``(us, launches, parts)``, its device time in microseconds
+    (None when no trace holds any), the CUDA kernels, memsets and copies
+    it launches, and each one's time as text.  A trace records ``reps``
+    calls after ``reps`` traced and discarded ones, and each kernel's
+    time is its mean over the launches recorded, times its launches a
+    call: the tracer can miss launches while it starts, and now and then
+    a whole window, which is then traced again, up to ``tries`` times."""
     import re
 
-    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as trace:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    parts = []
-    for ev in trace.key_averages():
-        us = ev.self_device_time_total / reps
-        if us > 0:
-            name = re.search(r"::(\w+)\(", ev.key)
-            parts.append(f"{name.group(1) if name else ev.key} {us:.1f} us")
-    return ", ".join(parts) or "no device time traced"
+    for _ in range(tries):
+        recorded = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1),
+                     on_trace_ready=lambda p: recorded.extend(
+                         p.key_averages())) as trace:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                trace.step()
+        total, launches, parts = 0.0, 0, []
+        for ev in recorded:  # the device's records, not host annotations
+            if ev.device_type != DeviceType.CPU and ev.count \
+                    and ev.self_device_time_total > 0:
+                n = max(round(ev.count / reps), 1)
+                us = ev.self_device_time_total / ev.count * n
+                total += us
+                launches += n
+                name = re.search(r"::(\w+)[<(]", ev.key)
+                parts.append(f"{name.group(1) if name else ev.key} "
+                             f"{us:.1f} us")
+        if parts:
+            return total, launches, ", ".join(parts)
+    return None, 0, "no device time traced"
+
+
+def _us(split) -> str:
+    return "not traced" if split[0] is None else f"{split[0]:.1f} us"
 
 
 def k8_design(te_d, ts_d, lits_d, out_cap: int, end: int) -> dict:
@@ -1643,7 +1726,7 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
     out = []
 
     def row(*args, **kw):
-        _kernel_row(out, launches, *args, **kw)
+        return _kernel_row(out, launches, *args, **kw)
 
     # K1: payment_type's def-level stream, which the planner re-packs as
     # one bit-packed run (width 1, 2^21 slots)
@@ -1748,12 +1831,20 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
     cpu_args = [t.cpu() for t in (dlo, dhi, md_lo, md_hi)]
     deltas64 = torch.from_numpy(d.copy()).to(dev)
     nd = n - 1
-    row("delta_scan", "tpuparquet_torch/csrc/delta_scan.cu",
-        "tpuparquet/kernels/decode.py:572",
-        lambda: delta_scan(dlo, dhi, md_lo, md_hi, nd, first, n),
-        lambda: delta_scan_plain(*cpu_args, nd, first, n),
-        8 * nd + 8 + 8 * n, 4 * nd,
-        library=lambda: torch.cumsum(deltas64, 0))
+    split = row("delta_scan", "tpuparquet_torch/csrc/delta_scan.cu",
+                "tpuparquet/kernels/decode.py:572",
+                lambda: delta_scan(dlo, dhi, md_lo, md_hi, nd, first, n),
+                lambda: delta_scan_plain(*cpu_args, nd, first, n),
+                8 * nd + 8 + 8 * n, 4 * nd,
+                library=lambda: torch.cumsum(deltas64, 0))
+    # the design's traffic: the deltas and min_delta read once, the values
+    # written once, and for each 4,096-value tile (csrc/delta_scan.cu) its
+    # flag (zeroed, written, read) and its two u64 sums
+    tiles = -(-n // 4096)
+    moved = 8 * nd + 8 + 8 * n + tiles * (3 * 4 + 2 * 8)
+    print(f"K7 pickup_ts page ({n} values): {split[1]:g} CUDA launches a "
+          f"call ({split[2]}); {moved / n:.2f} bytes moved per value (the "
+          f"function's {(16 * nd + 8 + 8) / n:.2f})", flush=True)
     got = delta_scan(dlo, dhi, md_lo, md_hi, nd, first, n)
     if not np.array_equal(got.cpu().numpy().view(np.int64),
                           cols["pickup_ts"]):
@@ -1776,7 +1867,7 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
         lambda: expand_tokens_words_plain(*cpu_tok, out_cap, steps, 0, nw),
         te.nbytes + ts.nbytes + lp.nbytes + 4 * nw, 4 * nw)
     split = device_split(lambda: expand_tokens_words(
-        te_d, ts_d, lp_d, out_cap, steps, 0, nw))
+        te_d, ts_d, lp_d, out_cap, steps, 0, nw))[2]
     print(f"K8 tok page, device time a call: {split}", flush=True)
     dz = k8_design(te_d, ts_d, lp_d, out_cap, 4 * nw)
     print(f"K8 page: {te.size} tokens, {lp.size} literal bytes, out_cap "
@@ -1822,7 +1913,7 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
     if not np.array_equal(got[:total_b].cpu().numpy(), vendor.data):
         raise AssertionError("K9 vendor page: wrong bytes")
     split = device_split(lambda: page_dict_bytes(
-        doffs, ddata, bp_d, tbl_d, nn, cnt, w, nbp, cap, single))
+        doffs, ddata, bp_d, tbl_d, nn, cnt, w, nbp, cap, single))[2]
     print(f"K9 vendor page, device time a call: {split}", flush=True)
     # the design's traffic: the packed indices read twice (sums, copy),
     # each output byte written once, the block sums; the dictionary and
@@ -1978,7 +2069,7 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
     plain_ms = _time_ms(lambda: expand_tokens_plain(te_d, ts_d, lits_d, cap,
                                                     steps), reps=5)
     split = device_split(
-        lambda: expand_tokens(te_d, ts_d, lits_d, cap, steps))
+        lambda: expand_tokens(te_d, ts_d, lits_d, cap, steps))[2]
     print(f"K8 url page, device time a call: {split}", flush=True)
     dz = k8_design(te_d, ts_d, lits_d, cap, cap)
     print(f"K8 url page: chain depth {dz['rounds']} doubling rounds (the "
@@ -2007,19 +2098,26 @@ def time_encode_kernels(dv_t, dv_2, dev, launches) -> list:
     out = []
 
     def row(*args, **kw):
-        _kernel_row(out, launches, *args, **kw)
+        return _kernel_row(out, launches, *args, **kw)
 
     # KE3: the sensor table's ts page (int64, bursty timestamps); one
     # PyTorch call computes its core, the deltas (torch.diff)
     ts = dv_t[0][0]["ts"].flat
     count = ts.numel() // 2
     nb = (count - 2) // 128 + 1
-    row("delta_phase1", "tpuparquet_torch/csrc/delta_encode.cu",
-        "tpuparquet/kernels/encode.py:195",
-        lambda: delta_phase1(ts, count, False),
-        lambda: delta_phase1_plain(ts, count, False),
-        8 * count + 8 * nb * (1 + 4 + 128), 12 * count,
-        library=lambda: torch.diff(ts.view(torch.int64)))
+    fn_bytes = 8 * count + 8 * nb * (1 + 4 + 128)
+    split = row("delta_phase1", "tpuparquet_torch/csrc/delta_encode.cu",
+                "tpuparquet/kernels/encode.py:195",
+                lambda: delta_phase1(ts, count, False),
+                lambda: delta_phase1_plain(ts, count, False),
+                fn_bytes, 12 * count,
+                library=lambda: torch.diff(ts.view(torch.int64)))
+    # the design's traffic: the function's, and one extra value after each
+    # warp's 4 blocks
+    moved = fn_bytes + 8 * -(-nb // 4)
+    print(f"KE3 ts page ({count} values): {split[1]:g} CUDA launches a "
+          f"call ({split[2]}); {moved / count:.2f} bytes moved per value "
+          f"(the function's {fn_bytes / count:.2f})", flush=True)
     phase = delta_phase1(ts, count, False)
     mb_max = (phase[2].cpu().numpy().view(np.uint32).astype(np.uint64)
               | (phase[3].cpu().numpy().view(np.uint32).astype(np.uint64)
@@ -2622,7 +2720,7 @@ def time_shard_kernels(c2, c4, streams_by_col, dev, launches) -> list:
     out = []
 
     def row(*args, **kw):
-        _kernel_row(out, launches, *args, **kw)
+        return _kernel_row(out, launches, *args, **kw)
 
     # KS1: config 2's payment_type, unit 0 (5% nulls); one PyTorch call
     # pair computes it: index_select, then where

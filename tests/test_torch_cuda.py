@@ -91,6 +91,29 @@ def test_dict_bytes_block_edges_match_plain_version(cuda, case):
     torch.cuda.synchronize(cuda)
 
 
+@pytest.mark.parametrize("case", ["tile edges", "many tiles", "small blocks",
+                                  "misaligned dlo"])
+def test_delta_scan_tile_edges_match_plain_version(cuda, case):
+    """K7 where its design has edges: totals one short of, at and one
+    past a 4,096-value tile and its double, 38 tiles of look-back, block
+    sizes 1, 3 and 127 (a lane's rows cross several blocks), deltas read
+    from views that are not 8-byte aligned; int32 and int64, the whole
+    output."""
+    chip_smoke._check_delta_scan(np.random.default_rng(6), cuda, [case])
+    torch.cuda.synchronize(cuda)
+
+
+@pytest.mark.parametrize("case", ["warp edges", "CTA edges",
+                                  "odd word offset"])
+def test_delta_phase1_warp_edges_match_plain_version(cuda, case):
+    """KE3 where its design has edges: deltas at a warp's 4 blocks and a
+    CTA's 32, plus or minus one, and values that start one word into
+    their buffer; every output, and each page against the host
+    encoder."""
+    chip_smoke._check_delta_phase1(np.random.default_rng(7), cuda, [case])
+    torch.cuda.synchronize(cuda)
+
+
 @pytest.mark.parametrize("check", ["_check_delta_scatter", "_check_bss"])
 def test_delta_and_bss_kernels_match_plain_versions(cuda, check):
     """K11 (scatter_deltas: int32 and int64 lanes, miniblocks of 32 and

@@ -17,6 +17,8 @@ bound, KE5 on NaN, infinities and signed zeros.
 """
 
 import io
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -41,6 +43,15 @@ from tpuparquet_torch.kernels.device import read_row_group_device
 from tpuparquet_torch.kernels.encode import delta_phase1, \
     device_dict_build, dict_build
 from tpuparquet_torch.stats import collect_stats
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
+
+# KE3's edges on the card (chip_smoke.KE3_CASES): the 4 blocks of 128
+# deltas a warp takes, a CTA's 32
+_KE3_EDGES = [c for name in ("warp edges", "CTA edges")
+              for c in chip_smoke.KE3_CASES[name][0]]
+
 
 rng = np.random.default_rng(21)
 
@@ -197,32 +208,47 @@ class TestDeltaEncodeDevice:
         assert got == want
 
     @pytest.mark.parametrize("is32", [False, True], ids=["i64", "i32"])
-    @pytest.mark.parametrize("count", [2, 129, 1000, 5003])
+    @pytest.mark.parametrize("count", [2, 129, 1000, 5003] + _KE3_EDGES)
     def test_phase1_lanes_match_jax(self, count, is32):
         """KE3's outputs equal ``_delta_phase1_*`` lane for lane over the
         true blocks (the JAX shapes are bucket-padded), at extremes that
-        wrap."""
-        r = np.random.default_rng(count)
-        dt = np.int32 if is32 else np.int64
-        vals = r.integers(np.iinfo(dt).min, np.iinfo(dt).max, size=count,
-                          dtype=dt, endpoint=True)
-        vals[::7] = np.iinfo(dt).max
-        flat = vals.view(np.uint32)
-        lanes = 1 if is32 else 2
-        nb = (count - 2) // 128 + 1
-        padded = jax_encode._pad_flat(jnp.asarray(flat), lanes,
-                                      jax_encode._bucket_blocks(count))
-        want = (jax_encode._delta_phase1_i32 if is32
-                else jax_encode._delta_phase1_i64)(padded, count)
-        got = delta_phase1(_t(flat), count, is32)
-        sizes = ((nb, 4 * nb, 128 * nb) if is32 else
-                 (nb, nb, 4 * nb, 4 * nb, 128 * nb, 128 * nb))
-        assert len(got) == len(want) == len(sizes)
-        for g, w, size in zip(got, want, sizes):
-            assert g.numel() == size
-            np.testing.assert_array_equal(
-                g.numpy().view(np.uint32),
-                np.asarray(w)[:size].view(np.uint32))
+        wrap; also at the edges of the 4 blocks a warp of the kernel
+        takes and of a CTA's 32."""
+        _phase1_vs_jax(count, is32, offset=False)
+
+    @pytest.mark.parametrize("is32", [False, True], ids=["i64", "i32"])
+    @pytest.mark.parametrize(
+        "count", chip_smoke.KE3_CASES["odd word offset"][0])
+    def test_phase1_odd_word_offset_matches_jax(self, count, is32):
+        """The same, on values that start one word into their buffer (a
+        view, which the kernel loads as scalars)."""
+        _phase1_vs_jax(count, is32, offset=True)
+
+
+def _phase1_vs_jax(count: int, is32: bool, offset: bool) -> None:
+    r = np.random.default_rng(count)
+    dt = np.int32 if is32 else np.int64
+    vals = r.integers(np.iinfo(dt).min, np.iinfo(dt).max, size=count,
+                      dtype=dt, endpoint=True)
+    vals[::7] = np.iinfo(dt).max
+    flat = vals.view(np.uint32)
+    lanes = 1 if is32 else 2
+    nb = (count - 2) // 128 + 1
+    padded = jax_encode._pad_flat(jnp.asarray(flat), lanes,
+                                  jax_encode._bucket_blocks(count))
+    want = (jax_encode._delta_phase1_i32 if is32
+            else jax_encode._delta_phase1_i64)(padded, count)
+    src = _t(np.concatenate([[5], flat, [6]]).astype(np.uint32))[
+        1 : 1 + flat.size] if offset else _t(flat)
+    got = delta_phase1(src, count, is32)
+    sizes = ((nb, 4 * nb, 128 * nb) if is32 else
+             (nb, nb, 4 * nb, 4 * nb, 128 * nb, 128 * nb))
+    assert len(got) == len(want) == len(sizes)
+    for g, w, size in zip(got, want, sizes):
+        assert g.numel() == size
+        np.testing.assert_array_equal(
+            g.numpy().view(np.uint32),
+            np.asarray(w)[:size].view(np.uint32))
 
 
 def _build(schema, vals_by_col, masks=None, device=False, writer="port",

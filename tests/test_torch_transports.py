@@ -305,6 +305,26 @@ def test_expand_delta_matches_jax(lanes):
             got, np.asarray(jax_fn(JaxDeltaPlan(*args))))
 
 
+@pytest.mark.parametrize("lanes", [1, 2])
+@pytest.mark.parametrize("block_size", [128, 256])
+@pytest.mark.parametrize("total", [t for name in ("tile edges", "many tiles")
+                                   for t in chip_smoke.K7_CASES[name][0]])
+def test_expand_delta_tile_edges_match_jax(total, block_size, lanes):
+    """The rebuild at K7's edges on the card (chip_smoke.K7_CASES): value
+    counts one short of, at and one past a 4,096-value tile and its
+    double, and across 38 tiles, with a width-7 (int32) or width-39
+    (int64) group starting inside the stream."""
+    rng = np.random.default_rng(total + block_size)
+    ours_fn, jax_fn = ((expand_delta_i32, jax_delta_i32) if lanes == 1
+                       else (expand_delta_i64, jax_delta_i64))
+    args, truth = _delta_plan(rng, total, 7 if lanes == 1 else 39, lanes,
+                              block_size, 37)
+    got = _u32(ours_fn(_port_plan(args)))
+    np.testing.assert_array_equal(got, truth)
+    np.testing.assert_array_equal(got, np.asarray(jax_fn(JaxDeltaPlan(
+        *args))))
+
+
 def test_scattered_delta_group_not_supported():
     """A width class whose miniblocks do not land back to back (a
     DELTA_BINARY_PACKED page's) is placed by K11's plain version, for

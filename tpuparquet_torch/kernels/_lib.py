@@ -86,8 +86,10 @@ def build_kernels() -> float:
 
 
 def stream_of(t) -> int:
-    """The raw handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``t``'s device (read
+    without building a ``torch.cuda.Stream``, which costs more host time
+    than a small kernel's launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def launch(name: str, *args) -> None:

@@ -540,6 +540,9 @@ def delta_scan_plain(dlo, dhi, md_lo, md_hi, block_size: int, first: int,
     return torch.stack([lo, hi], dim=1).reshape(-1)
 
 
+_K7_TILE = 4096  # positions a CTA of csrc/delta_scan.cu scans
+
+
 def delta_scan(dlo: torch.Tensor, dhi, md_lo: torch.Tensor, md_hi,
                block_size: int, first: int, total: int) -> torch.Tensor:
     """The delta rebuild's scan: ``out[0] = first`` and ``out[k+1] =
@@ -568,16 +571,20 @@ def delta_scan(dlo: torch.Tensor, dhi, md_lo: torch.Tensor, md_hi,
     for name, t in (("dlo", dlo), ("md_lo", md_lo)) + (
             (("dhi", dhi), ("md_hi", md_hi)) if wide else ()):
         check_tensor(t, name, torch.int32, dev)
-    sums = torch.empty(max((n + 1023) // 1024, 1), dtype=torch.int64,
-                       device=dev)
-    out = torch.empty(total * (2 if wide else 1), dtype=torch.int32,
-                      device=dev)
+    # one allocation: the output, then from the next 16-byte boundary the
+    # look-back scratch (the tile counter, a flag a 4,096-value tile, each
+    # tile's u64 sum and inclusive prefix)
+    words = total * (2 if wide else 1)
+    at = (words + 3) // 4 * 4
+    tiles = (total + _K7_TILE - 1) // _K7_TILE
+    buf = torch.empty(at + 4 + (tiles + 3) // 4 * 4 + 4 * tiles,
+                      dtype=torch.int32, device=dev)
     launch("delta_scan", dlo.data_ptr(), dhi.data_ptr() if wide else None,
            md_lo.data_ptr(), md_hi.data_ptr() if wide else None, int(wide),
-           block_size, n, first & 0xFFFFFFFFFFFFFFFF, sums.data_ptr(),
-           out.data_ptr(), stream_of(out))
+           block_size, n, first & 0xFFFFFFFFFFFFFFFF, buf.data_ptr() + 4 * at,
+           buf.data_ptr(), stream_of(buf))
     delta_scan.launches += 1
-    return out
+    return buf[:words]
 
 
 delta_scan.launches = 0

@@ -302,17 +302,24 @@ def delta_phase1(flat: torch.Tensor, count: int, is32: bool):
     dev = flat.device
     check_tensor(flat, "flat", torch.int32, dev)
     nb = _n_blocks(count)
-
-    def empty(n):
-        return torch.empty(n, dtype=torch.int32, device=dev)
-
-    outs = [empty(nb), None if is32 else empty(nb),
-            empty(nb * _MINIBLOCKS), None if is32 else empty(nb * _MINIBLOCKS),
-            empty(nb * _BLOCK), None if is32 else empty(nb * _BLOCK)]
+    # one allocation, cut by one split: the adjusted deltas lead, so the
+    # planes that take 16-byte stores start on 16-byte boundaries (128 nb
+    # words each), then the miniblock maxima and the block minima
+    sizes = (_BLOCK * nb, _MINIBLOCKS * nb, nb)
+    if not is32:  # lo and hi planes of each
+        sizes = (sizes[0], sizes[0], sizes[1], sizes[1], nb, nb)
+    buf = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+    parts = buf.split_with_sizes(sizes)
+    if is32:
+        adj, mx, mins = parts
+        outs = (mins, None, mx, None, adj, None)
+    else:
+        alo, ahi, mx_lo, mx_hi, min_lo, min_hi = parts
+        outs = (min_lo, min_hi, mx_lo, mx_hi, alo, ahi)
     launch("delta_encode", flat.data_ptr(), count, int(is32), nb,
-           *[_opt_ptr(t) for t in outs], stream_of(outs[0]))
+           *[_opt_ptr(t) for t in outs], stream_of(flat))
     delta_phase1.launches += 1
-    return (outs[0], outs[2], outs[4]) if is32 else tuple(outs)
+    return (mins, mx, adj) if is32 else outs
 
 
 delta_phase1.launches = 0
