@@ -10,10 +10,12 @@
    sources in this checkout, one compiler process per source, in
    parallel.
 2. Holds every kernel against its plain PyTorch version on the card, bit
-   for bit over the whole (padded) output: K13 at row lengths 3, 9, 12,
-   16 and 22, K3 at 3 and 4 lanes, K12 with k != 4 * lanes, K8 on the
-   copy graph of front-coded strings and rows and at the edges of its
-   tiles (a chain through 19 tiles, copies across tile edges, 4-byte
+   for bit over the whole (padded) output: K13 at row lengths 1, 3, 4,
+   5, 7, 8, 9, 12, 13, 16, 17, 20, 22, 24 and 1,031, at counts around
+   its tiles and from views 1, 3, 5, 8 and 13 bytes into their buffer,
+   K3 at 3 and 4 lanes, K12 with k != 4 * lanes, K8 on the copy graph
+   of front-coded strings and rows and at the edges of its tiles (a
+   chain through 19 tiles, copies across tile edges, 4-byte
    offsets from more than 64 KiB back, literals longer than a tile,
    words at offsets 0, 1 and 3 of a block of 3 mod 4 bytes), K9 on a
    value longer than its block's share, 5,000 empty values across block
@@ -22,15 +24,17 @@
    8193 and 38 tiles), block sizes 1, 3, 127, 128, 256, the stream's
    own and 2^21 + 2, and deltas read from views that are not 8-byte
    aligned; KE1 at widths 1, 7, 31, 32, 33, 63 and 64 (counts 1, 33 and
-   2^20 + 5, over a miniblock list), KE2 with k 4 and 8 at 1 and 2
-   lanes, KE3 on wrapping int32 and extreme int64 deltas at the edges of
-   a warp's 4 blocks and a CTA's 32 and on values one word into their
-   buffer, KE4 at ranges 1, 7 and 2^16 from a negative low bound, KE5
-   on NaN, infinities, signed zeros and unsigned order; KS1 at 1-4
-   lanes, all-null and without nulls, into a longer row; KS2 at widths
-   0, 1, 7 and 32 on every slot of sp 1, 2 and 4 with indices past the
-   dictionary; KS3 with leading nulls and empty strings; KS4 with
-   padding rows, on word and byte rows.
+   2^20 + 5, over a miniblock list), KE2 at (k, lanes) (4, 1), (4, 2),
+   (8, 2), (3, 1), (9, 3), (16, 4) and (1601, 401), at counts around
+   its tiles and past 2^20 (stream starts off 16-byte boundaries) and
+   from a view one word into its buffer, KE3 on wrapping int32 and extreme int64 deltas
+   at the edges of a warp's 4 blocks and a CTA's 32 and on values one
+   word into their buffer, KE4 at ranges 1, 7 and 2^16 from a negative
+   low bound, KE5 on NaN, infinities, signed zeros and unsigned order;
+   KS1 at 1-4 lanes, all-null and without nulls, into a longer row; KS2
+   at widths 0, 1, 7 and 32 on every slot of sp 1, 2 and 4 with indices
+   past the dictionary; KS3 with leading nulls and empty strings; KS4
+   with padding rows, on word and byte rows.
 3. Writes the NYC-Taxi-shaped config-2 file of ``bench.py`` (seed 42, 8
    row groups, 50,000,000 values by default) with the port's writer and
    reads it through ``read_row_groups_device`` on the card with the
@@ -73,7 +77,10 @@
    PyTorch call computes the function or its core, that call; the
    device time of one call of the kernel and of the library call from a
    torch.profiler trace; K7 and KE3 also their CUDA launches a call and
-   the bytes they move a value; K8 also
+   the bytes they move a value, K13 and KE2 their launches a call, the
+   bytes their designs move per input byte (arithmetic, not a counter)
+   and the page's count % 16, K13's row tiles timed against one thread
+   a word at 5-, 6- and 7-byte decimal rows; K8 also
    on a URL page of 3h, and for both K8 pages the doubling rounds their
    chains need beside the reference's ``steps``, the share of positions
    that leave their tile, CUDA launches a call and bytes moved per
@@ -1114,23 +1121,36 @@ def _check_bss(rng, dev) -> None:
 
 
 def _check_flba(rng, dev) -> None:
-    """K13 against its plain version and the host's row padding, at row
-    lengths that fill whole lanes and that leave a partial last lane."""
+    """K13 against its plain version and the host's row padding: row
+    lengths 1-24 that fill whole lanes (copied) and that leave a partial
+    last lane (tiled), and 1,031 (wider than a tile holds); counts one
+    short of, at and one past a tile, five tiles and an odd remainder;
+    rows read from views 1, 3, 5, 8 and 13 bytes into their buffer (each
+    of the copy's four word shifts, with and without a byte shift)."""
     from tpuparquet_torch.kernels.decode import flba_bytes_to_lanes, \
-        flba_bytes_to_lanes_plain
+        flba_bytes_to_lanes_plain, flba_tile_rows
     from tpuparquet_torch.kernels.device import _stage_byte_rows_np
 
-    for length in (3, 9, 12, 16, 22):
-        for count in (1, 1000, 100_003):
-            raw = rng.integers(0, 256, size=count * length + 5,
+    for length in (1, 3, 4, 5, 7, 8, 9, 12, 13, 16, 17, 20, 22, 24, 1031):
+        R = flba_tile_rows(length)
+        counts = (1, 17, 1000) if length > 1024 else \
+            (1, 1000, 100_003, R - 1, R, R + 1, 5 * R + 7)
+        for count in counts:
+            raw = rng.integers(0, 256, size=count * length + 13,
                                dtype=np.uint8)
-            got = flba_bytes_to_lanes(_t(raw, dev), count, length)
-            _same(f"K13 L {length} count {count}", got,
-                  flba_bytes_to_lanes_plain(_t(raw, "cpu"), count, length))
-            want = _stage_byte_rows_np(
-                raw[: count * length].reshape(count, length))
-            if not np.array_equal(got.cpu().numpy().view(np.uint32), want):
-                raise AssertionError(f"K13 L {length}: wrong words")
+            raw_d = _t(raw, dev)
+            for off in (0, 1, 3, 5, 8, 13) \
+                    if count in (R + 1, 5 * R + 7) \
+                    else (0,):
+                name = f"K13 L {length} count {count} offset {off}"
+                got = flba_bytes_to_lanes(raw_d[off:], count, length)
+                _same(name, got, flba_bytes_to_lanes_plain(
+                    _t(raw[off:], "cpu"), count, length))
+                want = _stage_byte_rows_np(
+                    raw[off : off + count * length].reshape(count, length))
+                if not np.array_equal(got.cpu().numpy().view(np.uint32),
+                                      want):
+                    raise AssertionError(f"{name}: wrong words")
 
 
 def _check_new_shapes(rng, dev) -> None:
@@ -1282,21 +1302,37 @@ def _check_delta_phase1(rng, dev, names=None) -> None:
 
 
 def _check_encode(rng, dev) -> None:
-    """KE2-KE5 against their plain versions: KE2 with k 4 and 8 at 1 and
-    2 lanes; KE3 at every case of KE3_CASES; KE4 at ranges 1, 7 and 2^16
-    with a negative low bound; KE5 on NaN, all NaN, infinities, signed
-    zeros and unsigned order."""
+    """KE2-KE5 against their plain versions: KE2 at (k, lanes) (4, 1),
+    (4, 2), (8, 2), (3, 1), (9, 3) and (16, 4), counts 1-6, one short of
+    and one past a tile and past 2^20 (streams that start off a 16-byte
+    boundary), words read from one word into their buffer, and (1601,
+    401), whose streams split over two blocks; KE3 at
+    every case of KE3_CASES; KE4 at ranges 1, 7 and 2^16 with a negative
+    low bound; KE5 on NaN, all NaN, infinities, signed zeros and unsigned
+    order."""
     from tpuparquet_torch.kernels.encode import bss_encode_device, \
-        bss_encode_plain, dict_build, dict_build_plain, lanes_min_max, \
-        lanes_min_max_plain
+        bss_encode_plain, bss_tile_rows, dict_build, dict_build_plain, \
+        lanes_min_max, lanes_min_max_plain
 
-    for k, lanes in ((4, 1), (4, 2), (8, 2)):
-        for count in (1, 1001, (1 << 20) + 3):
+    for k, lanes in ((4, 1), (4, 2), (8, 2), (3, 1), (9, 3), (16, 4)):
+        T = bss_tile_rows(lanes)
+        for count in (1, 2, 3, 5, 6, 1001, T - 1, T + 1, (1 << 20) + 2,
+                      (1 << 20) + 3, (1 << 20) + 6):
             flat = _t(rng.integers(0, 2**32, size=count * lanes + 5,
                                    dtype=np.uint32), dev)
-            _same(f"KE2 k {k} lanes {lanes} count {count}",
-                  bss_encode_device(flat, count, k, lanes),
-                  bss_encode_plain(flat, count, k, lanes))
+            # a view one word into its buffer: the tiles' loads start
+            # off a 16-byte boundary
+            for off in (0, 1) if count in (T + 1, (1 << 20) + 2) else (0,):
+                _same(f"KE2 k {k} lanes {lanes} count {count} offset {off}",
+                      bss_encode_device(flat[off:], count, k, lanes),
+                      bss_encode_plain(flat[off:], count, k, lanes))
+    # rows of 401 lanes: a tile's 1,601 streams split over two blocks
+    for count in (1, 17, 40):
+        flat = _t(rng.integers(0, 2**32, size=count * 401, dtype=np.uint32),
+                  dev)
+        _same(f"KE2 k 1601 lanes 401 count {count}",
+              bss_encode_device(flat, count, 1601, 401),
+              bss_encode_plain(flat, count, 1601, 401))
     _check_delta_phase1(rng, dev)
     for dt in (np.int32, np.int64):
         for span, lo in ((1, 0), (7, -3), (1 << 16, -(1 << 20))):
@@ -1598,6 +1634,67 @@ def _kernel_row(out, launches, name, source, replaces, fn, plain, n_bytes,
           f"{bound:.4f} ms by {by}; plain {plain_ms:.4f} ms{lib}; "
           f"max_abs_err {err})", flush=True)
     return split
+
+
+def _moved_per_input(src: torch.Tensor, n_in: int, n_out: int) -> float:
+    """Device-memory bytes that K13's and KE2's designs move per input
+    byte, by the designs' arithmetic (no counter is read): the 16-byte
+    vectors that cover the input (one more at each end where ``src``
+    starts off a 16-byte boundary) read once, and the output written
+    once."""
+    lead = src.data_ptr() & 15
+    read = -(-(lead + n_in) // 16) * 16
+    return (read + n_out) / n_in
+
+
+def _flba_per_word(raw: torch.Tensor, count: int, length: int):
+    """K13 forced to one thread a word (a tile of 0 rows), the path its
+    wrapper takes only past 1,024 bytes a row: timed against the row
+    tiles, it counts no launch."""
+    from tpuparquet_torch.kernels._lib import launch, stream_of
+
+    lanes = (length + 3) // 4
+    out = torch.empty(count * lanes, dtype=torch.int32, device=raw.device)
+    launch("flba_to_lanes", raw.data_ptr(), count, length, lanes, 0,
+           out.data_ptr(), stream_of(out))
+    return out
+
+
+def flba_tiles_vs_words(count: int, dev) -> None:
+    """K13's row tiles against one thread a word at the widths of a
+    FIXED_LEN_BYTE_ARRAY DECIMAL (the format's least bytes for precision
+    10-11, 12-14 and 15-16: 5, 6 and 7), ``count`` random rows each (the
+    amount page's), both held against the plain version; device time
+    from the profiler beside ``F.pad``'s and the bound.  No counted path
+    has such rows, so this is printed and not a row of the kernels
+    line."""
+    from tpuparquet_torch.kernels.decode import flba_bytes_to_lanes, \
+        flba_bytes_to_lanes_plain, flba_tile_rows
+
+    g = torch.Generator(device=dev).manual_seed(29)
+    for length in (5, 6, 7):
+        lanes = (length + 3) // 4
+        raw = torch.randint(0, 256, (count * length,), dtype=torch.uint8,
+                            device=dev, generator=g)
+        want = flba_bytes_to_lanes_plain(raw, count, length)
+        paths = {
+            "tiles": lambda: flba_bytes_to_lanes(raw, count, length),
+            "one thread a word": lambda: _flba_per_word(raw, count, length),
+            "F.pad": lambda: torch.nn.functional.pad(
+                raw.view(count, length), (0, 4 * lanes - length)).view(
+                    torch.int32),
+        }
+        for name in ("tiles", "one thread a word"):
+            err = _max_err(paths[name](), want)
+            if err:
+                raise AssertionError(f"K13 L {length} {name}: max abs diff "
+                                     f"{err} against the plain version")
+        bound, _ = _bound_ms(count * length + 4 * lanes * count, 0)
+        times = ", ".join(f"{name} {_us(device_split(fn))}"
+                          for name, fn in paths.items())
+        print(f"K13 L {length} ({count} rows, tile {flba_tile_rows(length)} "
+              f"rows): {times} a call on the device; bound "
+              f"{1e3 * bound:.1f} us; max_abs_err 0", flush=True)
 
 
 def _stage(arrays, dev):
@@ -2038,7 +2135,8 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
         ByteArrayColumn(np.arange(na + 1) * length, rows.reshape(-1)),
         length)
     blob_d = expand_tokens(te_d, ts_d, lits_d, cap, steps)
-    row("flba_bytes_to_lanes", "tpuparquet_torch/csrc/flba_to_lanes.cu",
+    split = row(
+        "flba_bytes_to_lanes", "tpuparquet_torch/csrc/flba_to_lanes.cu",
         "tpuparquet/kernels/decode.py:99",
         lambda: flba_bytes_to_lanes(blob_d, na, length),
         lambda: flba_bytes_to_lanes_plain(blob_d, na, length),
@@ -2052,6 +2150,11 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
         raise AssertionError("K13 amount page: wrong rows")
     print(f"K13 page: {na} rows of {length} bytes, {lits_d.numel()} "
           f"suffix bytes", flush=True)
+    moved = _moved_per_input(blob_d, na * length, 4 * lanes * na)
+    print(f"K13 amount page: {split[1]:g} CUDA launches a call "
+          f"({split[2]}); {moved:.2f} bytes moved per input byte by the "
+          f"design's arithmetic; count % 16 = {na % 16}", flush=True)
+    flba_tiles_vs_words(na, dev)
 
     # K8 again on the same table's url page: the front-coding copy graph
     # of sorted URLs, one copy and one literal token a value (printed
@@ -2142,13 +2245,20 @@ def time_encode_kernels(dv_t, dv_2, dev, launches) -> list:
     # computes the transpose
     reading = dv_t[0][0]["reading"].flat
     nr = reading.numel() // 2
-    row("bss_encode_device", "tpuparquet_torch/csrc/bss_encode.cu",
+    split = row("bss_encode_device", "tpuparquet_torch/csrc/bss_encode.cu",
         "tpuparquet/kernels/encode.py:146",
         lambda: bss_encode_device(reading, nr, 8, 2),
         lambda: bss_encode_plain(reading, nr, 8, 2),
         16 * nr, 8 * nr,
         library=lambda: reading.view(torch.uint8).view(nr, 8).t()
         .contiguous())
+    unaligned = sum(1 for st in range(8) if st * nr % 16)
+    moved = _moved_per_input(reading, 8 * nr, 8 * nr)
+    print(f"KE2 reading page ({nr} doubles): {split[1]:g} CUDA launches a "
+          f"call ({split[2]}); {moved:.2f} bytes moved per input byte by "
+          f"the design's arithmetic; "
+          f"count % 16 = {nr % 16} ({unaligned} of 8 streams start off a "
+          f"16-byte boundary)", flush=True)
     # KE5: the reading page's float min/max (NaN skipped); torch.aminmax
     # is timed only (its NaN handling differs)
 

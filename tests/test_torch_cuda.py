@@ -126,9 +126,12 @@ def test_delta_and_bss_kernels_match_plain_versions(cuda, check):
 
 @pytest.mark.parametrize("check", ["_check_flba", "_check_new_shapes"])
 def test_slice5_shapes_match_plain_versions(cuda, check):
-    """K13 (flba_bytes_to_lanes at row lengths 3, 9, 12, 16 and 22), K3
-    at 3 and 4 lanes over a padded dictionary, K12 with k = 9 and 16 over
-    3 and 4 lanes, K8 on front-coded strings and rows."""
+    """K13 (flba_bytes_to_lanes at row lengths 1, 3, 4, 5, 7, 8, 9, 12,
+    13, 16, 17, 20, 22, 24 and 1,031, at counts one short of, at and one
+    past a row tile and five tiles and a remainder, from views 1, 3 and 8
+    bytes into their buffer), K3 at 3 and 4 lanes over a padded
+    dictionary, K12 with k = 9 and 16 over 3 and 4 lanes, K8 on
+    front-coded strings and rows."""
     getattr(chip_smoke, check)(np.random.default_rng(4), cuda)
     torch.cuda.synchronize(cuda)
 
@@ -136,8 +139,11 @@ def test_slice5_shapes_match_plain_versions(cuda, check):
 @pytest.mark.parametrize("check", ["_check_pack_bits", "_check_encode"])
 def test_encode_kernels_match_plain_versions(cuda, check):
     """KE1 (pack_bits at widths 1, 7, 31, 32, 33, 63 and 64, counts 1, 33
-    and 2^20 + 5, over a miniblock list) and KE2-KE5 (bss_encode_device,
-    delta_phase1 on wrapping int32 and extreme int64 deltas,
+    and 2^20 + 5, over a miniblock list) and KE2-KE5 (bss_encode_device
+    at (k, lanes) (4, 1), (4, 2), (8, 2), (3, 1), (9, 3), (16, 4) and
+    (1601, 401), counts 1-6, one short of and one past a tile and past
+    2^20 with streams that start off a 16-byte boundary, from a view one
+    word into its buffer; delta_phase1 on wrapping int32 and extreme int64 deltas,
     dict_build at ranges 1, 7 and 2^16 from a negative low bound,
     lanes_min_max on NaN, infinities, signed zeros and unsigned order)."""
     getattr(chip_smoke, check)(np.random.default_rng(5), cuda)

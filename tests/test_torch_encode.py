@@ -40,7 +40,7 @@ from tpuparquet_torch.format.metadata import CompressionCodec, Encoding
 from tpuparquet_torch.io.reader import FileReader
 from tpuparquet_torch.io.writer import FileWriter
 from tpuparquet_torch.kernels.device import read_row_group_device
-from tpuparquet_torch.kernels.encode import delta_phase1, \
+from tpuparquet_torch.kernels.encode import bss_tile_rows, delta_phase1, \
     device_dict_build, dict_build
 from tpuparquet_torch.stats import collect_stats
 
@@ -131,21 +131,37 @@ class TestPackDevice:
         assert got.tobytes()[: len(want)] == want
 
 
+def _bss_cases():
+    """Typed values (also against the host encoder), then raw lane words
+    with k < 4 * lanes at counts 1-6 and one short of and one past KE2's
+    tile of rows."""
+    for dt, k, lanes in ((np.float32, 4, 1), (np.float64, 8, 2),
+                         (np.int32, 4, 1), (np.int64, 8, 2)):
+        yield pytest.param(dt, k, lanes, 500,
+                           id=f"{np.dtype(dt).name}-{k}-{lanes}")
+    for k, lanes in ((4, 2), (3, 1), (9, 3), (16, 4)):
+        T = bss_tile_rows(lanes)
+        for count in (1, 2, 3, 5, 6, T - 1, T + 1):
+            yield pytest.param(None, k, lanes, count,
+                               id=f"words-{k}-{lanes}-{count}")
+
+
 class TestBssEncodeDevice:
-    @pytest.mark.parametrize("dt,k,lanes", [
-        (np.float32, 4, 1), (np.float64, 8, 2),
-        (np.int32, 4, 1), (np.int64, 8, 2),
-    ])
-    def test_matches_cpu(self, dt, k, lanes):
-        vals = (rng.random(500) * 1000).astype(dt)
-        want = encode_byte_stream_split(vals)
-        flat = np.ascontiguousarray(vals).view(np.uint32)
-        got = bss_encode_device(_t(flat), 500, k, lanes)
+    @pytest.mark.parametrize("dt,k,lanes,count", list(_bss_cases()))
+    def test_matches_cpu(self, dt, k, lanes, count):
+        if dt is None:
+            flat = rng.integers(0, 2**32, size=count * lanes,
+                                dtype=np.uint32)
+        else:
+            vals = (rng.random(count) * 1000).astype(dt)
+            flat = np.ascontiguousarray(vals).view(np.uint32)
+        got = bss_encode_device(_t(flat), count, k, lanes)
         assert got.dtype == torch.uint8
-        ref = np.asarray(jax_encode.bss_encode_device(jnp.asarray(flat), 500,
-                                                      k, lanes))
+        ref = np.asarray(jax_encode.bss_encode_device(jnp.asarray(flat),
+                                                      count, k, lanes))
         np.testing.assert_array_equal(got.numpy(), ref)
-        assert got.numpy().tobytes() == want
+        if dt is not None:
+            assert got.numpy().tobytes() == encode_byte_stream_split(vals)
 
 
 class TestDeltaEncodeDevice:

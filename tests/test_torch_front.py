@@ -42,7 +42,8 @@ from tpuparquet_torch.io import pages
 from tpuparquet_torch.io.reader import FileReader
 from tpuparquet_torch.io.writer import FileWriter
 from tpuparquet_torch.kernels import device
-from tpuparquet_torch.kernels.decode import flba_bytes_to_lanes_plain
+from tpuparquet_torch.kernels.decode import flba_bytes_to_lanes_plain, \
+    flba_tile_rows
 
 from test_torch_types import read_both  # noqa: E402
 
@@ -133,16 +134,23 @@ def test_host_assembly_stages_fewer_bytes():
     assert staged["shared paths"] < sum(map(len, PATHS))
 
 
-@pytest.mark.parametrize("length", [1, 3, 4, 9, 12, 16, 22])
+@pytest.mark.parametrize("length", [1, 3, 4, 5, 7, 8, 9, 12, 13, 16, 17,
+                                    20, 22, 24])
 def test_flba_bytes_to_lanes_plain_matches_jax(length):
+    """Counts around K13's row tiles (one short of and one past a tile,
+    three tiles and a remainder), and rows that start one byte into their
+    buffer."""
     rng = np.random.default_rng(length)
-    for count in (0, 1, 33, 1000):
+    R = flba_tile_rows(length)
+    for count in (0, 1, 33, 1000, R - 1, R + 1, 3 * R + 5):
         raw = rng.integers(0, 256, size=count * length + 7, dtype=np.uint8)
-        got = flba_bytes_to_lanes_plain(torch.from_numpy(raw), count, length)
-        want = np.asarray(jax_flba_bytes_to_lanes(jnp.asarray(raw), count,
-                                                  length))
-        assert got.dtype == torch.int32
-        np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+        for off in (0, 1) if count == 3 * R + 5 else (0,):
+            got = flba_bytes_to_lanes_plain(torch.from_numpy(raw[off:]),
+                                            count, length)
+            want = np.asarray(jax_flba_bytes_to_lanes(
+                jnp.asarray(raw[off:]), count, length))
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
 
 
 def _columns():

@@ -39,9 +39,9 @@ KERNELS = {
     "bytes_from_blob": [_P, _L, _P, _L, _I, _P, _L, _P],
     "delta_scatter": [_P, _P, _P, _P, _L, _L, _P, _P, _L, _P],
     "bss_to_lanes": [_P, _L, _I, _I, _P, _P],
-    "flba_to_lanes": [_P, _L, _I, _I, _P, _P],
+    "flba_to_lanes": [_P, _L, _I, _I, _I, _P, _P],
     "pack_bits": [_P, _P, _L, _P, _L, _I, _P, _P],
-    "bss_encode": [_P, _L, _I, _I, _P, _P],
+    "bss_encode": [_P, _L, _I, _I, _I, _P, _P],
     "delta_encode": [_P, _L, _I, _L, _P, _P, _P, _P, _P, _P, _P],
     "dict_build": [_P, _I, _L, ctypes.c_uint32, _L, _P, _P, _P, _P, _P, _P,
                    _P],

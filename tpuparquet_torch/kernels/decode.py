@@ -794,6 +794,15 @@ def _words_of_bytes(rows: torch.Tensor, lanes: int) -> torch.Tensor:
                             | (b[..., 3] << 24)).reshape(-1))
 
 
+def flba_tile_rows(type_length: int) -> int:
+    """Rows of one tile of K13 (``csrc/flba_to_lanes.cu``), which takes
+    them from its wrapper: the largest multiple of 16 whose rows fit 16
+    KiB, or 0 (one thread a word) past 1,024 bytes a row.  Rows of a
+    multiple of 4 bytes are copied, not tiled.  The checks pin the tiles'
+    edges with it."""
+    return (16384 // type_length) & ~15
+
+
 def flba_bytes_to_lanes_plain(raw, count: int,
                               type_length: int) -> torch.Tensor:
     """Plain PyTorch version of K13: the reference's reshape, pad and
@@ -822,7 +831,7 @@ def flba_bytes_to_lanes(raw: torch.Tensor, count: int,
     lanes = (type_length + 3) // 4
     out = torch.empty(count * lanes, dtype=torch.int32, device=dev)
     launch("flba_to_lanes", raw.data_ptr(), count, type_length, lanes,
-           out.data_ptr(), stream_of(out))
+           flba_tile_rows(type_length), out.data_ptr(), stream_of(out))
     flba_bytes_to_lanes.launches += 1
     return out
 

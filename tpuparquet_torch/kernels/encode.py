@@ -210,6 +210,14 @@ def _check_bss(flat, count: int, k: int, lanes: int) -> None:
                          f"{count * lanes} words, got {flat.numel()}")
 
 
+def bss_tile_rows(lanes: int) -> int:
+    """Rows of one tile of KE2 (``csrc/bss_encode.cu``), which takes them
+    from its wrapper: the largest multiple of 16 whose rows of ``4 *
+    lanes`` bytes fit 16 KiB, at least 16.  The checks pin the tiles'
+    edges with it."""
+    return max(16, (16384 // (4 * lanes)) & ~15)
+
+
 def bss_encode_plain(flat, count: int, k: int, lanes: int) -> torch.Tensor:
     """Plain PyTorch version of KE2."""
     w = u32_to_i64(flat[: count * lanes]).reshape(count, lanes)
@@ -232,7 +240,7 @@ def bss_encode_device(flat: torch.Tensor, count: int, k: int,
     out = torch.empty(k * count, dtype=torch.uint8, device=flat.device)
     if count:
         launch("bss_encode", flat.data_ptr(), count, k, lanes,
-               out.data_ptr(), stream_of(out))
+               bss_tile_rows(lanes), out.data_ptr(), stream_of(out))
         bss_encode_device.launches += 1
     return out
 
