@@ -20,7 +20,10 @@
    words at offsets 0, 1 and 3 of a block of 3 mod 4 bytes), K9 on a
    value longer than its block's share, 5,000 empty values across block
    edges, a tail read from the last slot's entry and indices past the
-   dictionary; K7 at the edges of its 4,096-value tiles (totals 4095 to
+   dictionary; K10 at pos 0-3 and 7, on a value over two tiles, on
+   runs of empty values inside a tile and on its edge, on values' bytes
+   one short of and one past a tile, on unpadded offsets and on short
+   blobs; K7 at the edges of its 4,096-value tiles (totals 4095 to
    8193 and 38 tiles), block sizes 1, 3, 127, 128, 256, the stream's
    own and 2^21 + 2, and deltas read from views that are not 8-byte
    aligned; KE1 at widths 1, 7, 31, 32, 33, 63 and 64 (counts 1, 33 and
@@ -29,8 +32,10 @@
    its tiles and past 2^20 (stream starts off 16-byte boundaries) and
    from a view one word into its buffer, KE3 on wrapping int32 and extreme int64 deltas
    at the edges of a warp's 4 blocks and a CTA's 32 and on values one
-   word into their buffer, KE4 at ranges 1, 7 and 2^16 from a negative
-   low bound, KE5 on NaN, infinities, signed zeros and unsigned order;
+   word into their buffer, KE4 on uniform values at ranges 1, 7, 2^16
+   and 2^22 and on either side of its shared-memory threshold, on a hot
+   value and on first occurrences at a warp's and a block's last index,
+   KE5 on NaN, infinities, signed zeros and unsigned order;
    KS1 at 1-4 lanes, all-null and without nulls, into a longer row; KS2
    at widths 0, 1, 7 and 32 on every slot of sp 1, 2 and 4 with indices
    past the dictionary; KS3 with leading nulls and empty strings; KS4
@@ -1000,39 +1005,106 @@ def _check_dict_bytes(rng, dev, cases=None) -> None:
             raise AssertionError(f"K9 {label}: wrong bytes")
 
 
-def _check_bytes_from_blob(rng, dev) -> None:
-    """K10 against its plain version over the whole padded output, and
-    its values against the records it reads."""
-    from tpuparquet_torch.kernels.decode import bucket, \
-        plain_bytes_from_blob, plain_bytes_from_blob_plain
+# K10's cases: (values, max length, pos, bytes cut off the blob, layout).
+# csrc/bytes_from_blob.cu takes tiles of decode.blob_tile_bytes() output
+# bytes and stages up to a quarter as many value ends a tile.  Layouts
+# (blob_lens): "long", one value over two tiles; "empty run", tile / 4 +
+# 100 empty values inside the first tile, whose ends are then searched in
+# device memory; "empty at edge", 300 empty values whose ends lie on the
+# first tile edge; "nb -1" and "nb +1", the values' bytes one short of and
+# one past a tile (the values count then follows from the lengths).  1,023 values leave the offsets unpadded
+# (1,024 entries): the tail runs on from the last value's bytes.  A cut
+# blob makes the tail reach past its end
+BLOB_CASES = {
+    "pos 0": (5000, 40, 0, 0, None),
+    "odd pos": (5000, 40, 7, 0, None),
+    "empty values": (300, 0, 3, 0, None),
+    "short blob": (5000, 40, 5, 999, None),
+    "pos 1": (5000, 40, 1, 0, None),
+    "pos 2": (5000, 40, 2, 0, None),
+    "pos 3": (5000, 40, 3, 0, None),
+    "value over two tiles": (500, 40, 2, 0, "long"),
+    "empty run in a tile": (3000, 40, 1, 0, "empty run"),
+    "empty run at a tile edge": (3000, 40, 3, 0, "empty at edge"),
+    "nb one short of a tile": (0, 40, 3, 0, "nb -1"),
+    "nb one past a tile": (0, 40, 1, 0, "nb +1"),
+    "unpadded tail": (1023, 40, 2, 0, None),
+    "short unpadded tail": (1023, 40, 2, 999, None),
+}
 
-    for label, n, max_len, pos, cut in (("pos 0", 5000, 40, 0, 0),
-                                        ("odd pos", 5000, 40, 7, 0),
-                                        ("empty values", 300, 0, 3, 0),
-                                        ("short blob", 5000, 40, 5, 999)):
-        lens = rng.integers(0, max_len, size=n, endpoint=True)
-        offs = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum(lens, out=offs[1:])
-        nb = int(offs[-1])
-        vals = rng.integers(0, 256, size=nb, dtype=np.uint8)
-        page = [rng.integers(0, 256, size=pos, dtype=np.uint8)]
-        for i in range(n):
-            page += [np.frombuffer(np.uint32(lens[i]).tobytes(), np.uint8),
-                     vals[offs[i] : offs[i + 1]]]
-        blob = np.concatenate(page)
-        # the blob is K8's output, a bucket wide; `cut` shortens it so the
-        # formula's tail reaches past its end
-        wide = np.zeros(bucket(blob.size), np.uint8)
-        wide[: blob.size] = blob
-        wide = wide[: wide.size - cut] if cut else wide
-        offs_pad = np.full(bucket(n + 1), nb, dtype=np.int32)
-        offs_pad[: n + 1] = offs
-        cap = bucket(max(nb, 1))
+
+def blob_lens(rng, n: int, max_len: int, layout=None) -> np.ndarray:
+    """The value lengths of a K10 case (see BLOB_CASES)."""
+    from tpuparquet_torch.kernels.decode import blob_tile_bytes
+
+    tile = blob_tile_bytes()
+    if layout in ("nb -1", "nb +1"):
+        nb = tile - 1 if layout == "nb -1" else tile + 1
+        lens = rng.integers(1, max_len, size=nb, endpoint=True)
+        cs = np.cumsum(lens)
+        i = int(np.searchsorted(cs, nb))
+        lens = lens[: i + 1]
+        lens[-1] -= cs[i] - nb
+        return lens
+    empty = layout in ("empty run", "empty at edge")
+    lens = rng.integers(1 if empty else 0, max_len, size=n, endpoint=True)
+    if layout == "long":
+        lens[n // 2] = 2 * tile + 77
+    elif empty:
+        cs = np.cumsum(lens)
+        i = int(np.searchsorted(cs, tile))  # cs[i - 1] < tile <= cs[i]
+        if layout == "empty at edge":
+            lens[i] -= cs[i] - tile  # value i ends on the tile edge
+            at, run = i + 1, 300
+        else:  # after value i - 1, which ends inside the first tile
+            at, run = i, tile // 4 + 100
+        lens = np.concatenate([lens[:at], np.zeros(run, lens.dtype),
+                               lens[at:]])
+    return lens
+
+
+def blob_case(rng, n, max_len, pos, cut, layout=None):
+    """A K10 input: ``(blob, padded offsets, pos, cap, value bytes)``, the
+    blob a bucket wide as K8 leaves it (``cut`` bytes shorter)."""
+    from tpuparquet_torch.kernels.decode import bucket
+
+    lens = blob_lens(rng, n, max_len, layout)
+    n = lens.size
+    offs = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lens, out=offs[1:])
+    nb = int(offs[-1])
+    vals = rng.integers(0, 256, size=nb, dtype=np.uint8)
+    # records (u32 length, bytes) behind pos level bytes
+    heads = ((pos + offs[:-1] + 4 * np.arange(n))[:, None]
+             + np.arange(4)).reshape(-1)
+    page = np.empty(pos + 4 * n + nb, np.uint8)
+    page[:pos] = rng.integers(0, 256, size=pos, dtype=np.uint8)
+    page[heads] = lens.astype("<u4").view(np.uint8)
+    body = np.ones(page.size, bool)
+    body[:pos] = False
+    body[heads] = False
+    page[body] = vals
+    wide = np.zeros(bucket(page.size), np.uint8)
+    wide[: page.size] = page
+    wide = wide[: wide.size - cut] if cut else wide
+    offs_pad = np.full(bucket(n + 1), nb, dtype=np.int32)
+    offs_pad[: n + 1] = offs
+    return wide, offs_pad, pos, bucket(max(nb, 1)), vals
+
+
+def _check_bytes_from_blob(rng, dev, names=None) -> None:
+    """K10 against its plain version over the whole padded output, and
+    its values against the records it reads, on BLOB_CASES."""
+    from tpuparquet_torch.kernels.decode import plain_bytes_from_blob, \
+        plain_bytes_from_blob_plain
+
+    for label in names or BLOB_CASES:
+        wide, offs_pad, pos, cap, vals = blob_case(rng, *BLOB_CASES[label])
         b_d, o_d = _t(wide, dev), _t(offs_pad, dev)
         got = plain_bytes_from_blob(b_d, o_d, pos, cap)
         _same(f"K10 {label}", got,
               plain_bytes_from_blob_plain(b_d.cpu(), o_d.cpu(), pos, cap))
-        if not np.array_equal(got[:nb].cpu().numpy(), vals):
+        if not np.array_equal(got[: vals.size].cpu().numpy(), vals):
             raise AssertionError(f"K10 {label}: wrong bytes")
 
 
@@ -1301,18 +1373,84 @@ def _check_delta_phase1(rng, dev, names=None) -> None:
                                      "encoder")
 
 
+# KE4's cases: (range, low bound, layout, values; None: 3 * range +
+# 100,000).  Ranges around encode.dict_small_range() (R) take its two
+# paths: a block's table in shared memory up to R, the flag scan past it.
+# Layouts (dict_values): "uniform"; "hot", every value equal but one at
+# each end of the range; "edges", first occurrences at index 31 (the last
+# lane of a warp) and 8,191 (the last value of the first of the small
+# path's blocks, which take 8,192 values each at 16,384 values)
+DICT_CASES = {
+    "range 1": (1, 0, "uniform", None),
+    "range 7": (7, -3, "uniform", None),
+    "range 2^16": (1 << 16, -(1 << 20), "uniform", None),
+    "hot value": (7, -3, "hot", None),
+    "hot value, range 2^16": (1 << 16, 5, "hot", None),
+    "range R - 1": (-1, -3, "uniform", None),
+    "range R": (0, -3, "uniform", None),
+    "range R + 1": (1, -3, "uniform", None),
+    "warp and block edges": (64, 0, "edges", 16_384),
+    "warp and block edges, range 8192": (8192, 0, "edges", 16_384),
+    "range 2^22": (1 << 22, -7, "uniform", (1 << 20) + 3),
+}
+
+
+def dict_values(rng, name: str, dt) -> np.ndarray:
+    """The values of a KE4 case (see DICT_CASES); the range's both ends
+    occur."""
+    from tpuparquet_torch.kernels.encode import dict_small_range
+
+    span, lo, layout, n = DICT_CASES[name]
+    if name.startswith("range R"):
+        span += dict_small_range()
+    n = 3 * span + 100_000 if n is None else n
+    if layout == "hot":
+        v = np.full(n, lo + span // 2, np.int64)
+    elif layout == "edges":
+        v = lo + rng.integers(0, span - 2, size=n)
+        v[31] = v[rng.integers(32, n, size=50)] = lo + span - 2
+        v[8191] = v[rng.integers(8192, n, size=50)] = lo + span - 1
+        v[5] = lo
+        return v.astype(dt)
+    else:
+        v = lo + rng.integers(0, span, size=n)
+    a, b = rng.choice(n, size=2, replace=False)
+    v[a], v[b] = lo + span - 1, lo
+    return v.astype(dt)
+
+
+def _check_dict_build(rng, dev, names=None) -> None:
+    """KE4 against its plain version (order, size, indices) on
+    DICT_CASES, int32 and int64."""
+    from tpuparquet_torch.kernels.encode import dict_build, dict_build_plain
+
+    for name in names or DICT_CASES:
+        for dt in (np.int32, np.int64):
+            v = dict_values(rng, name, dt)
+            lo = int(v.min())
+            span = int(v.max()) - lo + 1
+            flat = _t(v.view(np.uint32), dev)
+            lanes = v.itemsize // 4
+            go, gs, gi = dict_build(flat, lanes, v.size, lo & 0xFFFFFFFF,
+                                    span)
+            wo, ws, wi = dict_build_plain(flat, lanes, v.size,
+                                          lo & 0xFFFFFFFF, span)
+            if gs != ws:
+                raise AssertionError(f"KE4 {name}: {gs} entries, plain {ws}")
+            _same(f"KE4 {dt.__name__} {name} order", go, wo)
+            _same(f"KE4 {dt.__name__} {name} indices", gi, wi)
+
+
 def _check_encode(rng, dev) -> None:
     """KE2-KE5 against their plain versions: KE2 at (k, lanes) (4, 1),
     (4, 2), (8, 2), (3, 1), (9, 3) and (16, 4), counts 1-6, one short of
     and one past a tile and past 2^20 (streams that start off a 16-byte
     boundary), words read from one word into their buffer, and (1601,
-    401), whose streams split over two blocks; KE3 at
-    every case of KE3_CASES; KE4 at ranges 1, 7 and 2^16 with a negative
-    low bound; KE5 on NaN, all NaN, infinities, signed zeros and unsigned
-    order."""
+    401), whose streams split over two blocks; KE3 at every case of
+    KE3_CASES; KE4 at every case of DICT_CASES; KE5 on NaN, all NaN,
+    infinities, signed zeros and unsigned order."""
     from tpuparquet_torch.kernels.encode import bss_encode_device, \
-        bss_encode_plain, bss_tile_rows, dict_build, dict_build_plain, \
-        lanes_min_max, lanes_min_max_plain
+        bss_encode_plain, bss_tile_rows, lanes_min_max, lanes_min_max_plain
 
     for k, lanes in ((4, 1), (4, 2), (8, 2), (3, 1), (9, 3), (16, 4)):
         T = bss_tile_rows(lanes)
@@ -1334,20 +1472,7 @@ def _check_encode(rng, dev) -> None:
               bss_encode_device(flat, count, 1601, 401),
               bss_encode_plain(flat, count, 1601, 401))
     _check_delta_phase1(rng, dev)
-    for dt in (np.int32, np.int64):
-        for span, lo in ((1, 0), (7, -3), (1 << 16, -(1 << 20))):
-            n = 3 * span + 100_000
-            v = (lo + rng.integers(0, span, size=n)).astype(dt)
-            flat = _t(v.view(np.uint32), dev)
-            lanes = v.itemsize // 4
-            go, gs, gi = dict_build(flat, lanes, n, lo & 0xFFFFFFFF, span)
-            wo, ws, wi = dict_build_plain(flat, lanes, n, lo & 0xFFFFFFFF,
-                                          span)
-            if gs != ws:
-                raise AssertionError(f"KE4 range {span}: {gs} entries, "
-                                     f"plain {ws}")
-            _same(f"KE4 {dt.__name__} range {span} order", go, wo)
-            _same(f"KE4 {dt.__name__} range {span} indices", gi, wi)
+    _check_dict_build(rng, dev)
     cases = [
         (np.array([np.nan, 2.5, -1.0, np.nan], np.float32), "float"),
         (np.full(1000, np.nan), "float"),
@@ -2035,16 +2160,21 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
     offs_pad[: nn + 1] = url.offsets
     (offs_d,) = _stage([offs_pad], dev)
     cap = bucket(nb)
-    row("plain_bytes_from_blob", "tpuparquet_torch/csrc/bytes_from_blob.cu",
-        "tpuparquet/kernels/decode.py:361",
-        lambda: plain_bytes_from_blob(blob_d, offs_d, 0, cap),
-        lambda: plain_bytes_from_blob_plain(blob_d, offs_d, 0, cap),
-        nb + offs_pad.nbytes + cap, cap)
+    split = row("plain_bytes_from_blob",
+                "tpuparquet_torch/csrc/bytes_from_blob.cu",
+                "tpuparquet/kernels/decode.py:361",
+                lambda: plain_bytes_from_blob(blob_d, offs_d, 0, cap),
+                lambda: plain_bytes_from_blob_plain(blob_d, offs_d, 0, cap),
+                nb + offs_pad.nbytes + cap, cap)
     got = plain_bytes_from_blob(blob_d, offs_d, 0, cap)
     if not np.array_equal(got[:nb].cpu().numpy(), url.data):
         raise AssertionError("K10 url page: wrong bytes")
     print(f"K10 page: {nn} values, {nb} bytes out (cap {cap}), blob "
           f"{out_cap} bytes", flush=True)
+    moved = k10_moved(nn, nb, cap, blob_d.numel(), 0, offs_pad.size)
+    print(f"K10 url page: {split[1]:g} CUDA launches a call ({split[2]}); "
+          f"{moved / cap:.2f} bytes moved per output byte by the design's "
+          f"arithmetic", flush=True)
 
     # K11: the largest scattered width class of the sensor table's ts page
     # (row group 0), unpacked by K6 as on the main path and placed into
@@ -2279,16 +2409,82 @@ def time_encode_kernels(dv_t, dv_2, dev, launches) -> list:
     span = hi - lo + 1
     off = pc.flat.to(torch.int64) - lo
     ar = torch.arange(n, dtype=torch.int64, device=dev)
-    row("dict_build", "tpuparquet_torch/csrc/dict_build.cu",
-        "tpuparquet/kernels/encode.py:497",
-        lambda: dict_build(pc.flat, 1, n, lo & 0xFFFFFFFF, span)[::2],
-        lambda: dict_build_plain(pc.flat, 1, n, lo & 0xFFFFFFFF, span)[::2],
-        8 * n + 4 * span, 10 * n,
-        library=lambda: torch.full((span,), n, dtype=torch.int64,
-                                   device=dev).scatter_reduce_(
-            0, off, ar, "amin"))
+    split = row("dict_build", "tpuparquet_torch/csrc/dict_build.cu",
+                "tpuparquet/kernels/encode.py:497",
+                lambda: dict_build(pc.flat, 1, n, lo & 0xFFFFFFFF, span)[::2],
+                lambda: dict_build_plain(pc.flat, 1, n, lo & 0xFFFFFFFF,
+                                         span)[::2],
+                8 * n + 4 * span, 10 * n,
+                library=lambda: torch.full((span,), n, dtype=torch.int64,
+                                           device=dev).scatter_reduce_(
+                    0, off, ar, "amin"))
     print(f"KE4 page: {n} values over a range of {span}", flush=True)
+    print(f"KE4 passenger_count page: {split[1]:g} CUDA launches a call "
+          f"({split[2]}); {ke4_moved(n, 1, span) / n:.2f} bytes moved per "
+          f"value by the design's arithmetic", flush=True)
+    dict_build_uniform(dev)
     return out
+
+
+def k10_moved(nn: int, nb: int, cap: int, blob_size: int, pos: int,
+              n_offs: int) -> int:
+    """Device-memory bytes K10's design moves on a page, by its
+    arithmetic (no counter is read): the records' bytes (values and
+    length prefixes) and the tail's sources read once from the blob, each
+    value's end once, the output written once.  The tiles' two searches
+    read a few sectors of the offsets each, from L2, and are not
+    counted."""
+    from tpuparquet_torch.kernels.decode import blob_tile_bytes
+
+    start = pos + nb + 4 * (n_offs - 1)  # the tail's first source byte
+    tail = max(min(cap - nb, blob_size - start), 0)
+    tail += 1 if start + cap - nb > blob_size else 0  # the clipped byte
+    tiles = -(-cap // blob_tile_bytes())
+    return nb + 4 * nn + tail + 4 * (nn + tiles) + cap
+
+
+def ke4_moved(n: int, lanes: int, span: int) -> int:
+    """Device-memory bytes KE4's design moves for ``n`` values over a
+    range of ``span``, by its arithmetic: at or below the small range the
+    values read twice (whole sectors of the lane words), the indices
+    written once, the range table filled, claimed by each block of the
+    first pass and read back by the ranking block and by each gather
+    block, the order written; past it the flag scan: the values read
+    three times (first, scan, gather), the range table read at each value
+    twice (scan, gather), the n-word scan written and read, the indices
+    written, the table filled, claimed and ranked."""
+    from tpuparquet_torch.kernels.encode import dict_small_range
+
+    if span <= dict_small_range():
+        blocks = -(-n // 8192)
+        return 8 * lanes * n + 4 * n + 4 * span * (2 * blocks + 3)
+    return 12 * lanes * n + 20 * n + 16 * span
+
+
+def dict_build_uniform(dev, n: int = 1_250_000, span: int = 1 << 16) -> None:
+    """KE4 on ``n`` uniform random values over a range of ``span`` (no hot
+    value; by default past the small range, the flag scan's path), held
+    against its plain version; its device time and launches a call.
+    Calls only ``encode.dict_build``, whose signature the parent shares,
+    so the same function times the parent's kernel from its checkout."""
+    from tpuparquet_torch.kernels.encode import dict_build, dict_build_plain
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    flat = torch.randint(0, span, (n,), dtype=torch.int32, device=dev,
+                         generator=g)
+    flat[:2] = torch.tensor([0, span - 1], dtype=torch.int32, device=dev)
+    got, want = (dict_build(flat, 1, n, 0, span),
+                 dict_build_plain(flat, 1, n, 0, span))
+    err = max(_max_err(got[0], want[0]), _max_err(got[2], want[2]),
+              abs(got[1] - want[1]))
+    if err:
+        raise AssertionError(f"KE4 range {span}: max abs diff {err} against "
+                             "the plain version")
+    split = device_split(lambda: dict_build(flat, 1, n, 0, span))
+    bound, _ = _bound_ms(8 * n + 4 * span, 0)
+    print(f"KE4 {n} uniform values over a range of {span}: device "
+          f"{_us(split)} a call, {split[1]:g} CUDA launches ({split[2]}); "
+          f"bound {1e3 * bound:.1f} us; max_abs_err 0", flush=True)
 
 
 def _device_groups(reader, dev) -> list:

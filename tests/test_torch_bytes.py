@@ -10,6 +10,8 @@ writing, the schema DSL) to the JAX package's on the same inputs.
 """
 
 import io
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -39,6 +41,9 @@ from tpuparquet_torch.kernels.device import _padded_len, _put_all, _Stager
 from tpuparquet_torch.kernels.hybrid import plan_stream_args
 from tpuparquet_torch.native import TOO_MANY_DISTINCT
 from tpuparquet_torch.stats import collect_stats
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
@@ -155,21 +160,40 @@ def _one_run_plan(idx: np.ndarray, w: int):
     return plan_stream_args(sc, n, w)
 
 
-# (values, max length, pos, bytes cut off the blob): the cases of K10
+# (values, max length, pos, bytes cut off the blob, layout): the cases of
+# K10.  The layouts are chip_smoke.blob_lens's, at the edges of K10's
+# tiles (decode.blob_tile_bytes): a value over two tiles, runs of empty
+# values inside a tile (more ends than a tile stages) and on its edge, the
+# values' bytes one short of and one past a tile.  1,023 values leave the
+# offsets unpadded, so the tail runs on from the last value
 BLOB_CASES = {
-    "pos 0": (3000, 40, 0, 0),
-    "odd pos": (3000, 40, 7, 0),
-    "empty values": (300, 0, 3, 0),
-    "short blob": (3000, 40, 5, 999),
-    "empty blob": (0, 0, 0, None),
+    "pos 0": (3000, 40, 0, 0, None),
+    "odd pos": (3000, 40, 7, 0, None),
+    "empty values": (300, 0, 3, 0, None),
+    "short blob": (3000, 40, 5, 999, None),
+    "empty blob": (0, 0, 0, None, None),
+    "pos 1": (3000, 40, 1, 0, None),
+    "pos 2": (3000, 40, 2, 0, None),
+    "pos 3": (3000, 40, 3, 0, None),
+    "value over two tiles": (500, 40, 2, 0, "long"),
+    "empty run in a tile": (3000, 40, 1, 0, "empty run"),
+    "empty run at a tile edge": (3000, 40, 3, 0, "empty at edge"),
+    "nb one short of a tile": (0, 40, 3, 0, "nb -1"),
+    "nb one past a tile": (0, 40, 1, 0, "nb +1"),
+    "unpadded tail": (1023, 40, 2, 0, None),
+    "short unpadded tail": (1023, 40, 2, 999, None),
 }
 
 
 @pytest.mark.parametrize("case", sorted(BLOB_CASES))
 def test_plain_bytes_from_blob_matches_jax(case):
-    n, max_len, pos, cut = BLOB_CASES[case]
+    n, max_len, pos, cut, layout = BLOB_CASES[case]
     rng = np.random.default_rng(len(case))
-    lens = rng.integers(0, max_len, size=n, endpoint=True)
+    if layout is None:
+        lens = rng.integers(0, max_len, size=n, endpoint=True)
+    else:
+        lens = chip_smoke.blob_lens(rng, n, max_len, layout)
+    n = lens.size
     col = ByteArrayColumn(np.concatenate([[0], np.cumsum(lens)]),
                           rng.integers(0, 256, size=int(lens.sum()),
                                        dtype=np.uint8))

@@ -1,5 +1,6 @@
-"""The page CRC switch: ``FileReader(verify_crc=)`` and
-``TPQ_PAGE_CRC_VERIFY``, held against the JAX package.
+"""The page CRC switches, held against the JAX package: on the read side
+``FileReader(verify_crc=)`` and ``TPQ_PAGE_CRC_VERIFY``, on the write
+side ``FileWriter(page_crc=)`` and ``TPQ_PAGE_CRC``.
 
 A file with one flipped byte in a data page reads in both packages when
 the check is off (the same, wrong, values) and raises in both when it is
@@ -20,7 +21,11 @@ from tpuparquet.kernels.device import read_row_groups_device as \
     jax_read_row_groups_device
 from tpuparquet.stats import collect_stats as jax_collect_stats
 from tpuparquet_torch.errors import CorruptPageError
+from tpuparquet_torch.format.compact import CompactReader
+from tpuparquet_torch.format.metadata import CompressionCodec, PageHeader, \
+    decode_struct
 from tpuparquet_torch.io.reader import FileReader
+from tpuparquet_torch.io.writer import FileWriter
 from tpuparquet_torch.kernels.device import read_row_groups_device
 from tpuparquet_torch.stats import collect_stats
 
@@ -126,3 +131,69 @@ def test_argument_overrides_environment(monkeypatch):
     with pytest.raises(CorruptPageError):
         list(read_row_groups_device(FileReader(_flipped(), verify_crc=True),
                                     device="cpu"))
+
+
+def _columns() -> dict:
+    """5,000 rows of ``required int64 a; required double b``."""
+    rng = np.random.default_rng(0)
+    return {"a": rng.integers(0, 1000, 5000).astype(np.int64),
+            "b": rng.random(5000)}
+
+
+def _write_pair(**kw) -> tuple[bytes, bytes]:
+    """The same rows from the port's and the JAX package's writer, SNAPPY,
+    other options at their defaults: ``(ours, theirs)``."""
+    schema = "message m { required int64 a; required double b; }"
+    out = []
+    for writer, codec in ((FileWriter, CompressionCodec.SNAPPY),
+                          (JaxFileWriter, JaxCodec.SNAPPY)):
+        buf = io.BytesIO()
+        w = writer(buf, schema, codec=codec, **kw)
+        w.write_columns(_columns())
+        w.close()
+        out.append(buf.getvalue())
+    return out[0], out[1]
+
+
+def _crc_field_bytes(blob: bytes) -> tuple[int, int]:
+    """``(page headers that carry a CRC, bytes of those CRC fields)``:
+    each header re-encoded with and without its CRC."""
+    n = size = 0
+    for rg in FileReader(blob).meta.row_groups:
+        for cc in rg.columns:
+            cm = cc.meta_data
+            start = cm.data_page_offset
+            if cm.dictionary_page_offset is not None:
+                start = min(start, cm.dictionary_page_offset)
+            r = CompactReader(blob, start, start + cm.total_compressed_size)
+            while r.pos < r.end:
+                ph = decode_struct(PageHeader, r)
+                r.pos += ph.compressed_page_size
+                if ph.crc is not None:
+                    with_crc = len(ph.to_bytes())
+                    ph.crc = None
+                    n += 1
+                    size += with_crc - len(ph.to_bytes())
+    return n, size
+
+
+def test_writer_environment_drops_page_crc_as_reference(monkeypatch):
+    """Under ``TPQ_PAGE_CRC=0`` neither writer puts a CRC in a page
+    header, and each file shrinks by exactly its CRC fields' bytes;
+    ``page_crc=True`` beats the variable."""
+    monkeypatch.delenv("TPQ_PAGE_CRC", raising=False)
+    with_crc = _write_pair()
+    monkeypatch.setenv("TPQ_PAGE_CRC", "0")
+    without = _write_pair()
+    forced = _write_pair(page_crc=True)
+    for side, on, off, on_again in zip(("port", "jax"), with_crc, without,
+                                       forced):
+        n, size = _crc_field_bytes(on)
+        assert n > 0 and size > 0, side
+        assert _crc_field_bytes(off) == (0, 0), side
+        assert len(on) - len(off) == size, side
+        assert on_again == on, side
+    # the port's file without CRCs reads as the reference's does
+    ours, theirs, st, jst = _read_both(without[0], verify_crc=True)
+    _assert_same(ours, theirs)
+    assert st == jst == {"pages_crc_verified": 0, "crc_mismatches": 0}

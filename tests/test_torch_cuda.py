@@ -61,9 +61,9 @@ def test_transport_kernel_matches_plain_version(cuda, check):
 def test_bytes_kernel_matches_plain_version(cuda, check):
     """K9 (page_dict_bytes: single-run and run-table index streams, width
     0, an empty dictionary blob, an exact bucket, an all-null page, a
-    dictionary over several 16 MB pieces) and K10 (plain_bytes_from_blob:
-    offsets 0 and odd, empty values, a blob shorter than the formula's
-    reach), over the whole padded output."""
+    dictionary over several 16 MB pieces) and K10 (plain_bytes_from_blob
+    on every case of chip_smoke.BLOB_CASES), over the whole padded
+    output."""
     getattr(chip_smoke, check)(np.random.default_rng(2), cuda)
     torch.cuda.synchronize(cuda)
 
@@ -88,6 +88,33 @@ def test_dict_bytes_block_edges_match_plain_version(cuda, case):
     share, empty values across block edges, a tail read from the last
     slot's entry past non_null, indices past the dictionary."""
     chip_smoke._check_dict_bytes(np.random.default_rng(5), cuda, [case])
+    torch.cuda.synchronize(cuda)
+
+
+@pytest.mark.parametrize("case", ["pos 1", "pos 2", "pos 3",
+                                  "value over two tiles",
+                                  "empty run in a tile",
+                                  "empty run at a tile edge",
+                                  "nb one short of a tile",
+                                  "nb one past a tile", "unpadded tail",
+                                  "short unpadded tail"])
+def test_blob_tile_edges_match_plain_version(cuda, case):
+    """K10 where its design has edges: source offsets 1-3 mod 4, a value
+    over two tiles, empty runs inside a tile (more ends than it stages)
+    and on its edge, the values' bytes one short of and one past a tile,
+    the unpadded tail and a blob it reaches past; the whole padded
+    output."""
+    chip_smoke._check_bytes_from_blob(np.random.default_rng(8), cuda, [case])
+    torch.cuda.synchronize(cuda)
+
+
+@pytest.mark.parametrize("case", sorted(chip_smoke.DICT_CASES))
+def test_dict_build_range_edges_match_plain_version(cuda, case):
+    """KE4 where its design has edges: one hot value, ranges on either
+    side of its shared-memory threshold, first occurrences at the last
+    index of a warp and of a block, ranges 2^16 and 2^22; int32 and
+    int64, order, size and indices."""
+    chip_smoke._check_dict_build(np.random.default_rng(9), cuda, [case])
     torch.cuda.synchronize(cuda)
 
 
@@ -144,7 +171,7 @@ def test_encode_kernels_match_plain_versions(cuda, check):
     (1601, 401), counts 1-6, one short of and one past a tile and past
     2^20 with streams that start off a 16-byte boundary, from a view one
     word into its buffer; delta_phase1 on wrapping int32 and extreme int64 deltas,
-    dict_build at ranges 1, 7 and 2^16 from a negative low bound,
+    dict_build on every case of chip_smoke.DICT_CASES,
     lanes_min_max on NaN, infinities, signed zeros and unsigned order)."""
     getattr(chip_smoke, check)(np.random.default_rng(5), cuda)
     torch.cuda.synchronize(cuda)

@@ -644,20 +644,41 @@ class TestDeviceDictEncode:
         assert struct.unpack("<Q", st.max_value)[0] == int(logical.max())
         assert st.min is None and st.max is None
 
-    @pytest.mark.parametrize("rng_size,lo", [
-        (1, 0), (7, -3), (1 << 16, -(1 << 40)), (1 << 16, 5)])
+    @pytest.mark.parametrize("rng_size,lo,layout", [
+        pytest.param(1, 0, None, id="1-0"),
+        pytest.param(7, -3, None, id="7--3"),
+        pytest.param(1 << 16, -(1 << 40), None, id="65536--1099511627776"),
+        pytest.param(1 << 16, 5, None, id="65536-5"),
+        pytest.param(None, None, "hot value", id="hot-7"),
+        pytest.param(None, None, "hot value, range 2^16", id="hot-65536"),
+        pytest.param(None, None, "range R - 1", id="small-range-1"),
+        pytest.param(None, None, "range R", id="small-range"),
+        pytest.param(None, None, "range R + 1", id="small-range+1"),
+        pytest.param(None, None, "warp and block edges", id="edges-64"),
+        pytest.param(None, None, "warp and block edges, range 8192",
+                     id="edges-8192")])
     @pytest.mark.parametrize("dt", [np.int32, np.int64])
-    def test_dict_build_matches_jax(self, rng_size, lo, dt):
+    def test_dict_build_matches_jax(self, rng_size, lo, layout, dt):
         """KE4's plain version: dictionary, size and indices equal
         ``device_dict_build``'s at ranges 1, 7 and 2^16, with a negative
-        low bound."""
-        if dt == np.int32 and lo < -(1 << 31):
-            lo = -(1 << 20)
-        r = np.random.default_rng(rng_size)
-        n = 3 * rng_size + 1000
-        vals = (lo + r.integers(0, rng_size, n)).astype(dt)
-        vals[r.integers(0, n)] = lo + rng_size - 1  # the full range
-        vals[r.integers(0, n)] = lo
+        low bound; and on the card's edges (``chip_smoke.DICT_CASES``):
+        one hot value, ranges around the kernel's shared-memory threshold
+        (``encode.dict_small_range``, R) and first occurrences at the last
+        index of a warp and of a block."""
+        r = np.random.default_rng(rng_size if layout is None
+                                  else len(layout))
+        if layout is None:
+            if dt == np.int32 and lo < -(1 << 31):
+                lo = -(1 << 20)
+            n = 3 * rng_size + 1000
+            vals = (lo + r.integers(0, rng_size, n)).astype(dt)
+            vals[r.integers(0, n)] = lo + rng_size - 1  # the full range
+            vals[r.integers(0, n)] = lo
+        else:
+            vals = chip_smoke.dict_values(r, layout, dt)
+            n = vals.size
+            lo = int(vals.min())
+            rng_size = int(vals.max()) - lo + 1
         got, pull = device_dict_build(_dv(vals))
         want, jpull = jax_encode.device_dict_build(_jdv(vals))
         assert got.dtype == want.dtype

@@ -52,6 +52,7 @@ __all__ = [
     "crc_verify_default",
     "encode_values",
     "page_crc32",
+    "page_crc_default",
     "verify_page_crc",
     "scan_levels_v1",
     "scan_levels_v2",
@@ -87,6 +88,12 @@ def page_crc32(*segments) -> int:
     for seg in segments:
         crc = zlib.crc32(seg, crc)
     return crc - (1 << 32) if crc >= (1 << 31) else crc
+
+
+def page_crc_default() -> bool:
+    """Write-side gate: emit ``PageHeader.crc``?  On unless
+    ``TPQ_PAGE_CRC=0``; per writer, ``FileWriter(page_crc=...)``."""
+    return os.environ.get("TPQ_PAGE_CRC", "1") != "0"
 
 
 def crc_verify_default() -> bool:

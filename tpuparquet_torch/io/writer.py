@@ -33,7 +33,7 @@ from ..format.metadata import CompressionCodec, Encoding, FileMetaData, \
 from ..format.schema import Schema
 from ..kernels.encode import DeviceValues
 from .chunk import is_unsigned, write_chunk
-from .pages import SUPPORTED_DATA_ENCODINGS
+from .pages import SUPPORTED_DATA_ENCODINGS, page_crc_default
 
 __all__ = ["FileWriter"]
 
@@ -95,11 +95,13 @@ class FileWriter:
     (``message m { required int64 a; optional int32 b; }``);
     ``column_encodings`` maps a leaf's dotted name to its value encoding
     (default PLAIN); ``allow_dict=False`` writes PLAIN columns without a
-    dictionary.  Use as a context manager or call :meth:`close`."""
+    dictionary; ``page_crc`` puts a CRC32 in every page header (None:
+    on unless ``TPQ_PAGE_CRC=0``).  Use as a context manager or call
+    :meth:`close`."""
 
     def __init__(self, f, schema, *,
                  codec: CompressionCodec = CompressionCodec.UNCOMPRESSED,
-                 page_crc: bool = True, data_page_v2: bool = False,
+                 page_crc: bool | None = None, data_page_v2: bool = False,
                  column_encodings: dict | None = None,
                  allow_dict: bool = True):
         self._f = f
@@ -126,7 +128,9 @@ class FileWriter:
                 raise ValueError(f"encoding {enc.name} not allowed for "
                                  f"column {path!r} ({leaf.type.name})")
         self.codec = CompressionCodec(codec)
-        self.page_crc = page_crc
+        # page CRC32 in every PageHeader (None: TPQ_PAGE_CRC, on unless 0)
+        self.page_crc = bool(page_crc_default() if page_crc is None
+                             else page_crc)
         self.data_page_v2 = data_page_v2
         self.allow_dict = allow_dict
         self.row_groups: list[RowGroup] = []

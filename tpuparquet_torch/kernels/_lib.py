@@ -36,15 +36,15 @@ KERNELS = {
     "snappy_expand": [_P, _P, _I, _P, _L, ctypes.c_int32, _L, _L, _P, _P,
                       _P, _P, _P],
     "dict_bytes": [_P, _L, _P, _L, _P, _I, _L, _L, _P, _P, _L, _P],
-    "bytes_from_blob": [_P, _L, _P, _L, _I, _P, _L, _P],
+    "bytes_from_blob": [_P, _L, _P, _L, _I, _P, _L, _I, _P],
     "delta_scatter": [_P, _P, _P, _P, _L, _L, _P, _P, _L, _P],
     "bss_to_lanes": [_P, _L, _I, _I, _P, _P],
     "flba_to_lanes": [_P, _L, _I, _I, _I, _P, _P],
     "pack_bits": [_P, _P, _L, _P, _L, _I, _P, _P],
     "bss_encode": [_P, _L, _I, _I, _I, _P, _P],
     "delta_encode": [_P, _L, _I, _L, _P, _P, _P, _P, _P, _P, _P],
-    "dict_build": [_P, _I, _L, ctypes.c_uint32, _L, _P, _P, _P, _P, _P, _P,
-                   _P],
+    "dict_build": [_P, _I, _L, ctypes.c_uint32, _L, _I, _P, _P, _P, _P, _P,
+                   _P, _P, _P],
     "min_max": [_P, _L, _I, _I, _P, _P],
     "scatter_dense": [_P, _L, _P, _P, _L, _I, _P, _L, _P],
     "spmd_step": [_P, _L, _P, _P, _P, _P, _I, _P, _L, _I, _L, _L, _L, _I,

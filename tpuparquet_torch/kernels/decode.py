@@ -32,7 +32,8 @@ __all__ = [
     "page_dict_fixed", "page_dict_fixed_plain",
     "page_dict_fixed_levels_tbl", "page_plain_fixed_levels_tbl",
     "page_dict_bytes", "page_dict_bytes_plain",
-    "plain_bytes_from_blob", "plain_bytes_from_blob_plain",
+    "blob_tile_bytes", "plain_bytes_from_blob",
+    "plain_bytes_from_blob_plain",
     "levels_to_validity", "levels_to_validity_plain",
     "planes_to_words", "planes_to_words_plain",
     "DeltaPlan", "delta_scan", "delta_scan_plain",
@@ -261,6 +262,15 @@ def page_dict_bytes(dict_offsets: torch.Tensor, dict_data: torch.Tensor,
 page_dict_bytes.launches = 0
 
 
+def blob_tile_bytes() -> int:
+    """Output bytes of one tile of K10 (``csrc/bytes_from_blob.cu``),
+    which takes them from its wrapper: 8 KiB, whose values' ends a block
+    stages in shared memory up to ``blob_tile_bytes() // 4`` of them (a
+    tile with more searches them in device memory) beside the blob span
+    they select.  The checks pin the tiles' edges with it."""
+    return 8192
+
+
 def plain_bytes_from_blob_plain(blob, out_offsets, pos: int,
                                 total_bytes: int) -> torch.Tensor:
     """Plain PyTorch version of K10, in the reference's int32
@@ -302,7 +312,7 @@ def plain_bytes_from_blob(blob: torch.Tensor, out_offsets: torch.Tensor,
     out = torch.empty(total_bytes, dtype=torch.uint8, device=dev)
     launch("bytes_from_blob", blob.data_ptr(), blob.numel(),
            out_offsets.data_ptr(), out_offsets.numel(), pos, out.data_ptr(),
-           total_bytes, stream_of(out))
+           total_bytes, blob_tile_bytes(), stream_of(out))
     plain_bytes_from_blob.launches += 1
     return out
 

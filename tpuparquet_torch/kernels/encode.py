@@ -50,6 +50,7 @@ __all__ = [
     "bss_encode_device", "bss_encode_plain",
     "delta_encode_device", "delta_phase1", "delta_phase1_plain",
     "device_dict_build", "dict_build", "dict_build_plain",
+    "dict_small_range",
     "lanes_min_max", "lanes_min_max_plain",
     "pack_bits", "pack_bits_plain", "pack_u32_device", "pack_u64_device",
 ]
@@ -497,6 +498,15 @@ def dict_build_plain(flat, lanes: int, count: int, lo_lane: int, rng: int):
     return order.to(torch.int32), dsize, rank[off].to(torch.int32)
 
 
+def dict_small_range() -> int:
+    """The largest range KE4 (``csrc/dict_build.cu``) interns in shared
+    memory, which it takes from its wrapper: 2,048 entries (a block's
+    first-occurrence table of 8 KiB, the last block's sort keys of 16
+    KiB); past it the flag scan over the values is as fast on uniform
+    values.  The checks pin the threshold's edges with it."""
+    return 2048
+
+
 def dict_build(flat: torch.Tensor, lanes: int, count: int, lo_lane: int,
                rng: int):
     """First-occurrence intern of ``count`` integers whose low lanes,
@@ -518,17 +528,17 @@ def dict_build(flat: torch.Tensor, lanes: int, count: int, lo_lane: int,
         return dict_build_plain(flat, lanes, count, lo_lane, rng)
     dev = flat.device
     check_tensor(flat, "flat", torch.int32, dev)
-
-    def empty(n):
-        return torch.empty(n, dtype=torch.int32, device=dev)
-
-    first, incl = empty(rng), empty(count)
-    sums, dsize = empty((count + 1023) // 1024), empty(1)
-    order, indices = empty(min(count, rng)), empty(count)
-    launch("dict_build", flat.data_ptr(), lanes, count, lo_lane, rng,
-           first.data_ptr(), incl.data_ptr(), sums.data_ptr(),
-           dsize.data_ptr(), order.data_ptr(), indices.data_ptr(),
-           stream_of(order))
+    small = dict_small_range()
+    # one allocation: first (then the rank table), counter, dsize, order,
+    # indices, and above the small range the flag scan's incl and sums
+    scan = (0, 0) if rng <= small else (count, (count + 1023) // 1024)
+    sizes = (rng, 1, 1, min(count, rng), count) + scan
+    first, counter, dsize, order, indices, incl, sums = torch.empty(
+        sum(sizes), dtype=torch.int32, device=dev).split(sizes)
+    launch("dict_build", flat.data_ptr(), lanes, count, lo_lane, rng, small,
+           first.data_ptr(), counter.data_ptr(), incl.data_ptr(),
+           sums.data_ptr(), dsize.data_ptr(), order.data_ptr(),
+           indices.data_ptr(), stream_of(order))
     dict_build.launches += 1
     n_dict = int(dsize.item())
     return order[:n_dict], n_dict, indices
