@@ -38,8 +38,15 @@
    KE5 on NaN, infinities, signed zeros and unsigned order;
    KS1 at 1-4 lanes, all-null and without nulls, into a longer row; KS2
    at widths 0, 1, 7 and 32 on every slot of sp 1, 2 and 4 with indices
-   past the dictionary; KS3 with leading nulls and empty strings; KS4
-   with padding rows, on word and byte rows.
+   past the dictionary, and at the edges of its tiles (STEP_EDGE_CASES:
+   counts around a tile, padded positions clamped into a bit-packed last
+   run, an RLE run over a tile edge, shares on sp 3 that start off
+   16-byte boundaries, a tile that meets more runs than a block
+   stages); KS3 with leading nulls and empty strings, and at the edges
+   of its tiles (DENSIFY_CASES: slots around a tile and 9 tiles of
+   look-back, all nulls, no values, no slots, no mask, 15-17 data bytes,
+   a data view 3 bytes in, padded rows, rows of a block that start off
+   16-byte boundaries); KS4 with padding rows, on word and byte rows.
 3. Writes the NYC-Taxi-shaped config-2 file of ``bench.py`` (seed 42, 8
    row groups, 50,000,000 values by default) with the port's writer and
    reads it through ``read_row_groups_device`` on the card with the
@@ -91,7 +98,9 @@
    that leave their tile, CUDA launches a call and bytes moved per
    output byte (K9: launches and bytes too); KE1-KE5 at phase 5's pages
    and KS1-KS4 at phase 6's shapes (phases 5 and 6 run first: their
-   launches fill the KE and KS rows).
+   launches fill the KE and KS rows), KS2 and KS3 with their launches a
+   call and bytes moved by their designs' arithmetic, KS2 also at tiles
+   of 128, 256 and 512 positions.
 5. The write path: the sensor table of 3f and config 2 of 3 are read
    on the card, every column goes through ``DeviceColumn.as_values()``
    (optional columns with the mask of their read), and the writer that
@@ -116,6 +125,9 @@
    dictionary; each unit equals its row group's read.  ``run()`` and
    each gather are timed best of 3, with ``gather_reshard_s``.
 
+Before phase 1 it prints the card's name and power limit (as
+``nvidia-smi --query-gpu=name,power.limit`` gives them) and the host's
+usable CPU count (``os.sched_getaffinity``), which bounds host planning.
 Every kernel must have launched on the paths of phases 3 to 3h, 5 and 6;
 the counts are set to 0 just before each path's read or write and read
 just after.  Exits non-zero, printing no result, when CUDA is
@@ -1535,6 +1547,188 @@ def _step_inputs(batch, dictionary, dev):
         _as_i32(dictionary).to(dev)
 
 
+def hybrid_runs(runs, width: int) -> bytes:
+    """A hybrid stream of the given runs, in order: ``(n, v)`` an RLE run
+    of n values v, an array a bit-packed run (a multiple of 8 values)."""
+    from tpuparquet_torch.cpu.bitpack import pack
+
+    out = bytearray()
+    for r in runs:
+        if isinstance(r, tuple):
+            out += _varint(r[0] << 1) + int(r[1]).to_bytes(
+                (width + 7) // 8, "little")
+        else:
+            out += _varint((r.size // 8) << 1 | 1) + pack(
+                r.astype(np.uint64), width)
+    return bytes(out)
+
+
+# KS2 where its tiles have edges (T = gather.spmd_tile_positions()):
+# name -> (the stream counts as a function of T, or a layout, width,
+# dictionary shape, count), count None for stack_hybrid_plans' bucket.  Counts T - 1,
+# T and T + 1; a unit of exactly R = 32 runs whose last is bit-packed, so
+# the padded positions clamp into it and past its lanes (the other unit
+# is one RLE run, so R stays 32); an RLE run over a tile edge; a count of
+# 3,003 whose shares on sp 3 start off 16-byte boundaries at 1 and 3
+# lanes; a unit of 40 values beside one of 2,000 runs, whose tile meets
+# more runs than a block stages.  Lanes 1, 3 and 8; dictionaries shorter
+# than 2^width.
+STEP_EDGE_CASES = {
+    "tile - 1": (lambda t: (t - 1, 77), 5, (20, 1), None),
+    "tile": (lambda t: (t, t - 1, 5), 4, (9, 3), None),
+    "tile + 1": (lambda t: (t + 1, t, 40), 3, (6, 8), None),
+    "bit-packed last run": ("last bp", 4, (12, 3), None),
+    "rle over a tile edge": ("rle edge", 6, (50, 8), None),
+    "odd count over sp 3": (lambda t: (3003, 1500), 7, (100, 3), 3003),
+    "short unit beside 2,000 runs": ("many runs", 1, (2, 8), None),
+}
+
+
+def step_edge_case(rng, name: str):
+    """A KS2 edge case: ``(streams, counts, width, dictionary, count)``
+    (see STEP_EDGE_CASES)."""
+    from tpuparquet_torch.kernels.gather import spmd_tile_positions
+
+    t = spmd_tile_positions()
+    layout, width, dshape, count = STEP_EDGE_CASES[name]
+    hi = (1 << width) - 1
+
+    def bp(n):
+        return rng.integers(0, hi, size=n, endpoint=True, dtype=np.uint32)
+
+    if layout == "last bp":  # 16 x (RLE of 10, 16 bit-packed): 32 runs
+        runs = [r for k in range(16) for r in ((10, k % 8), bp(16))]
+        streams = [hybrid_runs(runs, width), hybrid_runs([(300, 2)], width)]
+        counts = (416, 300)
+    elif layout == "many runs":  # 1,000 x (RLE of 8, 8 bit-packed)
+        runs = [r for k in range(1000) for r in ((8, k % 2), bp(8))]
+        streams = [hybrid_runs(runs, width), hybrid_runs([(40, 1)], width)]
+        counts = (16_000, 40)
+    elif layout == "rle edge":  # an RLE run over positions t - 48 .. t + 51
+        n = 2 * t + 17
+        rest = n - (t + 52)
+        runs = [bp(t - 48), (100, 5), bp(-(-rest // 8) * 8)]
+        streams, counts = [hybrid_runs(runs, width)], (n,)
+    else:
+        counts = layout(t)
+        streams = [_index_stream(rng, c, width) for c in counts]
+    dictionary = rng.integers(0, 2**32, size=dshape, dtype=np.uint32)
+    return streams, counts, width, dictionary, count
+
+
+def _check_spmd_edges(rng, dev, names=None) -> None:
+    """KS2 against its plain version over the whole output on
+    STEP_EDGE_CASES, on every slot of each sp in 1-4 that divides the
+    count; garbage in the output first, so every word is written."""
+    from tpuparquet_torch.kernels.gather import spmd_step_slot, \
+        spmd_step_slot_plain
+    from tpuparquet_torch.kernels.hybrid import plan_hybrid
+    from tpuparquet_torch.shard.mesh import stack_hybrid_plans
+
+    for name in names or STEP_EDGE_CASES:
+        streams, counts, width, d_np, count = step_edge_case(rng, name)
+        plans = [plan_hybrid(st, c, width) for st, c in zip(streams, counts)]
+        batch = stack_hybrid_plans(plans, count=count)
+        arrays, d = _step_inputs(batch, d_np, dev)
+        U, cnt, lanes = len(plans), batch.count, d_np.shape[1]
+        for sp in (k for k in (1, 2, 3, 4) if cnt % k == 0):
+            local = cnt // sp
+            got = torch.full((U, cnt, lanes), -1, dtype=torch.int32,
+                             device=dev)
+            want = got.clone()
+            for s_ in range(sp):
+                spmd_step_slot(*arrays, d, got, 0, s_ * local, local, width,
+                               batch.n_bp)
+                spmd_step_slot_plain(*arrays, d, want, 0, s_ * local, local,
+                                     width, batch.n_bp)
+            _same(f"KS2 {name} sp {sp}", got, want)
+
+
+# KS3 where its design has edges (T = gather.densify_tile_slots()): name
+# -> (slots as a function of T, null share, layout, L - n - 1, B - nb).  Slots T - 1, T, T + 1
+# and 8 T + 5 (9 tiles of look-back); leading nulls, all nulls with
+# values behind them, all nulls with none (n_packed 0), no slot at all,
+# no mask; nb of 15, 16 and 17 bytes; data from a view 3 bytes into its
+# buffer; L > n + 1 and B > nb.
+DENSIFY_CASES = {
+    "tile - 1": (lambda t: t - 1, 0.3, None, 0, 0),
+    "tile": (lambda t: t, 0.3, "leading", 0, 0),
+    "tile + 1": (lambda t: t + 1, 0.0, "no mask", 0, 0),
+    "9 tiles": (lambda t: 8 * t + 5, 0.4, None, 37, 53),
+    "leading nulls": (lambda t: 5000, 0.2, "leading", 0, 0),
+    "all nulls": (lambda t: 3000, 1.0, None, 0, 0),
+    "n_packed 0": (lambda t: 3000, 1.0, "no values", 2, 9),
+    "no slots": (lambda t: 0, 0.0, "no mask", 5, 7),
+    "nb 15": (lambda t: 20, 0.1, "nb 15", 0, 0),
+    "nb 16": (lambda t: 20, 0.1, "nb 16", 0, 0),
+    "nb 17": (lambda t: 20, 0.1, "nb 17", 3, 1),
+    "data 3 bytes in": (lambda t: t + 100, 0.0, "lead 3", 0, 5),
+    "L > n + 1, B > nb": (lambda t: 2000, 0.25, None, 1000, 999),
+}
+
+
+def densify_case(rng, name: str) -> dict:
+    """A KS3 edge case (see DENSIFY_CASES) as numpy arrays: ``offsets``
+    (n_packed + 1 int32), ``n_packed``, ``mask`` and ``positions`` (None
+    for no mask), ``buf`` and ``lead`` (the data is ``buf[lead:]``),
+    ``L`` and ``B``."""
+    from tpuparquet_torch.kernels.gather import densify_tile_slots
+
+    n_fn, nulls, layout, l_pad, b_pad = DENSIFY_CASES[name]
+    n = n_fn(densify_tile_slots())
+    mask = rng.random(n) >= nulls
+    if layout == "leading":
+        mask[:100] = False
+    n_packed = 0 if layout == "no values" else (
+        500 if nulls == 1.0 else int(mask.sum()))
+    lens = rng.integers(0, 12, size=n_packed)
+    lens[rng.random(n_packed) < 0.2] = 0  # empty strings
+    if layout in ("nb 15", "nb 16", "nb 17"):
+        lens = np.zeros(n_packed, np.int64)
+        np.add.at(lens, rng.integers(0, n_packed, size=int(layout[3:])), 1)
+    offs = np.zeros(n_packed + 1, np.int32)
+    np.cumsum(lens, out=offs[1:])
+    nb = int(offs[-1])
+    lead = 3 if layout == "lead 3" else 0
+    buf = rng.integers(0, 256, size=lead + nb, dtype=np.uint8)
+    plain = layout in ("no mask", "lead 3")
+    return {"offsets": offs, "n_packed": n_packed,
+            "mask": None if plain else mask,
+            "positions": None if plain else _validity(mask),
+            "buf": buf, "lead": lead, "L": n + 1 + l_pad, "B": nb + b_pad}
+
+
+def _check_densify_edges(rng, dev, names=None) -> None:
+    """KS3 against its plain version on DENSIFY_CASES: into fresh rows,
+    and into rows 1 and 2 of a 3-row block whose rows are L + 1 words and
+    B + 3 bytes (rows that start off 16-byte boundaries, a B not a
+    multiple of 16); garbage in every row first."""
+    from tpuparquet_torch.kernels.gather import byte_densify, \
+        byte_densify_plain
+
+    for name in names or DENSIFY_CASES:
+        c = densify_case(rng, name)
+        offs = _t(c["offsets"], dev)
+        m = None if c["mask"] is None else _t(c["mask"], dev).view(
+            torch.bool)
+        p = None if c["positions"] is None else _t(c["positions"], dev)
+        data = _t(c["buf"], dev)[c["lead"]:]
+        L, B = c["L"], c["B"]
+        outs = []
+        for fn in (byte_densify, byte_densify_plain):
+            o = torch.full((L,), -1, dtype=torch.int32, device=dev)
+            b = torch.full((B,), 7, dtype=torch.uint8, device=dev)
+            fn(offs, c["n_packed"], m, p, data, o, b)
+            ob = torch.full((3, L + 1), -1, dtype=torch.int32, device=dev)
+            bb = torch.full((3, B + 3), 7, dtype=torch.uint8, device=dev)
+            for row in (1, 2):
+                fn(offs, c["n_packed"], m, p, data, ob[row], bb[row])
+            outs.append((o, b, ob, bb))
+        for k, part in enumerate(("offsets", "data", "offsets block",
+                                  "data block")):
+            _same(f"KS3 {name} {part}", outs[0][k], outs[1][k])
+
+
 def _check_shard_kernels(rng, dev) -> None:
     """KS1-KS4 against their plain versions on the card."""
     from tpuparquet_torch.kernels.decode import scatter_to_dense, \
@@ -1617,6 +1811,8 @@ def _check_shard_kernels(rng, dev) -> None:
             outs.append((o, b))
         _same(f"KS3 {kind} offsets", outs[0][0], outs[1][0])
         _same(f"KS3 {kind} data", outs[0][1], outs[1][1])
+    _check_spmd_edges(rng, dev)
+    _check_densify_edges(rng, dev)
     # KS4: u_out > n_true, word and byte rows
     for shape, dt in (((13, 2001), torch.int32), ((13, 3001), torch.uint8),
                       ((13, 40, 3), torch.int32)):
@@ -3009,6 +3205,135 @@ def check_dict_decode(label, mesh, streams_by_col, results,
     return launches
 
 
+def _step_at_tile(tile, bw, run_ends, run_is_rle, run_value, run_bp_start,
+                  dictionary, out, unit0, pos0, n_pos, width, n_bp):
+    """KS2 launched at a tile of ``tile`` positions (its wrapper takes
+    ``gather.spmd_tile_positions()``), to time the tile sizes; it counts
+    no launch."""
+    from tpuparquet_torch.kernels._lib import launch, stream_of
+
+    u, R = run_ends.shape
+    launch("spmd_step", bw.data_ptr(), bw.shape[1], run_ends.data_ptr(),
+           run_is_rle.data_ptr(), run_value.data_ptr(),
+           run_bp_start.data_ptr(), R, dictionary.data_ptr(),
+           dictionary.shape[0], dictionary.shape[1], u, pos0, n_pos, tile,
+           max(width, 1), n_bp, out.data_ptr(), out.shape[1], unit0,
+           stream_of(out))
+
+
+def ks2_call(streams_by_col, dev):
+    """KS2 at phase 4's shape, the first dictionary column's 6d batch on
+    the one slot of the 1x1 mesh (every unit, every position), printed as
+    the "KS2 shape" line: ``(call, in_bytes, out_bytes, moved)``, where
+    ``call(fn)`` runs a KS2 function (the wrapper or its plain version)
+    into a fresh output and ``moved`` is the device-memory bytes the
+    design moves by its arithmetic: the output written once, the packed
+    words, the run tables (13 bytes a run) and the dictionary read once,
+    beside the L2 reads of each tile's runs and the staged
+    dictionary."""
+    from tpuparquet_torch.kernels.hybrid import plan_hybrid
+    from tpuparquet_torch.shard.mesh import stack_hybrid_plans
+
+    path, (streams, counts, width, dictionary) = next(iter(
+        streams_by_col.items()))
+    plans = [plan_hybrid(st, c, width) for st, c in zip(streams, counts)]
+    batch = stack_hybrid_plans(plans)
+    arrays, d = _step_inputs(batch, dictionary, dev)
+    U, R = batch.run_ends.shape
+    cnt, (D, lanes) = batch.count, dictionary.shape
+
+    def call(fn):
+        o = torch.empty((U, cnt, lanes), dtype=torch.int32, device=dev)
+        fn(*arrays, d, o, 0, 0, cnt, width, batch.n_bp)
+        return o
+
+    in_bytes = sum(a.numel() * a.element_size() for a in arrays) + 4 * D \
+        * lanes
+    out_bytes = 4 * U * cnt * lanes
+    moved = out_bytes + in_bytes
+    print(f"KS2 shape: {path}, {U} units of {cnt} positions, width "
+          f"{width}, {lanes} lanes, R {R} runs a unit, D {D} entries",
+          flush=True)
+    return call, in_bytes, out_bytes, moved
+
+
+def ks3_call(col, dev):
+    """KS3 at phase 4's shape, one BYTE_ARRAY unit ``col`` (a
+    DeviceColumn) into rows of its own length, printed as the "KS3 shape"
+    line: ``(call, n_bytes, library)``, where ``call(fn)`` runs a KS3
+    function into fresh rows, ``n_bytes`` is the function's count (each
+    input read once, each output written once) and ``library`` the one
+    PyTorch call that computes its core, the running sum of the slot
+    lengths."""
+    offs, data = col.offsets[: col.n_packed + 1], col.data
+    m, p = col.mask, col.positions
+    n, nn, nb = col.num_values, col.n_packed, col.n_bytes
+    L, B = n + 1, nb
+
+    def call(fn):
+        o = torch.empty(L, dtype=torch.int32, device=dev)
+        b = torch.empty(B, dtype=torch.uint8, device=dev)
+        fn(offs, nn, m, p, data, o, b)
+        return o, b
+
+    lens = torch.diff(offs)
+    dl = torch.where(m, lens[p.long()], torch.zeros_like(lens[:1]))
+    n_bytes = 4 * (nn + 1) + n + 4 * n + nb + 4 * L + B
+    print(f"KS3 shape: note unit 0, n {n} slots, n_packed {nn}, nb {nb} "
+          f"bytes, null share {1 - nn / n:.4f}", flush=True)
+    return call, n_bytes, lambda: torch.cumsum(dl, 0, dtype=torch.int32)
+
+
+def ks3_moved(L: int, B: int, n_bytes: int) -> int:
+    """Device-memory bytes KS3's design moves for rows of L offsets and B
+    bytes, by its arithmetic: the function's count ``n_bytes``, an
+    aligned 16-byte vector more at each end of a block's share of the
+    data, the memset of the ticket and the tiles' status words, and each
+    status word written twice and read by about 32 successors'
+    look-back."""
+    from tpuparquet_torch.kernels.gather import densify_tile_slots
+
+    tiles = -(-(L + 3) // densify_tile_slots())
+    blocks = max(tiles, -(-B // 65536))
+    return n_bytes + 32 * blocks + 16 + 8 * tiles * (1 + 2 + 32)
+
+
+def shard_kernel_splits(dev, n_values: int = 50_000_000,
+                        n_groups: int = 8) -> None:
+    """KS2 and KS3 at phase 4's shapes, their inputs rebuilt from the
+    generators (config 2's dictionary index streams; config 4's note, row
+    group 0 as ``read_row_group_device`` decodes it, which is how the
+    scan decodes unit 0): each held against its plain version, with its
+    device time and CUDA launches a call.  Calls only
+    ``gather.spmd_step_slot`` and ``gather.byte_densify``, whose
+    signatures the parent shares, so the same function loaded from this
+    checkout's chip_smoke.py (importlib, by path) times an older
+    checkout's kernels from that checkout's directory."""
+    from tpuparquet_torch.io.reader import FileReader
+    from tpuparquet_torch.kernels.device import read_row_group_device
+    from tpuparquet_torch.kernels.gather import byte_densify, \
+        byte_densify_plain, spmd_step_slot, spmd_step_slot_plain
+
+    blob, _ = build_config2(n_values, n_groups)
+    call2 = ks2_call(dict_index_streams(FileReader(blob)), dev)[0]
+    blob4, _ = build_config4(n_values, n_groups)
+    col = read_row_group_device(FileReader(blob4), 0, device=dev)["note"]
+    call3 = ks3_call(col, dev)[0]
+    for name, call, fn, plain in (
+            ("KS2", call2, spmd_step_slot, spmd_step_slot_plain),
+            ("KS3", call3, byte_densify, byte_densify_plain)):
+        got, want = call(fn), call(plain)
+        err = max(_max_err(g, w) for g, w in zip(
+            got if isinstance(got, tuple) else (got,),
+            want if isinstance(want, tuple) else (want,)))
+        if err:
+            raise AssertionError(f"{name}: max abs diff {err} against the "
+                                 "plain version")
+        split = device_split(lambda: call(fn))
+        print(f"{name} split: device {_us(split)} a call, {split[1]:g} CUDA "
+              f"launches ({split[2]}); max_abs_err 0", flush=True)
+
+
 def time_shard_kernels(c2, c4, streams_by_col, dev, launches) -> list:
     """Phase 4, the sharded scan: KS1-KS4 at phase 6's shapes (row group
     0 of config 2 and config 4 as the 1x1 scan decoded them, the first
@@ -3017,10 +3342,9 @@ def time_shard_kernels(c2, c4, streams_by_col, dev, launches) -> list:
     from tpuparquet_torch.kernels.decode import scatter_to_dense, \
         scatter_to_dense_plain
     from tpuparquet_torch.kernels.gather import byte_densify, \
-        byte_densify_plain, place_rows, place_rows_plain, spmd_step_slot, \
-        spmd_step_slot_plain
-    from tpuparquet_torch.kernels.hybrid import plan_hybrid
-    from tpuparquet_torch.shard.mesh import stack_hybrid_plans
+        byte_densify_plain, densify_tile_slots, place_rows, \
+        place_rows_plain, spmd_step_slot, spmd_step_slot_plain, \
+        spmd_tile_positions
     from tpuparquet_torch.shard.scan import _shard_major
 
     out = []
@@ -3042,48 +3366,40 @@ def time_shard_kernels(c2, c4, streams_by_col, dev, launches) -> list:
         library=lambda: torch.where(m, packed.index_select(0, p), zero))
     # KS2: the first dictionary column's 6d batch, the one slot of the 1x1
     # mesh (every unit, every position)
-    path, (streams, counts, width, dictionary) = next(iter(
-        streams_by_col.items()))
-    plans = [plan_hybrid(st, c, width) for st, c in zip(streams, counts)]
-    batch = stack_hybrid_plans(plans)
-    arrays, d = _step_inputs(batch, dictionary, dev)
-    U, cnt, lanes = batch.run_ends.shape[0], batch.count, dictionary.shape[1]
+    call, in_bytes, out_bytes, moved = ks2_call(streams_by_col, dev)
+    split = row("spmd_step_slot", "tpuparquet_torch/csrc/spmd_step.cu",
+                "tpuparquet/shard/mesh.py:310 decode_step_spmd",
+                lambda: call(spmd_step_slot),
+                lambda: call(spmd_step_slot_plain), in_bytes + out_bytes,
+                out_bytes // 4)
+    print(f"KS2 batch, tiles of {spmd_tile_positions()} positions: "
+          f"{split[1]:g} CUDA launches a call ({split[2]}); "
+          f"{moved / out_bytes:.4f} bytes moved per output byte by the "
+          "design's arithmetic", flush=True)
+    want = call(spmd_step_slot_plain)
+    times = []
+    for t in (128, 256, 512):
+        def at_tile(t=t):
+            return call(lambda *args: _step_at_tile(t, *args))
 
-    def step(fn):
-        o = torch.empty((U, cnt, lanes), dtype=torch.int32, device=dev)
-        fn(*arrays, d, o, 0, 0, cnt, width, batch.n_bp)
-        return o
-
-    in_bytes = sum(a.numel() * a.element_size() for a in arrays) \
-        + d.numel() * 4
-    print(f"KS2 shape: {path}, {U} units of {cnt} positions, width "
-          f"{width}, {lanes} lanes", flush=True)
-    row("spmd_step_slot", "tpuparquet_torch/csrc/spmd_step.cu",
-        "tpuparquet/shard/mesh.py:310 decode_step_spmd",
-        lambda: step(spmd_step_slot), lambda: step(spmd_step_slot_plain),
-        in_bytes + 4 * U * cnt * lanes, U * cnt * lanes)
+        _same(f"KS2 at a tile of {t}", at_tile(), want)
+        times.append(f"{t} {_us(device_split(at_tile))}")
+    print(f"KS2 tile sizes (positions: device time a call): "
+          f"{', '.join(times)}", flush=True)
     # KS3: config 4's optional note, unit 0 (40% nulls); one PyTorch call
     # computes its core, the running sum of the slot lengths
     col = c4["results"][0]["note"]
-    offs, data = col.offsets[: col.n_packed + 1], col.data
-    m, p = col.mask, col.positions
-    n, nn, nb = col.num_values, col.n_packed, col.n_bytes
-    L, B = n + 1, nb
-
-    def densify(fn):
-        o = torch.empty(L, dtype=torch.int32, device=dev)
-        b = torch.empty(B, dtype=torch.uint8, device=dev)
-        fn(offs, nn, m, p, data, o, b)
-        return o, b
-
-    lens = torch.diff(offs)
-    dl = torch.where(m, lens[p.long()], torch.zeros_like(lens[:1]))
-    row("byte_densify", "tpuparquet_torch/csrc/byte_densify.cu",
-        "tpuparquet/shard/scan.py:1711 gather_byte_column (densify "
-        ":1748-1772)",
-        lambda: densify(byte_densify), lambda: densify(byte_densify_plain),
-        4 * (nn + 1) + n + 4 * n + nb + 4 * L + B, n,
-        library=lambda: torch.cumsum(dl, 0, dtype=torch.int32))
+    call, n_bytes, library = ks3_call(col, dev)
+    moved = ks3_moved(col.num_values + 1, col.n_bytes, n_bytes)
+    split = row("byte_densify", "tpuparquet_torch/csrc/byte_densify.cu",
+                "tpuparquet/shard/scan.py:1711 gather_byte_column (densify "
+                ":1748-1772)",
+                lambda: call(byte_densify), lambda: call(byte_densify_plain),
+                n_bytes, col.num_values, library=library)
+    print(f"KS3 note unit 0, tiles of {densify_tile_slots()} slots: "
+          f"{split[1]:g} CUDA launches a call "
+          f"({split[2]}); {moved / n_bytes:.4f} bytes moved per byte of the "
+          "function's count by the design's arithmetic", flush=True)
     # KS4: config 2's pickup_ts as the 2x2 mesh assembles it (8 units,
     # shard-major), permuted to unit order on device 0; one PyTorch call
     # computes it: index_select
@@ -3129,6 +3445,8 @@ def main(argv=None) -> int:
         timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else "nvidia-smi: no output", flush=True)
+    print(f"host: {len(os.sched_getaffinity(0))} usable CPUs "
+          "(os.sched_getaffinity)", flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 

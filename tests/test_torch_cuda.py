@@ -413,6 +413,28 @@ def test_shard_kernels_match_plain_versions(cuda):
     torch.cuda.synchronize(cuda)
 
 
+@pytest.mark.parametrize("case", list(chip_smoke.STEP_EDGE_CASES))
+def test_spmd_tile_edges_match_plain_version(cuda, case):
+    """KS2 where its design has edges (chip_smoke.STEP_EDGE_CASES): counts
+    a tile - 1, a tile and a tile + 1, padded positions clamped into a
+    bit-packed last run, an RLE run over a tile edge, shares that start
+    off 16-byte boundaries, a tile that meets more runs than a block
+    stages; every slot of each sp that divides the count, the whole
+    output."""
+    chip_smoke._check_spmd_edges(np.random.default_rng(10), cuda, [case])
+    torch.cuda.synchronize(cuda)
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.DENSIFY_CASES))
+def test_densify_tile_edges_match_plain_version(cuda, case):
+    """KS3 where its design has edges (chip_smoke.DENSIFY_CASES): slots
+    around a tile and 9 tiles of look-back, nulls, no values, no slots,
+    no mask, 15-17 data bytes, a data view 3 bytes in, padded rows, and
+    rows of a block that start off 16-byte boundaries."""
+    chip_smoke._check_densify_edges(np.random.default_rng(11), cuda, [case])
+    torch.cuda.synchronize(cuda)
+
+
 def _shard_wrappers():
     from tpuparquet_torch.kernels import gather
 

@@ -12,6 +12,8 @@ cursors and epoch shuffles, and the placement errors.
 """
 
 import io
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -28,10 +30,15 @@ from tpuparquet.shard import mesh as jax_mesh
 from tpuparquet.shard import scan as jax_scan
 from tpuparquet.stats import collect_stats as jax_collect_stats
 from tpuparquet_torch.kernels.decode import scatter_to_dense
+from tpuparquet_torch.kernels.gather import byte_densify
 from tpuparquet_torch.kernels.hybrid import plan_hybrid
 from tpuparquet_torch.shard import mesh as port_mesh
 from tpuparquet_torch.shard import scan as port_scan
 from tpuparquet_torch.stats import collect_stats
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke  # noqa: E402
 
 GATHER = ("gather_bytes_moved", "gather_bytes_replicated")
 # (n_devices, sp) of the meshes compared: make_mesh(8), make_mesh(8,
@@ -183,7 +190,12 @@ def test_stack_hybrid_plans_field_by_field(kw):
 
 
 # the stream counts of tests/test_shard.py's SPMD cases, and indices
-# past the dictionary's end
+# past the dictionary's end; then the edges of KS2's tiles
+# (chip_smoke.STEP_EDGE_CASES, whose counts sharded_dict_decode reaches:
+# counts a tile - 1, a tile and a tile + 1, a unit of exactly R runs whose
+# last is bit-packed, an RLE run over a tile edge, a short unit beside one
+# of 2,000 runs; lanes 1, 3 and 8; on the sp 2 meshes count / sp is not a
+# multiple of the tile)
 STEP_CASES = [
     ("five", (200, 333, 512, 100, 777), 6, (64, 2)),
     ("one", (300,), 4, (16, 1)),
@@ -191,16 +203,26 @@ STEP_CASES = [
     ("width0", (100, 40, 9), 0, (3, 1)),
     ("width1", (500, 33), 1, (1, 4)),
     ("width32", (70, 130), 32, (1000, 1)),
-]
+] + [(name, None, None, None) for name, spec
+     in chip_smoke.STEP_EDGE_CASES.items() if spec[3] is None]
+
+
+def _step_case(case):
+    """A STEP_CASES entry's ``(streams, counts, width, dictionary)``."""
+    name, counts, width, dshape = case
+    if counts is None:
+        rng = np.random.default_rng(sum(map(ord, name)))
+        return chip_smoke.step_edge_case(rng, name)[:4]
+    rng = np.random.default_rng(len(counts) * 7 + width)
+    streams = [_stream(rng, c, width) for c in counts]
+    return streams, counts, width, rng.integers(0, 2**32, size=dshape,
+                                                dtype=np.uint32)
 
 
 @pytest.mark.parametrize("n,sp", MESHES)
 @pytest.mark.parametrize("case", STEP_CASES, ids=lambda c: c[0])
 def test_sharded_dict_decode_as_reference(case, n, sp):
-    _, counts, width, dshape = case
-    rng = np.random.default_rng(len(counts) * 7 + width)
-    streams = [_stream(rng, c, width) for c in counts]
-    dictionary = rng.integers(0, 2**32, size=dshape, dtype=np.uint32)
+    streams, counts, width, dictionary = _step_case(case)
     jm, pm = _meshes(n, sp)
     want = jax_mesh.sharded_dict_decode(jm, streams, list(counts), width,
                                         dictionary)
@@ -235,6 +257,98 @@ def test_decode_step_output_as_reference(n, sp):
         *b.arrays(), dictionary)
     assert len(outs) == 1  # every slot is the cpu
     np.testing.assert_array_equal(_u32(outs[0]), want)
+
+
+def _step_output_pair(jm, pm, theirs, ours, dictionary, count=None):
+    """The JAX step's and the port's whole (U, count, lanes) outputs of
+    the same plans on meshes of one shape."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    n_rg = jm.shape["rg"]
+    n_units = max(-(-len(ours) // n_rg) * n_rg, n_rg)
+    a = jax_mesh.stack_hybrid_plans(theirs, n_units=n_units, count=count)
+    b = port_mesh.stack_hybrid_plans(ours, n_units=n_units, count=count)
+    lanes = dictionary.shape[1]
+    step = jax_mesh.decode_step_spmd(jm, a.count, a.width, a.n_bp, lanes)
+    args = [jax.device_put(x, NamedSharding(jm, P("rg")))
+            for x in a.arrays()]
+    want = np.asarray(step(*args, jax.device_put(
+        dictionary, NamedSharding(jm, P()))))
+    (got,) = port_mesh.decode_step_spmd(pm, b.count, b.width, b.n_bp,
+                                        lanes)(*b.arrays(), dictionary)
+    return _u32(got), want
+
+
+@pytest.mark.parametrize("case,n,sp", [
+    (name, n, sp) for name, spec in chip_smoke.STEP_EDGE_CASES.items()
+    for n, sp in ([(6, 3), (1, None)] if spec[3] else
+                  [(8, None), (8, 4), (1, None)])])
+def test_decode_step_tile_edges_as_reference(case, n, sp):
+    """The step's whole output, padding positions included, on the edges
+    of KS2's tiles (chip_smoke.STEP_EDGE_CASES): the padded positions of
+    a unit of exactly R runs clamp into its bit-packed last run and past
+    its lanes; sp 2 and 4 leave count / sp off the tile; a count of
+    3,003 over sp 3 starts shares off 16-byte boundaries."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    streams, counts, width, dictionary, count = chip_smoke.step_edge_case(
+        rng, case)
+    theirs = [jax_plan_hybrid(s, c, width) for s, c in zip(streams, counts)]
+    ours = [plan_hybrid(s, c, width) for s, c in zip(streams, counts)]
+    if case == "bit-packed last run":  # the layout the case is about
+        assert len(ours[0].run_ends) == 32 and not ours[0].run_is_rle[-1]
+    got, want = _step_output_pair(*_meshes(n, sp), theirs, ours, dictionary,
+                                  count)
+    np.testing.assert_array_equal(got, want)
+
+
+# ----------------------------------------------------------------------
+# KS3: byte_densify
+# ----------------------------------------------------------------------
+
+def _jax_densify(c):
+    """The JAX package's densify of one unit (tpuparquet/shard/scan.py
+    gather_byte_column, the per-unit expression and its padding), run in
+    JAX on the CPU.  With no packed value (n_packed 0) every slot is
+    null, and the expression's gather from an empty array is replaced by
+    its outcome, zero lengths."""
+    offs = jnp.asarray(c["offsets"][: c["n_packed"] + 1])
+    lens = offs[1:] - offs[:-1]
+    if c["mask"] is None:
+        dl = lens
+    elif c["n_packed"] == 0:
+        dl = jnp.zeros(c["mask"].size, dtype=lens.dtype)
+    else:
+        dl = jnp.where(jnp.asarray(c["mask"]),
+                       lens[jnp.asarray(c["positions"])],
+                       jnp.zeros((), dtype=lens.dtype))
+    do = jnp.concatenate([jnp.zeros((1,), dtype=lens.dtype),
+                          jnp.cumsum(dl)])
+    data = jnp.asarray(c["buf"][c["lead"]:])
+    return (np.asarray(jnp.pad(do, (0, c["L"] - do.shape[0]), mode="edge")),
+            np.asarray(jnp.pad(data, (0, c["B"] - data.shape[0]))))
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.DENSIFY_CASES))
+def test_byte_densify_as_reference(case):
+    """KS3's plain version against the JAX densify on the edges of KS3's
+    tiles (chip_smoke.DENSIFY_CASES, slot counts from
+    gather.densify_tile_slots): a tile - 1, a tile, a tile + 1 and 9
+    tiles of slots; leading nulls, all nulls, no packed value, no slot,
+    no mask; 15, 16 and 17 data bytes; a data view 3 bytes into its
+    buffer; L > n + 1 and B > nb."""
+    c = chip_smoke.densify_case(np.random.default_rng(sum(map(ord, case))),
+                                case)
+    want_offs, want_data = _jax_densify(c)
+    o = torch.full((c["L"],), -1, dtype=torch.int32)
+    b = torch.full((c["B"],), 7, dtype=torch.uint8)
+    data = torch.from_numpy(c["buf"])[c["lead"]:]
+    byte_densify(torch.from_numpy(c["offsets"]), c["n_packed"],
+                 None if c["mask"] is None else torch.from_numpy(c["mask"]),
+                 None if c["positions"] is None
+                 else torch.from_numpy(c["positions"]), data, o, b)
+    assert want_offs.dtype == np.int32
+    np.testing.assert_array_equal(o.numpy(), want_offs)
+    np.testing.assert_array_equal(b.numpy(), want_data)
 
 
 # ----------------------------------------------------------------------

@@ -59,6 +59,26 @@ __device__ __forceinline__ T block_inclusive_scan(T x, T* smem) {
   return x;
 }
 
+// The 16 bytes from byte `off` of the 16-byte vectors x, y (off < 16).
+__device__ __forceinline__ uint4 select16(uint4 x, uint4 y, uint32_t off) {
+  const uint32_t k = off >> 2, sh = (off & 3) * 8;
+  const uint32_t u0 = k == 0 ? x.x : k == 1 ? x.y : k == 2 ? x.z : x.w;
+  const uint32_t u1 = k == 0 ? x.y : k == 1 ? x.z : k == 2 ? x.w : y.x;
+  const uint32_t u2 = k == 0 ? x.z : k == 1 ? x.w : k == 2 ? y.x : y.y;
+  const uint32_t u3 = k == 0 ? x.w : k == 1 ? y.x : k == 2 ? y.y : y.z;
+  const uint32_t u4 = k == 0 ? y.x : k == 1 ? y.y : k == 2 ? y.z : y.w;
+  return make_uint4(__funnelshift_r(u0, u1, sh), __funnelshift_r(u1, u2, sh),
+                    __funnelshift_r(u2, u3, sh), __funnelshift_r(u3, u4, sh));
+}
+
+// The bytes of word a below `keep` (0..4), the rest from word b.
+__device__ __forceinline__ uint32_t merge(uint32_t a, uint32_t b, int keep) {
+  if (keep >= 4) return a;
+  if (keep <= 0) return b;
+  const uint32_t m = (1u << (8 * keep)) - 1u;
+  return (a & m) | (b & ~m);
+}
+
 inline unsigned grid_for(int64_t n, int threads) {
   const int64_t blocks = (n + threads - 1) / threads;
   return static_cast<unsigned>(blocks > 0 ? blocks : 1);

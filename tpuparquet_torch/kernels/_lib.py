@@ -48,8 +48,9 @@ KERNELS = {
     "min_max": [_P, _L, _I, _I, _P, _P],
     "scatter_dense": [_P, _L, _P, _P, _L, _I, _P, _L, _P],
     "spmd_step": [_P, _L, _P, _P, _P, _P, _I, _P, _L, _I, _L, _L, _L, _I,
-                  _L, _P, _L, _L, _P],
-    "byte_densify": [_P, _L, _P, _P, _L, _P, _P, _L, _P, _L, _P, _L, _P],
+                  _I, _L, _P, _L, _L, _P],
+    "byte_densify": [_P, _L, _P, _P, _L, _I, _P, _P, _L, _P, _L, _P, _L,
+                     _P],
     "place_rows": [_P, _L, _P, _L, _L, _P, _P],
 }
 

@@ -17,8 +17,9 @@ import torch
 from ._lib import check_tensor, launch, stream_of, u32_to_i64
 from .bitunpack import unpack_u32_plain
 
-__all__ = ["spmd_step_slot", "spmd_step_slot_plain", "byte_densify",
-           "byte_densify_plain", "place_rows", "place_rows_plain"]
+__all__ = ["spmd_step_slot", "spmd_step_slot_plain", "spmd_tile_positions",
+           "byte_densify", "byte_densify_plain", "densify_tile_slots",
+           "place_rows", "place_rows_plain"]
 
 _I32_MAX = (1 << 31) - 1
 
@@ -26,6 +27,13 @@ _I32_MAX = (1 << 31) - 1
 # ----------------------------------------------------------------------
 # KS2: one mesh slot's share of the SPMD dictionary decode step
 # ----------------------------------------------------------------------
+
+def spmd_tile_positions() -> int:
+    """Positions of one unit that a block of KS2 decodes (its tiles are
+    cut from the slot's first position; the kernel takes up to 512).
+    ``chip_smoke.py`` phase 4 times the step at 128, 256 and 512."""
+    return 256
+
 
 def _check_step(bw, run_ends, run_is_rle, run_value, run_bp_start,
                 dictionary, out, unit0: int, pos0: int, n_pos: int,
@@ -110,8 +118,8 @@ def spmd_step_slot(bw: torch.Tensor, run_ends, run_is_rle, run_value,
            run_is_rle.data_ptr(), run_value.data_ptr(),
            run_bp_start.data_ptr(), R, dictionary.data_ptr(),
            dictionary.shape[0], dictionary.shape[1], u, pos0, n_pos,
-           max(width, 1), n_bp, out.data_ptr(), out.shape[1], unit0,
-           stream_of(out))
+           spmd_tile_positions(), max(width, 1), n_bp, out.data_ptr(),
+           out.shape[1], unit0, stream_of(out))
     spmd_step_slot.launches += 1
 
 
@@ -121,6 +129,12 @@ spmd_step_slot.launches = 0
 # ----------------------------------------------------------------------
 # KS3: a BYTE_ARRAY unit's densify into its rows of the gathered block
 # ----------------------------------------------------------------------
+
+def densify_tile_slots() -> int:
+    """Slots a block of KS3 scans (the kernel's tile: 8 warps, each lane
+    2 rows of 4 slots)."""
+    return 2048
+
 
 def _densify_slots(n_packed: int, mask, positions) -> int:
     if mask is not None:
@@ -186,13 +200,18 @@ def byte_densify(offsets: torch.Tensor, n_packed: int, mask, positions,
         check_tensor(mask, "mask", torch.bool, dev)
     if positions is not None:
         check_tensor(positions, "positions", torch.int32, dev)
-    sums = torch.empty((n + 1023) // 1024 + 1, dtype=torch.int32, device=dev)
+    # the ticket counter (16 bytes), then one word a tile of the scan,
+    # which starts up to 3 slots before out_offsets
+    tile = densify_tile_slots()
+    L = out_offsets.numel()
+    scratch = torch.empty(2 + (L + 3 + tile - 1) // tile, dtype=torch.int64,
+                          device=dev)
     launch("byte_densify", offsets.data_ptr(), n_packed,
            None if mask is None else mask.data_ptr(),
-           None if positions is None else positions.data_ptr(), n,
-           sums.data_ptr(), out_offsets.data_ptr(), out_offsets.numel(),
-           data.data_ptr(), data.numel(), out_data.data_ptr(),
-           out_data.numel(), stream_of(out_data))
+           None if positions is None else positions.data_ptr(), n, tile,
+           scratch.data_ptr(), out_offsets.data_ptr(), L, data.data_ptr(),
+           data.numel(), out_data.data_ptr(), out_data.numel(),
+           stream_of(out_data))
     byte_densify.launches += 1
 
 
