@@ -10,7 +10,15 @@
    sources in this checkout, one compiler process per source, in
    parallel.
 2. Holds every kernel against its plain PyTorch version on the card, bit
-   for bit over the whole (padded) output: K13 at row lengths 1, 3, 4,
+   for bit over the whole (padded) output: K4 at the edges of its
+   8,192-slot tiles and 4-slot lanes (LEVELS_EDGE_CASES: sizes 1, 3, 4,
+   5, around a tile, 9 tiles + 3 and 2^21 + 3, all null, no nulls,
+   max_def 1 and 3, def levels from views 1-3 words in), K5 at the edges
+   of its 2,048-value tiles (PLANES_EDGE_CASES: counts 1024, 1025, 1027,
+   around a tile and 2^20 + 3, raw slabs 1-3, runs of length 1 (more than
+   a block stages), one run over the page, run ends on tile edges, table
+   slices past 0, lanes 1-4, buffers from views off 16-byte boundaries),
+   each output allocated over garbage; K13 at row lengths 1, 3, 4,
    5, 7, 8, 9, 12, 13, 16, 17, 20, 22, 24 and 1,031, at counts around
    its tiles and from views 1, 3, 5, 8 and 13 bytes into their buffer,
    K3 at 3 and 4 lanes, K12 with k != 4 * lanes, K8 on the copy graph
@@ -88,9 +96,12 @@
    beside its memory/operation bound, its plain version and, where one
    PyTorch call computes the function or its core, that call; the
    device time of one call of the kernel and of the library call from a
-   torch.profiler trace; K7 and KE3 also their CUDA launches a call and
-   the bytes they move a value, K13 and KE2 their launches a call, the
-   bytes their designs move per input byte (arithmetic, not a counter)
+   torch.profiler trace; K4 and K5 also their CUDA launches a call and
+   the bytes their designs move per output byte (arithmetic), K5 its
+   page's spec and the most runs one table meets in a tile; K7 and KE3
+   also their CUDA launches a call and the bytes they move a value, K13
+   and KE2 their launches a call, the bytes their designs move per input
+   byte (arithmetic, not a counter)
    and the page's count % 16, K13's row tiles timed against one thread
    a word at 5-, 6- and 7-byte decimal rows; K8 also
    on a URL page of 3h, and for both K8 pages the doubling rounds their
@@ -128,6 +139,9 @@
 Before phase 1 it prints the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit`` gives them) and the host's
 usable CPU count (``os.sched_getaffinity``), which bounds host planning.
+``read_kernel_splits`` and ``shard_kernel_splits`` time K4, K5, KS2 and
+KS3 alone at phase 4's shapes; they call only the kernels' wrappers, so
+loaded from this file by path they time another checkout's kernels.
 Every kernel must have launched on the paths of phases 3 to 3h, 5 and 6;
 the counts are set to 0 just before each path's read or write and read
 just after.  Exits non-zero, printing no result, when CUDA is
@@ -245,6 +259,12 @@ def _write(schema: str, groups, optional, data_page_v2: bool = False,
 def build_config2(n_values: int, n_groups: int, seed: int = 42):
     """The config-2 file of bench.py (build_config2), written with the
     port's writer.  Returns (file bytes, [(columns, payment mask)])."""
+    groups = config2_groups(n_values, n_groups, seed)
+    return _write(SCHEMA, groups, "payment_type"), groups
+
+
+def config2_groups(n_values: int, n_groups: int, seed: int = 42):
+    """Config 2's row groups, ``[(columns, payment mask)]``."""
     rng = np.random.default_rng(seed)
     per = n_values // 5 // n_groups
     base_ts = 1_700_000_000_000
@@ -261,7 +281,7 @@ def build_config2(n_values: int, n_groups: int, seed: int = 42):
                 0, 5, size=int(pay_mask.sum()), dtype=np.int32),
         }
         groups.append((cols, pay_mask))
-    return _write(SCHEMA, groups, "payment_type"), groups
+    return groups
 
 
 def build_mix(n_values: int, n_groups: int, seed: int = 11):
@@ -687,13 +707,16 @@ def _t(a: np.ndarray, dev) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(dev)
 
 
-def _run_table(rng, count: int, n_runs: int, dtype):
+def _run_table(rng, count: int, n_runs: int, dtype, cuts=None):
     """A bucket-padded run table, as the plane planner stages it: int32
-    ends (padding = count) and values (padding = 0)."""
+    ends (padding = count) and values (padding = 0); the runs end at
+    ``cuts`` (sorted, below count) when given, else at random."""
     from tpuparquet_torch.kernels.decode import bucket
 
-    cuts = np.sort(rng.choice(np.arange(1, count), size=n_runs - 1,
-                              replace=False)).astype(np.int32)
+    if cuts is None:
+        cuts = np.sort(rng.choice(np.arange(1, count), size=n_runs - 1,
+                                  replace=False)).astype(np.int32)
+    n_runs = cuts.size + 1
     cap = bucket(n_runs)
     ends = np.full(cap, count, dtype=np.int32)
     ends[: n_runs - 1] = cuts
@@ -732,6 +755,200 @@ def _check_planes(rng, dev) -> None:
     for lanes, spec in specs:
         _same(f"K5 {spec}", planes_to_words(*dbufs, spec, count, lanes),
               planes_to_words_plain(*cbufs, spec, count, lanes))
+
+
+# K4 where its design has edges (T = decode.validity_tile_slots()): name
+# -> (slots as a function of T, null share, max_def, words the def levels
+# start into their buffer).  Sizes 1, 3, 4 and 5 (short of a lane's 4
+# slots), T - 1, T and T + 1, 9 T + 3 (look-back over several tiles) and
+# 2^21 + 3; all null and no nulls; max_def 1 and 3; views 1, 2 and 3
+# words in (def levels off a 16-byte boundary).
+LEVELS_EDGE_CASES = {
+    "1 slot": (lambda t: 1, 0.3, 1, 0),
+    "3 slots": (lambda t: 3, 0.3, 3, 0),
+    "4 slots": (lambda t: 4, 0.3, 1, 0),
+    "5 slots": (lambda t: 5, 0.3, 3, 0),
+    "tile - 1": (lambda t: t - 1, 0.3, 1, 0),
+    "tile": (lambda t: t, 0.3, 3, 0),
+    "tile + 1": (lambda t: t + 1, 0.05, 1, 0),
+    "9 tiles + 3": (lambda t: 9 * t + 3, 0.4, 3, 0),
+    "2^21 + 3": (lambda t: (1 << 21) + 3, 0.05, 1, 0),
+    "all null": (lambda t: 3 * t + 5, 1.0, 3, 0),
+    "no nulls": (lambda t: 3 * t + 5, 0.0, 1, 0),
+    "view 1 word in": (lambda t: 2 * t + 7, 0.3, 1, 1),
+    "view 2 words in": (lambda t: 2 * t + 6, 0.3, 3, 2),
+    "view 3 words in": (lambda t: 2 * t + 5, 0.5, 1, 3),
+}
+
+
+def levels_case(rng, name: str):
+    """A K4 edge case (see LEVELS_EDGE_CASES): ``(buf, lead, max_def)``,
+    the def levels being ``buf[lead:]`` (int32; a null slot's level is
+    below max_def)."""
+    from tpuparquet_torch.kernels.decode import validity_tile_slots
+
+    n_fn, nulls, max_def, lead = LEVELS_EDGE_CASES[name]
+    n = n_fn(validity_tile_slots())
+    dl = np.where(rng.random(n) < nulls, rng.integers(0, max_def, size=n),
+                  max_def).astype(np.int32)
+    buf = np.concatenate([rng.integers(0, max_def + 1, size=lead,
+                                       dtype=np.int32), dl])
+    return buf, lead, max_def
+
+
+def _dirty(dev, nbytes: int) -> None:
+    """Leave a freed block of ``nbytes`` garbage in the caching allocator,
+    which the next allocation of that size takes: a kernel that leaves a
+    word of its output unwritten then disagrees with its plain version."""
+    if dev.type == "cuda":
+        torch.full((nbytes,), 0xA5, dtype=torch.uint8, device=dev)
+
+
+def _check_levels_edges(rng, dev, names=None) -> None:
+    """K4 against its plain version over the whole output on
+    LEVELS_EDGE_CASES, each output allocated over garbage."""
+    from tpuparquet_torch.kernels.decode import levels_to_validity, \
+        levels_to_validity_plain, validity_tile_slots
+
+    for name in names or LEVELS_EDGE_CASES:
+        buf, lead, max_def = levels_case(rng, name)
+        dl = _t(buf, dev)[lead:]
+        n = dl.numel()
+        _dirty(dev, -(-5 * n // 8) * 8 + 8 * -(-n // validity_tile_slots()))
+        m, p = levels_to_validity(dl, max_def)
+        pm, pp = levels_to_validity_plain(dl.cpu(), max_def)
+        _same(f"K4 {name} mask", m, pm)
+        _same(f"K4 {name} positions", p, pp)
+
+
+# K5 where its design has edges (T = decode.planes_tile_values()): name ->
+# (count as a function of T, the spec's lanes, whether every table slice
+# starts past 0, whether every buffer is a view off a 16-byte boundary).
+# A lane is ("raw32", slab), ("rle32", runs) or ("bytes", 4 planes), a
+# plane ("raw8", slab) or ("rle8", runs); runs are a count, "one" (one
+# run over the page), "unit" (runs of length 1) or "edge" (run ends on
+# every tile edge).  Raw slabs 1-3 start at every offset mod 4 when the
+# count is not a multiple of 4; "runs of length 1" meets more runs a tile
+# than a block stages.
+PLANES_EDGE_CASES = {
+    "count 1024": (lambda t: 1024, (
+        ("bytes", ("raw8", 1), ("raw8", 2), ("rle8", "one"),
+         ("rle8", "one")), ("rle32", "one")), False, False),
+    "count 1025": (lambda t: 1025, (
+        ("raw32", 1), ("bytes", ("raw8", 1), ("raw8", 2), ("raw8", 3),
+                       ("rle8", 40))), True, False),
+    "count 1027": (lambda t: 1027, (
+        ("raw32", 2), ("raw32", 3), ("bytes", ("raw8", 3), ("rle8", 10),
+                                     ("raw8", 1), ("raw8", 2))), True, True),
+    "tile - 1": (lambda t: t - 1, (
+        ("bytes", ("raw8", 1), ("raw8", 2), ("rle8", "edge"),
+         ("rle8", 3)),), False, True),
+    "tile": (lambda t: t, (
+        ("raw32", 1), ("rle32", 50), ("bytes", ("rle8", 9), ("raw8", 3),
+                                      ("raw8", 2), ("rle8", "one")),
+        ("raw32", 3)), True, False),
+    "tile + 1": (lambda t: t + 1, (("rle32", 7), ("raw32", 1)), False,
+                 True),
+    "2^20 + 3": (lambda t: (1 << 20) + 3, (
+        ("bytes", ("raw8", 1), ("raw8", 2), ("rle8", 300), ("rle8", "one")),
+        ("rle32", 1000)), True, True),
+    "runs of length 1": (lambda t: 3 * t + 5, (
+        ("rle32", "unit"), ("rle32", "unit"),
+        ("bytes", ("rle8", "unit"), ("rle8", "unit"), ("raw8", 1),
+         ("rle8", "unit")), ("rle32", "unit")), True, False),
+    "one run over the page": (lambda t: 5000, (
+        ("bytes", ("rle8", "one"), ("rle8", "one"), ("rle8", "one"),
+         ("rle8", "one")), ("rle32", "one")), False, False),
+    "run ends on tile edges": (lambda t: 3 * t + 1, (
+        ("rle32", "edge"), ("bytes", ("rle8", "edge"), ("raw8", 1),
+                            ("rle8", "edge"), ("rle8", "unit"))), True,
+                               True),
+}
+
+
+def _edge_table(rng, count: int, runs, dtype):
+    """A bucket-padded run table with ``runs`` runs (see
+    PLANES_EDGE_CASES)."""
+    from tpuparquet_torch.kernels.decode import planes_tile_values
+
+    if runs == "edge":
+        t = planes_tile_values()
+        cuts = np.unique(np.concatenate([
+            np.arange(t, count, t),
+            rng.choice(np.arange(1, count), size=min(20, count - 1),
+                       replace=False)]))
+        return _run_table(rng, count, 0, dtype, cuts)
+    return _run_table(rng, count, {"one": 1, "unit": count}.get(runs, runs),
+                      dtype)
+
+
+# words (4-byte buffers) or bytes (uint8 buffers) each buffer starts into
+# its view in a case of PLANES_EDGE_CASES that asks for views
+_PLANE_VIEW_LEADS = (1, 2, 3, 3, 1, 1)
+
+
+def planes_case(rng, name: str):
+    """A K5 edge case (see PLANES_EDGE_CASES): ``(bufs, leads, spec,
+    count, lanes)``, the six buffers of planes_to_words (raw32, rle32
+    ends and values, raw8, rle8 ends and values) being ``bufs[k][leads[k]:]``
+    (numpy, u32 words as uint32)."""
+    from tpuparquet_torch.kernels.decode import planes_tile_values
+
+    count_fn, lanes_t, past0, views = PLANES_EDGE_CASES[name]
+    count = count_fn(planes_tile_values())
+    tables = {32: ([], [], 0), 8: ([], [], 0)}
+
+    def table(runs, bits):
+        ends_l, vals_l, start = tables[bits]
+        dtype = np.uint32 if bits == 32 else np.uint8
+        if past0 and start == 0:  # a table of another page first
+            e, v, cap = _edge_table(rng, 64, 5, dtype)
+            ends_l.append(e)
+            vals_l.append(v)
+            start = cap
+        e, v, cap = _edge_table(rng, count, runs, dtype)
+        ends_l.append(e)
+        vals_l.append(v)
+        tables[bits] = (ends_l, vals_l, start + cap)
+        return start, cap
+
+    spec = []
+    for lane in lanes_t:
+        if lane[0] == "raw32":
+            spec.append(lane)
+        elif lane[0] == "rle32":
+            spec.append(("rle32", *table(lane[1], 32)))
+        else:
+            spec.append(("bytes", *(
+                sub if sub[0] == "raw8" else ("rle8", *table(sub[1], 8))
+                for sub in lane[1:])))
+
+    def cat(parts, dtype):
+        return np.concatenate(parts) if parts else np.zeros(1, dtype)
+
+    bufs = [rng.integers(0, 2**32, size=4 * count, dtype=np.uint32),
+            cat(tables[32][0], np.int32), cat(tables[32][1], np.uint32),
+            rng.integers(0, 256, size=4 * count, dtype=np.uint8),
+            cat(tables[8][0], np.int32), cat(tables[8][1], np.uint8)]
+    leads = _PLANE_VIEW_LEADS if views else (0,) * 6
+    bufs = [np.concatenate([rng.integers(0, 200, size=k, dtype=b.dtype), b])
+            for b, k in zip(bufs, leads)]
+    return bufs, leads, tuple(spec), count, len(lanes_t)
+
+
+def _check_planes_edges(rng, dev, names=None) -> None:
+    """K5 against its plain version over the whole output on
+    PLANES_EDGE_CASES, each output allocated over garbage."""
+    from tpuparquet_torch.kernels.decode import planes_to_words, \
+        planes_to_words_plain
+
+    for name in names or PLANES_EDGE_CASES:
+        bufs, leads, spec, count, lanes = planes_case(rng, name)
+        dbufs = [_t(b, dev)[k:] for b, k in zip(bufs, leads)]
+        _dirty(dev, 4 * count * lanes)
+        _same(f"K5 {name}", planes_to_words(*dbufs, spec, count, lanes),
+              planes_to_words_plain(*(b.cpu() for b in dbufs), spec, count,
+                                    lanes))
 
 
 def _check_unpack_u64(rng, dev) -> None:
@@ -1880,7 +2097,9 @@ def check_kernels(dev) -> None:
         pm, pp = levels_to_validity_plain(dl, 2)
         _same(f"K4 mask {size}", m, pm)
         _same(f"K4 positions {size}", p, pp)
+    _check_levels_edges(rng, dev)
     _check_planes(rng, dev)
+    _check_planes_edges(rng, dev)
     _check_unpack_u64(rng, dev)
     _check_delta_scan(rng, dev)
     _check_tokens(rng, dev)
@@ -2107,6 +2326,85 @@ def k8_design(te_d, ts_d, lits_d, out_cap: int, end: int) -> dict:
             "launches": cuda_launches(end), "bytes_per_byte": per_byte}
 
 
+def k4_levels(pay_mask: np.ndarray, dev) -> torch.Tensor:
+    """K4's phase-4 input: payment_type's def levels as the main path
+    expands them, over the slots of K1's single bit-packed run (2^21 at
+    1,250,000 rows), 0 past the rows."""
+    from tpuparquet_torch.cpu.hybrid import encode_hybrid, scan_hybrid
+    from tpuparquet_torch.kernels.hybrid import plan_stream_args
+
+    n = pay_mask.size
+    dl = pay_mask.astype(np.uint32)
+    sc = scan_hybrid(encode_hybrid(dl, 1), n, 1)
+    _, cnt, _, _ = plan_stream_args(sc, n, 1)
+    levels = torch.zeros(cnt, dtype=torch.int32, device=dev)
+    levels[:n] = torch.from_numpy(dl.astype(np.int32)).to(dev)
+    return levels
+
+
+def k4_moved(n: int) -> int:
+    """Device-memory bytes K4's design moves for n slots, by its
+    arithmetic: the def levels read once, the mask and positions written
+    once, the memset of the tiles' status words, and each
+    status word written twice and read by about 32 successors'
+    look-back."""
+    from tpuparquet_torch.kernels.decode import validity_tile_slots
+
+    tiles = -(-n // validity_tile_slots())
+    return 4 * n + 5 * n + 8 * tiles * (1 + 2 + 32)
+
+
+def k5_page(cols: dict, dev):
+    """K5's phase-4 input: trip_distance_mm's page of a config 2 row group
+    through the port's plane planner, staged on ``dev``: ``(staged,
+    arrays, spec, wire)``, the six device buffers, their numpy arrays as
+    the stager holds them, the spec and the planner's wire bytes."""
+    from tpuparquet_torch.kernels.device import _plan_plane_words, \
+        _put_all, _Stager
+
+    col = cols["trip_distance_mm"]
+    stg = _Stager()
+    planned = _plan_plane_words(np.ascontiguousarray(col).view(np.uint8),
+                                col.size, 2, stg)
+    assert planned is not None, "trip_distance_mm: planes rejected"
+    wire, _, spec = planned
+    (staged,), _slab = _put_all([stg], dev)
+    _sync(dev)  # the slab's copy is done before it goes
+    return staged, [a for a, _ in stg.arrays], spec, wire
+
+
+def k5_design(arrays, spec: tuple, count: int, lanes: int):
+    """What K5's design does on one page, from its staged numpy arrays:
+    ``(moved, most)``, the device-memory bytes it moves by its
+    arithmetic (each raw slab read once, each tile's 32-way searches of
+    its first and last value and its range of runs read once a run
+    table, the output written once) and the most runs one run table holds
+    in one tile."""
+    from tpuparquet_torch.kernels.decode import planes_tile_values
+
+    t = planes_tile_values()
+    firsts = np.arange(0, count, t)
+    lasts = np.minimum(firsts + t, count) - 1
+    moved, most = 4 * count * lanes, 0
+    for entry in spec:
+        subs = entry[1:] if entry[0] == "bytes" else (entry,)
+        for sub in subs:
+            if sub[0] in ("raw32", "raw8"):
+                moved += count * (4 if sub[0] == "raw32" else 1)
+                continue
+            ends = arrays[1 if sub[0] == "rle32" else 4][
+                sub[1] : sub[1] + sub[2]]
+            top = sub[2] - 1
+            rf = np.minimum(np.searchsorted(ends, firsts, side="right"), top)
+            rl = np.minimum(np.searchsorted(ends, lasts, side="right"), top)
+            runs = rl - rf + 1
+            most = max(most, int(runs.max()))
+            rounds = max(-(-int(np.log2(max(sub[2], 2))) // 5), 1)
+            moved += int(runs.sum()) * (8 if sub[0] == "rle32" else 5) \
+                + firsts.size * 2 * rounds * 32 * 4
+    return moved, most
+
+
 def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
                  dev, launches) -> list:
     """Phase 4: each kernel at the main paths' page shapes."""
@@ -2128,10 +2426,11 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
         levels_to_validity, levels_to_validity_plain, page_dict_bytes, \
         page_dict_bytes_plain, page_dict_fixed, page_dict_fixed_plain, \
         plain_bytes_from_blob, plain_bytes_from_blob_plain, \
-        plan_delta_i64, planes_to_words_plain, scatter_deltas, \
-        scatter_deltas_plain
-    from tpuparquet_torch.kernels.device import _plan_dba_page, \
-        _plan_plane_words, _put_all, _Stager
+        plan_delta_i64, planes_tile_values, planes_to_words, \
+        planes_to_words_plain, scatter_deltas, scatter_deltas_plain, \
+        validity_tile_slots
+    from tpuparquet_torch.kernels.device import _plan_dba_page, _put_all, \
+        _Stager
     from tpuparquet_torch.kernels.hybrid import expand_hybrid, \
         expand_hybrid_plain, plan_stream_args
     from tpuparquet_torch.kernels.snappy import expand_tokens, \
@@ -2187,31 +2486,35 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
         library=lambda: torch.index_select(dict_d, 0, idx_d))
     # K4: payment_type's expanded def levels (2^21 slots); one PyTorch
     # call computes its core, the running count of the mask
-    levels = torch.zeros(cnt, dtype=torch.int32, device=dev)
-    levels[:n] = torch.from_numpy(dl.astype(np.int32)).to(dev)
+    levels = k4_levels(pay_mask, dev)
+    slots = levels.numel()
     mask_d = levels == 1
-    row("levels_to_validity", "tpuparquet_torch/csrc/levels_to_validity.cu",
-        "tpuparquet/kernels/decode.py:185",
-        lambda: levels_to_validity(levels, 1),
-        lambda: levels_to_validity_plain(levels, 1),
-        4 * cnt + cnt + 4 * cnt, 12 * cnt,
-        library=lambda: torch.cumsum(mask_d, 0, dtype=torch.int32))
+    split = row("levels_to_validity",
+                "tpuparquet_torch/csrc/levels_to_validity.cu",
+                "tpuparquet/kernels/decode.py:185",
+                lambda: levels_to_validity(levels, 1),
+                lambda: levels_to_validity_plain(levels, 1),
+                4 * slots + slots + 4 * slots, 12 * slots,
+                library=lambda: torch.cumsum(mask_d, 0, dtype=torch.int32))
+    print(f"K4 page: {slots} slots, tiles of {validity_tile_slots()}; "
+          f"{split[1]:g} CUDA launches a call ({split[2]}); "
+          f"{k4_moved(slots) / (5 * slots):.4f} bytes moved per output byte "
+          "by the design's arithmetic", flush=True)
 
     # K5: trip_distance_mm's page through the port's plane planner
-    seg = np.ascontiguousarray(cols["trip_distance_mm"]).view(np.uint8)
-    stg = _Stager()
-    planned = _plan_plane_words(seg, n, 2, stg)
-    assert planned is not None, "trip_distance_mm: planes rejected"
-    wire, words_fn, spec = planned
-    (staged,), _slab = _put_all([stg], dev)
-    _sync(dev)
+    staged, arrays, spec, wire = k5_page(cols, dev)
     cpu_staged = [t.cpu() for t in staged]
-    row("planes_to_words", "tpuparquet_torch/csrc/planes_to_words.cu",
-        "tpuparquet/kernels/decode.py:127",
-        lambda: words_fn(staged),
-        lambda: planes_to_words_plain(*cpu_staged, spec, n, 2),
-        wire + 8 * n, 2 * n * 8)
-    print(f"K5 page: spec {spec}, wire {wire} bytes", flush=True)
+    split = row("planes_to_words", "tpuparquet_torch/csrc/planes_to_words.cu",
+                "tpuparquet/kernels/decode.py:127",
+                lambda: planes_to_words(*staged, spec, n, 2),
+                lambda: planes_to_words_plain(*cpu_staged, spec, n, 2),
+                wire + 8 * n, 2 * n * 8)
+    moved, most = k5_design(arrays, spec, n, 2)
+    print(f"K5 page: spec {spec}, wire {wire} bytes, at most {most} runs a "
+          f"table in a tile of {planes_tile_values()} values; "
+          f"{split[1]:g} CUDA launches a call ({split[2]}); "
+          f"{moved / (8 * n):.4f} bytes moved per output byte by the "
+          "design's arithmetic", flush=True)
 
     # K6: wide_delta's page, its deltas' offsets packed at width 39
     mix_cols, _ = mix_groups[0]
@@ -3296,6 +3599,42 @@ def ks3_moved(L: int, B: int, n_bytes: int) -> int:
     tiles = -(-(L + 3) // densify_tile_slots())
     blocks = max(tiles, -(-B // 65536))
     return n_bytes + 32 * blocks + 16 + 8 * tiles * (1 + 2 + 32)
+
+
+def read_kernel_splits(dev, n_values: int = 50_000_000,
+                       n_groups: int = 8) -> None:
+    """K4 and K5 at phase 4's shapes, their inputs rebuilt from the
+    generator (config 2's row group 0: payment_type's def levels and
+    trip_distance_mm's page through the plane planner): each held against
+    its plain version, with its device time and CUDA launches a call.
+    Calls only ``decode.levels_to_validity`` and
+    ``decode.planes_to_words``, whose signatures the parent shares, so the
+    same function loaded from this checkout's chip_smoke.py (importlib, by
+    path) times an older checkout's kernels from that checkout's
+    directory."""
+    from tpuparquet_torch.kernels.decode import levels_to_validity, \
+        levels_to_validity_plain, planes_to_words, planes_to_words_plain
+
+    cols, pay_mask = config2_groups(n_values, n_groups)[0]
+    n = pay_mask.size
+    levels = k4_levels(pay_mask, dev)
+    staged, _, spec, _ = k5_page(cols, dev)
+    cpu_staged = [t.cpu() for t in staged]
+    for name, fn, plain in (
+            ("K4", lambda: levels_to_validity(levels, 1),
+             lambda: levels_to_validity_plain(levels, 1)),
+            ("K5", lambda: planes_to_words(*staged, spec, n, 2),
+             lambda: planes_to_words_plain(*cpu_staged, spec, n, 2))):
+        got, want = fn(), plain()
+        err = max(_max_err(g, w) for g, w in zip(
+            got if isinstance(got, tuple) else (got,),
+            want if isinstance(want, tuple) else (want,)))
+        if err:
+            raise AssertionError(f"{name}: max abs diff {err} against the "
+                                 "plain version")
+        split = device_split(fn, tries=6)
+        print(f"{name} split: device {_us(split)} a call, {split[1]:g} CUDA "
+              f"launches ({split[2]}); max_abs_err 0", flush=True)
 
 
 def shard_kernel_splits(dev, n_values: int = 50_000_000,

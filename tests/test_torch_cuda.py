@@ -56,6 +56,28 @@ def test_transport_kernel_matches_plain_version(cuda, check):
     torch.cuda.synchronize(cuda)
 
 
+@pytest.mark.parametrize("case", list(chip_smoke.LEVELS_EDGE_CASES))
+def test_levels_tile_edges_match_plain_version(cuda, case):
+    """K4 where its design has edges (chip_smoke.LEVELS_EDGE_CASES): sizes
+    around a lane's 4 slots and a tile, look-back over 9 tiles, 2^21 + 3
+    slots, all null, no nulls, max_def 1 and 3, def levels from views 1-3
+    words into their buffer; the whole output, allocated over garbage."""
+    chip_smoke._check_levels_edges(np.random.default_rng(12), cuda, [case])
+    torch.cuda.synchronize(cuda)
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.PLANES_EDGE_CASES))
+def test_planes_tile_edges_match_plain_version(cuda, case):
+    """K5 where its design has edges (chip_smoke.PLANES_EDGE_CASES): counts
+    around a tile and a group of 4 values, raw slabs 1-3 at every offset
+    mod 4, runs of length 1 (more than a block stages), one run over the
+    page, run ends on tile edges, table slices past 0, lanes 1-4, buffers
+    from views off 16-byte boundaries; the whole output, allocated over
+    garbage."""
+    chip_smoke._check_planes_edges(np.random.default_rng(13), cuda, [case])
+    torch.cuda.synchronize(cuda)
+
+
 @pytest.mark.parametrize("check", ["_check_dict_bytes",
                                    "_check_bytes_from_blob"])
 def test_bytes_kernel_matches_plain_version(cuda, check):

@@ -1,11 +1,15 @@
 """K3 and K4 (tpuparquet_torch.kernels.decode) against the JAX package.
 
 The plain versions of the dictionary-page kernel and of
-levels_to_validity are held to ``tpuparquet.kernels.decode``'s
+levels_to_validity (also on K4's edge cases, chip_smoke.LEVELS_EDGE_CASES)
+are held to ``tpuparquet.kernels.decode``'s
 ``page_dict_fixed_tbl``, ``page_dict_fixed_levels_tbl``,
 ``dict_gather_fixed`` and ``levels_to_validity``, bit for bit over the
 whole bucket-padded output, on the same staged buffers.
 """
+
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +25,9 @@ from tpuparquet_torch.cpu.hybrid import encode_hybrid, scan_hybrid
 from tpuparquet_torch.kernels.decode import levels_to_validity, \
     page_dict_fixed, page_dict_fixed_levels_tbl
 from tpuparquet_torch.kernels.hybrid import expand_hybrid, plan_stream_args
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
@@ -130,6 +137,20 @@ def test_levels_to_validity_matches_jax(n, max_def):
     mask, pos = levels_to_validity(torch.from_numpy(dl), max_def)
     jmask, jpos = jax_validity(jnp.asarray(dl), max_def)
     assert mask.dtype == torch.bool and pos.dtype == torch.int32
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(jpos))
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.LEVELS_EDGE_CASES))
+def test_levels_to_validity_edge_cases_match_jax(case):
+    """K4's edge cases (chip_smoke.LEVELS_EDGE_CASES: sizes around a lane's
+    4 slots and the kernel's tiles, look-back over 9 tiles, 2^21 + 3 slots,
+    all null, no nulls, max_def 1 and 3, def levels from views 1-3 words
+    into their buffer) through the port's CPU path and the JAX package."""
+    buf, lead, max_def = chip_smoke.levels_case(
+        np.random.default_rng(13), case)
+    mask, pos = levels_to_validity(torch.from_numpy(buf)[lead:], max_def)
+    jmask, jpos = jax_validity(jnp.asarray(buf[lead:]), max_def)
     np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
     np.testing.assert_array_equal(pos.numpy(), np.asarray(jpos))
 

@@ -124,6 +124,23 @@ def test_plane_planner_matches_jax(name, budget):
     np.testing.assert_array_equal(_u32(ours), vals.view(np.uint32))
 
 
+@pytest.mark.parametrize("case", list(chip_smoke.PLANES_EDGE_CASES))
+def test_planes_to_words_edge_cases_match_jax(case):
+    """K5's edge cases (chip_smoke.PLANES_EDGE_CASES: counts around the
+    kernel's tiles and 4-value groups, raw slabs 1-3, runs of length 1,
+    one run over the page, run ends on tile edges, table slices past 0,
+    lanes 1-4, buffers from views) through the port's CPU path and the
+    JAX package's planes_to_words."""
+    bufs, leads, spec, count, lanes = chip_smoke.planes_case(
+        np.random.default_rng(17), case)
+    views = [b[k:] for b, k in zip(bufs, leads)]
+    ours = planes_to_words(*(_t(v) for v in views), spec, count, lanes)
+    theirs = jax_planes(*(jnp.asarray(v) for v in views), spec, count,
+                        lanes)
+    assert ours.shape == (count * lanes,)
+    np.testing.assert_array_equal(_u32(ours), np.asarray(theirs))
+
+
 @pytest.mark.parametrize("name", sorted(PAGES))
 def test_delta_planner_matches_jax(name):
     vals, ptype = PAGES[name]

@@ -38,7 +38,8 @@
 // - A single-pass scan with decoupled look-back (Merrill and Garland,
 //   2016), as K7's: a tile's status and its 32-bit sum share one 64-bit
 //   word, published by one store, so no fence orders them; warp 0 looks
-//   back 32 tiles a step until it meets a published inclusive prefix.
+//   back 32 tiles a step until it meets a published inclusive prefix
+//   (tpq::look_back in common.cuh, which K4 shares).
 // - Between publishing its sum and looking back, every block copies a
 //   share of the data row, so the copy fills the scan's waits: 16-byte
 //   stores on out_data's own boundaries, each from one or two aligned
@@ -51,7 +52,7 @@
 
 namespace {
 
-using u64 = unsigned long long;
+using tpq::u64;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -64,49 +65,6 @@ constexpr int kBlocksPerSM = 6;            // the launch bound
 constexpr int64_t kCopyChunks = 4096;      // most 16-byte chunks a block
 constexpr int kCopyBatch = 4;              // chunks a thread has in flight
 constexpr unsigned kFull = 0xffffffffu;
-
-// A tile's word: status in the high half (0 none, set by the memset), the
-// tile's sum or inclusive prefix in the low half
-constexpr u64 kAggregate = 1ull << 32, kPrefix = 2ull << 32;
-
-__device__ __forceinline__ u64 load_word(const u64* p) {
-  u64 v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
-               : "=l"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_word(u64* p, u64 v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
-// Warp 0 of tile `tile` > 0: the sum of every slot before the tile.  Lane
-// L watches tile top - L; the window moves back 32 tiles until it holds a
-// published inclusive prefix (tile 0 always publishes one).  While a tile
-// in the window has published nothing, the warp sleeps briefly.
-__device__ __forceinline__ uint32_t look_back(const u64* words, int64_t tile,
-                                              int lane) {
-  uint32_t prefix = 0;
-  for (int64_t top = tile - 1;; top -= 32) {
-    const int64_t p = top - lane;
-    u64 w;
-    for (;;) {
-      w = p >= 0 ? load_word(words + p) : kPrefix;
-      if (!__any_sync(kFull, (w >> 32) == 0)) break;
-      __nanosleep(32);
-    }
-    const unsigned done = __ballot_sync(kFull, (w >> 32) == 2);
-    uint32_t v = static_cast<uint32_t>(w);
-    if (done && lane > __ffs(done) - 1) v = 0;  // behind the nearest prefix
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-    prefix += v;
-    if (done) return prefix;
-  }
-}
 
 // The 16 bytes of out_data from byte b (>= head): the data's bytes there,
 // zero past nb.  `shift` is (data + head) mod 16, so they begin `shift`
@@ -254,7 +212,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
       tile_sum += y;
     }
     if (threadIdx.x == 0) {
-      store_word(words + t, (t == 0 ? kPrefix : kAggregate) | tile_sum);
+      tpq::store_word(words + t,
+                      (t == 0 ? tpq::kPrefix : tpq::kAggregate) | tile_sum);
     }
   }
 
@@ -272,10 +231,10 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
   if (!scan) return;
 
   if (warp == 0 && t > 0) {
-    const uint32_t prefix = look_back(words, t, lane);
+    const uint32_t prefix = tpq::look_back(words, t, lane);
     if (lane == 0) {
       s_prefix = prefix;
-      store_word(words + t, kPrefix | (prefix + tile_sum));
+      tpq::store_word(words + t, tpq::kPrefix | (prefix + tile_sum));
     }
   }
   __syncthreads();

@@ -79,6 +79,54 @@ __device__ __forceinline__ uint32_t merge(uint32_t a, uint32_t b, int keep) {
   return (a & m) | (b & ~m);
 }
 
+// A single-pass scan with decoupled look-back (Merrill and Garland,
+// 2016) over tiles numbered in the order their blocks start.  A tile's
+// word holds its status in the high half (0 none, as the caller's memset
+// leaves it; kAggregate; kPrefix) and its 32-bit sum or inclusive prefix
+// in the low half, so one store publishes both and no fence orders them.
+using u64 = unsigned long long;
+constexpr u64 kAggregate = 1ull << 32, kPrefix = 2ull << 32;
+
+__device__ __forceinline__ u64 load_word(const u64* p) {
+  u64 v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_word(u64* p, u64 v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+// Warp 0 of tile `tile` > 0: the sum (mod 2^32) of every slot before the
+// tile.  Lane L watches tile top - L; the window moves back 32 tiles
+// until it holds a published inclusive prefix (tile 0 always publishes
+// one).  While a tile in the window has published nothing, the warp
+// sleeps briefly.  Every lane of the warp must call it.
+__device__ __forceinline__ uint32_t look_back(const u64* words, int64_t tile,
+                                              int lane) {
+  uint32_t prefix = 0;
+  for (int64_t top = tile - 1;; top -= 32) {
+    const int64_t p = top - lane;
+    u64 w;
+    for (;;) {
+      w = p >= 0 ? load_word(words + p) : kPrefix;
+      if (!__any_sync(0xffffffffu, (w >> 32) == 0)) break;
+      __nanosleep(32);
+    }
+    const unsigned done = __ballot_sync(0xffffffffu, (w >> 32) == 2);
+    uint32_t v = static_cast<uint32_t>(w);
+    if (done && lane > __ffs(done) - 1) v = 0;  // behind the nearest prefix
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    prefix += v;
+    if (done) return prefix;
+  }
+}
+
 inline unsigned grid_for(int64_t n, int threads) {
   const int64_t blocks = (n + threads - 1) / threads;
   return static_cast<unsigned>(blocks > 0 ? blocks : 1);

@@ -29,8 +29,8 @@ KERNELS = {
     "unpack_u32": [_P, _P, _L, _I, _P],
     "expand_hybrid": [_P, _P, _I, _P, _L, _I, _L, _P],
     "page_dict_fixed": [_P, _L, _I, _P, _I, _P, _L, _P],
-    "levels_to_validity": [_P, _L, _I, _P, _P, _P, _P],
-    "planes_to_words": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P],
+    "levels_to_validity": [_P, _L, _I, _I, _P, _P, _P, _P],
+    "planes_to_words": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P, _P],
     "unpack_u64": [_P, _P, _P, _L, _I, _P],
     "delta_scan": [_P, _P, _P, _P, _I, _L, _L, _U64, _P, _P, _P],
     "snappy_expand": [_P, _P, _I, _P, _L, ctypes.c_int32, _L, _L, _P, _P,

@@ -16,6 +16,8 @@ def-level tail holds 0.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -34,8 +36,8 @@ __all__ = [
     "page_dict_bytes", "page_dict_bytes_plain",
     "blob_tile_bytes", "plain_bytes_from_blob",
     "plain_bytes_from_blob_plain",
-    "levels_to_validity", "levels_to_validity_plain",
-    "planes_to_words", "planes_to_words_plain",
+    "levels_to_validity", "levels_to_validity_plain", "validity_tile_slots",
+    "planes_to_words", "planes_to_words_plain", "planes_tile_values",
     "DeltaPlan", "delta_scan", "delta_scan_plain",
     "expand_delta_i32", "expand_delta_i64",
     "plan_delta_i32", "plan_delta_i64",
@@ -327,6 +329,12 @@ def levels_to_validity_plain(def_levels: torch.Tensor, max_def: int):
     return mask, torch.clamp(positions, min=0)
 
 
+def validity_tile_slots() -> int:
+    """Slots a block of K4 scans (the kernel's tile: 8 warps, each lane
+    8 rows of 4 slots)."""
+    return 8192
+
+
 def levels_to_validity(def_levels: torch.Tensor, max_def: int):
     """Def levels -> ``(mask, positions)``: ``mask = def == max_def`` and
     ``positions[i]`` = the number of non-null slots before slot ``i``
@@ -339,13 +347,16 @@ def levels_to_validity(def_levels: torch.Tensor, max_def: int):
         raise ValueError(f"unsupported device {dev}")
     check_tensor(def_levels, "def_levels", torch.int32, dev)
     n = def_levels.numel()
-    sums = torch.empty(max((n + 1023) // 1024, 1), dtype=torch.int32,
-                       device=dev)
-    mask = torch.empty(n, dtype=torch.bool, device=dev)
-    positions = torch.empty(n, dtype=torch.int32, device=dev)
-    launch("levels_to_validity", def_levels.data_ptr(), n, max_def,
-           sums.data_ptr(), mask.data_ptr(), positions.data_ptr(),
-           stream_of(mask))
+    tile = validity_tile_slots()
+    # one allocation: positions (16-byte aligned), mask, then the scan's
+    # status word a tile at the next 8-byte boundary
+    at = -(-5 * n // 8) * 8
+    buf = torch.empty(at + 8 * -(-n // tile), dtype=torch.uint8, device=dev)
+    positions = buf[: 4 * n].view(torch.int32)
+    mask = buf[4 * n : 5 * n].view(torch.bool)
+    launch("levels_to_validity", def_levels.data_ptr(), n, max_def, tile,
+           buf.data_ptr() + at, mask.data_ptr(), positions.data_ptr(),
+           stream_of(buf))
     levels_to_validity.launches += 1
     return mask, positions
 
@@ -418,9 +429,17 @@ def planes_to_words_plain(raw32, rle32_ends, rle32_vals, raw8, rle8_ends,
     return i64_to_u32_bits(torch.stack(words, dim=1).reshape(-1))
 
 
-def _spec_array(spec: tuple, lanes: int) -> np.ndarray:
-    """The static spec as K5's descriptor: per lane ``kind, a, b`` then
-    ``sub_kind[4], sub_a[4], sub_b[4]``."""
+def planes_tile_values() -> int:
+    """Values a block of K5 rebuilds, every lane (the kernel's tile: 256
+    threads, each 2 rows of 4 values)."""
+    return 2048
+
+
+@functools.lru_cache(maxsize=1024)
+def _spec_array(spec: tuple, lanes: int) -> bytes:
+    """The static spec as K5's descriptor, built once per ``(spec,
+    lanes)`` as the reference jits once per static spec: per lane
+    ``kind, a, b`` then ``sub_kind[4], sub_a[4], sub_b[4]``, int32."""
     if len(spec) != lanes or not 1 <= lanes <= 4:
         raise ValueError(f"spec has {len(spec)} entries for {lanes} lanes")
     out = np.zeros((lanes, 15), dtype=np.int32)
@@ -434,7 +453,7 @@ def _spec_array(spec: tuple, lanes: int) -> np.ndarray:
         else:
             out[lane, 1] = entry[1]
             out[lane, 2] = entry[2] if entry[0] == "rle32" else 0
-    return out.reshape(-1)
+    return out.tobytes()
 
 
 def planes_to_words(raw32: torch.Tensor, rle32_ends: torch.Tensor,
@@ -486,7 +505,7 @@ def planes_to_words(raw32: torch.Tensor, rle32_ends: torch.Tensor,
     out = torch.empty(count * lanes, dtype=torch.int32, device=dev)
     launch("planes_to_words", raw32.data_ptr(), rle32_ends.data_ptr(),
            rle32_vals.data_ptr(), raw8.data_ptr(), rle8_ends.data_ptr(),
-           rle8_vals.data_ptr(), desc.ctypes.data, count, lanes,
+           rle8_vals.data_ptr(), desc, count, lanes, planes_tile_values(),
            out.data_ptr(), stream_of(out))
     planes_to_words.launches += 1
     return out
