@@ -10,7 +10,18 @@
    sources in this checkout, one compiler process per source, in
    parallel.
 2. Holds every kernel against its plain PyTorch version on the card, bit
-   for bit over the whole (padded) output: K4 at the edges of its
+   for bit over the whole (padded) output: K1 at the edges of its
+   2,048-lane tiles and 4-lane groups (UNPACK_EDGE_CASES: widths 0, 1,
+   2, 3, 7, 8, 13, 16, 17, 31 and 32 at counts 1, 3, 4, 5, 31, 32, 33,
+   around a tile, 3 tiles + 5 and 2^21 + 3, words from views 1-3 words
+   in, every stream ending exactly at ceil(count / 32) * width words),
+   K2 at the edges of its 2,048-slot tiles (HYBRID_EDGE_CASES:
+   rate_code's shape, one RLE run, one bit-packed run kept as a table, a
+   run-dense width-1 stream whose tiles meet more runs than a block
+   stages, run ends on tile edges, runs of length 0, a table without
+   padding runs, bit-packed lanes clamped past nbp and below 0, widths 0,
+   1, 3, 8, 17 and 32, counts 1, 5, around a tile and 2^21 + 3, words
+   and table from views off 16-byte boundaries), K4 at the edges of its
    8,192-slot tiles and 4-slot lanes (LEVELS_EDGE_CASES: sizes 1, 3, 4,
    5, around a tile, 9 tiles + 3 and 2^21 + 3, all null, no nulls,
    max_def 1 and 3, def levels from views 1-3 words in), K5 at the edges
@@ -96,8 +107,9 @@
    beside its memory/operation bound, its plain version and, where one
    PyTorch call computes the function or its core, that call; the
    device time of one call of the kernel and of the library call from a
-   torch.profiler trace; K4 and K5 also their CUDA launches a call and
-   the bytes their designs move per output byte (arithmetic), K5 its
+   torch.profiler trace; K1, K2, K4 and K5 also their CUDA launches a
+   call and the bytes their designs move per output byte (arithmetic),
+   K2 its table's run count and the most runs one tile meets, K5 its
    page's spec and the most runs one table meets in a tile; K7 and KE3
    also their CUDA launches a call and the bytes they move a value, K13
    and KE2 their launches a call, the bytes their designs move per input
@@ -139,9 +151,12 @@
 Before phase 1 it prints the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit`` gives them) and the host's
 usable CPU count (``os.sched_getaffinity``), which bounds host planning.
-``read_kernel_splits`` and ``shard_kernel_splits`` time K4, K5, KS2 and
-KS3 alone at phase 4's shapes; they call only the kernels' wrappers, so
+``read_kernel_splits`` and ``shard_kernel_splits`` time K1, K2, K4, K5,
+KS2 and KS3 alone at phase 4's shapes (K1 also at widths 3, 13 and 32,
+K2 also on a run-dense stream); they call only the kernels' wrappers, so
 loaded from this file by path they time another checkout's kernels.
+``read_passes`` reads four of the files a few times on the host clock,
+for an A/B of another checkout's read passes in the same way.
 Every kernel must have launched on the paths of phases 3 to 3h, 5 and 6;
 the counts are set to 0 just before each path's read or write and read
 just after.  Exits non-zero, printing no result, when CUDA is
@@ -949,6 +964,203 @@ def _check_planes_edges(rng, dev, names=None) -> None:
         _same(f"K5 {name}", planes_to_words(*dbufs, spec, count, lanes),
               planes_to_words_plain(*(b.cpu() for b in dbufs), spec, count,
                                     lanes))
+
+
+# K1 where its design has edges (T = bitunpack.unpack_tile_lanes()): name
+# -> (widths, lanes as a function of T, words the packed stream starts
+# into its buffer).  Counts 1, 3, 4 and 5 (around a thread's 4 lanes), 31,
+# 32 and 33 (around a 32-lane block), T - 1, T, T + 1 and 3 T + 5; views
+# 1, 2 and 3 words in (the words off a 16-byte boundary); 2^21 + 3 lanes
+# at every width, on the card only.  Every stream ends exactly at
+# ceil(count / 32) * width words, the end of its buffer.
+UNPACK_WIDTHS = (0, 1, 2, 3, 7, 8, 13, 16, 17, 31, 32)
+UNPACK_EDGE_CASES = {
+    **{f"count {n}": (UNPACK_WIDTHS, lambda t, n=n: n, 0)
+       for n in (1, 3, 4, 5, 31, 32, 33)},
+    "tile - 1": (UNPACK_WIDTHS, lambda t: t - 1, 0),
+    "tile": (UNPACK_WIDTHS, lambda t: t, 0),
+    "tile + 1": (UNPACK_WIDTHS, lambda t: t + 1, 0),
+    "3 tiles + 5": (UNPACK_WIDTHS, lambda t: 3 * t + 5, 0),
+    "view 1 word in": (UNPACK_WIDTHS, lambda t: t + 37, 1),
+    "view 2 words in": (UNPACK_WIDTHS, lambda t: 2 * t + 3, 2),
+    "view 3 words in": (UNPACK_WIDTHS, lambda t: 3 * t + 1, 3),
+    **{f"2^21 + 3 width {w}": ((w,), lambda t: (1 << 21) + 3, 0)
+       for w in UNPACK_WIDTHS},
+}
+
+
+def unpack_case(rng, name: str) -> list:
+    """A K1 edge case (see UNPACK_EDGE_CASES): ``[(width, buf, lead,
+    count, values)]``, one a width, the packed words being ``buf[lead:]``
+    (uint32, exactly ceil(count / 32) * width of them)."""
+    from tpuparquet_torch.cpu.bitpack import pack
+    from tpuparquet_torch.kernels.bitunpack import pad_to_words, \
+        unpack_tile_lanes
+
+    widths, count_fn, lead = UNPACK_EDGE_CASES[name]
+    count = count_fn(unpack_tile_lanes())
+    out = []
+    for w in widths:
+        vals = rng.integers(0, (1 << w) - 1 if w else 0, size=count,
+                            endpoint=True, dtype=np.uint64)
+        words = pad_to_words(np.frombuffer(pack(vals, w), np.uint8), w,
+                             count).reshape(-1) if w else \
+            np.zeros(0, np.uint32)
+        buf = np.concatenate([rng.integers(0, 2**32, size=lead,
+                                           dtype=np.uint32), words])
+        out.append((w, buf, lead, count, vals))
+    return out
+
+
+def _check_unpack_edges(rng, dev, names=None) -> None:
+    """K1 against its plain version and the generator over the whole
+    output on UNPACK_EDGE_CASES, each output allocated over garbage."""
+    from tpuparquet_torch.kernels.bitunpack import unpack_u32, \
+        unpack_u32_plain
+
+    for name in names or UNPACK_EDGE_CASES:
+        for w, buf, lead, count, vals in unpack_case(rng, name):
+            words = _t(buf, dev)[lead:]
+            _dirty(dev, 4 * count)
+            got = unpack_u32(words, w, count)
+            _same(f"K1 {name} width {w}", got,
+                  unpack_u32_plain(words.cpu(), w, count))
+            if not np.array_equal(_u32(got), vals.astype(np.int64)):
+                raise AssertionError(f"K1 {name} width {w}: wrong values")
+
+
+# K2 where its design has edges (T = hybrid.hybrid_tile_slots()): name ->
+# (layout, width, output slots as a function of T, whether the words and
+# the table are views off 16-byte boundaries).  Layouts: rate_code's index
+# stream (25 runs, 12 RLE, in a table of 32); one RLE run over the stream;
+# one bit-packed run kept as a table; a run-dense width-1 stream (RLE runs
+# of 1-8 slots between bit-packed runs of 8), whose tiles meet more runs
+# than a block stages; run ends on every tile edge; runs of length 0; a
+# table of exactly 32 runs without padding, whose last run is bit-packed
+# and ends before the count, so the slots past it clamp past its lanes and
+# past nbp; bit-packed runs whose bp_start + within passes nbp, or whose
+# bp_start is negative; random runs ("mixed") at widths 0 (read at width
+# 1), 1, 3, 8, 17 and 32 and counts 1, 5, T - 1, T + 1 and 2^21 + 3 (on
+# the card only).
+HYBRID_EDGE_CASES = {
+    "rate_code shape": ("rate_code", 3, lambda t: 5000, False),
+    "one RLE run": ("one rle", 8, lambda t: 3 * t + 5, False),
+    "one bit-packed run": ("one bp", 17, lambda t: 2 * t + 3, True),
+    "run-dense width 1": ("dense", 1, lambda t: 3 * t + 5, False),
+    "run ends on tile edges": ("tile edges", 3, lambda t: 4 * t, False),
+    "runs of length 0": ("zero", 8, lambda t: 2 * t + 1, True),
+    "no padding runs": ("no padding", 32, lambda t: t + 37, False),
+    "bp_start past nbp": ("past nbp", 17, lambda t: 2 * t + 9, True),
+    "width 0": ("mixed", 0, lambda t: t + 1, False),
+    "width 32": ("mixed", 32, lambda t: 3 * t + 5, True),
+    "cnt 1": ("mixed", 3, lambda t: 1, False),
+    "cnt 5": ("mixed", 1, lambda t: 5, True),
+    "tile - 1": ("mixed", 17, lambda t: t - 1, False),
+    "tile + 1": ("mixed", 8, lambda t: t + 1, True),
+    "2^21 + 3": ("mixed", 3, lambda t: (1 << 21) + 3, True),
+}
+
+
+def _hybrid_runs(rng, layout: str, cnt: int, width: int, t: int):
+    """The runs of a HYBRID_EDGE_CASES layout over ``cnt`` slots, in
+    order: ``(is_rle, length, value)``; lengths may sum past ``cnt``."""
+    hi = (1 << width) - 1
+
+    def rle(n):
+        return True, n, int(rng.integers(0, hi, endpoint=True))
+
+    def cut(points, rle_first=False):
+        ends = np.unique(np.concatenate([points, [cnt]]))
+        lens = np.diff(ends, prepend=0)
+        return [rle(int(n)) if (k % 2 == 0) == rle_first else
+                (False, int(n), 0) for k, n in enumerate(lens)]
+
+    if layout == "rate_code":  # 13 bit-packed runs around 12 RLE runs
+        return cut(np.sort(rng.choice(np.arange(1, cnt), 24, replace=False)))
+    if layout == "one rle":
+        return [rle(cnt)]
+    if layout == "one bp":
+        return [(False, cnt, 0)]
+    if layout == "tile edges":
+        return cut(np.concatenate([np.arange(t, cnt, t), rng.integers(
+            1, cnt, size=300)]), rle_first=True)
+    if layout == "zero":  # runs of length 0 (repeated ends), one at slot 0
+        runs = [rle(0)]
+        for k, r in enumerate(cut(np.append(rng.integers(1, cnt, size=60),
+                                            t))):
+            runs += [r, rle(0) if k % 2 else (False, 0, 0)]
+        return runs
+    if layout == "no padding":  # 32 runs; the last is bit-packed and ends
+        # 37 slots short of cnt
+        runs = [rle(int(rng.integers(1, 40))) if k % 2 else
+                (False, 8 * int(rng.integers(1, 6)), 0) for k in range(31)]
+        return runs + [(False, cnt - 37 - sum(n for _, n, _ in runs), 0)]
+    runs, total = [], 0
+    while total < cnt:
+        if layout == "dense":
+            r = rle(int(rng.integers(1, 9))) if len(runs) % 2 else \
+                (False, 8, 0)
+        else:  # "mixed", "past nbp"
+            r = rle(int(rng.integers(1, 300))) if len(runs) % 2 else \
+                (False, 8 * int(rng.integers(1, 50)), 0)
+        runs.append(r)
+        total += r[1]
+    return runs
+
+
+def hybrid_case(rng, name: str):
+    """A K2 edge case (see HYBRID_EDGE_CASES): ``(words_buf, words_lead,
+    table_buf, table_lead, cnt, width, nbp)``: the bit-packed lanes are
+    ``words_buf[words_lead:]`` (uint32, exactly ceil(nbp / 32) *
+    max(width, 1) words, random bits) and the flat (4, R) run table
+    ``table_buf[table_lead:]``, padded with RLE runs of 0 ending at cnt to
+    a power-of-two R (at least 32) as the planner pads it."""
+    from tpuparquet_torch.kernels.decode import bucket
+    from tpuparquet_torch.kernels.hybrid import hybrid_tile_slots
+
+    t = hybrid_tile_slots()
+    layout, width, cnt_fn, views = HYBRID_EDGE_CASES[name]
+    cnt = cnt_fn(t)
+    runs = _hybrid_runs(rng, layout, cnt, width, t)
+    lens = np.array([n for _, n, _ in runs], dtype=np.int64)
+    is_rle = np.array([r for r, _, _ in runs], dtype=bool)
+    ends = np.minimum(np.cumsum(lens), cnt)
+    bp_lens = np.where(is_rle, 0, lens)
+    bp_start = np.cumsum(bp_lens) - bp_lens
+    nbp = max(int(bp_lens.sum()), 1)
+    if layout == "past nbp":  # the last lanes are missing; one start < 0
+        nbp = max(nbp - 50, 1)
+        bp_start[np.flatnonzero(~is_rle)[1]] = -5
+    R = len(runs) if layout == "no padding" else bucket(len(runs))
+    table = np.zeros((4, R), dtype=np.uint32)
+    table[0] = cnt
+    table[0, : len(runs)] = ends
+    table[1] = 1
+    table[1, : len(runs)] = is_rle
+    table[2, : len(runs)] = [v for _, _, v in runs]
+    table[3, : len(runs)] = bp_start.astype(np.int32).view(np.uint32)
+    words = rng.integers(0, 2**32, size=-(-nbp // 32) * max(width, 1),
+                         dtype=np.uint32)
+    wl, tl = (1, 3) if views else (0, 0)
+    return (np.concatenate([rng.integers(0, 2**32, size=wl,
+                                         dtype=np.uint32), words]), wl,
+            np.concatenate([rng.integers(0, 2**32, size=tl,
+                                         dtype=np.uint32),
+                            table.reshape(-1)]), tl, cnt, width, nbp)
+
+
+def _check_hybrid_edges(rng, dev, names=None) -> None:
+    """K2 against its plain version over the whole output on
+    HYBRID_EDGE_CASES, each output allocated over garbage."""
+    from tpuparquet_torch.kernels.hybrid import expand_hybrid, \
+        expand_hybrid_plain
+
+    for name in names or HYBRID_EDGE_CASES:
+        wbuf, wl, tbuf, tl, cnt, w, nbp = hybrid_case(rng, name)
+        words, table = _t(wbuf, dev)[wl:], _t(tbuf, dev)[tl:]
+        _dirty(dev, 4 * cnt)
+        _same(f"K2 {name}", expand_hybrid(words, table, cnt, w, nbp),
+              expand_hybrid_plain(words.cpu(), table.cpu(), cnt, w, nbp))
 
 
 def _check_unpack_u64(rng, dev) -> None:
@@ -2097,6 +2309,8 @@ def check_kernels(dev) -> None:
         pm, pp = levels_to_validity_plain(dl, 2)
         _same(f"K4 mask {size}", m, pm)
         _same(f"K4 positions {size}", p, pp)
+    _check_unpack_edges(rng, dev)
+    _check_hybrid_edges(rng, dev)
     _check_levels_edges(rng, dev)
     _check_planes(rng, dev)
     _check_planes_edges(rng, dev)
@@ -2326,6 +2540,70 @@ def k8_design(te_d, ts_d, lits_d, out_cap: int, end: int) -> dict:
             "launches": cuda_launches(end), "bytes_per_byte": per_byte}
 
 
+def k1_page(pay_mask: np.ndarray, dev):
+    """K1's phase-4 input: payment_type's def-level stream, which the
+    planner re-packs as one bit-packed run (width 1, 2^21 lanes at
+    1,250,000 rows): ``(words on dev, lanes, words as numpy)``."""
+    from tpuparquet_torch.cpu.hybrid import encode_hybrid, scan_hybrid
+    from tpuparquet_torch.kernels.hybrid import plan_stream_args
+
+    n = pay_mask.size
+    dl = pay_mask.astype(np.uint32)
+    sc = scan_hybrid(encode_hybrid(dl, 1), n, 1)
+    (bp, _tbl), cnt, _nbp, single = plan_stream_args(sc, n, 1)
+    assert single
+    return _t(bp, dev), cnt, bp
+
+
+def k2_page(cols: dict, dev):
+    """K2's phase-4 input: rate_code's dictionary-index stream, whose run
+    table the planner keeps (width 3, 2^21 slots): ``(words, table) on
+    dev, cnt, nbp, (words, table) as numpy, the stream's runs``."""
+    from tpuparquet_torch.cpu.dictionary import build_dictionary
+    from tpuparquet_torch.cpu.hybrid import encode_hybrid, scan_hybrid
+    from tpuparquet_torch.kernels.hybrid import plan_stream_args
+
+    n = cols["rate_code"].size
+    _, idx = build_dictionary(cols["rate_code"])
+    sc = scan_hybrid(encode_hybrid(idx.astype(np.uint32), 3), n, 3)
+    (bp, tbl), cnt, nbp, single = plan_stream_args(sc, n, 3)
+    assert not single
+    return _t(bp, dev), _t(tbl, dev), cnt, nbp, (bp, tbl), len(sc[0])
+
+
+def k1_moved(count: int, width: int) -> int:
+    """Device-memory bytes K1's design moves: each packed word read once
+    (a thread reads only the words that hold its lanes; words shared by
+    neighbours come from the cache), each lane written once."""
+    return 4 * (-(-count // 32) * width) + 4 * count
+
+
+def k2_design(words: np.ndarray, table: np.ndarray, cnt: int):
+    """What K2's design does on one page, from its staged numpy arrays:
+    ``(moved, most)``, the device-memory bytes it moves by its arithmetic
+    (the packed words read once; for each tile, a table of at most 32
+    runs read whole, else two 32-way searches of the ends, the tile's
+    range of runs at 12 bytes a run and the start of its first; each slot
+    written once) and the most runs one tile meets."""
+    from tpuparquet_torch.kernels.hybrid import hybrid_tile_slots
+
+    t = hybrid_tile_slots()
+    ends = table.reshape(4, -1)[0].view(np.int32)
+    top = ends.size - 1
+    firsts = np.arange(0, cnt, t)
+    lasts = np.minimum(firsts + t, cnt) - 1
+    rf = np.minimum(np.searchsorted(ends, firsts, side="right"), top)
+    rl = np.minimum(np.searchsorted(ends, lasts, side="right"), top)
+    runs = rl - rf + 1
+    if ends.size <= 32:
+        tables = firsts.size * 16 * ends.size
+    else:
+        rounds = -(-int(np.log2(ends.size)) // 5)
+        tables = (firsts.size * (2 * rounds * 32 * 4 + 4)
+                  + int(runs.sum()) * 12)
+    return words.nbytes + tables + 4 * cnt, int(runs.max())
+
+
 def k4_levels(pay_mask: np.ndarray, dev) -> torch.Tensor:
     """K4's phase-4 input: payment_type's def levels as the main path
     expands them, over the slots of K1's single bit-packed run (2^21 at
@@ -2417,7 +2695,8 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
     from tpuparquet_torch.cpu.plain import encode_plain
     from tpuparquet_torch.format.metadata import CompressionCodec, Type
     from tpuparquet_torch.kernels.bitunpack import pad_to_words, \
-        unpack_u32, unpack_u32_plain, unpack_u64, unpack_u64_plain
+        unpack_tile_lanes, unpack_u32, unpack_u32_plain, unpack_u64, \
+        unpack_u64_plain
     from tpuparquet_torch.cpu.delta import encode_delta_byte_array
     from tpuparquet_torch.cpu.plain import ByteArrayColumn
     from tpuparquet_torch.kernels.decode import bss_to_lanes, \
@@ -2432,7 +2711,7 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
     from tpuparquet_torch.kernels.device import _plan_dba_page, _put_all, \
         _Stager
     from tpuparquet_torch.kernels.hybrid import expand_hybrid, \
-        expand_hybrid_plain, plan_stream_args
+        expand_hybrid_plain, hybrid_tile_slots, plan_stream_args
     from tpuparquet_torch.kernels.snappy import expand_tokens, \
         expand_tokens_plain, expand_tokens_words, \
         expand_tokens_words_plain, plan_tokens
@@ -2447,28 +2726,31 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
 
     # K1: payment_type's def-level stream, which the planner re-packs as
     # one bit-packed run (width 1, 2^21 slots)
-    dl = pay_mask.astype(np.uint32)
-    sc = scan_hybrid(encode_hybrid(dl, 1), n, 1)
-    (bp, _tbl), cnt, _nbp, single = plan_stream_args(sc, n, 1)
-    assert single
-    (bp_d,) = _stage([bp], dev)
-    row("unpack_u32", "tpuparquet_torch/csrc/unpack_u32.cu",
-        "tpuparquet/kernels/bitunpack.py:208",
-        lambda: unpack_u32(bp_d, 1, cnt),
-        lambda: unpack_u32_plain(bp_d, 1, cnt),
-        bp.nbytes + 4 * cnt, 8 * cnt)
+    bp_d, cnt, bp = k1_page(pay_mask, dev)
+    split = row("unpack_u32", "tpuparquet_torch/csrc/unpack_u32.cu",
+                "tpuparquet/kernels/bitunpack.py:208",
+                lambda: unpack_u32(bp_d, 1, cnt),
+                lambda: unpack_u32_plain(bp_d, 1, cnt),
+                bp.nbytes + 4 * cnt, 8 * cnt)
+    print(f"K1 page: width 1, {cnt} lanes, tiles of {unpack_tile_lanes()}; "
+          f"{split[1]:g} CUDA launches a call ({split[2]}); "
+          f"{k1_moved(cnt, 1) / (4 * cnt):.4f} bytes moved per output byte "
+          "by the design's arithmetic", flush=True)
     # K2 and K3: rate_code's dictionary-index stream, a run table
     # (width 3, 2^21 slots), the table-mode expansion of the main path
-    dvals, idx = build_dictionary(cols["rate_code"])
-    sc = scan_hybrid(encode_hybrid(idx.astype(np.uint32), 3), n, 3)
-    (bp, tbl), cnt, nbp, single = plan_stream_args(sc, n, 3)
-    assert not single
-    bp_d, tbl_d = _stage([bp, tbl], dev)
-    row("expand_hybrid", "tpuparquet_torch/csrc/expand_hybrid.cu",
-        "tpuparquet/kernels/hybrid.py:181",
-        lambda: expand_hybrid(bp_d, tbl_d, cnt, 3, nbp),
-        lambda: expand_hybrid_plain(bp_d, tbl_d, cnt, 3, nbp),
-        bp.nbytes + tbl.nbytes + 4 * cnt, 8 * cnt)
+    bp_d, tbl_d, cnt, nbp, (bp, tbl), n_runs = k2_page(cols, dev)
+    split = row("expand_hybrid", "tpuparquet_torch/csrc/expand_hybrid.cu",
+                "tpuparquet/kernels/hybrid.py:181",
+                lambda: expand_hybrid(bp_d, tbl_d, cnt, 3, nbp),
+                lambda: expand_hybrid_plain(bp_d, tbl_d, cnt, 3, nbp),
+                bp.nbytes + tbl.nbytes + 4 * cnt, 8 * cnt)
+    moved, most = k2_design(bp, tbl, cnt)
+    print(f"K2 page: width 3, {cnt} slots, {n_runs} runs in a table of "
+          f"{tbl.size // 4}, at most {most} runs in a tile of "
+          f"{hybrid_tile_slots()} slots; {split[1]:g} CUDA launches a call "
+          f"({split[2]}); {moved / (4 * cnt):.4f} bytes moved per output "
+          "byte by the design's arithmetic", flush=True)
+    dvals, _ = build_dictionary(cols["rate_code"])
     # the dictionary as staged: first-occurrence order, zero-padded to
     # its bucket; K3 gathers from the indices K2 expanded (a run of
     # width 32), the launch the main path makes for this page.  One
@@ -3603,28 +3885,52 @@ def ks3_moved(L: int, B: int, n_bytes: int) -> int:
 
 def read_kernel_splits(dev, n_values: int = 50_000_000,
                        n_groups: int = 8) -> None:
-    """K4 and K5 at phase 4's shapes, their inputs rebuilt from the
-    generator (config 2's row group 0: payment_type's def levels and
-    trip_distance_mm's page through the plane planner): each held against
-    its plain version, with its device time and CUDA launches a call.
-    Calls only ``decode.levels_to_validity`` and
+    """K1, K2, K4 and K5 at phase 4's shapes, their inputs rebuilt from
+    the generator (config 2's row group 0: payment_type's def levels,
+    rate_code's index stream and trip_distance_mm's page through the plane
+    planner), K1 also at widths 3, 13 and 32 over 2^21 random lanes and K2
+    on a run-dense stream (2^21 width-1 slots from ``_runny``, staged in
+    table mode): each held against its plain version, with its device time
+    and CUDA launches a call.  Calls only ``bitunpack.unpack_u32``,
+    ``hybrid.expand_hybrid``, ``decode.levels_to_validity`` and
     ``decode.planes_to_words``, whose signatures the parent shares, so the
     same function loaded from this checkout's chip_smoke.py (importlib, by
     path) times an older checkout's kernels from that checkout's
     directory."""
+    from tpuparquet_torch.kernels.bitunpack import unpack_u32, \
+        unpack_u32_plain
     from tpuparquet_torch.kernels.decode import levels_to_validity, \
         levels_to_validity_plain, planes_to_words, planes_to_words_plain
+    from tpuparquet_torch.kernels.hybrid import expand_hybrid, \
+        expand_hybrid_plain
 
     cols, pay_mask = config2_groups(n_values, n_groups)[0]
     n = pay_mask.size
+    rng = np.random.default_rng(21)
+    k1_d, k1_cnt, _ = k1_page(pay_mask, dev)
+    k2_bp, k2_tbl, k2_cnt, k2_nbp, _, _ = k2_page(cols, dev)
+    dense = _stream(_runny(rng, 1 << 21, 1), 1, dev)
+    wide = {w: _one_run(rng.integers(0, 1 << w, size=1 << 21,
+                                     dtype=np.uint64), w, 1 << 21, dev)
+            for w in (3, 13, 32)}
     levels = k4_levels(pay_mask, dev)
     staged, _, spec, _ = k5_page(cols, dev)
     cpu_staged = [t.cpu() for t in staged]
-    for name, fn, plain in (
-            ("K4", lambda: levels_to_validity(levels, 1),
-             lambda: levels_to_validity_plain(levels, 1)),
-            ("K5", lambda: planes_to_words(*staged, spec, n, 2),
-             lambda: planes_to_words_plain(*cpu_staged, spec, n, 2))):
+    calls = [
+        ("K1 page", lambda: unpack_u32(k1_d, 1, k1_cnt),
+         lambda: unpack_u32_plain(k1_d, 1, k1_cnt)),
+        *((f"K1 width {w}", lambda w=w: unpack_u32(wide[w], w, 1 << 21),
+           lambda w=w: unpack_u32_plain(wide[w], w, 1 << 21))
+          for w in wide),
+        ("K2 page", lambda: expand_hybrid(k2_bp, k2_tbl, k2_cnt, 3, k2_nbp),
+         lambda: expand_hybrid_plain(k2_bp, k2_tbl, k2_cnt, 3, k2_nbp)),
+        ("K2 run-dense", lambda: expand_hybrid(*dense[:3], 1, dense[3]),
+         lambda: expand_hybrid_plain(*dense[:3], 1, dense[3])),
+        ("K4", lambda: levels_to_validity(levels, 1),
+         lambda: levels_to_validity_plain(levels, 1)),
+        ("K5", lambda: planes_to_words(*staged, spec, n, 2),
+         lambda: planes_to_words_plain(*cpu_staged, spec, n, 2))]
+    for name, fn, plain in calls:
         got, want = fn(), plain()
         err = max(_max_err(g, w) for g, w in zip(
             got if isinstance(got, tuple) else (got,),
@@ -3635,6 +3941,44 @@ def read_kernel_splits(dev, n_values: int = 50_000_000,
         split = device_split(fn, tries=6)
         print(f"{name} split: device {_us(split)} a call, {split[1]:g} CUDA "
               f"launches ({split[2]}); max_abs_err 0", flush=True)
+
+
+def read_passes(dev, cache: str, reps: int = 5,
+                n_values: int = 50_000_000, n_groups: int = 8) -> None:
+    """Host-clock A/B of the reads: config 2, the string mix, the
+    Spark-style table and the parquet-mr v2 table, each read ``reps``
+    times after one warm pass, printed as one JSON line of ``[pass s,
+    plan_s, dispatch_s]`` a pass.  The files are written once into the
+    directory ``cache`` and read from there after, so runs of this
+    function loaded by path from several checkouts (in turns) read the
+    same bytes through each checkout's ``tpuparquet_torch``."""
+    from tpuparquet_torch.io.reader import FileReader
+    from tpuparquet_torch.kernels.device import read_row_groups_device
+    from tpuparquet_torch.stats import collect_stats
+
+    builds = {"config 2": build_config2, "string mix": build_strings,
+              "spark table": build_spark, "parquet-mr v2 table": build_mr_v2}
+    out = {}
+    for name, build in builds.items():
+        path = os.path.join(cache, name.replace(" ", "_") + ".parquet")
+        if not os.path.exists(path):
+            with open(path + ".tmp", "wb") as f:
+                f.write(build(n_values, n_groups)[0])
+            os.replace(path + ".tmp", path)
+        with open(path, "rb") as f:
+            reader = FileReader(f.read())
+        out[name] = []
+        for k in range(reps + 1):
+            with collect_stats() as st:
+                t0 = time.perf_counter()
+                outs = [o for _, o in read_row_groups_device(reader,
+                                                             device=dev)]
+                _sync(dev)
+                dt = time.perf_counter() - t0
+            del outs
+            if k:
+                out[name].append([dt, st.plan_s, st.dispatch_s])
+    print(json.dumps(out), flush=True)
 
 
 def shard_kernel_splits(dev, n_values: int = 50_000_000,

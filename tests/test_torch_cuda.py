@@ -56,6 +56,29 @@ def test_transport_kernel_matches_plain_version(cuda, check):
     torch.cuda.synchronize(cuda)
 
 
+@pytest.mark.parametrize("case", list(chip_smoke.UNPACK_EDGE_CASES))
+def test_unpack_tile_edges_match_plain_version(cuda, case):
+    """K1 where its design has edges (chip_smoke.UNPACK_EDGE_CASES): widths
+    0-32, counts around a thread's 4 lanes, a 32-lane block and a tile,
+    2^21 + 3 lanes at every width, words from views 1-3 words into their
+    buffer and ending exactly at ceil(count / 32) * width; the whole
+    output, allocated over garbage."""
+    chip_smoke._check_unpack_edges(np.random.default_rng(16), cuda, [case])
+    torch.cuda.synchronize(cuda)
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.HYBRID_EDGE_CASES))
+def test_hybrid_tile_edges_match_plain_version(cuda, case):
+    """K2 where its design has edges (chip_smoke.HYBRID_EDGE_CASES):
+    rate_code's shape, one RLE run, one bit-packed run as a table, a
+    run-dense stream whose tiles meet more runs than a block stages, run
+    ends on tile edges, runs of length 0, no padding runs, clamps past
+    nbp, widths 0-32, counts 1 to 2^21 + 3, views off 16-byte boundaries;
+    the whole output, allocated over garbage."""
+    chip_smoke._check_hybrid_edges(np.random.default_rng(17), cuda, [case])
+    torch.cuda.synchronize(cuda)
+
+
 @pytest.mark.parametrize("case", list(chip_smoke.LEVELS_EDGE_CASES))
 def test_levels_tile_edges_match_plain_version(cuda, case):
     """K4 where its design has edges (chip_smoke.LEVELS_EDGE_CASES): sizes

@@ -8,6 +8,9 @@ where the port re-packs in numpy.  K2's plain version must equal JAX
 ``expand_tbl`` over the whole bucket-padded output, padding included.
 """
 
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,14 +19,19 @@ import torch
 from tpuparquet.cpu.hybrid import encode_hybrid as jax_encode_hybrid
 from tpuparquet.cpu.hybrid import scan_hybrid as jax_scan_hybrid
 from tpuparquet.kernels.decode import expand_tbl as jax_expand_tbl
+from tpuparquet.kernels.hybrid import expand_hybrid as jax_expand_hybrid
 from tpuparquet.kernels.hybrid import pack_plan as jax_pack_plan
 from tpuparquet.kernels.hybrid import plan_from_scan as jax_plan_from_scan
 from tpuparquet.kernels.hybrid import plan_stream_args as jax_plan_stream_args
 from tpuparquet_torch.cpu.hybrid import encode_hybrid, expand_scan, \
     scan_hybrid
 from tpuparquet_torch.kernels.hybrid import count_eq_scan, expand_hybrid, \
-    expand_hybrid_plain, max_scan_value, pack_plan, plan_from_scan, \
-    plan_stream_args
+    expand_hybrid_plain, hybrid_tile_slots, max_scan_value, pack_plan, \
+    plan_from_scan, plan_stream_args
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke  # noqa: E402
 
 
 def _stream(kind: str, n: int, width: int, seed: int) -> np.ndarray:
@@ -147,3 +155,30 @@ def test_counts_and_max_from_scan():
     assert max_scan_value(sc, 3) == int(v.max())
     with pytest.raises(ValueError):
         count_eq_scan(sc, 3, 6, validate_max=True)
+
+
+@pytest.mark.parametrize("case", [
+    name for name, case in chip_smoke.HYBRID_EDGE_CASES.items()
+    if case[2](hybrid_tile_slots()) <= 1 << 16])
+def test_hybrid_edge_cases_match_jax(case):
+    """K2's edge cases (chip_smoke.HYBRID_EDGE_CASES: rate_code's shape,
+    one RLE run, one bit-packed run as a table, a run-dense width-1
+    stream, run ends on tile edges, runs of length 0, a table without
+    padding runs, bp_start + within past nbp, widths 0-32, counts around
+    the kernel's tiles, words and table from views off 16-byte
+    boundaries; the 2^21-slot case runs on the card only) through the
+    port's CPU path and the JAX package's expand_hybrid on the unpacked
+    table columns."""
+    wbuf, wl, tbuf, tl, cnt, w, nbp = chip_smoke.hybrid_case(
+        np.random.default_rng(15), case)
+    words, table = wbuf[wl:], tbuf[tl:]
+    got = expand_hybrid(torch.from_numpy(wbuf.view(np.int32))[wl:],
+                        torch.from_numpy(tbuf.view(np.int32))[tl:], cnt, w,
+                        nbp).numpy().view(np.uint32)
+    ends, is_rle, value, bp_start = table.reshape(4, -1)
+    want = jax_expand_hybrid(
+        jnp.asarray(words), jnp.asarray(ends.view(np.int32)),
+        jnp.asarray(is_rle != 0), jnp.asarray(value),
+        jnp.asarray(bp_start.view(np.int32)), count=cnt, width=w, n_bp=nbp)
+    assert got.shape == (cnt,)
+    np.testing.assert_array_equal(got, np.asarray(want))

@@ -31,6 +31,50 @@ __device__ __forceinline__ uint32_t unpack_lane(
   return w == 32 ? v : (v & ((1u << w) - 1u));
 }
 
+// The mask of a W-bit value (1 <= W <= 32), with no shift by 32.
+template <int W>
+__host__ __device__ constexpr uint32_t lane_mask() {
+  return W == 32 ? 0xffffffffu : (1u << (W & 31)) - 1u;
+}
+
+// Four consecutive lanes of an LSB-first stream of W-bit values, W fixed
+// at compile time (1 <= W <= 32), the first of them starting at bit `sh`
+// (0..31) of word 0.  `word(k)` returns word k; only the words that hold
+// the lanes' sh + 4W bits are asked for (at most (4W + 62) / 32 of them),
+// so a caller whose lanes lie in the stream reads no word past its end.
+// The words are funnel-shifted into a window that starts at the first
+// lane's bit, from which each lane is a shift and a mask by constants.
+template <int W, typename Word>
+__device__ __forceinline__ uint4 unpack4(Word word, uint32_t sh) {
+  constexpr int kMax = (4 * W + 62) / 32;  // words the 4 lanes can span
+  constexpr int kWin = (4 * W + 31) / 32;  // words of the aligned window
+  const int n = static_cast<int>((sh + 4 * W - 1) >> 5) + 1;
+  uint32_t w[kMax + 1];
+#pragma unroll
+  for (int k = 0; k < kMax; ++k) w[k] = k < n ? word(k) : 0u;
+  w[kMax] = 0u;
+  uint32_t a[kWin + 1];
+#pragma unroll
+  for (int k = 0; k < kWin; ++k) a[k] = __funnelshift_r(w[k], w[k + 1], sh);
+  a[kWin] = 0u;
+  uint32_t v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int q = (j * W) >> 5;
+    v[j] = __funnelshift_r(a[q], a[q + 1], (j * W) & 31) & lane_mask<W>();
+  }
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// One lane of the same stream, starting at bit `sh` (0..31) of p[0]; the
+// next word is read only when the lane straddles into it.
+template <int W>
+__device__ __forceinline__ uint32_t unpack1(const uint32_t* __restrict__ p,
+                                            uint32_t sh) {
+  const uint32_t hi = sh + W > 32u ? __ldg(p + 1) : 0u;
+  return __funnelshift_r(__ldg(p), hi, sh) & lane_mask<W>();
+}
+
 // Inclusive prefix sum of `x` over the block (blockDim.x a multiple of 32,
 // at most 1024).  Every thread of the block must call it.  `smem` holds 32
 // values of T (int for counts; unsigned long long for the sums mod 2^64 of
@@ -124,6 +168,38 @@ __device__ __forceinline__ uint32_t look_back(const u64* words, int64_t tile,
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     prefix += v;
     if (done) return prefix;
+  }
+}
+
+// #{k < R : ends[k] <= x} for non-decreasing ends (searchsorted
+// side="right"), by one warp: every lane calls it and gets it.  A round
+// probes the last index of 32 equal segments of the open range [lo, hi);
+// the lanes whose probe is <= x are a prefix, and their count leaves one
+// segment open.  KS2, K5 and K2 search their run ends with it.
+__device__ __forceinline__ int warp_upper_bound(
+    const int32_t* __restrict__ ends, int R, int64_t x, int lane) {
+  int64_t lo = 0, hi = R;
+  while (lo < hi) {
+    const int64_t step = (hi - lo + 31) >> 5;
+    const int64_t k = lo + (lane + 1) * step - 1;
+    const bool le = k < hi && static_cast<int64_t>(__ldg(ends + k)) <= x;
+    const int64_t n = __popc(__ballot_sync(0xffffffffu, le));
+    const int64_t top = lo + (n + 1) * step - 1;
+    lo += n * step;
+    hi = top < hi ? top : hi;
+  }
+  return static_cast<int>(lo);
+}
+
+// Outputs i..i+3 of a tile whose first `left` outputs exist: one 16-byte
+// store (out + i on a 16-byte boundary), or one by one past `left`.
+__device__ __forceinline__ void store4(uint32_t* __restrict__ out, int i,
+                                       int left, uint4 v) {
+  if (i + 4 <= left) {
+    *reinterpret_cast<uint4*>(out + i) = v;
+  } else {
+    const uint32_t x[4] = {v.x, v.y, v.z, v.w};
+    for (int k = 0; i + k < left; ++k) out[i + k] = x[k];
   }
 }
 

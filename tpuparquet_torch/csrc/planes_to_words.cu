@@ -61,7 +61,6 @@ constexpr int kRowValues = kThreads * kVec;  // 1,024 values a block's row
 constexpr int kTile = kRowValues * kRows;    // 2,048 values a block
 constexpr int kTables = 4 * kMaxLanes;       // run tables a tile can touch
 constexpr int kPool = 2048;                  // run entries staged a tile
-constexpr unsigned kFull = 0xffffffffu;
 enum Kind { kRaw32 = 0, kRle32 = 1, kBytes = 2, kRaw8 = 3, kRle8 = 4 };
 
 // One lane: kind with its (a, b) = (slab, 0) or (start, n_runs); for
@@ -74,25 +73,6 @@ struct Lane {
 struct Spec {
   Lane lane[kMaxLanes];
 };
-
-// #{k < R : ends[k] <= x} for non-decreasing ends, by one warp (every lane
-// returns it).  A round probes the last index of 32 equal segments of the
-// open range [lo, hi); the lanes whose probe is <= x are a prefix, and
-// their count leaves one segment open.
-__device__ __forceinline__ int warp_upper_bound(
-    const int32_t* __restrict__ ends, int R, int64_t x, int lane) {
-  int64_t lo = 0, hi = R;
-  while (lo < hi) {
-    const int64_t step = (hi - lo + 31) >> 5;
-    const int64_t k = lo + (lane + 1) * step - 1;
-    const bool le = k < hi && static_cast<int64_t>(__ldg(ends + k)) <= x;
-    const int64_t n = __popc(__ballot_sync(kFull, le));
-    const int64_t top = lo + (n + 1) * step - 1;
-    lo += n * step;
-    hi = top < hi ? top : hi;
-  }
-  return static_cast<int>(lo);
-}
 
 // The values of the runs of i0 .. i0 + 3 (each clamped to `last`, the
 // tile's last value) from runs [0, nr) of a table slice: `ends` and
@@ -247,7 +227,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int end = 0; end < 2; ++end) {
         if (warp == (2 * s + end) % kWarps) {
           const int32_t* e = (wide ? tb.e32 : tb.e8) + start;
-          const int r = warp_upper_bound(e, n_runs, end ? last : t0, lane);
+          const int r =
+              tpq::warp_upper_bound(e, n_runs, end ? last : t0, lane);
           if (lane == 0) s_run[q][end] = r < n_runs - 1 ? r : n_runs - 1;
         }
       }

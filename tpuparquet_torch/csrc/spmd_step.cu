@@ -58,26 +58,6 @@ constexpr int kThreads = 256;
 constexpr int kMaxTile = 512;     // positions a block can hold
 constexpr int kStageRuns = 512;   // runs a tile stages in shared memory
 constexpr int kDictWords = 2048;  // dictionary words staged (8 KiB)
-constexpr unsigned kFull = 0xffffffffu;
-
-// #{k < R : ends[k] <= x} for non-decreasing ends, by one warp (every lane
-// returns it).  A round probes the last index of 32 equal segments of the
-// open range [lo, hi); the lanes whose probe is <= x are a prefix, and
-// their count leaves one segment open.
-__device__ __forceinline__ int warp_upper_bound(
-    const int32_t* __restrict__ ends, int R, int64_t x, int lane) {
-  int64_t lo = 0, hi = R;
-  while (lo < hi) {
-    const int64_t step = (hi - lo + 31) >> 5;
-    const int64_t k = lo + (lane + 1) * step - 1;
-    const bool le = k < hi && static_cast<int64_t>(__ldg(ends + k)) <= x;
-    const int64_t n = __popc(__ballot_sync(kFull, le));
-    const int64_t top = lo + (n + 1) * step - 1;
-    lo += n * step;
-    hi = top < hi ? top : hi;
-  }
-  return static_cast<int>(lo);
-}
 
 // kLanes: the dictionary's lanes at compile time (0: `lanes_rt`).  The
 // 8 lanes of phase 6d's lane groups compile with the count fixed, so a
@@ -113,7 +93,7 @@ __global__ void __launch_bounds__(kThreads) spmd_tile_kernel(
   // while the other warps stage the dictionary
   if (warp < 2) {
     const int64_t x = warp == 0 ? t0 : t0 + nt - 1;
-    const int r = warp_upper_bound(ends, R, x, lane);
+    const int r = tpq::warp_upper_bound(ends, R, x, lane);
     if (lane == 0) s_run[warp] = r < R - 1 ? r : R - 1;
   }
   const int64_t d_words = D * lanes;

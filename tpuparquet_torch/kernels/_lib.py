@@ -26,8 +26,8 @@ _U64 = ctypes.c_uint64
 
 # source stem -> argtypes of its exported tpq_<stem>
 KERNELS = {
-    "unpack_u32": [_P, _P, _L, _I, _P],
-    "expand_hybrid": [_P, _P, _I, _P, _L, _I, _L, _P],
+    "unpack_u32": [_P, _P, _L, _I, _I, _P],
+    "expand_hybrid": [_P, _P, _I, _P, _L, _I, _L, _I, _P],
     "page_dict_fixed": [_P, _L, _I, _P, _I, _P, _L, _P],
     "levels_to_validity": [_P, _L, _I, _I, _P, _P, _P, _P],
     "planes_to_words": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P, _P],

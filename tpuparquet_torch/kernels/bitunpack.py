@@ -19,8 +19,8 @@ import torch
 from ._lib import check_tensor, i64_to_u32_bits, launch, stream_of, \
     u32_to_i64
 
-__all__ = ["pad_to_words", "plan_tables64", "unpack_u32", "unpack_u32_plain",
-           "unpack_u64", "unpack_u64_plain"]
+__all__ = ["pad_to_words", "plan_tables64", "unpack_tile_lanes", "unpack_u32",
+           "unpack_u32_plain", "unpack_u64", "unpack_u64_plain"]
 
 
 def pad_to_words(data, width: int, count: int) -> np.ndarray:
@@ -66,6 +66,12 @@ def unpack_u32_plain(words: torch.Tensor, width: int,
     return i64_to_u32_bits((lo | hi) & ((1 << width) - 1))
 
 
+def unpack_tile_lanes() -> int:
+    """Lanes a block of K1 unpacks (the kernel's tile: 256 threads, each 2
+    rows of 4 lanes)."""
+    return 2048
+
+
 def unpack_u32(words: torch.Tensor, width: int, count: int) -> torch.Tensor:
     """Unpack ``count`` ``width``-bit lanes (0 <= width <= 32) from flat
     u32 words (an int32 tensor, at least ``ceil(count/32) * width``
@@ -79,7 +85,7 @@ def unpack_u32(words: torch.Tensor, width: int, count: int) -> torch.Tensor:
     check_tensor(words, "words", torch.int32, words.device)
     out = torch.empty(count, dtype=torch.int32, device=words.device)
     launch("unpack_u32", words.data_ptr(), out.data_ptr(), count, width,
-           stream_of(out))
+           unpack_tile_lanes(), stream_of(out))
     unpack_u32.launches += 1
     return out
 

@@ -11,8 +11,9 @@ themselves are never expanded on the host.  The plan ships as
 
 padded to power-of-two buckets exactly as the JAX package pads them
 (``tpuparquet/kernels/hybrid.py pack_plan``), and K2
-(``csrc/expand_hybrid.cu``) expands it: for every output slot, a binary
-search over the run ends, then the RLE fill or the slot's packed lane.
+(``csrc/expand_hybrid.cu``) expands it: a block searches the run ends
+once for its tile of :func:`hybrid_tile_slots` slots, then each slot
+takes its run's RLE fill or its packed lane.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ __all__ = [
     "HybridPlan", "plan_hybrid", "plan_from_scan", "pack_plan",
     "plan_stream_args",
     "single_bp_scan", "count_eq_scan", "max_scan_value",
-    "expand_hybrid", "expand_hybrid_plain",
+    "expand_hybrid", "expand_hybrid_plain", "hybrid_tile_slots",
 ]
 
 
@@ -215,13 +216,15 @@ def expand_hybrid_plain(bp_words: torch.Tensor, table: torch.Tensor,
     dev = bp_words.device
     R = table.numel() // 4
     t = u32_to_i64(table).reshape(4, R)
-    ends = torch.where(t[0] >= 1 << 31, t[0] - (1 << 32), t[0])
+    # the ends and bp_start are int32, as the reference's columns are
+    ends, bp_start = (torch.where(r >= 1 << 31, r - (1 << 32), r)
+                      for r in (t[0], t[3]))
     unpacked = u32_to_i64(unpack_u32_plain(bp_words, max(w, 1), nbp))
     idx = torch.arange(cnt, dtype=torch.int64, device=dev)
     run = torch.clamp(torch.searchsorted(ends, idx, right=True), max=R - 1)
     run_start = torch.where(run > 0, ends[torch.clamp(run - 1, min=0)],
                             torch.zeros_like(run))
-    bp_pos = torch.clamp(t[3][run] + (idx - run_start), 0, nbp - 1)
+    bp_pos = torch.clamp(bp_start[run] + (idx - run_start), 0, nbp - 1)
     return i64_to_u32_bits(torch.where(t[1][run] != 0, t[2][run],
                                        unpacked[bp_pos]))
 
@@ -230,6 +233,12 @@ def _check_table(table: torch.Tensor) -> int:
     if table.numel() == 0 or table.numel() % 4:
         raise ValueError("run table must hold 4 rows of R >= 1 runs")
     return table.numel() // 4
+
+
+def hybrid_tile_slots() -> int:
+    """Output slots a block of K2 expands (the kernel's tile: 256 threads,
+    each 2 rows of 4 slots)."""
+    return 2048
 
 
 def expand_hybrid(bp_words: torch.Tensor, table: torch.Tensor, cnt: int,
@@ -252,7 +261,8 @@ def expand_hybrid(bp_words: torch.Tensor, table: torch.Tensor, cnt: int,
     check_tensor(table, "table", torch.int32, bp_words.device)
     out = torch.empty(cnt, dtype=torch.int32, device=bp_words.device)
     launch("expand_hybrid", bp_words.data_ptr(), table.data_ptr(), R,
-           out.data_ptr(), cnt, max(w, 1), nbp, stream_of(out))
+           out.data_ptr(), cnt, max(w, 1), nbp, hybrid_tile_slots(),
+           stream_of(out))
     expand_hybrid.launches += 1
     return out
 
