@@ -46,7 +46,11 @@
    8193 and 38 tiles), block sizes 1, 3, 127, 128, 256, the stream's
    own and 2^21 + 2, and deltas read from views that are not 8-byte
    aligned; KE1 at widths 1, 7, 31, 32, 33, 63 and 64 (counts 1, 33 and
-   2^20 + 5, over a miniblock list), KE2 at (k, lanes) (4, 1), (4, 2),
+   2^20 + 5, over a miniblock list) and where its warps have edges
+   (PACK_EDGE_CASES: widths 1, 31, 32, 33 and 64 at counts 1, 31, 33 and
+   one value past a warp's and a block's share of miniblocks, miniblock
+   lists reversed, with repeats and over a source whose last lanes are
+   missing, inputs shorter than the count), KE2 at (k, lanes) (4, 1), (4, 2),
    (8, 2), (3, 1), (9, 3), (16, 4) and (1601, 401), at counts around
    its tiles and past 2^20 (stream starts off 16-byte boundaries) and
    from a view one word into its buffer, KE3 on wrapping int32 and extreme int64 deltas
@@ -54,7 +58,12 @@
    word into their buffer, KE4 on uniform values at ranges 1, 7, 2^16
    and 2^22 and on either side of its shared-memory threshold, on a hot
    value and on first occurrences at a warp's and a block's last index,
-   KE5 on NaN, infinities, signed zeros and unsigned order;
+   KE5 on NaN, infinities, signed zeros and unsigned order and where its
+   design has edges (MINMAX_EDGE_CASES: one value, a vector's values and
+   one past, a block's round and one past, views 1 and 2 words in and a
+   2-lane view 1 word in, the extremes in the last block's last vector,
+   NaN in the tail only, all NaN, calls back to back whose grids differ,
+   the keys' host buffer over garbage);
    KS1 at 1-4 lanes, all-null and without nulls, into a longer row; KS2
    at widths 0, 1, 7 and 32 on every slot of sp 1, 2 and 4 with indices
    past the dictionary, and at the edges of its tiles (STEP_EDGE_CASES:
@@ -119,11 +128,15 @@
    on a URL page of 3h, and for both K8 pages the doubling rounds their
    chains need beside the reference's ``steps``, the share of positions
    that leave their tile, CUDA launches a call and bytes moved per
-   output byte (K9: launches and bytes too); KE1-KE5 at phase 5's pages
-   and KS1-KS4 at phase 6's shapes (phases 5 and 6 run first: their
-   launches fill the KE and KS rows), KS2 and KS3 with their launches a
-   call and bytes moved by their designs' arithmetic, KS2 also at tiles
-   of 128, 256 and 512 positions.
+   output byte (K9: launches and bytes too); KE1-KE5 at phase 5's pages,
+   KE1 and KE5 with their CUDA operations a call and the bytes moved per
+   input byte by this design's arithmetic and the parent's, KE5 also
+   with its keys copied by cudaMemcpyAsync instead of written to the
+   mapped buffer
+   (``ke5_copied``); KS1-KS4 at phase 6's shapes (phases 5 and 6
+   run first: their launches fill the KE and KS rows), KS2 and KS3 with
+   their launches a call and bytes moved by their designs' arithmetic,
+   KS2 also at tiles of 128, 256 and 512 positions.
 5. The write path: the sensor table of 3f and config 2 of 3 are read
    on the card, every column goes through ``DeviceColumn.as_values()``
    (optional columns with the mask of their read), and the writer that
@@ -151,10 +164,16 @@
 Before phase 1 it prints the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit`` gives them) and the host's
 usable CPU count (``os.sched_getaffinity``), which bounds host planning.
-``read_kernel_splits`` and ``shard_kernel_splits`` time K1, K2, K4, K5,
-KS2 and KS3 alone at phase 4's shapes (K1 also at widths 3, 13 and 32,
-K2 also on a run-dense stream); they call only the kernels' wrappers, so
-loaded from this file by path they time another checkout's kernels.
+``read_kernel_splits``, ``encode_kernel_splits`` and
+``shard_kernel_splits`` time K1, K2, K4, K5, KE1, KE5, KS2 and KS3 alone
+at phase 4's shapes (K1 also at widths 3, 13 and 32, K2 also on a
+run-dense stream, KE1 on the ts page's largest and smallest width
+classes and at widths 1, 7, 33 and 64, KE5 also on an int32 page); they
+call only the kernels' wrappers, so loaded from this file by path they
+time another checkout's kernels.  ``encode_variants`` builds this
+checkout's KE1 and KE5 sources with one constant or one block of code
+changed (the designs they left behind) and times them beside the
+kernels as built.
 ``read_passes`` reads four of the files a few times on the host clock,
 for an A/B of another checkout's read passes in the same way.
 Every kernel must have launched on the paths of phases 3 to 3h, 5 and 6;
@@ -1769,6 +1788,180 @@ def _check_pack_bits(rng, dev) -> None:
                   pack_bits_plain(lo, hi, w, count, sel=sel))
 
 
+# KE1 where its design has edges (M = encode.pack_warp_miniblocks(), the
+# miniblocks a warp takes; a block of 8 warps takes 8 M): name -> (values
+# as a function of M, miniblock list, lanes of the inputs less the lanes
+# the values span).  Counts 1, 31 and 33 (around a miniblock), one value
+# past a warp's, a block's and two blocks' share of miniblocks; a list in
+# reverse order, one with repeats, and random miniblocks of a source
+# whose last lanes are missing; inputs shorter than the count (lanes past
+# them read as 0).  Every case runs at PACK_WIDTHS, from 64-bit values
+# whose bits above the width must be masked off.
+PACK_WIDTHS = (1, 31, 32, 33, 64)
+PACK_EDGE_CASES = {
+    **{f"count {n}": (lambda m, n=n: n, None, 0) for n in (1, 31, 33)},
+    "warp share + 1": (lambda m: 32 * m + 1, None, 0),
+    "block share + 1": (lambda m: 256 * m + 1, None, 0),
+    "2 blocks' share + 1": (lambda m: 512 * m + 1, None, 0),
+    "miniblocks reversed": (lambda m: 32 * (8 * m + 3), "reverse", 0),
+    "miniblocks repeated": (lambda m: 32 * (2 * m + 1) + 5, "repeat", 0),
+    "n_in < count": (lambda m: 96 * m + 7, None, -45),
+    "n_in < count, miniblocks": (lambda m: 32 * (8 * m + 1) + 17, "random",
+                                 -70),
+}
+
+
+def pack_case(rng, name: str) -> list:
+    """A KE1 edge case (see PACK_EDGE_CASES): ``[(width, lo, hi, count,
+    sel)]``, one a width of PACK_WIDTHS: the inputs' u32 lanes (``hi``
+    None up to width 32) and the int32 miniblock list (None without
+    one)."""
+    from tpuparquet_torch.kernels.encode import pack_warp_miniblocks
+
+    count_fn, layout, short = PACK_EDGE_CASES[name]
+    count = count_fn(pack_warp_miniblocks())
+    nb = (count + 31) // 32
+    sel = None
+    if layout == "reverse":
+        sel = np.arange(nb, dtype=np.int32)[::-1].copy()
+    elif layout == "repeat":
+        sel = rng.integers(0, 3, size=nb).astype(np.int32)
+        sel[:3] = (2, 2, 0)
+    elif layout == "random":
+        sel = rng.permutation(nb + 5)[:nb].astype(np.int32)
+    n_src = 32 * (nb + 5 if layout == "random" else nb)
+    n_in = (n_src if sel is not None else count) + short
+    out = []
+    for w in PACK_WIDTHS:
+        v = rng.integers(0, 2**64 - 1, size=n_in, dtype=np.uint64,
+                         endpoint=True)
+        lo = (v & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        hi = (v >> np.uint64(32)).astype(np.uint32) if w > 32 else None
+        out.append((w, lo, hi, count, sel))
+    return out
+
+
+def _check_pack_edges(rng, dev, names=None) -> None:
+    """KE1 against its plain version over the whole output on
+    PACK_EDGE_CASES, each output allocated over garbage."""
+    from tpuparquet_torch.kernels.encode import pack_bits, pack_bits_plain
+
+    for name in names or PACK_EDGE_CASES:
+        for w, lo, hi, count, sel in pack_case(rng, name):
+            args = [None if a is None else _t(a, dev) for a in (lo, hi, sel)]
+            _dirty(dev, 4 * w * ((count + 31) // 32))
+            got = pack_bits(args[0], args[1], w, count, sel=args[2])
+            _same(f"KE1 {name} width {w}", got, pack_bits_plain(
+                *(None if a is None else a.cpu() for a in args[:2]), w,
+                count, sel=None if sel is None else args[2].cpu()))
+
+
+# KE5 where its design has edges (16-byte vectors of 4 / lanes values; a
+# block of 256 threads takes 4 vectors a thread a round): name -> the
+# calls, each (values, words the view starts into its buffer, unsigned
+# order), made by a function of the rng.  One value; n at a vector's
+# values and one past; a block's round of vectors and one past; views 1
+# word (1 lane) and 2 words (2 lanes) into their buffer, and 1 word (2
+# lanes: no 16-byte vector, every value alone); the extremes in the last
+# vector of 9 blocks' rounds, which the last thread of the last block
+# reads; NaN in the tail only; all NaN; and calls back to back whose
+# grids differ, so a ticket the last block failed to reset shows.
+def _nan_tail(rng, dt, n: int, tail: int):
+    v = rng.normal(size=n).astype(dt)
+    v[n - tail:] = np.nan
+    return v
+
+
+MINMAX_EDGE_CASES = {
+    "one value": lambda r: [(np.array([-2.5]), 0, False),
+                            (np.array([7], np.int32), 0, False),
+                            (np.array([-7], np.int64), 0, True)],
+    "vector's values": lambda r: [(r.normal(size=2), 0, False),
+                                  (r.integers(-9, 9, 4).astype(np.int32),
+                                   0, False),
+                                  (r.normal(size=4).astype(np.float32), 0,
+                                   False)],
+    "vector's values + 1": lambda r: [
+        (r.normal(size=3), 0, False),
+        (r.integers(-9, 9, 5).astype(np.int32), 0, True),
+        (r.integers(-2**62, 2**62, 3), 0, False)],
+    "block round ± 1": lambda r: [
+        (r.normal(size=2048 + d), 0, False) for d in (-1, 0, 1)] + [
+        (r.integers(-2**31, 2**31, 4096 + d).astype(np.int32), 0, False)
+        for d in (-1, 1)],
+    "view 1 word in, 1 lane": lambda r: [
+        (r.integers(-2**31, 2**31, 1003).astype(np.int32), 1, False),
+        (r.normal(size=1003).astype(np.float32), 1, False),
+        (r.integers(-2**31, 2**31, 1003).astype(np.int32), 3, True)],
+    "view 2 words in, 2 lanes": lambda r: [
+        (r.normal(size=1001), 2, False),
+        (r.integers(-2**63, 2**63 - 1, 1001), 2, True)],
+    "view 1 word in, 2 lanes": lambda r: [
+        (r.normal(size=5001), 1, False),
+        (r.integers(-2**63, 2**63 - 1, 5001), 1, False)],
+    "extremes in the last block": lambda r: [
+        (np.concatenate([r.uniform(-1, 1, 9 * 2048 - 2), [-5.0, 5.0]]), 0,
+         False),
+        (np.concatenate([r.integers(-1000, 1000, 9 * 4096 - 2),
+                         [-2**31, 2**31 - 1]]).astype(np.int32), 0, False)],
+    "NaN in the tail only": lambda r: [(_nan_tail(r, np.float64, 1001, 1),
+                                        0, False),
+                                       (_nan_tail(r, np.float32, 1003, 3),
+                                        0, False)],
+    "all NaN": lambda r: [
+        (np.full(3000, np.nan), 0, False),
+        (np.array([np.nan, -np.nan] * 1501, np.float32), 0, False),
+        (np.full(7, np.nan), 2, False)],
+    "back to back, other grids": lambda r: [
+        (r.normal(size=(1 << 20) + 3), 0, False), (np.array([3.5]), 0, False),
+        (r.normal(size=5000), 0, False),
+        (r.normal(size=(1 << 20) + 3), 0, False),
+        (r.integers(-2**31, 2**31, 2).astype(np.int32), 0, False)],
+}
+
+
+def minmax_case(rng, name: str) -> list:
+    """A KE5 edge case (see MINMAX_EDGE_CASES): ``[(buf, lead, values,
+    unsigned)]``, the values' u32 words being ``buf[lead:]`` after
+    ``lead`` garbage words."""
+    out = []
+    for v, lead, unsigned in MINMAX_EDGE_CASES[name](rng):
+        words = np.ascontiguousarray(v).view(np.uint32)
+        buf = np.concatenate([rng.integers(0, 2**32, size=lead,
+                                           dtype=np.uint32), words])
+        out.append((buf, lead, v, unsigned))
+    return out
+
+
+def _minmax_order(v: np.ndarray, unsigned: bool) -> str:
+    return "float" if v.dtype.kind == "f" else \
+        "unsigned" if unsigned else "signed"
+
+
+def _check_minmax_edges(rng, dev, names=None) -> None:
+    """KE5 against its plain version on MINMAX_EDGE_CASES, the calls of a
+    case back to back, each over garbage: the host buffer the keys land
+    in holds random words before every call."""
+    from tpuparquet_torch.kernels._lib import stream_of
+    from tpuparquet_torch.kernels.encode import _min_max_state, \
+        lanes_min_max, lanes_min_max_plain
+
+    for name in names or MINMAX_EDGE_CASES:
+        for k, (buf, lead, v, unsigned) in enumerate(minmax_case(rng, name)):
+            flat = _t(buf, dev)[lead:]
+            lanes, order = v.itemsize // 4, _minmax_order(v, unsigned)
+            if dev.type == "cuda":
+                st = _min_max_state(dev, stream_of(flat))
+                st.keys[:] = rng.integers(0, 2**63, size=2, dtype=np.uint64)
+            got = lanes_min_max(flat, lanes, order)
+            want = lanes_min_max_plain(flat.cpu(), lanes, order)
+            if got != want:
+                raise AssertionError(f"KE5 {name} call {k} ({v.dtype}, "
+                                     f"{order}, {v.size} values, view "
+                                     f"{lead} words in): {got}, plain "
+                                     f"{want}")
+
+
 # KE3's cases: (counts, offset).  A warp of csrc/delta_encode.cu takes 4
 # blocks of 128 deltas (512), a CTA 8 warps (4,096 deltas); count - 1
 # deltas.  "offset": the values start one word into their buffer, which
@@ -1914,6 +2107,7 @@ def _check_encode(rng, dev) -> None:
               bss_encode_plain(flat, count, 1601, 401))
     _check_delta_phase1(rng, dev)
     _check_dict_build(rng, dev)
+    _check_minmax_edges(rng, dev)
     cases = [
         (np.array([np.nan, 2.5, -1.0, np.nan], np.float32), "float"),
         (np.full(1000, np.nan), "float"),
@@ -2324,6 +2518,7 @@ def check_kernels(dev) -> None:
     _check_flba(rng, dev)
     _check_new_shapes(rng, dev)
     _check_pack_bits(rng, dev)
+    _check_pack_edges(rng, dev)
     _check_encode(rng, dev)
     _check_shard_kernels(rng, dev)
     if dev.type == "cuda":  # a fault during a run surfaces here
@@ -3098,12 +3293,26 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
     return out
 
 
+def ke1_classes(phase):
+    """The miniblock widths of an int64 delta page from its KE3 outputs
+    (``delta_phase1``'s six lanes), as the delta encoder takes them:
+    ``(widths, classes, sizes)``, each width class above 0 and its
+    miniblock count."""
+    from tpuparquet_torch.cpu.delta import widths_from_max
+
+    mb_max = (phase[2].cpu().numpy().view(np.uint32).astype(np.uint64)
+              | (phase[3].cpu().numpy().view(np.uint32).astype(np.uint64)
+                 << np.uint64(32)))
+    widths = widths_from_max(mb_max)
+    classes, sizes = np.unique(widths[widths > 0], return_counts=True)
+    return widths, classes, sizes
+
+
 def time_encode_kernels(dv_t, dv_2, dev, launches) -> list:
     """Phase 4, the write side: KE1-KE5 at phase 5's page shapes (row
     group 0 of the sensor table and of config 2, as read on the card).
     The KE4 and KE5 times include reading their one or two result words
     back, as the wrappers do."""
-    from tpuparquet_torch.cpu.delta import widths_from_max
     from tpuparquet_torch.kernels.encode import bss_encode_device, \
         bss_encode_plain, delta_phase1, delta_phase1_plain, dict_build, \
         dict_build_plain, lanes_min_max, lanes_min_max_plain, pack_bits, \
@@ -3133,18 +3342,14 @@ def time_encode_kernels(dv_t, dv_2, dev, launches) -> list:
           f"call ({split[2]}); {moved / count:.2f} bytes moved per value "
           f"(the function's {fn_bytes / count:.2f})", flush=True)
     phase = delta_phase1(ts, count, False)
-    mb_max = (phase[2].cpu().numpy().view(np.uint32).astype(np.uint64)
-              | (phase[3].cpu().numpy().view(np.uint32).astype(np.uint64)
-                 << np.uint64(32)))
-    widths = widths_from_max(mb_max)
-    classes, sizes = np.unique(widths[widths > 0], return_counts=True)
+    widths, classes, sizes = ke1_classes(phase)
     w = int(classes[np.argmax(sizes)])
     idx = np.nonzero(widths == w)[0]
     sel = torch.from_numpy(idx.astype(np.int32)).to(dev)
     alo, ahi = phase[4], phase[5]
     cnt = idx.size * 32
     # KE1: the ts page's largest width class, packed over its miniblocks
-    row("pack_bits", "tpuparquet_torch/csrc/pack_bits.cu",
+    split = row("pack_bits", "tpuparquet_torch/csrc/pack_bits.cu",
         "tpuparquet/kernels/encode.py:104",
         lambda: pack_bits(alo, ahi, w, cnt, sel=sel),
         lambda: pack_bits_plain(alo, ahi, w, cnt, sel=sel),
@@ -3152,6 +3357,11 @@ def time_encode_kernels(dv_t, dv_2, dev, launches) -> list:
         4 * cnt)
     print(f"KE1 class: width {w}, {idx.size} of {widths.size} miniblocks "
           f"({classes.size} width classes)", flush=True)
+    moved, parent, n_in = ke1_moved(w, idx.size)
+    print(f"KE1 ts page class: {split[1]:g} CUDA launches a call "
+          f"({split[2]}); {moved / n_in:.4f} bytes loaded and stored per "
+          f"input byte by the design's arithmetic (the parent's "
+          f"{parent / n_in:.4f})", flush=True)
     # KE2: the reading page (doubles), 8 byte streams; one PyTorch call
     # computes the transpose
     reading = dv_t[0][0]["reading"].flat
@@ -3176,12 +3386,19 @@ def time_encode_kernels(dv_t, dv_2, dev, launches) -> list:
     def keys(got):
         return torch.from_numpy(np.array(got, np.uint64).view(np.int64))
 
-    row("lanes_min_max", "tpuparquet_torch/csrc/min_max.cu",
+    split = row("lanes_min_max", "tpuparquet_torch/csrc/min_max.cu",
         "tpuparquet/kernels/encode.py:438",
         lambda: keys(lanes_min_max(reading, 2, "float")),
         lambda: keys(lanes_min_max_plain(reading, 2, "float")),
         8 * nr + 16, 6 * nr,
         library=lambda: torch.aminmax(reading.view(torch.float64)))
+    moved, parent = ke5_moved(nr, 2, dev)
+    print(f"KE5 reading page ({nr} doubles): {split[1]:g} CUDA operations "
+          f"a call ({split[2]}; the parent's design 3: a one-thread init "
+          f"kernel, the reduction, a 16-byte copy); {moved / (8 * nr):.4f} "
+          f"bytes moved per input byte by the design's arithmetic (the "
+          f"parent's {parent / (8 * nr):.4f})", flush=True)
+    ke5_copied(reading, dev)
     # KE4: config 2's passenger_count page; one PyTorch call computes the
     # first-occurrence table (scatter_reduce_ "amin")
     pc = dv_2[0][0]["passenger_count"]
@@ -3205,6 +3422,355 @@ def time_encode_kernels(dv_t, dv_2, dev, launches) -> list:
           f"value by the design's arithmetic", flush=True)
     dict_build_uniform(dev)
     return out
+
+
+def ke1_moved(w: int, nb: int):
+    """KE1 on ``nb`` full miniblocks of width ``w`` from a miniblock list:
+    ``(design, parent, input)``, the bytes that this design's and the
+    parent's threads load and store, by their arithmetic, and the input's
+    bytes (the values and the list).  This design loads each value and
+    list entry once and stores each word once; the parent's one thread a
+    word loaded the list entry and every value that overlaps its word
+    (through the cache: device memory sees fewer)."""
+    from tpuparquet_torch.kernels.encode import _pack_tables
+
+    vb = 8 if w > 32 else 4
+    n_in = nb * (32 * vb + 4)
+    design = n_in + 4 * w * nb
+    touched = sum(len(c) for c in _pack_tables(w))
+    parent = nb * (w * 4 + touched * vb + 4 * w)
+    return design, parent, n_in
+
+
+def ke5_moved(n: int, lanes: int, dev):
+    """KE5 on ``n`` values of ``lanes`` words: ``(design, parent)``, the
+    device-memory bytes this design and the parent move by their
+    arithmetic.  This design: the values, each block's two 8-byte
+    atomics and 4-byte ticket (a block a 1,024 vectors, at most 8 an SM),
+    the last block's exchange of the fold and the two keys it writes; the
+    parent: the init kernel's two keys, the values, each block's two
+    8-byte atomics, the 16-byte copy."""
+    per = 4 // lanes
+    grid = min(8 * torch.cuda.get_device_properties(dev).multi_processor_count,
+               max(-(-(n // per) // 1024), 1))
+    design = 4 * lanes * n + grid * (16 + 4) + 16 + 16
+    parent_grid = min(-(-n // 256), 1056)
+    return design, 16 + 4 * lanes * n + 16 * parent_grid + 16
+
+
+def ke5_copied(reading, dev) -> None:
+    """KE5 on phase 4's reading page with its keys written to device
+    memory and copied into the pinned buffer (cudaMemcpyAsync), the
+    readback the mapped buffer replaced, held against the plain version
+    and timed beside the wrapper's."""
+    from tpuparquet_torch.kernels._lib import launch, stream_of
+    from tpuparquet_torch.kernels.encode import _min_max_state, \
+        lanes_min_max, lanes_min_max_plain
+
+    nr = reading.numel() // 2
+    stream = stream_of(reading)
+    st = _min_max_state(dev, stream)
+    keys_d = torch.empty(2, dtype=torch.int64, device=dev)
+
+    def copied():
+        launch("min_max", reading.data_ptr(), nr, 2, 2,
+               st.scratch.data_ptr(), keys_d.data_ptr(), stream)
+        st.host.copy_(keys_d, non_blocking=True)
+        launch("min_max_wait", stream)
+        return int(st.keys[0]), int(st.keys[1])
+
+    def mapped():
+        return lanes_min_max(reading, 2, "float")
+
+    want = lanes_min_max_plain(reading, 2, "float")
+    for label, fn in (("keys to the mapped buffer (the wrapper's)", mapped),
+                      ("keys copied by cudaMemcpyAsync", copied)):
+        got = fn()
+        if label.startswith("keys copied"):  # the keys, not yet unkeyed
+            got = tuple(k ^ (1 << 63) if k >> 63 else k ^ (2**64 - 1)
+                        for k in got)
+        if got != want:
+            raise AssertionError(f"KE5 {label}: {got}, plain {want}")
+        split = device_split(fn, tries=6)
+        print(f"KE5 design, {label}: {_time_ms(fn):.4f} ms, device "
+              f"{_us(split)} a call, {split[1]:g} CUDA operations "
+              f"({split[2]})", flush=True)
+
+
+# KE5's ends that its design did not take, each in place of the kernel's
+# own from its block reduction to its end: partials (a slot a block,
+# reduced by the block that takes the last ticket) and every block's
+# partial written straight to the mapped host buffer (reduced by the
+# host, no ticket)
+_KE5_TAIL = "  block_min_max(mn, mx);\n  if (threadIdx.x != 0) return;"
+_KE5_PARTIALS = """  block_min_max(mn, mx);
+  __shared__ bool last;
+  u64* part = acc + 3;
+  if (threadIdx.x == 0) {
+    part[2 * blockIdx.x] = mn;
+    part[2 * blockIdx.x + 1] = mx;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  mn = ~0ull;
+  mx = 0ull;
+  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += kThreads) {
+    const u64 a = __ldcg(part + 2 * b), c = __ldcg(part + 2 * b + 1);
+    mn = a < mn ? a : mn;
+    mx = c > mx ? c : mx;
+  }
+  block_min_max(mn, mx);
+  if (threadIdx.x != 0) return;
+  *ticket = 0u;
+  *reinterpret_cast<ulonglong2*>(out) = make_ulonglong2(mn, mx);
+  __threadfence_system();
+}
+
+"""
+_KE5_HOST_FOLD = """  block_min_max(mn, mx);
+  if (threadIdx.x != 0) return;
+  reinterpret_cast<ulonglong2*>(out)[blockIdx.x] = make_ulonglong2(mn, mx);
+}
+
+"""
+
+
+def _variant(stem: str, edit) -> str:
+    """The text of ``csrc/<stem>.cu`` after ``edit`` (a function of the
+    text), which raises when the source no longer has what it edits."""
+    from tpuparquet_torch._build import CSRC
+
+    return edit((CSRC / f"{stem}.cu").read_text())
+
+
+def _sub(old: str, new: str):
+    def edit(text: str) -> str:
+        if old not in text:
+            raise AssertionError(f"a design variant expects {old!r}")
+        return text.replace(old, new)
+    return edit
+
+
+def _tail(new: str):
+    def edit(text: str) -> str:
+        a, b = text.index(_KE5_TAIL), text.index("using Kernel = void (*)")
+        return text[:a] + new + text[b:]
+    return edit
+
+
+def _build_variants(sources: dict) -> dict:
+    """Compile each variant text (name -> (stem, text)) beside the
+    package's builds, in parallel, and bind its ``tpq_<stem>``."""
+    import ctypes
+
+    from tpuparquet_torch._build import BUILD_DIR, CSRC, build, find_nvcc
+    from tpuparquet_torch.kernels._lib import KERNELS, NVCC_FLAGS
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name, (stem, text) in sources.items():
+        src = BUILD_DIR / f"variant_{name}.cu"
+        src.write_text(text)
+        jobs.append((src, [find_nvcc()] + NVCC_FLAGS + ["-I", str(CSRC)]))
+    fns = {}
+    for (name, (stem, _)), path in zip(sources.items(), build(jobs)):
+        fn = getattr(ctypes.CDLL(str(path)), f"tpq_{stem}")
+        fn.argtypes, fn.restype = KERNELS[stem], ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def encode_variants(dev, n_values: int = 50_000_000,
+                    n_groups: int = 8) -> None:
+    """KE1 and KE5 built with what their designs left behind, from this
+    checkout's sources edited in place of one constant or one block of
+    code, timed on the device beside the kernels as built (phase 4's
+    inputs, rebuilt from the sensor table's generator): KE1 with blocks
+    of 64, 128 and 256 threads at 1, 2, 4 and 8 miniblocks a warp, on
+    the ts page's largest and smallest width classes and, over the
+    largest class's miniblocks, at widths 7 and 64; KE5 on the
+    reading page with 2, 4 and 8 loads a thread in flight and blocks of
+    256 and 512 threads (each but the kernel's own), without the system
+    fence after the keys' store, with the partials reduced by the last
+    block, and with every block's partial written to the host, which
+    reduces them.  Each is held against the plain version."""
+    import ctypes
+    import re
+
+    from tpuparquet_torch.kernels import _lib
+    from tpuparquet_torch.kernels._lib import launch, stream_of
+    from tpuparquet_torch.kernels.encode import _min_max_state, \
+        delta_phase1, lanes_min_max_plain, pack_bits_plain
+
+    def const(stem: str, name: str) -> int:
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             _variant(stem, lambda t: t)).group(1))
+
+    def with_consts(stem: str, **values) -> str:
+        edits = [_sub(f"constexpr int {k} = {const(stem, k)};",
+                      f"constexpr int {k} = {v};") for k, v in values.items()]
+        text = _variant(stem, lambda t: t)
+        for edit in edits:
+            text = edit(text)
+        return text
+
+    built = (const("pack_bits", "kThreads"), const("pack_bits", "kPerWarp"))
+    shapes = [(t, m) for t in (64, 128, 256) for m in (1, 2, 4, 8)]
+    mm_threads, mm_unroll = (const("min_max", "kThreads"),
+                             const("min_max", "kUnroll"))
+    sources = {
+        **{f"pack_bits {t} {m}": ("pack_bits", with_consts(
+            "pack_bits", kThreads=t, kPerWarp=m))
+           for t, m in shapes if (t, m) != built},
+        **{f"min_max unroll {u}": ("min_max", with_consts(
+            "min_max", kUnroll=u)) for u in (2, 4, 8) if u != mm_unroll},
+        **{f"min_max threads {t}": ("min_max", with_consts(
+            "min_max", kThreads=t)) for t in (256, 512) if t != mm_threads},
+        "min_max without the system fence": ("min_max", _variant(
+            "min_max", _sub("  __threadfence_system();\n", ""))),
+        "min_max partials": ("min_max", _variant("min_max",
+                                                 _tail(_KE5_PARTIALS))),
+        "min_max host fold": ("min_max", _variant("min_max",
+                                                  _tail(_KE5_HOST_FOLD))),
+    }
+    _lib.build_kernels()
+    fns = _build_variants(sources)
+    fns["pack_bits {} {}".format(*built)] = _lib._fns["pack_bits"]
+    cols, _ = sensor_groups(n_values // 4 // n_groups, 1)[0]
+    ts = _t(cols["ts"], dev)
+    phase = delta_phase1(ts, ts.numel() // 2, False)
+    widths, classes, sizes = ke1_classes(phase)
+    alo, ahi = phase[4], phase[5]
+
+    def sel_of(width):
+        idx = np.nonzero(widths == width)[0]
+        return torch.from_numpy(idx.astype(np.int32)).to(dev), 32 * idx.size
+
+    big = int(classes[np.argmax(sizes)])
+    small = int(classes[np.argmin(sizes)])
+    shapes_w = [(f"class {big}", big, *sel_of(big)),
+                (f"class {small}", small, *sel_of(small)),
+                *((f"width {w}", w, *sel_of(big)) for w in (7, 64))]
+    for t, m in shapes:
+        fn = fns[f"pack_bits {t} {m}"]
+        row = []
+        for label, w, sel, cnt in shapes_w:
+            want = pack_bits_plain(alo, ahi, w, cnt, sel=sel)
+            out = torch.empty_like(want)
+
+            def call(fn=fn, w=w, out=out, m=m, sel=sel, cnt=cnt):
+                rc = fn(alo.data_ptr(), ahi.data_ptr(), alo.numel(),
+                        sel.data_ptr(), cnt, w, m, out.data_ptr(),
+                        stream_of(out))
+                if rc:
+                    raise RuntimeError(f"KE1 variant: cudaError {rc}")
+                return out
+
+            _same(f"KE1 blocks of {t}, {m} a warp, {label}", call(), want)
+            row.append(f"{label} ({cnt // 32} miniblocks) "
+                       f"{_us(device_split(call, tries=6))}")
+        mark = " (the kernel as built)" if (t, m) == built else ""
+        print(f"KE1 variant, blocks of {t} threads, {m} miniblocks a "
+              f"warp{mark}: {', '.join(row)}", flush=True)
+    reading = _t(cols["reading"], dev)
+    nr = reading.numel() // 2
+    want = lanes_min_max_plain(reading, 2, "float")
+    stream = stream_of(reading)
+    st = _min_max_state(dev, stream)
+    # a slot for every block the card could hold (2,048 threads an SM);
+    # the host fold's slots of blocks that do not run keep (~0, 0)
+    slots = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
+    wide = torch.zeros(2 * slots, dtype=torch.int64, pin_memory=True)
+    ptr = ctypes.c_uint64()
+    launch("min_max_mapped", wide.data_ptr(), ctypes.byref(ptr))
+    parts = wide.numpy().view(np.uint64)
+    parts[0::2] = ~np.uint64(0)
+    for name, fn in fns.items():
+        if not name.startswith("min_max"):
+            continue
+        host = name == "min_max host fold"
+        scratch = torch.zeros(3 + 2 * slots, dtype=torch.int64, device=dev)
+
+        def call(fn=fn, host=host, scratch=scratch):
+            rc = fn(reading.data_ptr(), nr, 2, 2, scratch.data_ptr(),
+                    ptr.value if host else st.out_ptr, stream)
+            if rc:
+                raise RuntimeError(f"KE5 variant: cudaError {rc}")
+            launch("min_max_wait", stream)
+            if host:
+                return int(parts[0::2].min()), int(parts[1::2].max())
+            return int(st.keys[0]), int(st.keys[1])
+
+        got = tuple(k ^ (1 << 63) if k >> 63 else k ^ (2**64 - 1)
+                    for k in call())
+        if got != want:
+            raise AssertionError(f"KE5 variant {name}: {got}, plain {want}")
+        print(f"KE5 variant, {name[8:]}: {_time_ms(call):.4f} ms, device "
+              f"{_us(device_split(call, tries=6))} a call", flush=True)
+
+
+def encode_kernel_splits(dev, n_values: int = 50_000_000,
+                         n_groups: int = 8) -> None:
+    """KE1 and KE5 alone at phase 4's shapes, their inputs rebuilt from
+    the sensor table's generator (row group 0): KE1 on the ts page's
+    largest and smallest width classes, and on the largest class's
+    miniblocks at widths 1, 7, 33 and 64; KE5 on the reading page
+    (doubles, float order) and on the seq page (int32, signed).  Each is
+    held against its plain version, with its device time and CUDA
+    operations a call.  Calls only ``encode.delta_phase1``,
+    ``encode.pack_bits`` and ``encode.lanes_min_max``, whose signatures
+    the parent shares, so the same function loaded from this checkout's
+    chip_smoke.py (importlib, by path) times an older checkout's kernels
+    from that checkout's directory."""
+    from tpuparquet_torch.kernels.encode import delta_phase1, \
+        lanes_min_max, lanes_min_max_plain, pack_bits, pack_bits_plain
+
+    cols, _ = sensor_groups(n_values // 4 // n_groups, 1)[0]
+    ts = _t(cols["ts"], dev)
+    count = ts.numel() // 2
+    phase = delta_phase1(ts, count, False)
+    widths, classes, sizes = ke1_classes(phase)
+    alo, ahi = phase[4], phase[5]
+
+    def sel_of(width):
+        idx = np.nonzero(widths == width)[0]
+        return torch.from_numpy(idx.astype(np.int32)).to(dev), idx.size
+
+    big = int(classes[np.argmax(sizes)])
+    small = int(classes[np.argmin(sizes)])
+    calls = []
+    for label, cls, w in [("largest class", big, big),
+                          ("smallest class", small, small)] + [
+            (f"width {w}", big, w) for w in (1, 7, 33, 64)]:
+        sel, nb = sel_of(cls)
+        calls.append((f"KE1 {label} (width {w}, {nb} miniblocks)",
+                      lambda sel=sel, nb=nb, w=w: pack_bits(
+                          alo, ahi, w, 32 * nb, sel=sel),
+                      lambda sel=sel, nb=nb, w=w: pack_bits_plain(
+                          alo, ahi, w, 32 * nb, sel=sel)))
+    for name, fn, plain in calls:
+        err = _max_err(fn(), plain())
+        if err:
+            raise AssertionError(f"{name}: max abs diff {err} against the "
+                                 "plain version")
+        split = device_split(fn, tries=6)
+        print(f"{name} split: device {_us(split)} a call, {split[1]:g} CUDA "
+              f"launches ({split[2]}); max_abs_err 0", flush=True)
+    pages = [("reading page", _t(cols["reading"], dev), 2, "float"),
+             ("seq page", _t(cols["seq"], dev), 1, "signed")]
+    for label, flat, lanes, order in pages:
+        n = flat.numel() // lanes
+        got, want = (lanes_min_max(flat, lanes, order),
+                     lanes_min_max_plain(flat, lanes, order))
+        if got != want:
+            raise AssertionError(f"KE5 {label}: {got}, plain {want}")
+        split = device_split(lambda: lanes_min_max(flat, lanes, order),
+                             tries=6)
+        print(f"KE5 {label} ({n} values of {lanes} lanes) split: device "
+              f"{_us(split)} a call, {split[1]:g} CUDA operations "
+              f"({split[2]}); max_abs_err 0", flush=True)
 
 
 def k10_moved(nn: int, nb: int, cap: int, blob_size: int, pos: int,

@@ -222,6 +222,29 @@ def test_encode_kernels_match_plain_versions(cuda, check):
     torch.cuda.synchronize(cuda)
 
 
+@pytest.mark.parametrize("case", list(chip_smoke.PACK_EDGE_CASES))
+def test_pack_warp_edges_match_plain_version(cuda, case):
+    """KE1 where its design has edges (chip_smoke.PACK_EDGE_CASES): widths
+    1, 31, 32, 33 and 64 at counts around a miniblock and one value past
+    a warp's and a block's share of miniblocks, miniblock lists reversed,
+    with repeats and over a source whose last lanes are missing, inputs
+    shorter than the count; the whole output, allocated over garbage."""
+    chip_smoke._check_pack_edges(np.random.default_rng(18), cuda, [case])
+    torch.cuda.synchronize(cuda)
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.MINMAX_EDGE_CASES))
+def test_min_max_edges_match_plain_version(cuda, case):
+    """KE5 where its design has edges (chip_smoke.MINMAX_EDGE_CASES): one
+    value, a vector's values and one past, a block's round and one past,
+    views 1 and 2 words in, the extremes in the last block's last vector,
+    NaN in the tail only, all NaN, and calls back to back whose grids
+    differ (the ticket's reset); the keys' buffer and the partials hold
+    garbage before every call."""
+    chip_smoke._check_minmax_edges(np.random.default_rng(19), cuda, [case])
+    torch.cuda.synchronize(cuda)
+
+
 def _encode_launches():
     return {k: getattr(encode, k).launches for k in (
         "pack_bits", "bss_encode_device", "delta_phase1", "dict_build",

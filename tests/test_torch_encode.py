@@ -41,7 +41,7 @@ from tpuparquet_torch.io.reader import FileReader
 from tpuparquet_torch.io.writer import FileWriter
 from tpuparquet_torch.kernels.device import read_row_group_device
 from tpuparquet_torch.kernels.encode import bss_tile_rows, delta_phase1, \
-    device_dict_build, dict_build
+    device_dict_build, dict_build, pack_bits
 from tpuparquet_torch.stats import collect_stats
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -719,3 +719,61 @@ def test_min_max_matches_jax(vals, unsigned):
     assert [type(x) for x in got] == [type(x) for x in want]
     if want[0] is not None:
         assert np.array(got).tobytes() == np.array(want).tobytes()
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.PACK_EDGE_CASES))
+def test_pack_edge_cases_match_jax(case):
+    """KE1's edge cases (chip_smoke.PACK_EDGE_CASES: widths 1, 31, 32, 33
+    and 64, counts around a miniblock and past a warp's and a block's
+    share, miniblock lists reversed, with repeats and over a source
+    whose last lanes are missing, inputs shorter than the count) through
+    the port's CPU path against the JAX package: the delta encoder's
+    ``_pack_masked32``/``_pack_masked64`` on the lanes its gather
+    ``alo[sel_dev]`` gives (lanes past the inputs 0), and without a list
+    ``pack_u64_device`` (and ``pack_u32_device`` up to width 32)."""
+    for w, lo, hi, count, sel in chip_smoke.pack_case(
+            np.random.default_rng(15), case):
+        got = _u32(pack_bits(_t(lo), None if hi is None else _t(hi), w,
+                             count, sel=None if sel is None else _t(sel)))
+        nb = (count + 31) // 32
+        src = np.arange(32 * nb) if sel is None else \
+            (sel[:nb, None].astype(np.int64) * 32 + np.arange(32)).reshape(-1)
+        live = src < lo.size
+
+        def gather(x):
+            x = np.zeros(lo.size, np.uint32) if x is None else x
+            return jnp.asarray(np.where(live, x[np.minimum(src, lo.size - 1)],
+                                        0).astype(np.uint32))
+
+        glo, ghi = gather(lo), gather(hi)
+        if w <= 32:
+            ref = jax_encode._pack_masked32(glo, count, w)
+        else:
+            ref = jax_encode._pack_masked64(glo, ghi, count, w)
+        np.testing.assert_array_equal(got, np.asarray(ref))
+        if sel is None:
+            hi_j = jnp.asarray(np.zeros(lo.size, np.uint32) if hi is None
+                               else hi)
+            np.testing.assert_array_equal(got, np.asarray(
+                jax_encode.pack_u64_device(jnp.asarray(lo), hi_j, w, count)))
+            if w <= 32:
+                np.testing.assert_array_equal(got, np.asarray(
+                    jax_encode.pack_u32_device(jnp.asarray(lo), w, count)))
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.MINMAX_EDGE_CASES))
+def test_min_max_edge_cases_match_jax(case):
+    """KE5's edge cases (chip_smoke.MINMAX_EDGE_CASES: one value, a
+    vector's values and one past, a block's round and one past, views 1
+    and 2 words into their buffer, the extremes in the last block, NaN in
+    the tail only, all NaN, calls back to back) through the port's CPU
+    path against ``DeviceValues.min_max`` of the JAX package: the same
+    two scalars, of the same type, bit for bit."""
+    for buf, lead, v, unsigned in chip_smoke.minmax_case(
+            np.random.default_rng(16), case):
+        got = DeviceValues(_t(buf)[lead:], v.dtype).min_max(
+            unsigned=unsigned)
+        want = _jdv(v).min_max(unsigned=unsigned)
+        assert [type(x) for x in got] == [type(x) for x in want]
+        if want[0] is not None:
+            assert np.array(got).tobytes() == np.array(want).tobytes()

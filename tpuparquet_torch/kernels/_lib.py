@@ -2,9 +2,11 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into its own
 plain-C shared library (all sources in parallel, at first use, into the
-package's ``_build/``) and loads with ctypes.  Every exported function
-launches on the stream it is given, allocates nothing and returns
-``cudaGetLastError()``; :func:`launch` raises when that is not 0.
+package's ``_build/``) and loads with ctypes.  Every exported kernel
+function launches on the stream it is given, allocates nothing and
+returns ``cudaGetLastError()``; the few host helpers beside a kernel
+(HELPERS) return their CUDA call's error; :func:`launch` raises when
+that is not 0.
 """
 
 from __future__ import annotations
@@ -15,9 +17,9 @@ import time
 
 import torch
 
-__all__ = ["KERNELS", "build_kernels", "check_tensor", "i64_to_lanes",
-           "i64_to_u32_bits", "lanes_to_i64", "launch", "stream_of",
-           "u32_to_i64"]
+__all__ = ["HELPERS", "KERNELS", "build_kernels", "check_tensor",
+           "i64_to_lanes", "i64_to_u32_bits", "lanes_to_i64", "launch",
+           "stream_of", "u32_to_i64"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,18 +42,25 @@ KERNELS = {
     "delta_scatter": [_P, _P, _P, _P, _L, _L, _P, _P, _L, _P],
     "bss_to_lanes": [_P, _L, _I, _I, _P, _P],
     "flba_to_lanes": [_P, _L, _I, _I, _I, _P, _P],
-    "pack_bits": [_P, _P, _L, _P, _L, _I, _P, _P],
+    "pack_bits": [_P, _P, _L, _P, _L, _I, _I, _P, _P],
     "bss_encode": [_P, _L, _I, _I, _I, _P, _P],
     "delta_encode": [_P, _L, _I, _L, _P, _P, _P, _P, _P, _P, _P],
     "dict_build": [_P, _I, _L, ctypes.c_uint32, _L, _I, _P, _P, _P, _P, _P,
                    _P, _P, _P],
-    "min_max": [_P, _L, _I, _I, _P, _P],
+    "min_max": [_P, _L, _I, _I, _P, _P, _P],
     "scatter_dense": [_P, _L, _P, _P, _L, _I, _P, _L, _P],
     "spmd_step": [_P, _L, _P, _P, _P, _P, _I, _P, _L, _I, _L, _L, _L, _I,
                   _I, _L, _P, _L, _L, _P],
     "byte_densify": [_P, _L, _P, _P, _L, _I, _P, _P, _L, _P, _L, _P, _L,
                      _P],
     "place_rows": [_P, _L, _P, _L, _L, _P, _P],
+}
+
+# host helpers beside a kernel: name -> (source stem, argtypes) of its
+# exported tpq_<name>, which returns a cudaError_t as the kernels do
+HELPERS = {
+    "min_max_wait": ("min_max", [_P]),
+    "min_max_mapped": ("min_max", [_P, ctypes.POINTER(ctypes.c_uint64)]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -78,9 +87,12 @@ def build_kernels() -> float:
             names = list(KERNELS)
             paths = build([(CSRC / f"{n}.cu", [nvcc] + NVCC_FLAGS)
                            for n in names])
-            for name, path in zip(names, paths):
-                fn = getattr(ctypes.CDLL(str(path)), f"tpq_{name}")
-                fn.argtypes = KERNELS[name]
+            libs = {n: ctypes.CDLL(str(p)) for n, p in zip(names, paths)}
+            signatures = {n: (n, a) for n, a in KERNELS.items()}
+            signatures.update(HELPERS)
+            for name, (stem, argtypes) in signatures.items():
+                fn = getattr(libs[stem], f"tpq_{name}")
+                fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
                 _fns[name] = fn
     return time.perf_counter() - t0
@@ -94,13 +106,13 @@ def stream_of(t) -> int:
 
 
 def launch(name: str, *args) -> None:
-    """Call ``tpq_<name>(*args)``; raises RuntimeError on a CUDA error."""
+    """Call ``tpq_<name>(*args)`` (a kernel's launch or a helper of
+    HELPERS); raises RuntimeError on a CUDA error."""
     if not _fns:
         build_kernels()
     rc = _fns[name](*args)
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"CUDA call tpq_{name} failed: cudaError {rc}")
 
 
 def check_tensor(t, name: str, dtype, device) -> None:

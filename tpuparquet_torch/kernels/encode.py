@@ -35,7 +35,9 @@ the port computes the true shapes.
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -53,6 +55,7 @@ __all__ = [
     "dict_small_range",
     "lanes_min_max", "lanes_min_max_plain",
     "pack_bits", "pack_bits_plain", "pack_u32_device", "pack_u64_device",
+    "pack_warp_miniblocks",
 ]
 
 _BLOCK = 128
@@ -173,12 +176,22 @@ def pack_bits(lo: torch.Tensor, hi, width: int, count: int, sel=None):
         return torch.zeros(0, dtype=torch.int32, device=dev)
     out = torch.empty(nb * width, dtype=torch.int32, device=dev)
     launch("pack_bits", lo.data_ptr(), _opt_ptr(hi), n_in, _opt_ptr(sel),
-           count, width, out.data_ptr(), stream_of(out))
+           count, width, pack_warp_miniblocks(), out.data_ptr(),
+           stream_of(out))
     pack_bits.launches += 1
     return out
 
 
 pack_bits.launches = 0
+
+
+def pack_warp_miniblocks() -> int:
+    """Miniblocks one warp of KE1 (``csrc/pack_bits.cu``) packs, which it
+    takes from its wrapper and checks against its compiled count: 4, so
+    a width class of about 10^4 miniblocks runs in one wave with each
+    warp's loads in flight together.  The checks pin a warp's and a
+    block's share with it."""
+    return 4
 
 
 def pack_u32_device(values: torch.Tensor, width: int,
@@ -453,11 +466,14 @@ def lanes_min_max(flat: torch.Tensor, lanes: int, order: str):
     n = flat.numel() // lanes
     if n == 0:
         return None
-    keys = torch.empty(2, dtype=torch.int64, device=flat.device)
-    launch("min_max", flat.data_ptr(), n, lanes, _ORDERS[order],
-           keys.data_ptr(), stream_of(keys))
-    lanes_min_max.launches += 1
-    kmin, kmax = (int(k) for k in keys.cpu().numpy().view(np.uint64))
+    stream = stream_of(flat)
+    st = _min_max_state(flat.device, stream)
+    with st.lock:
+        launch("min_max", flat.data_ptr(), n, lanes, _ORDERS[order],
+               st.scratch.data_ptr(), st.out_ptr, stream)
+        lanes_min_max.launches += 1
+        launch("min_max_wait", stream)
+        kmin, kmax = int(st.keys[0]), int(st.keys[1])
     if kmin > kmax:
         return None
     bits = 32 * lanes
@@ -477,6 +493,45 @@ def lanes_min_max(flat: torch.Tensor, lanes: int, order: str):
 
 
 lanes_min_max.launches = 0
+
+
+class _MinMaxState:
+    """KE5's buffers for one device and stream: ``scratch`` (the blocks'
+    fold of the keys and the ticket, zeroed once here and set back to 0
+    by every call's last block), the pinned host buffer ``host`` the
+    kernel writes the two keys to (``keys`` a numpy view of it,
+    ``out_ptr`` its device pointer) and a lock that holds the buffer from
+    the launch to the read."""
+
+    __slots__ = ("scratch", "host", "keys", "out_ptr", "lock")
+
+    def __init__(self, device: torch.device):
+        self.scratch = torch.zeros(3, dtype=torch.int64, device=device)
+        self.host = torch.zeros(2, dtype=torch.int64, pin_memory=True)
+        self.keys = self.host.numpy().view(np.uint64)
+        # a pinned block of the caching allocator need not be mapped into
+        # the device's space: ask, and raise when it is not
+        ptr = ctypes.c_uint64()
+        launch("min_max_mapped", self.host.data_ptr(), ctypes.byref(ptr))
+        self.out_ptr = ptr.value
+        self.lock = threading.Lock()
+
+
+_min_max_states: dict = {}
+_min_max_lock = threading.Lock()
+
+
+def _min_max_state(device: torch.device, stream: int) -> _MinMaxState:
+    """The KE5 buffers of ``device`` and ``stream`` (made at first use,
+    on that stream, so the ticket's zero lands before its first call)."""
+    key = (device.index, stream)
+    st = _min_max_states.get(key)
+    if st is None:
+        with _min_max_lock:
+            st = _min_max_states.get(key)
+            if st is None:
+                st = _min_max_states[key] = _MinMaxState(device)
+    return st
 
 
 # ----------------------------------------------------------------------
