@@ -32,7 +32,13 @@
    each output allocated over garbage; K13 at row lengths 1, 3, 4,
    5, 7, 8, 9, 12, 13, 16, 17, 20, 22, 24 and 1,031, at counts around
    its tiles and from views 1, 3, 5, 8 and 13 bytes into their buffer,
-   K3 at 3 and 4 lanes, K12 with k != 4 * lanes, K8 on the copy graph
+   K3 at 3 and 4 lanes, K12 with k != 4 * lanes and at the edges of its
+   tiles (BSS_EDGE_CASES: every k from 1 to 16, counts 1, 15, 16, 17,
+   around a tile, 5 tiles + 7 and 3 tiles + every residue 1-15 mod 16,
+   streams from views 1, 3, 5, 8 and 13 bytes into their buffer and of
+   exactly k * count bytes, rows of 1,024 bytes that fill a block's
+   shared memory and of 1,025, 1,031 and 2,053 whose lanes split over
+   gridDim.y), K8 on the copy graph
    of front-coded strings and rows and at the edges of its tiles (a
    chain through 19 tiles, copies across tile edges, 4-byte
    offsets from more than 64 KiB back, literals longer than a tile,
@@ -116,8 +122,8 @@
    beside its memory/operation bound, its plain version and, where one
    PyTorch call computes the function or its core, that call; the
    device time of one call of the kernel and of the library call from a
-   torch.profiler trace; K1, K2, K4 and K5 also their CUDA launches a
-   call and the bytes their designs move per output byte (arithmetic),
+   torch.profiler trace; K1, K2, K4, K5 and K12 also their CUDA launches
+   a call and the bytes their designs move per output byte (arithmetic),
    K2 its table's run count and the most runs one tile meets, K5 its
    page's spec and the most runs one table meets in a tile; K7 and KE3
    also their CUDA launches a call and the bytes they move a value, K13
@@ -164,16 +170,19 @@
 Before phase 1 it prints the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit`` gives them) and the host's
 usable CPU count (``os.sched_getaffinity``), which bounds host planning.
-``read_kernel_splits``, ``encode_kernel_splits`` and
-``shard_kernel_splits`` time K1, K2, K4, K5, KE1, KE5, KS2 and KS3 alone
-at phase 4's shapes (K1 also at widths 3, 13 and 32, K2 also on a
-run-dense stream, KE1 on the ts page's largest and smallest width
-classes and at widths 1, 7, 33 and 64, KE5 also on an int32 page); they
-call only the kernels' wrappers, so loaded from this file by path they
-time another checkout's kernels.  ``encode_variants`` builds this
-checkout's KE1 and KE5 sources with one constant or one block of code
-changed (the designs they left behind) and times them beside the
-kernels as built.
+``read_kernel_splits``, ``encode_kernel_splits``,
+``shard_kernel_splits`` and ``bss_kernel_splits`` time K1, K2, K4, K5,
+KE1, KE5, KS2, KS3 and K12 alone at phase 4's shapes (K1 also at widths
+3, 13 and 32, K2 also on a run-dense stream, KE1 on the ts page's
+largest and smallest width classes and at widths 1, 7, 33 and 64, KE5
+also on an int32 page, K12 on the sensor table's reading and temp
+pages, k 6, 16 and 1,031, the reading page from a view 5 bytes in and
+with the L2 flushed); they call only the kernels' wrappers, so loaded
+from this file by path they time another checkout's kernels.
+``encode_variants`` and ``bss_variants`` build this checkout's KE1, KE5
+and K12 sources with one constant or one block of code changed (the
+designs they left behind) and time them beside the kernels as built,
+K12 also at other tile sizes.
 ``read_passes`` reads four of the files a few times on the host clock,
 for an A/B of another checkout's read passes in the same way.
 Every kernel must have launched on the paths of phases 3 to 3h, 5 and 6;
@@ -1652,6 +1661,67 @@ def _check_bss(rng, dev) -> None:
                   bss_to_lanes_plain(raw.cpu(), count, k, lanes))
 
 
+# K12 where its design has edges (T = decode.bss_lanes_tile_rows(lanes),
+# lanes = ceil(k / 4)): name -> (stream counts k, row counts as a function
+# of T, bytes the streams start into their buffer, spare bytes past k *
+# count).  k 1-16 takes every partial last lane of 1-4 lanes; counts at
+# every residue mod 16 start the streams (s * count) at every alignment,
+# and views 1, 3, 5, 8 and 13 bytes in shift them all; k 1,024 fills a
+# block's shared memory with 256 lanes' streams at T = 16, and k 1,025,
+# 1,031 and 2,053 split their lanes over gridDim.y (2, 2 and 3 groups).
+_BSS_K = tuple(range(1, 17))
+_BSS_WIDE = (1, 15, 16, 17, 87, 1000)
+BSS_EDGE_CASES = {
+    **{f"count {n}": (_BSS_K, lambda t, n=n: (n,), 0, 3)
+       for n in (1, 15, 16, 17)},
+    "tile - 1": (_BSS_K, lambda t: (t - 1,), 0, 3),
+    "tile": (_BSS_K, lambda t: (t,), 0, 3),
+    "tile + 1": (_BSS_K, lambda t: (t + 1,), 0, 3),
+    "5 tiles + 7": ((4, 8), lambda t: (5 * t + 7,), 0, 3),
+    **{f"count 16m + {r}": ((8,), lambda t, r=r: (3 * t + r,), 0, 3)
+       for r in range(1, 16)},
+    **{f"view {v} bytes in": ((4, 6, 8, 16), lambda t: (1, 5 * t + 7), v, 3)
+       for v in (1, 3, 5, 8, 13)},
+    "exactly k * count bytes": ((1, 4, 7, 8, 13, 16),
+                                lambda t: (1, 17, t + 1, 5 * t + 7), 0, 0),
+    **{f"k {k:,}": ((k,), lambda t: _BSS_WIDE, 0, 3)
+       for k in (1024, 1025, 1031)},
+    "k 2,053 from a view 13 bytes in": ((2053,), lambda t: _BSS_WIDE, 13, 0),
+}
+
+
+def bss_case(rng, name: str) -> list:
+    """A K12 edge case (see BSS_EDGE_CASES): ``[(buf, lead, count, k,
+    lanes)]``, the streams being ``buf[lead:]`` (uint8, ``k * count`` bytes
+    and the case's spare ones)."""
+    from tpuparquet_torch.kernels.decode import bss_lanes_tile_rows
+
+    ks, counts_fn, lead, spare = BSS_EDGE_CASES[name]
+    out = []
+    for k in ks:
+        lanes = -(-k // 4)
+        for count in counts_fn(bss_lanes_tile_rows(lanes)):
+            buf = rng.integers(0, 256, size=lead + k * count + spare,
+                               dtype=np.uint8)
+            out.append((buf, lead, count, k, lanes))
+    return out
+
+
+def _check_bss_edges(rng, dev, names=None) -> None:
+    """K12 against its plain version over the whole output on
+    BSS_EDGE_CASES, each output allocated over garbage."""
+    from tpuparquet_torch.kernels.decode import bss_to_lanes, \
+        bss_to_lanes_plain
+
+    for name in names or BSS_EDGE_CASES:
+        for buf, lead, count, k, lanes in bss_case(rng, name):
+            raw = _t(buf, dev)[lead:]
+            _dirty(dev, 4 * count * lanes)
+            _same(f"K12 {name} k {k} count {count}",
+                  bss_to_lanes(raw, count, k, lanes),
+                  bss_to_lanes_plain(raw.cpu(), count, k, lanes))
+
+
 def _check_flba(rng, dev) -> None:
     """K13 against its plain version and the host's row padding: row
     lengths 1-24 that fill whole lanes (copied) and that leave a partial
@@ -2515,6 +2585,7 @@ def check_kernels(dev) -> None:
     _check_bytes_from_blob(rng, dev)
     _check_delta_scatter(rng, dev)
     _check_bss(rng, dev)
+    _check_bss_edges(rng, dev)
     _check_flba(rng, dev)
     _check_new_shapes(rng, dev)
     _check_pack_bits(rng, dev)
@@ -2878,6 +2949,25 @@ def k5_design(arrays, spec: tuple, count: int, lanes: int):
     return moved, most
 
 
+def k12_moved(raw: torch.Tensor, count: int, k: int, lanes: int,
+              tile: int = 0) -> float:
+    """Device-memory bytes K12's design moves per output byte, by its
+    arithmetic (no counter is read): for each tile of ``tile`` rows (the
+    wrapper's by default) and each stream, the aligned 16-byte vectors
+    that cover the stream's segment, read once, and each output word
+    written once."""
+    from tpuparquet_torch.kernels.decode import bss_lanes_tile_rows
+
+    t = tile or bss_lanes_tile_rows(lanes)
+    i0 = np.arange(0, count, t, dtype=np.int64)
+    rows = np.minimum(t, count - i0)
+    read = 0
+    for s in range(k):
+        d = (raw.data_ptr() + s * count + i0) & 15
+        read += int((16 * ((d + rows + 15) // 16)).sum())
+    return (read + 4 * lanes * count) / (4 * lanes * count)
+
+
 def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
                  dev, launches) -> list:
     """Phase 4: each kernel at the main paths' page shapes."""
@@ -2894,9 +2984,9 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
         unpack_u64_plain
     from tpuparquet_torch.cpu.delta import encode_delta_byte_array
     from tpuparquet_torch.cpu.plain import ByteArrayColumn
-    from tpuparquet_torch.kernels.decode import bss_to_lanes, \
-        bss_to_lanes_plain, bucket, delta_scan, delta_scan_plain, \
-        flba_bytes_to_lanes, flba_bytes_to_lanes_plain, \
+    from tpuparquet_torch.kernels.decode import bss_lanes_tile_rows, \
+        bss_to_lanes, bss_to_lanes_plain, bucket, delta_scan, \
+        delta_scan_plain, flba_bytes_to_lanes, flba_bytes_to_lanes_plain, \
         levels_to_validity, levels_to_validity_plain, page_dict_bytes, \
         page_dict_bytes_plain, page_dict_fixed, page_dict_fixed_plain, \
         plain_bytes_from_blob, plain_bytes_from_blob_plain, \
@@ -3207,16 +3297,20 @@ def time_kernels(groups, mix_groups, groups4, groups_s, groups_t, groups_v2,
     count = reading.size
     raw = np.frombuffer(encode_byte_stream_split(reading), np.uint8)
     (raw_d,) = _stage([raw], dev)
-    row("bss_to_lanes", "tpuparquet_torch/csrc/bss_to_lanes.cu",
-        "tpuparquet/kernels/decode.py:82",
-        lambda: bss_to_lanes(raw_d, count, 8, 2),
-        lambda: bss_to_lanes_plain(raw_d, count, 8, 2),
-        2 * raw.nbytes, 12 * 2 * count,
-        library=lambda: raw_d.view(8, count).t().contiguous())
+    split = row("bss_to_lanes", "tpuparquet_torch/csrc/bss_to_lanes.cu",
+                "tpuparquet/kernels/decode.py:82",
+                lambda: bss_to_lanes(raw_d, count, 8, 2),
+                lambda: bss_to_lanes_plain(raw_d, count, 8, 2),
+                2 * raw.nbytes, 12 * 2 * count,
+                library=lambda: raw_d.view(8, count).t().contiguous())
     got = bss_to_lanes(raw_d, count, 8, 2)
     if not np.array_equal(got.cpu().numpy().view(np.float64), reading):
         raise AssertionError("K12 reading page: wrong values")
     print(f"K12 page: {count} doubles, {raw.nbytes} bytes", flush=True)
+    print(f"K12 reading page: count % 16 = {count % 16}, tiles of "
+          f"{bss_lanes_tile_rows(2)} rows; {split[1]:g} CUDA launches a "
+          f"call ({split[2]}); {k12_moved(raw_d, count, 8, 2):.4f} bytes "
+          "moved per output byte by the design's arithmetic", flush=True)
 
     # K13: the parquet-mr v2 table's amount page (row group 0): its
     # DELTA_BYTE_ARRAY tables planned as the reader plans them, expanded
@@ -3553,11 +3647,17 @@ def _sub(old: str, new: str):
     return edit
 
 
-def _tail(new: str):
+def _span(start: str, end: str, new: str):
+    """An edit that puts ``new`` in place of the text from ``start`` up to
+    ``end``; it raises when the source no longer holds either."""
     def edit(text: str) -> str:
-        a, b = text.index(_KE5_TAIL), text.index("using Kernel = void (*)")
+        a, b = text.index(start), text.index(end)
         return text[:a] + new + text[b:]
     return edit
+
+
+def _tail(new: str):
+    return _span(_KE5_TAIL, "using Kernel = void (*)", new)
 
 
 def _build_variants(sources: dict) -> dict:
@@ -4507,6 +4607,184 @@ def read_kernel_splits(dev, n_values: int = 50_000_000,
         split = device_split(fn, tries=6)
         print(f"{name} split: device {_us(split)} a call, {split[1]:g} CUDA "
               f"launches ({split[2]}); max_abs_err 0", flush=True)
+
+
+def bss_pages(dev, n_values: int = 50_000_000, n_groups: int = 8) -> list:
+    """K12's inputs at the shapes of the splits: ``[(name, raw, count, k,
+    lanes)]`` on ``dev``, the sensor table's reading page (doubles) and
+    temp page (floats) of row group 0 rebuilt from its generator, k 6 (2
+    lanes) at 1,000,003 rows, k 16 (4 lanes) at 2^20 + 3, k 1,031 (258
+    lanes) at 4,099 rows, and the reading page from a view 5 bytes into
+    its buffer."""
+    from tpuparquet_torch.cpu.bss import encode_byte_stream_split
+
+    cols, _ = sensor_groups(n_values // 4 // n_groups, 1)[0]
+    rng = np.random.default_rng(29)
+    reading = np.frombuffer(encode_byte_stream_split(cols["reading"]),
+                            np.uint8)
+    temp = np.frombuffer(encode_byte_stream_split(cols["temp"]), np.uint8)
+    nr, nt = cols["reading"].size, cols["temp"].size
+
+    def rand(k, count):
+        return _t(rng.integers(0, 256, size=k * count, dtype=np.uint8), dev)
+
+    return [
+        ("reading page", _t(reading, dev), nr, 8, 2),
+        ("temp page", _t(temp, dev), nt, 4, 1),
+        ("k 6 at 1,000,003", rand(6, 1_000_003), 1_000_003, 6, 2),
+        ("k 16 at 2^20 + 3", rand(16, (1 << 20) + 3), (1 << 20) + 3, 16, 4),
+        ("k 1,031 at 4,099", rand(1031, 4099), 4099, 1031, 258),
+        ("reading page 5 bytes in", _t(np.concatenate(
+            [np.zeros(5, np.uint8), reading]), dev)[5:], nr, 8, 2)]
+
+
+def bss_kernel_splits(dev, n_values: int = 50_000_000,
+                      n_groups: int = 8) -> None:
+    """K12 alone on each page of :func:`bss_pages`, held against its plain
+    version, with its device time, CUDA launches a call and bound; then
+    on the reading page again with the L2 cache flushed before each call.
+    Calls only ``decode.bss_to_lanes``, whose signature the parent
+    shares, so the same function loaded from this checkout's
+    chip_smoke.py (importlib, by path) times an older checkout's K12 from
+    that checkout's directory."""
+    import re
+
+    from tpuparquet_torch.kernels.decode import bss_to_lanes, \
+        bss_to_lanes_plain
+
+    pages = bss_pages(dev, n_values, n_groups)
+    for name, raw, count, k, lanes in pages:
+        def fn(raw=raw, count=count, k=k, lanes=lanes):
+            return bss_to_lanes(raw, count, k, lanes)
+
+        err = _max_err(fn(), bss_to_lanes_plain(raw, count, k, lanes))
+        if err:
+            raise AssertionError(f"K12 {name}: max abs diff {err} against "
+                                 "the plain version")
+        bound, _ = _bound_ms(k * count + 4 * lanes * count, 0)
+        split = device_split(fn, tries=6)
+        print(f"K12 {name} split: device {_us(split)} a call, {split[1]:g} "
+              f"CUDA launches ({split[2]}); bound {1e3 * bound:.1f} us; "
+              "max_abs_err 0", flush=True)
+    # back to back, a call finds part of its input in the 50 MB L2; a
+    # 64 MiB read before each call leaves it cold
+    name, raw, count, k, lanes = pages[0]
+    flush = torch.zeros(64 << 20, dtype=torch.uint8, device=dev)
+    split = device_split(lambda: (flush.sum(), bss_to_lanes(raw, count, k,
+                                                            lanes)), tries=6)
+    kernel = re.search(r"bss_to_lanes_kernel ([\d.]+ us)", split[2])
+    print(f"K12 {name}, the L2 flushed before each call: device "
+          f"{kernel.group(1) if kernel else 'not traced'} a call ({split[2]})",
+          flush=True)
+
+
+# K12's loads by the Tensor Memory Accelerator: one thread a stream
+# copies the segment's aligned covering range into its shared-memory row
+# with one 1-D bulk copy, completed on an mbarrier the block waits on
+_K12_LOAD = "__device__ __forceinline__ void load_tile("
+_K12_LOAD_END = "// Rows r .. r + 3"
+_K12_BULK_LOAD = r"""__device__ __forceinline__ void load_tile(
+    const uint8_t* __restrict__ raw, int64_t count, int64_t i0, int rows,
+    int s0, int ns, int stride, uint8_t* sm) {
+  __shared__ __align__(8) uint64_t bar;
+  const uint32_t b = static_cast<uint32_t>(__cvta_generic_to_shared(&bar));
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(b));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < ns; j += kThreads) {
+    const uint8_t* seg = raw + (s0 + j) * count + i0;
+    const int d = static_cast<int>(reinterpret_cast<uintptr_t>(seg) & 15);
+    const uint32_t bytes = static_cast<uint32_t>((d + rows + 15) & ~15);
+    const uint32_t dst =
+        static_cast<uint32_t>(__cvta_generic_to_shared(sm + j * stride));
+    asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;"
+                 :: "r"(b), "r"(bytes) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];"
+        :: "r"(dst), "l"(seg - d), "r"(bytes), "r"(b) : "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(b)
+                 : "memory");
+  }
+  asm volatile(
+      "{\n\t.reg .pred P1;\n"
+      "LAB_WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n\t"
+      "@P1 bra DONE;\n\t"
+      "bra LAB_WAIT;\n"
+      "DONE:\n\t}" :: "r"(b), "r"(0) : "memory");
+}
+
+"""
+
+
+def bss_variants(dev, n_values: int = 50_000_000, n_groups: int = 8) -> None:
+    """K12 as built at other tile sizes (the wrapper's rows; KE2's rule,
+    the largest multiple of 16 whose rows fit 16 KiB, which takes two
+    rounds of loads a thread; 1,024 and 512 rows), and built from this
+    checkout's source with what its design left behind: 5 loads a thread
+    in flight (one round at KE2's rule), its loads made by the Tensor
+    Memory Accelerator (``_K12_BULK_LOAD``; its mbarrier's 8 bytes of
+    static shared memory do not fit beside k 1,031's full 48 KB, so not
+    on that page), each thread storing its own 16-byte chunks instead of
+    a warp's staged ones, and registers capped at 32 a thread (8 blocks
+    an SM).  Timed on the device on each page of :func:`bss_pages` but
+    the view; each is held against the plain version.  Calls the kernels
+    directly, so it counts no launch."""
+    from tpuparquet_torch.kernels import _lib
+    from tpuparquet_torch.kernels._lib import stream_of
+    from tpuparquet_torch.kernels.decode import bss_lanes_tile_rows, \
+        bss_to_lanes_plain
+
+    _lib.build_kernels()
+    built = _build_variants({
+        "5 loads a thread": ("bss_to_lanes", _variant("bss_to_lanes", _sub(
+            "constexpr int kVecs = 4;", "constexpr int kVecs = 5;"))),
+        "bulk copy": ("bss_to_lanes", _variant("bss_to_lanes", _span(
+            _K12_LOAD, _K12_LOAD_END, _K12_BULK_LOAD))),
+        "thread stores": ("bss_to_lanes", _variant("bss_to_lanes", _sub(
+            "if (L > 1 && 4 * (base + 32) <= rows) {", "if (false) {"))),
+        "32 registers": ("bss_to_lanes", _variant("bss_to_lanes", _sub(
+            "__launch_bounds__(kThreads)", "__launch_bounds__(kThreads, 8)")))})
+    for name, raw, count, k, lanes in bss_pages(dev, n_values,
+                                                n_groups)[:5]:
+        want = bss_to_lanes_plain(raw, count, k, lanes)
+        t0 = bss_lanes_tile_rows(lanes)
+        ke2 = max(16, (16384 // (4 * lanes)) & ~15)
+        designs = [
+            ("as built", _lib._fns["bss_to_lanes"],
+             sorted({t0, ke2, 1024, 512}, reverse=True)),
+            ("5 loads a thread", built["5 loads a thread"], (ke2,)),
+            ("bulk copy", built["bulk copy"],
+             sorted({t0, ke2}) if lanes <= 4 else ()),
+            ("thread stores", built["thread stores"], (t0,)),
+            ("32 registers", built["32 registers"], (t0,))]
+        row = []
+        for label, fn, tiles in designs:
+            for tile in tiles:
+                out = torch.empty(count * lanes, dtype=torch.int32,
+                                  device=dev)
+
+                def call(fn=fn, tile=tile, out=out, raw=raw, count=count,
+                         k=k, lanes=lanes, label=label):
+                    rc = fn(raw.data_ptr(), count, k, lanes, tile,
+                            out.data_ptr(), stream_of(out))
+                    if rc:
+                        raise RuntimeError(f"K12 {label} tile {tile}: "
+                                           f"cudaError {rc}")
+                    return out
+
+                _same(f"K12 {label} tile {tile} {name}", call(), want)
+                row.append(f"{label} tile {tile} "
+                           f"{_us(device_split(call, tries=6))} "
+                           f"({k12_moved(raw, count, k, lanes, tile):.4f} "
+                           "bytes a byte out)")
+        print(f"K12 variants, {name}: {', '.join(row)}", flush=True)
 
 
 def read_passes(dev, cache: str, reps: int = 5,

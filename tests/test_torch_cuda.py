@@ -196,6 +196,17 @@ def test_delta_and_bss_kernels_match_plain_versions(cuda, check):
     torch.cuda.synchronize(cuda)
 
 
+@pytest.mark.parametrize("case", list(chip_smoke.BSS_EDGE_CASES))
+def test_bss_tile_edges_match_plain_version(cuda, case):
+    """K12 where its design has edges (chip_smoke.BSS_EDGE_CASES): every k
+    from 1 to 16, counts around a tile and at every residue mod 16, views
+    1-13 bytes into their buffer, streams of exactly k * count bytes, rows
+    that fill a block's shared memory and rows whose lanes split over
+    gridDim.y; the whole output, allocated over garbage."""
+    chip_smoke._check_bss_edges(np.random.default_rng(20), cuda, [case])
+    torch.cuda.synchronize(cuda)
+
+
 @pytest.mark.parametrize("check", ["_check_flba", "_check_new_shapes"])
 def test_slice5_shapes_match_plain_versions(cuda, check):
     """K13 (flba_bytes_to_lanes at row lengths 1, 3, 4, 5, 7, 8, 9, 12,

@@ -282,6 +282,24 @@ def test_bss_to_lanes_partial_lane_matches_jax():
         decode.bss_to_lanes(torch.from_numpy(raw.copy()), 38, 6, 2)
 
 
+@pytest.mark.parametrize("case", list(chip_smoke.BSS_EDGE_CASES))
+def test_bss_to_lanes_edge_cases_match_jax(case):
+    """K12's edge cases (chip_smoke.BSS_EDGE_CASES: every k from 1 to 16,
+    counts around the kernel's tiles and at every residue mod 16, views
+    1-13 bytes in, streams of exactly k * count bytes, rows of 1,024 to
+    2,053 bytes) through the port's CPU path and the JAX package's
+    bss_to_lanes."""
+    for buf, lead, count, k, lanes in chip_smoke.bss_case(
+            np.random.default_rng(24), case):
+        ours = decode.bss_to_lanes(torch.from_numpy(buf)[lead:], count, k,
+                                   lanes)
+        theirs = jax_decode.bss_to_lanes(jnp.asarray(buf[lead:]), count, k,
+                                         lanes)
+        assert ours.shape == (count * lanes,)
+        np.testing.assert_array_equal(ours.numpy().view(np.uint32),
+                                      np.asarray(theirs))
+
+
 # ----------------------------------------------------------------------
 # the C helpers against the JAX package's native ones
 # ----------------------------------------------------------------------

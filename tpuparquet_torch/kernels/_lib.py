@@ -40,7 +40,7 @@ KERNELS = {
     "dict_bytes": [_P, _L, _P, _L, _P, _I, _L, _L, _P, _P, _L, _P],
     "bytes_from_blob": [_P, _L, _P, _L, _I, _P, _L, _I, _P],
     "delta_scatter": [_P, _P, _P, _P, _L, _L, _P, _P, _L, _P],
-    "bss_to_lanes": [_P, _L, _I, _I, _P, _P],
+    "bss_to_lanes": [_P, _L, _I, _I, _I, _P, _P],
     "flba_to_lanes": [_P, _L, _I, _I, _I, _P, _P],
     "pack_bits": [_P, _P, _L, _P, _L, _I, _I, _P, _P],
     "bss_encode": [_P, _L, _I, _I, _I, _P, _P],

@@ -42,7 +42,7 @@ __all__ = [
     "expand_delta_i32", "expand_delta_i64",
     "plan_delta_i32", "plan_delta_i64",
     "scatter_deltas", "scatter_deltas_plain",
-    "bss_to_lanes", "bss_to_lanes_plain",
+    "bss_to_lanes", "bss_to_lanes_plain", "bss_lanes_tile_rows",
     "flba_bytes_to_lanes", "flba_bytes_to_lanes_plain",
     "u8_to_u32_words_at",
     "scatter_to_dense", "scatter_to_dense_plain",
@@ -775,6 +775,16 @@ def expand_delta_i64(plan: DeltaPlan) -> torch.Tensor:
 # K12: BYTE_STREAM_SPLIT pages
 # ----------------------------------------------------------------------
 
+def bss_lanes_tile_rows(lanes: int) -> int:
+    """Rows of one tile of K12 (``csrc/bss_to_lanes.cu``), which takes
+    them from its wrapper: the largest multiple of 16 whose 16-byte
+    vectors, ``T / 16 + 1`` for each of ``4 * lanes`` streams, take one
+    round of the kernel's 4 loads a thread in blocks of 256 threads, at
+    least 16: 4,080 rows of floats, 2,032 of doubles.  The checks pin the
+    tiles' edges with it."""
+    return 16 * max(256 // lanes - 1, 1)
+
+
 def bss_to_lanes_plain(raw, count: int, k: int, lanes: int) -> torch.Tensor:
     """Plain PyTorch version of K12: the reference's transpose."""
     rows = raw[: k * count].reshape(k, count).t().to(torch.int64)
@@ -799,9 +809,10 @@ def bss_to_lanes(raw: torch.Tensor, count: int, k: int,
         raise ValueError(f"unsupported device {dev}")
     check_tensor(raw, "raw", torch.uint8, dev)
     out = torch.empty(count * lanes, dtype=torch.int32, device=dev)
-    launch("bss_to_lanes", raw.data_ptr(), count, k, lanes, out.data_ptr(),
-           stream_of(out))
-    bss_to_lanes.launches += 1
+    if count:
+        launch("bss_to_lanes", raw.data_ptr(), count, k, lanes,
+               bss_lanes_tile_rows(lanes), out.data_ptr(), stream_of(out))
+        bss_to_lanes.launches += 1
     return out
 
 
