@@ -89,6 +89,20 @@
    transport).  Each read checks every value, rep and def level and mask
    against the generator, row group 0 against the CPU run buffer for
    buffer, and the routing counters; each is timed best of 3.
+   Every read of phases 3-3h runs through the pipeline of
+   ``pipelined_reads`` (the columns planned on a pool of
+   ``TPQ_PLAN_THREADS`` workers, by default one a usable CPU): each is
+   read again at ``TPQ_PLAN_THREADS=1``, and its buffers, routing
+   counters, ``bytes_staged``, ``pages_crc_verified`` and per-kernel
+   launch counts must equal the default's; each is timed best of 3 at
+   both worker counts, printing both walls and ``plan_s`` (the workers'
+   seconds summed), ``transfer_s``, ``dispatch_s`` and values/s.
+   Config 2 is also timed at 1, 2, 4 and the usable CPU count of
+   workers, read from a file path (range reads: ``bytes_read`` must
+   equal the chunks' compressed bytes, the buffers the in-memory read's)
+   and twice under ``TPQ_PLAN_CACHE_MB=64`` (as is the sensor table of
+   3f): the warm pass must hit the plan cache once a chunk and miss
+   none, with the cold pass's routing and buffers.
    3b. Does the same for the transport mix, a file on which every route
    engages (snappy tokens with and without levels, delta lanes at widths
    7 and 39, byte planes), with the default transports.
@@ -164,8 +178,12 @@
    runs ``sharded_dict_decode`` on both meshes (KS2, one launch a slot;
    sp 1 and 2) over the index streams of config 2's dictionary columns
    as the file holds them, each chunk's dictionary a lane group of one
-   dictionary; each unit equals its row group's read.  ``run()`` and
-   each gather are timed best of 3, with ``gather_reshard_s``.
+   dictionary; each unit equals its row group's read.  ``run()`` (through
+   ``pipelined_unit_scan``) and each gather are timed best of 3, with
+   ``gather_reshard_s``.  Each gather also runs with ``gather_to="cpu"``,
+   a sink outside the mesh of the card's slots (the direct assembly:
+   each unit's row copied once to the host, no KS4), which must equal
+   the replicated and the in-mesh placed gather.
 
 Before phase 1 it prints the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit`` gives them) and the host's
@@ -184,7 +202,8 @@ and K12 sources with one constant or one block of code changed (the
 designs they left behind) and time them beside the kernels as built,
 K12 also at other tile sizes.
 ``read_passes`` reads four of the files a few times on the host clock,
-for an A/B of another checkout's read passes in the same way.
+for an A/B of another checkout's read passes in the same way;
+``host_gathers`` times phase 6's gathers onto the host likewise.
 Every kernel must have launched on the paths of phases 3 to 3h, 5 and 6;
 the counts are set to 0 just before each path's read or write and read
 just after.  Exits non-zero, printing no result, when CUDA is
@@ -197,11 +216,13 @@ paths, times and bounds.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2596,9 +2617,16 @@ def check_kernels(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _time_ms(fn, reps: int = 20) -> float:
+def _time_ms(fn, reps: int = 20, budget_s: float | None = None) -> float:
+    """CUDA-event ms of one call, the mean of ``reps`` after a warm call;
+    with ``budget_s``, fewer reps (at least 1) where the warm call shows
+    that ``reps`` would take longer than that."""
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
+    if budget_s is not None:
+        warm = max(time.perf_counter() - t0, 1e-9)
+        reps = max(1, min(reps, int(budget_s / warm)))
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
@@ -2640,7 +2668,7 @@ def _kernel_row(out, launches, name, source, replaces, fn, plain, n_bytes,
                              f"version at the page shape (max abs diff "
                              f"{err})")
     bound, by = _bound_ms(n_bytes, n_ops)
-    ms, plain_ms = _time_ms(fn), _time_ms(plain, reps=5)
+    ms, plain_ms = _time_ms(fn), _time_ms(plain, reps=5, budget_s=1.0)
     lib_ms = None if library is None else _time_ms(library)
     split = device_split(fn)
     out.append({"name": name, "route": "cuda", "source": source,
@@ -2911,7 +2939,7 @@ def k5_page(cols: dict, dev):
     planned = _plan_plane_words(np.ascontiguousarray(col).view(np.uint8),
                                 col.size, 2, stg)
     assert planned is not None, "trip_distance_mm: planes rejected"
-    wire, _, spec = planned
+    wire, _, spec, _ = planned
     (staged,), _slab = _put_all([stg], dev)
     _sync(dev)  # the slab's copy is done before it goes
     return staged, [a for a, _ in stg.arrays], spec, wire
@@ -4126,25 +4154,190 @@ def _routing(label, st, want: dict) -> None:
         raise AssertionError(f"{label}: routing {got}, expected {want}")
 
 
-def _best_of(label, reader, dev, n_values, reps: int = 3, note: str = ""):
+def _plan_workers(threads) -> int:
+    """The plan workers of a read at ``TPQ_PLAN_THREADS=threads`` (None:
+    the default)."""
+    from tpuparquet_torch.kernels.device import _plan_threads
+
+    with _plan_threads_env(threads):
+        return _plan_threads()
+
+
+@contextlib.contextmanager
+def _plan_threads_env(threads):
+    """``TPQ_PLAN_THREADS`` set to ``threads`` (None: unset) inside the
+    block, restored after."""
+    prev = os.environ.get("TPQ_PLAN_THREADS")
+    if threads is None:
+        os.environ.pop("TPQ_PLAN_THREADS", None)
+    else:
+        os.environ["TPQ_PLAN_THREADS"] = str(threads)
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("TPQ_PLAN_THREADS", None)
+        else:
+            os.environ["TPQ_PLAN_THREADS"] = prev
+
+
+def _best_one(label, reader, dev, n_values, reps: int = 3, note: str = "",
+              threads=None) -> float:
+    """Best of ``reps`` read passes at ``TPQ_PLAN_THREADS=threads``
+    (None: the default), printed with the best pass's phases; returns its
+    wall."""
     from tpuparquet_torch.kernels.device import read_row_groups_device
     from tpuparquet_torch.stats import collect_stats
 
     best, phases = float("inf"), None
-    for _ in range(reps):
-        with collect_stats() as st:
+    with _plan_threads_env(threads):
+        for _ in range(reps):
+            with collect_stats() as st:
+                t0 = time.perf_counter()
+                outs = [out for _, out in read_row_groups_device(
+                    reader, device=dev)]
+                _sync(dev)
+                dt = time.perf_counter() - t0
+            del outs
+            if dt < best:
+                best, phases = dt, st
+    print(f"{label} at {_plan_workers(threads)} plan workers, best of "
+          f"{reps}: {best:.4f} s, {n_values / best:.4e} values/s; plan_s "
+          f"{phases.plan_s:.4f}, transfer_s {phases.transfer_s:.4f}, "
+          f"dispatch_s {phases.dispatch_s:.4f}, bytes_staged "
+          f"{phases.bytes_staged}{note}", flush=True)
+    return best
+
+
+def _best_of(label, reader, dev, n_values, reps: int = 3, note: str = ""):
+    """Best of ``reps`` passes at the default worker count, then at one
+    worker."""
+    walls = [_best_one(label, reader, dev, n_values, reps, note, threads)
+             for threads in (None, 1)]
+    print(f"{label} pass wall: {walls[0]:.4f} s at "
+          f"{_plan_workers(None)} workers, {walls[1]:.4f} s at 1",
+          flush=True)
+
+
+SAME_COUNTERS = ("bytes_staged", "pages_crc_verified",
+                 "pages_device_snappy", "pages_device_delta_lanes",
+                 "pages_device_planes")
+
+
+def _same_columns(label, got, want) -> None:
+    """Two reads' ``[(rg, {path: DeviceColumn})]``, every stored buffer
+    (padding included) equal on the device."""
+    if [rg for rg, _ in got] != [rg for rg, _ in want]:
+        raise AssertionError(f"{label}: row groups differ")
+    for (rg, a), (_, b) in zip(got, want):
+        if a.keys() != b.keys():
+            raise AssertionError(f"{label} row group {rg}: columns differ")
+        for name, c in a.items():
+            d = b[name]
+            if (c.num_values, c.n_packed, c.n_bytes) != \
+                    (d.num_values, d.n_packed, d.n_bytes):
+                raise AssertionError(f"{label} row group {rg} {name}: "
+                                     "lengths differ")
+            for slot in ("_data_p", "offsets", "_mask_p", "_pos_p",
+                         "_rep_p", "_def_p"):
+                x, y = getattr(c, slot), getattr(d, slot)
+                if (x is None) != (y is None) or (
+                        x is not None and (x.dtype != y.dtype
+                                           or not torch.equal(x, y))):
+                    raise AssertionError(f"{label} row group {rg} {name}: "
+                                         f"{slot} differs")
+
+
+def _same_at_one_worker(label, reader, dev, wrappers, got, launches,
+                        st) -> None:
+    """The read again at ``TPQ_PLAN_THREADS=1``: buffers, the counters of
+    SAME_COUNTERS and every kernel's launches equal the default's."""
+    with _plan_threads_env(1):
+        got1, launches1, st1 = _drive(reader, dev, wrappers)
+    _same_columns(f"{label} at 1 plan worker", got1, got)
+    want = {k: getattr(st, k) for k in SAME_COUNTERS}
+    have = {k: getattr(st1, k) for k in SAME_COUNTERS}
+    if have != want or launches1 != launches:
+        raise AssertionError(
+            f"{label}: at 1 plan worker counters {have} and launches "
+            f"{launches1}, at {_plan_workers(None)} {want} and {launches}")
+    print(f"{label}: at 1 and {_plan_workers(None)} plan workers the same "
+          f"buffers, counters and launches", flush=True)
+
+
+def _chunk_count(reader) -> int:
+    return sum(len(rg.columns) for rg in reader.meta.row_groups)
+
+
+def check_plan_cache(label, reader, dev, wrappers) -> None:
+    """Two reads under ``TPQ_PLAN_CACHE_MB=64`` from an empty cache: the
+    cold one misses once a chunk, the warm one hits once a chunk and
+    misses none, with the cold one's routing and buffers; both walls
+    printed."""
+    from tpuparquet_torch.kernels.plancache import clear_plan_cache
+
+    prev = os.environ.get("TPQ_PLAN_CACHE_MB")
+    os.environ["TPQ_PLAN_CACHE_MB"] = "64"
+    clear_plan_cache()
+    try:
+        passes = []
+        for _ in range(2):
             t0 = time.perf_counter()
-            outs = [out for _, out in read_row_groups_device(reader,
-                                                             device=dev)]
-            _sync(dev)
-            dt = time.perf_counter() - t0
-        del outs
-        if dt < best:
-            best, phases = dt, st
-    print(f"{label} best of {reps}: {best:.4f} s, {n_values / best:.4e} "
-          f"values/s; plan_s {phases.plan_s:.4f}, transfer_s "
-          f"{phases.transfer_s:.4f}, dispatch_s {phases.dispatch_s:.4f}, "
-          f"bytes_staged {phases.bytes_staged}{note}", flush=True)
+            got, launches, st = _drive(reader, dev, wrappers)
+            passes.append((time.perf_counter() - t0, got, launches, st))
+    finally:
+        if prev is None:
+            os.environ.pop("TPQ_PLAN_CACHE_MB", None)
+        else:
+            os.environ["TPQ_PLAN_CACHE_MB"] = prev
+        clear_plan_cache()
+    (cold_s, cold, cold_l, cold_st), (warm_s, warm, warm_l, warm_st) = passes
+    n = _chunk_count(reader)
+    got = [(p.plan_cache_hits, p.plan_cache_misses)
+           for p in (cold_st, warm_st)]
+    if got != [(0, n), (n, 0)]:
+        raise AssertionError(f"{label}: plan cache (hits, misses) cold and "
+                             f"warm {got}, expected {[(0, n), (n, 0)]}")
+    want = {k: getattr(cold_st, k) for k in SAME_COUNTERS}
+    have = {k: getattr(warm_st, k) for k in SAME_COUNTERS}
+    if have != want or warm_l != cold_l:
+        raise AssertionError(f"{label}: the warm pass's counters {have} "
+                             f"and launches {warm_l}, the cold pass's "
+                             f"{want} and {cold_l}")
+    _same_columns(f"{label} warm plan cache", warm, cold)
+    print(f"{label} plan cache: cold pass {cold_s:.4f} s (plan_s "
+          f"{cold_st.plan_s:.4f}), warm pass {warm_s:.4f} s (plan_s "
+          f"{warm_st.plan_s:.4f}); {n} hits of {n} chunks, the cold "
+          "pass's routing and buffers", flush=True)
+
+
+def check_range_reads(label, path, got, dev, wrappers) -> None:
+    """Config 2 from its file path: every chunk read as a range of the
+    open file, ``bytes_read`` the chunks' compressed bytes, the buffers
+    the in-memory read's (``got``)."""
+    from tpuparquet_torch.io.reader import FileReader
+
+    with FileReader(path) as reader:
+        t0 = time.perf_counter()
+        from_path, _, st = _drive(reader, dev, wrappers)
+        wall = time.perf_counter() - t0
+        want = sum(cc.meta_data.total_compressed_size
+                   for rg in reader.meta.row_groups for cc in rg.columns)
+    if st.bytes_read != want:
+        raise AssertionError(f"{label}: bytes_read {st.bytes_read}, the "
+                             f"chunks hold {want}")
+    _same_columns(f"{label} from its path", from_path, got)
+    print(f"{label} from its path: {wall:.4f} s, bytes_read "
+          f"{st.bytes_read} in read_s {st.read_s:.4f}; the in-memory "
+          "read's buffers", flush=True)
+
+
+def sweep_workers(label, reader, dev, n_values) -> None:
+    """Best of 3 at 2, 4 and the usable CPU count of plan workers, less
+    the counts :func:`_best_of` timed already (1 and the default)."""
+    done = {1, _plan_workers(None)}
+    for threads in sorted({2, 4, len(os.sched_getaffinity(0))} - done):
+        _best_one(f"{label} sweep", reader, dev, n_values, threads=threads)
 
 
 def _launches_by_column(reader, dev, wrappers) -> dict:
@@ -4250,7 +4443,7 @@ def _as_host(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
 
 
-def _same_gather(label, name, placed, rep) -> None:
+def _same_gather(label, name, placed, rep, where: str) -> None:
     """A placed gather equals the replicated one, array by array (the
     placed values are int32 tensors holding the u32 bits)."""
     for a, b in zip(placed, rep):
@@ -4258,7 +4451,7 @@ def _same_gather(label, name, placed, rep) -> None:
         if a.dtype == np.int32 and b.dtype == np.uint32:
             a = a.view(np.uint32)
         if a.shape != b.shape or not np.array_equal(a, b):
-            raise AssertionError(f"{label} {name}: the gather to device 0 "
+            raise AssertionError(f"{label} {name}: the gather {where} "
                                  "differs from the replicated gather")
 
 
@@ -4310,18 +4503,30 @@ def check_sharded_scan(label, mesh, blob, groups, fixed, byte_cols, dev,
         with collect_stats() as st:
             rep = gather(results, name)
         placed = gather(results, name, gather_to=target)
+        with collect_stats() as sink_st:
+            sink = gather(results, name, gather_to="cpu")
         _sync(dev)
         if name in byte_cols:
             _check_bytes_gather(label, name, rep, groups)
         else:
             _check_fixed_gather(label, name, rep, groups, results)
-        _same_gather(label, name, placed, rep)
+        _same_gather(label, name, placed, rep, "to device 0")
+        _same_gather(label, name, sink, rep, "to the host")
+        _same_gather(label, name, sink, [_as_host(a) for a in placed],
+                     "to the host (against device 0)")
+        n_arrays = 2 if name in byte_cols else 1
+        if sink_st.gather_bytes_moved != sum(
+                a.numel() * a.element_size() for a in sink[:n_arrays]):
+            raise AssertionError(f"{label} {name}: the gather to the host "
+                                 f"moved {sink_st.gather_bytes_moved} "
+                                 "bytes, not its arrays' size")
         out[name], moved[name] = rep, st.gather_bytes_moved
     launches = {k: fn.launches for k, fn in wrappers.items()}
     print(f"{label} launches: {launches}; gather_bytes_moved (replicated) "
           f"{moved}", flush=True)
     print(f"{label}: {len(results)} units on {mesh}; every gathered unit "
-          "matches the generator, replicated and on device 0", flush=True)
+          "matches the generator, replicated, on device 0 and on the host",
+          flush=True)
 
     def run():
         scan.run()
@@ -4336,9 +4541,14 @@ def check_sharded_scan(label, mesh, blob, groups, fixed, byte_cols, dev,
             gather(results, name, gather_to=target)
             _sync(dev)
 
+        def to_host():
+            gather(results, name, gather_to="cpu")
+            _sync(dev)
+
         _best_gather(f"{label} gather {name} replicated",
                      lambda: gather(results, name))
         _best_gather(f"{label} gather {name} to device 0", placed)
+        _best_gather(f"{label} gather {name} to the host", to_host)
     scan.close()
     return {"out": out, "moved": moved, "launches": launches,
             "results": results}
@@ -4825,6 +5035,44 @@ def read_passes(dev, cache: str, reps: int = 5,
     print(json.dumps(out), flush=True)
 
 
+def host_gathers(dev, reps: int = 3, n_values: int = 50_000_000,
+                 n_groups: int = 8) -> None:
+    """Host-clock A/B of the gathers onto the host (``gather_to="cpu"``,
+    the direct assembly) over config 2's and config 4's files on phase
+    6's meshes: each column's best of ``reps``, printed as one JSON line
+    of ``{label: [wall s, gather_reshard_s, bytes]}``.  Calls only
+    ``ShardedScan`` and its gathers, so loaded from this file by path in
+    another checkout's directory it times that checkout's assembly."""
+    from tpuparquet_torch.shard import ShardedScan
+    from tpuparquet_torch.stats import collect_stats
+
+    blob2, groups2 = build_config2(n_values, n_groups)
+    files = (("config 2", blob2, list(groups2[0][0]), []),
+             ("config 4", build_config4(n_values, n_groups)[0],
+              ["fare", "tip"], ["vendor", "note"]))
+    out = {}
+    for mlabel, mesh in shard_meshes(dev):
+        for flabel, blob, fixed, byte_cols in files:
+            scan = ShardedScan([blob], mesh=mesh)
+            results = scan.run()
+            for name in fixed + byte_cols:
+                gather = (scan.gather_byte_column if name in byte_cols
+                          else scan.gather_column)
+                best = (float("inf"), None, None)
+                for _ in range(reps):
+                    with collect_stats() as st:
+                        t0 = time.perf_counter()
+                        gather(results, name, gather_to="cpu")
+                        _sync(dev)
+                        dt = time.perf_counter() - t0
+                    if dt < best[0]:
+                        best = (dt, st.gather_reshard_s,
+                                st.gather_bytes_moved)
+                out[f"{flabel} {mlabel} {name}"] = list(best)
+            scan.close()
+    print(json.dumps(out), flush=True)
+
+
 def shard_kernel_splits(dev, n_values: int = 50_000_000,
                         n_groups: int = 8) -> None:
     """KS2 and KS3 at phase 4's shapes, their inputs rebuilt from the
@@ -5024,6 +5272,8 @@ def main(argv=None) -> int:
     print(f"config 2: {g} row groups, {len(blob)} bytes, written in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     reader = FileReader(blob)
+    print(f"plan workers: {_plan_workers(None)} by default "
+          "(TPQ_PLAN_THREADS, else the usable CPUs)", flush=True)
     for on, label in ((True, "config 2 transports"),
                       (False, "config 2 no transports")):
         _set_transports(on)
@@ -5031,6 +5281,15 @@ def main(argv=None) -> int:
         print(f"{label} launches: {launches}", flush=True)
         n_values = _check_read(label, reader, got,
                                [(c, {"payment_type": m}) for c, m in groups])
+        _same_at_one_worker(label, reader, dev, wrappers, got, launches, st)
+        if on:
+            with tempfile.TemporaryDirectory(
+                    prefix=".smoke-", dir=os.path.dirname(
+                        os.path.abspath(__file__))) as tmp:
+                path = os.path.join(tmp, "config2.parquet")
+                with open(path, "wb") as f:
+                    f.write(blob)
+                check_range_reads(label, path, got, dev, wrappers)
         del got
         _routing(label, st, {"pages_device_delta_lanes": g if on else 0,
                              "pages_device_planes": g if on else 0,
@@ -5042,6 +5301,8 @@ def main(argv=None) -> int:
             total_launches[k] += c
         _best_of(label, reader, dev, n_values)
     _set_transports(True)
+    sweep_workers("config 2 transports", reader, dev, n_values)
+    check_plan_cache("config 2", reader, dev, wrappers)
 
     # phase 3b: the transport mix, default transports
     t0 = time.perf_counter()
@@ -5053,6 +5314,8 @@ def main(argv=None) -> int:
     print(f"transport mix launches: {launches}", flush=True)
     n_mix = _check_read("transport mix", mix_reader, got,
                         [(c, {"tok_opt": m}) for c, m in mix_groups])
+    _same_at_one_worker("transport mix", mix_reader, dev, wrappers, got,
+                        launches, st)
     del got
     _routing("transport mix", st, {"pages_device_snappy": 2 * g,
                                    "pages_device_delta_lanes": 2 * g,
@@ -5075,6 +5338,8 @@ def main(argv=None) -> int:
     got, launches, st = _drive(reader4, dev, wrappers)
     print(f"config 4 launches: {launches}", flush=True)
     n4 = _check_read("config 4", reader4, got, groups4)
+    _same_at_one_worker("config 4", reader4, dev, wrappers, got,
+                        launches, st)
     del got
     _routing("config 4", st, {"pages_device_snappy": 0,
                               "pages_device_delta_lanes": 0,
@@ -5096,6 +5361,8 @@ def main(argv=None) -> int:
     got, launches, st = _drive(reader_s, dev, wrappers)
     print(f"string mix launches: {launches}", flush=True)
     n_s = _check_read("string mix", reader_s, got, groups_s)
+    _same_at_one_worker("string mix", reader_s, dev, wrappers, got,
+                        launches, st)
     del got
     _routing("string mix", st, {"pages_device_snappy": 2 * g,
                                 "pages_device_delta_lanes": 0,
@@ -5117,6 +5384,8 @@ def main(argv=None) -> int:
     got, launches, st = _drive(reader3, dev, wrappers)
     print(f"config 3 launches: {launches}", flush=True)
     n3 = _check_list_read("config 3", reader3, got, groups3)
+    _same_at_one_worker("config 3", reader3, dev, wrappers, got,
+                        launches, st)
     del got, groups3
     _routing("config 3", st, {"pages_device_snappy": 0,
                               "pages_device_delta_lanes": 0,
@@ -5138,6 +5407,8 @@ def main(argv=None) -> int:
     got, launches, st = _drive(reader_t, dev, wrappers)
     print(f"sensor table launches: {launches}", flush=True)
     n_t = _check_read("sensor table", reader_t, got, groups_t)
+    _same_at_one_worker("sensor table", reader_t, dev, wrappers, got,
+                        launches, st)
     del got
     _routing("sensor table", st, {"pages_device_snappy": 0,
                                   "pages_device_delta_lanes": 0,
@@ -5152,6 +5423,7 @@ def main(argv=None) -> int:
         total_launches[k] += c
     _best_of("sensor table", reader_t, dev, n_t,
              note=" (the JAX package: 195,888,708 on the same generator)")
+    check_plan_cache("sensor table", reader_t, dev, wrappers)
     del reader_t
 
     # phase 3g: the Spark-style table (INT96, BOOLEAN, FIXED_LEN_BYTE_ARRAY;
@@ -5164,6 +5436,8 @@ def main(argv=None) -> int:
     got, launches, st = _drive(reader_k, dev, wrappers)
     print(f"spark table launches: {launches}", flush=True)
     n_k = _check_read("spark table", reader_k, got, groups_k)
+    _same_at_one_worker("spark table", reader_k, dev, wrappers, got,
+                        launches, st)
     del got, groups_k
     _routing("spark table", st, {"pages_device_snappy": 0,
                                  "pages_device_delta_lanes": 0,
@@ -5186,6 +5460,8 @@ def main(argv=None) -> int:
     got, launches, st = _drive(reader_v2, dev, wrappers)
     print(f"parquet-mr v2 table launches: {launches}", flush=True)
     n_v2 = _check_read("parquet-mr v2 table", reader_v2, got, groups_v2)
+    _same_at_one_worker("parquet-mr v2 table", reader_v2, dev, wrappers, got,
+                        launches, st)
     del got
     _routing("parquet-mr v2 table", st, {"pages_device_snappy": 0,
                                          "pages_device_delta_lanes": 0,

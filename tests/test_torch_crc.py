@@ -109,9 +109,10 @@ def test_switch_off_reads_bad_crc_as_reference(how, monkeypatch):
 
 @pytest.mark.parametrize("kw", [{}, {"verify_crc": True}])
 def test_switch_on_raises_as_reference(kw, monkeypatch):
-    """Both raise.  The port counts the mismatch; the reference's device
-    read drops the failing row group's collector (it merges a unit's
-    counters only when the unit succeeds), so its count stays 0."""
+    """Both raise.  Both device reads plan each column on a pool worker
+    under a collector of its own and merge a task's counters only when
+    the task succeeds, so the failing column's mismatch is dropped and
+    both counts stay 0."""
     if not kw:
         monkeypatch.setenv("TPQ_PAGE_CRC_VERIFY", "1")
     blob = _flipped()
@@ -123,7 +124,7 @@ def test_switch_on_raises_as_reference(kw, monkeypatch):
         with pytest.raises(CorruptPageError, match="CRC"):
             list(read_row_groups_device(FileReader(blob, **kw),
                                         device="cpu"))
-    assert st.crc_mismatches == 1 and jst.crc_mismatches == 0
+    assert st.crc_mismatches == 0 and jst.crc_mismatches == 0
 
 
 def test_argument_overrides_environment(monkeypatch):

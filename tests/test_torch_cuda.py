@@ -549,11 +549,64 @@ def test_sharded_scan_on_card(cuda, shape):
                 np.testing.assert_array_equal(a, b)
         assert got["launches"]["scatter_to_dense"] > 0
         assert got["launches"]["place_rows"] > 0
+        # three gathers a string column (replicated, to device 0, to
+        # the host), each densifying every unit once
         assert got["launches"]["byte_densify"] == (
-            2 * 2 * len(groups4) if byte_cols else 0)
+            3 * 2 * len(groups4) if byte_cols else 0)
         if fblob is blob:
             results = got["results"]
     streams = chip_smoke.dict_index_streams(FileReader(blob))
     launches = chip_smoke.check_dict_decode(shape, mesh, streams, results,
                                             wrappers)
     assert launches["spmd_step_slot"] == len(streams) * mesh.devices.size
+
+
+@pytest.mark.parametrize("shape", ["1x1", "2x2"])
+def test_gather_to_host_from_card_mesh(cuda, shape):
+    """A mesh of cuda:0 slots gathered with ``gather_to="cpu"``: the
+    direct assembly copies each unit's row to the host (no KS4 launch),
+    equal to the replicated gather and to the gather placed on the
+    card, and moves exactly the bytes of its arrays."""
+    from tpuparquet_torch.shard import ShardedScan
+
+    mesh = dict(chip_smoke.shard_meshes(cuda))[shape]
+    blob4, _ = chip_smoke.build_config4(800_000, 3)
+    wrappers = _shard_wrappers()
+    with ShardedScan([blob4], mesh=mesh) as scan:
+        results = scan.run()
+        for fn, name, n_arrays in ((scan.gather_column, "fare", 1),
+                                   (scan.gather_byte_column, "vendor", 2)):
+            rep = fn(results, name)
+            placed = fn(results, name, gather_to=0)
+            for f in wrappers.values():
+                f.launches = 0
+            with collect_stats() as st:
+                sink = fn(results, name, gather_to="cpu")
+            assert wrappers["place_rows"].launches == 0
+            assert all(a.device.type == "cpu" for a in sink[:n_arrays])
+            assert st.gather_bytes_moved == sum(
+                a.numel() * a.element_size() for a in sink[:n_arrays])
+            assert st.gather_reshard_s > 0
+            for a, b, c in zip(sink, rep, placed):
+                a = a.numpy() if isinstance(a, torch.Tensor) else a
+                c = c.cpu().numpy() if isinstance(c, torch.Tensor) else c
+                np.testing.assert_array_equal(a.view(b.dtype), b)
+                np.testing.assert_array_equal(a, c)
+
+
+def test_pipelined_read_same_at_every_worker_count(cuda, monkeypatch):
+    """The read of config 2 at 4 plan workers and at 1: the same buffers,
+    counters and kernel launches (launches are counted on the calling
+    thread, which alone dispatches)."""
+    blob, _ = chip_smoke.build_config2(2_000_000, 4)
+    reader = FileReader(blob)
+    wrappers = {"unpack_u32": bitunpack.unpack_u32,
+                "expand_hybrid": hybrid.expand_hybrid,
+                "levels_to_validity": decode.levels_to_validity,
+                "planes_to_words": decode.planes_to_words,
+                "delta_scan": decode.delta_scan}
+    monkeypatch.setenv("TPQ_PLAN_THREADS", "4")
+    got, launches, st = chip_smoke._drive(reader, cuda, wrappers)
+    assert launches["planes_to_words"] > 0 and launches["delta_scan"] > 0
+    chip_smoke._same_at_one_worker("config 2", reader, cuda, wrappers, got,
+                                   launches, st)

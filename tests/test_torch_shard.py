@@ -681,10 +681,78 @@ def test_sharding_spec_waits_for_a9b():
 
 
 def test_target_outside_mesh_waits_for_a9b():
-    """The reference's direct assembly onto a device outside the scan
-    mesh needs a second device; the port raises."""
-    pm = port_mesh.make_mesh(1, devices=["cpu"])
-    with port_scan.ShardedScan([_int_file(40, 1, 0)], mesh=pm) as ps:
+    """A target outside the scan mesh takes the direct assembly (on the
+    CPU: a mesh of ``cpu:0`` slots, the sink ``cpu``): the same arrays as
+    the gather placed on the mesh's own device, which runs KS4, and the
+    reference's direct assembly's counters.  A ``meta`` target holds no
+    data and raises, naming the device."""
+    blobs = [_int_file(120, 3, 0), _string_file(120, 2, seed=1)]
+    pm = port_mesh.make_mesh(4, devices=["cpu:0"] * 4)
+    jm = jax_mesh.make_mesh(8)
+    with port_scan.ShardedScan(blobs, "a", mesh=pm) as ps:
         res = ps.run()
-    with pytest.raises(NotImplementedError, match="A.9b"):
+    with jax_scan.ShardedScan([io.BytesIO(b) for b in blobs], "a",
+                              mesh=jm) as js:
+        theirs = js.run()
+    want, got = _gather_both("gather_column", jm, pm, theirs, res, "a",
+                             {"gather_to": 0}, {"gather_to": "cpu"})
+    _same(got[0], want[0])
+    in_mesh = port_scan.gather_column(pm, res, "a", gather_to="cpu:0")
+    _same(got[0], _u32(in_mesh[0]))
+    with pytest.raises(ValueError, match="meta"):
         port_scan.gather_column(pm, res, "a", gather_to="meta")
+
+
+@pytest.mark.parametrize("n,sp", MESHES)
+@pytest.mark.parametrize("fn,path", [("gather_column", "a"),
+                                     ("gather_column", "b"),
+                                     ("gather_byte_column", "s")])
+def test_direct_assembly_as_reference(fn, path, n, sp):
+    """Every mesh shape: the port's direct assembly onto a sink outside
+    its mesh against the reference's (``gather_to=0``), arrays and
+    counters, and against the replicated gather."""
+    blobs = ([_string_file(240, 2, seed=s) for s in range(2)]
+             if fn == "gather_byte_column"
+             else [_int_file(400, 2, seed=s) for s in range(3)])
+    jm = jax_mesh.make_mesh(n, sp=sp)
+    pm = port_mesh.make_mesh(n, sp=sp, devices=["cpu:0"] * 8)
+    with jax_scan.ShardedScan([io.BytesIO(b) for b in blobs],
+                              mesh=jm) as js:
+        theirs = js.run()
+    with port_scan.ShardedScan(blobs, mesh=pm) as ps:
+        ours = ps.run()
+    want, got = _gather_both(fn, jm, pm, theirs, ours, path,
+                             {"gather_to": 0}, {"gather_to": "cpu"})
+    rep = getattr(port_scan, fn)(pm, ours, path)
+    n_arrays = 2 if fn == "gather_byte_column" else 1
+    for g, w, r in zip(got[:n_arrays], want, rep):
+        _same(g, w)
+        _same(g, r)
+    for g, w in zip(got[n_arrays:], want[n_arrays:]):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("n_true", [0, 1, 5])
+def test_assemble_direct_as_reference(n_true):
+    """``_assemble_direct`` alone: the same padded rows (two streams, one
+    of u32 rows, one of bytes) onto one CPU device in both packages."""
+    from jax.sharding import SingleDeviceSharding
+
+    rng = np.random.default_rng(n_true)
+    rows_u32 = [rng.integers(0, 2**32, 12, dtype=np.uint32)
+                for _ in range(n_true)]
+    rows_u8 = [rng.integers(0, 256, 7, dtype=np.uint8)
+               for _ in range(n_true)]
+    want = jax_scan._assemble_direct(
+        SingleDeviceSharding(jax.devices("cpu")[0]),
+        [(rows_u32, (12,), np.uint32), (rows_u8, (7,), np.uint8)],
+        n_true, 1, None)
+    got = port_scan._assemble_direct(
+        torch.device("cpu"),
+        [([torch.from_numpy(r.view(np.int32)) for r in rows_u32], (12,),
+          torch.int32),
+         ([torch.from_numpy(r) for r in rows_u8], (7,), torch.uint8)],
+        n_true)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        _same(g, np.asarray(w))

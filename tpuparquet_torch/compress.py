@@ -82,9 +82,13 @@ def _check_codec(codec) -> CompressionCodec:
     return codec
 
 
-def decompress_block(codec, payload, uncompressed_size: int) -> np.ndarray:
-    """Decompress one page body to a fresh u8 array of exactly
-    ``uncompressed_size`` bytes; raises ValueError on corrupt input."""
+def decompress_block(codec, payload, uncompressed_size: int,
+                     arena=None) -> np.ndarray:
+    """Decompress one page body to a u8 array of exactly
+    ``uncompressed_size`` bytes; raises ValueError on corrupt input.
+    With ``arena`` (a :class:`~tpuparquet_torch.kernels.arena.HostArena`)
+    a SNAPPY block decompresses into a slab borrowed from it, valid until
+    the arena's ``release_all``; else into a fresh array."""
     codec = _check_codec(codec)
     src = _u8(payload)
     if codec == CompressionCodec.UNCOMPRESSED:
@@ -95,7 +99,8 @@ def decompress_block(codec, payload, uncompressed_size: int) -> np.ndarray:
         return src
     lib = _snappy()
     # 16 bytes of slack let the decoder use fixed-width copies
-    out = np.empty(uncompressed_size + 16, dtype=np.uint8)
+    out = (np.empty(uncompressed_size + 16, dtype=np.uint8) if arena is None
+           else arena.borrow(uncompressed_size + 16))
     produced = ctypes.c_size_t(0)
     rc = lib.tpq_snappy_decompress(
         src.ctypes.data, src.size, out.ctypes.data, out.size,

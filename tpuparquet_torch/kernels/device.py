@@ -6,7 +6,12 @@ plans (:func:`plan_chunk_device`); one pinned host
 slab per row group carries every column's plans and page words to the
 device in one non-blocking copy (:func:`_put_all`); the deferred
 per-page ops launch the kernels and the row group ends in one fence
-(:func:`_finish_row_group`).  The result is a :class:`DeviceColumn` per
+(:func:`_finish_row_group`).  :func:`pipelined_reads` plans the columns
+of the next row groups on a pool of worker threads while the calling
+thread stages, launches and fences the row group before; planning
+borrows its decompression slabs from ``kernels/arena.py`` and, under
+``TPQ_PLAN_CACHE_MB``, its transport verdicts from
+``kernels/plancache.py``.  The result is a :class:`DeviceColumn` per
 column, in the JAX package's buffer layout — flat 1-D u32 lanes, or u8
 bytes with int32 offsets for BYTE_ARRAY, bucket-padded, same logical
 lengths, rep and def levels — so the two compare buffer for buffer.
@@ -54,6 +59,7 @@ from __future__ import annotations
 import os
 import struct
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -70,7 +76,8 @@ from ..format.metadata import CompressionCodec, Encoding, PageHeader, \
 from ..io.pages import crc_verify_default, scan_levels_v1, scan_levels_v2, \
     verify_page_crc
 from ..native import pack_native, plane_native
-from ..stats import current_stats
+from ..stats import current_stats, worker_stats
+from .arena import HostArena, lease_arena, return_arena, trim_arena_pool
 from .bitunpack import pad_to_words, unpack_u32
 from .decode import (
     DeltaPlan,
@@ -93,10 +100,11 @@ from .decode import (
 )
 from .hybrid import count_eq_scan, expand_hybrid, max_scan_value, \
     plan_stream_args
+from .plancache import invalidate_fingerprint, plan_cache, plan_cache_budget
 from .snappy import expand_tokens, expand_tokens_words, plan_tokens
 
 __all__ = ["DeviceColumn", "device_column_from_jax_numpy",
-           "plan_chunk_device", "read_row_group_device",
+           "pipelined_reads", "plan_chunk_device", "read_row_group_device",
            "read_row_groups_device"]
 
 # u32 lanes a value of the types the PLAIN wire transports carry
@@ -138,16 +146,18 @@ def _stage_byte_rows_np(arr: np.ndarray) -> np.ndarray:
 def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device`` outside the slab, as the reference
     uploads string offsets, PLAIN BOOLEAN words and FIXED_LEN_BYTE_ARRAY
-    rows (so not in ``bytes_staged``): pinned, and on the card a
-    non-blocking copy that the row group's fence completes.  4-byte
-    arrays arrive as int32 bits."""
+    rows (so not in ``bytes_staged``): on the card a pinned copy and a
+    non-blocking copy from it that the row group's fence completes, on
+    the CPU a copy.  4-byte arrays arrive as int32 bits."""
     a = np.ascontiguousarray(a)
     if a.dtype.itemsize == 4:
         a = a.view(np.int32)
-    t = torch.from_numpy(a if a.flags.writeable else a.copy())
     if device.type == "cuda":
-        t = t.pin_memory().to(device, non_blocking=True)
-    return t
+        t = torch.from_numpy(a if a.flags.writeable else a.copy())
+        return t.pin_memory().to(device, non_blocking=True)
+    # a copy: ``a`` may be a view of an arena slab, which is recycled
+    # after the row group
+    return torch.from_numpy(a.copy())
 
 
 class DeviceColumn:
@@ -516,16 +526,20 @@ def _DEVICE_PLANES() -> bool:
     return os.environ.get("TPQ_DEVICE_PLANES", "1") != "0"
 
 
-def _plan_delta_lane_words(seg, count: int, ptype: Type):
+def _plan_delta_lane_words(seg, count: int, ptype: Type, params=None):
     """Plan the delta-lane transport for one PLAIN int32/int64 values
     segment: ``(first, one min_delta, packed delta offsets)``, rebuilt on
     the device by :func:`expand_delta_i32`/``_i64``.
 
+    ``params`` is the plan cache's ``(min_delta, width)`` of this page:
+    the sample window and the min/max pass are skipped, and one max over
+    the offsets checks the width (a stale hint computes afresh).
+
     All arithmetic is modular (uint64/uint32 wrap), as the device rebuild
     is, so a random page rejects on width and never corrupts.  Returns
-    ``(wire, commit)`` — ``wire`` is the staged cost after the stager's
-    padding, ``commit(stager)`` stages the plan and returns
-    ``words(staged)`` — or None."""
+    ``(wire, commit, (min_delta, width))`` — ``wire`` is the staged cost
+    after the stager's padding, ``commit(stager)`` stages the plan and
+    returns ``words(staged)`` — or None."""
     if count < 1024:
         return None
     lanes = _LANES[ptype]
@@ -546,15 +560,32 @@ def _plan_delta_lane_words(seg, count: int, ptype: Type):
             else int(np.uint32(hi - lo))
         return lo, span.bit_length()
 
-    # the sample window's delta span lower-bounds the page's: a window
-    # that already needs full width proves the page rejects
-    win = 16384
-    if count > win:
-        _, w_s = _width((v[1 : win + 1] - v[:win]).view(sdt))
-        if w_s >= 32 * lanes:
-            return None
+    mask = (1 << (32 * lanes)) - 1
+
+    def offsets(md):
+        return ((d.astype(np.int64) - md).astype(np.uint64)
+                & np.uint64(mask)) if lanes == 1 \
+            else (d - np.int64(md)).view(np.uint64)
+
+    if params is None:
+        # the sample window's delta span lower-bounds the page's: a
+        # window that already needs full width proves the page rejects
+        win = 16384
+        if count > win:
+            _, w_s = _width((v[1 : win + 1] - v[:win]).view(sdt))
+            if w_s >= 32 * lanes:
+                return None
     d = (v[1:] - v[:-1]).view(sdt)  # wrap-consistent deltas
-    md, w = _width(d)
+    off = None
+    if params is not None:
+        md, w = params
+        off = offsets(md)
+        if not (w < 32 * lanes and (off.size == 0 or int(
+                off.max()).bit_length() <= w)):
+            md, w = _width(d)
+            off = None
+    else:
+        md, w = _width(d)
     if w >= 32 * lanes:
         return None
     # the wire after the stager's padding, with the delta count quantised
@@ -565,11 +596,9 @@ def _plan_delta_lane_words(seg, count: int, ptype: Type):
     if wire + 4096 >= nbytes:
         return None  # must clear the same savings floor as the planes
 
-    def commit(stager, _i64=(lanes == 2)):
-        mask = (1 << (32 * lanes)) - 1
-        off = ((d.astype(np.int64) - md).astype(np.uint64)
-               & np.uint64(mask)) if lanes == 1 \
-            else (d - md).view(np.uint64)
+    def commit(stager, _i64=(lanes == 2), off=off):
+        if off is None:
+            off = offsets(md)
         if n_pad32 != n_deltas:
             off = np.concatenate(
                 [off, np.zeros(n_pad32 - n_deltas, dtype=np.uint64)])
@@ -588,7 +617,7 @@ def _plan_delta_lane_words(seg, count: int, ptype: Type):
 
         return words_fn
 
-    return wire, commit
+    return wire, commit, (md, w)
 
 
 def _stage_delta_plan(plan: DeltaPlan, stager: _Stager, need_hi: bool):
@@ -719,15 +748,18 @@ def _lane_contig(plane: np.ndarray) -> np.ndarray:
 
 
 def _plan_plane_words(seg, count: int, lanes: int, stager: _Stager,
-                      budget: int | None = None):
+                      budget: int | None = None, lane_plans=None):
     """Plan the lane / byte-plane RLE transport for one PLAIN values
     segment (``count`` values of ``lanes`` u32 words).
 
     Per u32 lane, from a sample window: ``rle32`` (the lane is runs),
     ``bytes`` (random as a word, but some byte planes are runs) or
     ``raw32``.  ``budget`` is a competitor's wire cost: the planes engage
-    only under it.  Returns ``(wire, words(staged), spec)`` — the wire
-    of the built tables, and K5's spec — or None when the page
+    only under it.  ``lane_plans`` is the plan cache's per-lane verdict
+    list of this page: the sample window and the estimate's gate are
+    skipped, and the gate on the built tables still applies.  Returns
+    ``(wire, words(staged), spec, lane plans)`` — the wire of the built
+    tables, K5's spec and the per-lane verdicts — or None when the page
     rejects."""
     if count < 1024:
         return None  # cannot clear the 4 KiB savings floor
@@ -739,32 +771,36 @@ def _plan_plane_words(seg, count: int, lanes: int, stager: _Stager,
     words_v = buf[:nbytes].view("<u4")  # value-interleaved lanes
     wire_cap = (0.75 * nbytes if budget is None
                 else min(0.75 * nbytes, budget))
-    win_n = min(count, 1 << 14)
-    mid = (count - win_n) // 2
-    plans = []  # per lane: ("raw32",) | ("rle32", est) | ("bytes", cost8)
-    wire = 0
-    for lane in range(lanes):
-        lw = np.ascontiguousarray(
-            words_v[mid * lanes + lane : (mid + win_n) * lanes : lanes])
-        r32 = float((lw[1:] != lw[:-1]).mean()) if win_n > 1 else 1.0
-        est32 = 8 * bucket(int(r32 * count) + 1)
-        if est32 < 4 * count:
-            plans.append(("rle32", est32))
-            wire += est32
-            continue
-        wb = lw.view(np.uint8).reshape(win_n, 4)
-        r8 = (wb[1:] != wb[:-1]).mean(axis=0)
-        cost8 = np.minimum(5 * np.array(
-            [bucket(int(r * count) + 1) for r in r8]), count)
-        if cost8.sum() < 0.75 * 4 * count:
-            plans.append(("bytes", cost8))
-            wire += int(cost8.sum())
-        else:
-            plans.append(("raw32",))
-            wire += 4 * count
-    # engage only on a solid win: each engaged lane costs host time
-    if wire > wire_cap or nbytes - wire < 4096:
-        return None
+    if lane_plans is not None and len(lane_plans) == lanes:
+        plans = lane_plans
+    else:
+        win_n = min(count, 1 << 14)
+        mid = (count - win_n) // 2
+        # per lane: ("raw32",) | ("rle32", est) | ("bytes", cost8)
+        plans = []
+        wire = 0
+        for lane in range(lanes):
+            lw = np.ascontiguousarray(
+                words_v[mid * lanes + lane : (mid + win_n) * lanes : lanes])
+            r32 = float((lw[1:] != lw[:-1]).mean()) if win_n > 1 else 1.0
+            est32 = 8 * bucket(int(r32 * count) + 1)
+            if est32 < 4 * count:
+                plans.append(("rle32", est32))
+                wire += est32
+                continue
+            wb = lw.view(np.uint8).reshape(win_n, 4)
+            r8 = (wb[1:] != wb[:-1]).mean(axis=0)
+            cost8 = np.minimum(5 * np.array(
+                [bucket(int(r * count) + 1) for r in r8]), count)
+            if cost8.sum() < 0.75 * 4 * count:
+                plans.append(("bytes", cost8))
+                wire += int(cost8.sum())
+            else:
+                plans.append(("raw32",))
+                wire += 4 * count
+        # engage only on a solid win: each engaged lane costs host time
+        if wire > wire_cap or nbytes - wire < 4096:
+            return None
 
     raw32_parts, raw8_parts = [], []
     e32_parts, v32_parts, e8_parts, v8_parts = [], [], [], []
@@ -840,11 +876,12 @@ def _plan_plane_words(seg, count: int, lanes: int, stager: _Stager,
     def words(s, _hs=hs, _spec=spec):
         return planes_to_words(*(s[h] for h in _hs), _spec, count, lanes)
 
-    return actual, words, spec
+    return actual, words, spec, plans
 
 
 def _plan_plain_transport(codec, values_seg, values_comp, non_null: int,
-                          ptype: Type, stager: _Stager):
+                          ptype: Type, stager: _Stager, arena=None,
+                          hint=None):
     """The transports' competition for one PLAIN page, in the JAX
     package's order and with its gates.
 
@@ -854,10 +891,17 @@ def _plan_plain_transport(codec, values_seg, values_comp, non_null: int,
     Byte planes and delta lanes need the decompressed bytes; the token
     scan is a third of the plan wall, so it runs lazily: the compressed
     payload's size approximates the token wire, and a competitor already
-    under it skips the scan.  Returns ``(words(staged) or None, values
-    segment)`` — the segment decompressed if the raw path needs it."""
+    under it skips the scan.  ``hint`` is the plan cache's verdict of
+    this page, ``("plain", winner, its parameters)``: only the winner's
+    planner runs (none for a raw page).  Returns ``(words(staged) or
+    None, values segment, verdict)`` — the segment decompressed if the
+    raw path needs it, the verdict for the plan cache."""
     lanes = _LANES[ptype]
     is_int = ptype in (Type.INT32, Type.INT64)
+    use_hint = (isinstance(hint, tuple) and len(hint) >= 2
+                and hint[0] == "plain")
+    hchoice = hint[1] if use_hint else None
+    hparams = hint[2] if use_hint and len(hint) > 2 else None
     plan_words = None
     payload_bound = None
     if values_comp is not None:
@@ -865,39 +909,50 @@ def _plan_plain_transport(codec, values_seg, values_comp, non_null: int,
         competitors = ((_DEVICE_PLANES() or (_DEVICE_DELTA_LANES()
                                              and is_int))
                        and non_null >= 1024)
+        if use_hint:
+            competitors = hchoice in ("planes", "delta")
         if values_seg is None and competitors:
             values_seg = decompress_block(codec, values_comp[0],
-                                          values_comp[1])
+                                          values_comp[1], arena)
     delta_cand = None
-    if _DEVICE_DELTA_LANES() and is_int and values_seg is not None:
-        delta_cand = _plan_delta_lane_words(values_seg, non_null, ptype)
+    if (not use_hint or hchoice == "delta") and _DEVICE_DELTA_LANES() \
+            and is_int and values_seg is not None:
+        delta_cand = _plan_delta_lane_words(
+            values_seg, non_null, ptype,
+            params=hparams if hchoice == "delta" else None)
     delta_wire = delta_cand[0] if delta_cand is not None else None
+    lane_plans = None
 
     def try_planes(budget):
-        if _DEVICE_PLANES() and non_null and values_seg is not None:
-            return _plan_plane_words(values_seg, non_null, lanes, stager,
-                                     budget=budget)
+        if (not use_hint or hchoice == "planes") and _DEVICE_PLANES() \
+                and non_null and values_seg is not None:
+            return _plan_plane_words(
+                values_seg, non_null, lanes, stager, budget=budget,
+                lane_plans=hparams if hchoice == "planes" else None)
         return None
 
     budgets = [c for c in (delta_wire, payload_bound) if c is not None]
     pl = try_planes(min(budgets) if budgets else None)
     chosen = "planes" if pl is not None else None
     if pl is not None:
-        plan_words = pl[1]
+        plan_words, lane_plans = pl[1], pl[3]
     else:
         tok = None
-        if payload_bound is not None and not (
-                delta_wire is not None and delta_wire < payload_bound):
+        run_tok = payload_bound is not None and not (
+            delta_wire is not None and delta_wire < payload_bound)
+        if use_hint:
+            run_tok = hchoice == "snappy" and payload_bound is not None
+        if run_tok:
             # no competitor beats the token bound: pay the scan
             tok = _plan_device_snappy_words(
                 values_comp[0], values_comp[1], non_null * lanes,
                 offset=values_comp[2])
-            if tok is None:
+            if tok is None and not use_hint:
                 # the tokens are out after all: the planes may have lost
                 # only to their bound
                 pl = try_planes(delta_wire)
                 if pl is not None:
-                    plan_words, chosen = pl[1], "planes"
+                    plan_words, lane_plans, chosen = pl[1], pl[3], "planes"
         if plan_words is None:
             if delta_cand is not None and (tok is None
                                            or delta_cand[0] < tok[0]):
@@ -906,14 +961,16 @@ def _plan_plain_transport(codec, values_seg, values_comp, non_null: int,
                 plan_words, chosen = tok[1](stager), "snappy"
             elif values_seg is None:
                 values_seg = decompress_block(codec, values_comp[0],
-                                              values_comp[1])
+                                              values_comp[1], arena)
     st = current_stats()
     if st is not None and chosen is not None:
         name = {"planes": "pages_device_planes",
                 "delta": "pages_device_delta_lanes",
                 "snappy": "pages_device_snappy"}[chosen]
         setattr(st, name, getattr(st, name) + 1)
-    return plan_words, values_seg
+    params = (lane_plans if chosen == "planes"
+              else delta_cand[2] if chosen == "delta" else None)
+    return plan_words, values_seg, ("plain", chosen, params)
 
 
 def _int32_offsets(offs: np.ndarray) -> np.ndarray:
@@ -926,18 +983,33 @@ def _int32_offsets(offs: np.ndarray) -> np.ndarray:
 
 
 def plan_chunk_device(blob, cm, node, base: int, stager: _Stager,
-                      verify_crc: bool | None = None):
+                      arena: HostArena | None = None,
+                      verify_crc: bool | None = None, cache_key=None):
     """Host phase of one column chunk: page-header walk, CRC checks,
     decompression, run-table scans, staging registration.  Returns
     ``finish(staged, device)``, which launches the page kernels and
     assembles the :class:`DeviceColumn`.  Offsets in ``cm`` are absolute;
-    ``blob`` starts at file offset ``base``.  ``verify_crc`` gates the
-    check of page CRCs where a header carries one (None: the
-    ``TPQ_PAGE_CRC_VERIFY`` default); each page checked counts
-    ``pages_crc_verified``."""
+    ``blob`` starts at file offset ``base``.  ``arena`` lends the
+    decompression outputs (they must outlive the row group's fence; None:
+    fresh arrays).  ``verify_crc`` gates the check of page CRCs where a
+    header carries one (None: the ``TPQ_PAGE_CRC_VERIFY`` default); each
+    page checked counts ``pages_crc_verified``.
+
+    ``cache_key`` is this chunk's plan-cache identity (``(footer
+    fingerprint, row group, column)``, ``kernels/plancache.py``): on a
+    hit each PLAIN page runs only its remembered transport's planner, on
+    a miss the verdicts are stored.  Hints choose which lossless
+    transport ships, never the decoded bytes."""
     if verify_crc is None:
         verify_crc = crc_verify_default()
     st = current_stats()
+    pc = hints = record = None
+    if cache_key is not None:
+        pc = plan_cache()
+        if pc is not None:
+            hints = pc.lookup(cache_key)
+            if hints is None:
+                record = []
     ptype = Type(cm.type)
     col_path = ".".join(cm.path_in_schema)
     is_bytes = ptype == Type.BYTE_ARRAY
@@ -965,7 +1037,8 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager,
     chunk_bytes = 0  # BYTE_ARRAY value bytes so far (int32 offsets)
     ops = []  # deferred device work: op(staged, parts) -> None
     values_read = 0
-    page_i = 0
+    page_i = 0  # every page (error coordinates)
+    data_i = 0  # data pages: the plan cache's hint index
     while values_read < total:
         if r.pos >= end:
             raise CorruptChunkError(
@@ -995,7 +1068,7 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager,
             if dph is None or dph.num_values is None or dph.num_values < 0:
                 raise ValueError("DICTIONARY_PAGE header missing its struct")
             raw = decompress_block(cm.codec, payload,
-                                   ph.uncompressed_page_size)
+                                   ph.uncompressed_page_size, arena)
             arr = decode_plain(ptype, raw, dph.num_values, type_length)
             if is_bytes:
                 dict_lens = arr.lengths()
@@ -1036,7 +1109,7 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager,
                 values_seg = dl_scan = dl_host = None
             else:
                 raw = decompress_block(cm.codec, payload,
-                                       ph.uncompressed_page_size)
+                                       ph.uncompressed_page_size, arena)
                 pos = 0
                 if max_rep:  # the rep stream comes first
                     rl_scan, rl_host, pos = scan_levels_v1(
@@ -1077,7 +1150,8 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager,
                 else:
                     if snappy and is_bytes:
                         bytes_comp = comp
-                    values_seg = decompress_block(cm.codec, comp[0], comp[1])
+                    values_seg = decompress_block(cm.codec, comp[0], comp[1],
+                                                  arena)
         else:
             continue  # index pages carry nothing to decode
         non_null = (count_eq_scan(dl_scan, dwidth, max_def,
@@ -1091,10 +1165,18 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager,
             raise ValueError(f"V2 num_nulls {h.num_nulls} disagrees with "
                              f"def levels ({n - non_null} nulls)")
         values_read += n
+        # the plan cache's verdict of this data page, and the one to
+        # record: every data page records one entry, so the indices stay
+        # aligned with the data-page ordinal across re-reads
+        hint = (hints[data_i] if hints is not None and data_i < len(hints)
+                else None)
+        verdict = None
+        data_i += 1
         plan_words = None
         if enc == Encoding.PLAIN and fixed:
-            plan_words, values_seg = _plan_plain_transport(
-                cm.codec, values_seg, values_comp, non_null, ptype, stager)
+            plan_words, values_seg, verdict = _plan_plain_transport(
+                cm.codec, values_seg, values_comp, non_null, ptype, stager,
+                arena, hint)
 
         dl_ref = None  # (handles, cnt, nbp, single)
         if dl_scan is not None:
@@ -1134,8 +1216,12 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager,
                 ops.append(_dict_page_op(dict_h, dl_ref, idx_ref, width, n,
                                          non_null, dwidth, vlanes))
         elif enc == Encoding.PLAIN and is_bytes:
-            op, nb = _plan_plain_bytes_page(values_seg, bytes_comp, non_null,
-                                            dl_ref, n, dwidth, stager)
+            # a cached "no tokens" verdict skips the token scan
+            if hint == ("ba", False):
+                bytes_comp = None
+            op, nb, tokens = _plan_plain_bytes_page(
+                values_seg, bytes_comp, non_null, dl_ref, n, dwidth, stager)
+            verdict = ("ba", tokens)
             chunk_bytes += nb
             ops.append(op)
         elif enc == Encoding.PLAIN and fixed:
@@ -1180,6 +1266,10 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager,
             raise ValueError(f"{chunk_bytes} bytes of BYTE_ARRAY values "
                              "overflow the int32 offsets of the device "
                              "layout")
+        if record is not None:
+            record.append(verdict)
+    if record is not None:
+        pc.store(cache_key, record, plan_cache_budget())
 
     def finish(staged, device) -> DeviceColumn:
         parts = {"val": [], "bytes": [], "rep": [], "def": [],
@@ -1275,7 +1365,7 @@ def _plan_plain_bytes_page(values_seg, bytes_comp, non_null: int, dl_ref,
     the padded offsets that must ship with them, the tables ship and K8
     then K10 rebuild the values on the device (counted in
     ``pages_device_snappy``); otherwise the value bytes ship.  Returns
-    ``(op, value bytes)``."""
+    ``(op, value bytes, whether the tables ship)``."""
     col = decode_plain(Type.BYTE_ARRAY, values_seg, non_null)
     offs = _int32_offsets(col.offsets)
     nb = int(col.data.size)
@@ -1308,7 +1398,7 @@ def _plan_plain_bytes_page(values_seg, bytes_comp, non_null: int, dl_ref,
         _add_def(s, parts, dl_ref, dwidth, n)
         parts["bytes"].append((offs, get_data(s), nb))
 
-    return op, nb
+    return op, nb, blob_plan is not None
 
 
 def _dict_page_op(dict_h, dl_ref, idx_ref, width, n, non_null, dwidth,
@@ -1609,27 +1699,81 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def _plan_row_group(reader, rg_index: int):
-    """Plan every column of one row group: ``[(path, finish, stager)]``."""
-    planned = []
-    for path, node, cm in reader.selected_chunks(
-            reader.meta.row_groups[rg_index]):
-        stager = _Stager()
-        blob, start = reader.chunk_blob(cm, path)
+def _plan_threads() -> int:
+    """Plan workers of :func:`pipelined_reads`: ``TPQ_PLAN_THREADS`` when
+    set (at least 1; a malformed value is ignored), else one a usable
+    CPU."""
+    v = os.environ.get("TPQ_PLAN_THREADS")
+    if v is not None:
         try:
-            finish = plan_chunk_device(
-                blob, cm, node, start, stager,
-                verify_crc=getattr(reader, "verify_crc", None))
-        except ScanError as e:
-            raise e.annotate(column=path, file=reader.name,
-                             row_group=rg_index)
-        except ValueError as e:
-            # codec-layer domain errors become taxonomy errors with
-            # coordinates
-            raise CorruptChunkError(str(e), column=path, file=reader.name,
-                                    row_group=rg_index) from e
-        planned.append((path, finish, stager))
-    return planned
+            return max(int(v), 1)
+        except ValueError:
+            pass  # a malformed override falls back to the default
+    return _usable_cpus()
+
+
+def _usable_cpus() -> int:
+    """CPUs this process may run on (its affinity mask, which
+    ``os.cpu_count()`` ignores)."""
+    try:
+        return len(os.sched_getaffinity(0)) or 1
+    except (AttributeError, OSError):
+        return os.cpu_count() or 1
+
+
+def _plan_one_column(reader, rg_index: int, path, node, cm,
+                     arena: HostArena | None):
+    """Plan one column chunk into a stager of its own: ``(path, finish,
+    stager)``.  Its wall counts ``plan_s`` on the calling thread's
+    collector.  Errors carry the column, file and row group; a corrupt
+    chunk drops the file's plan-cache entries."""
+    t0 = time.perf_counter()
+    stager = _Stager()
+    # the fingerprint only with the cache on: on a file it costs a read
+    # of the footer, which reads without the cache must not pay
+    fingerprint = (reader.plan_fingerprint if plan_cache() is not None
+                   else None)
+    cache_key = (None if fingerprint is None
+                 else (fingerprint, rg_index, path))
+    try:
+        blob, start = reader.chunk_blob(cm, path)
+        finish = plan_chunk_device(
+            blob, cm, node, start, stager, arena,
+            verify_crc=getattr(reader, "verify_crc", None),
+            cache_key=cache_key)
+    except ScanError as e:
+        if isinstance(e, (CorruptPageError, CorruptChunkError)):
+            # the bytes no longer match the footer: its plans are stale
+            invalidate_fingerprint(fingerprint)
+        raise e.annotate(column=path, file=reader.name, row_group=rg_index)
+    except ValueError as e:
+        # codec-layer domain errors become taxonomy errors with
+        # coordinates
+        invalidate_fingerprint(fingerprint)
+        raise CorruptChunkError(str(e), column=path, file=reader.name,
+                                row_group=rg_index) from e
+    st = current_stats()
+    if st is not None:
+        st.plan_s += time.perf_counter() - t0
+    return path, finish, stager
+
+
+def _plan_column_task(reader, rg_index: int, path, node, cm,
+                      arena: HostArena, like):
+    """A pool worker's task: :func:`_plan_one_column` under a collector
+    of its own (``worker_stats``), which the coordinator merges once the
+    task has succeeded.  Returns ``(entry, collector)``."""
+    with worker_stats(like=like) as ws:
+        entry = _plan_one_column(reader, rg_index, path, node, cm, arena)
+    return entry, ws
+
+
+def _plan_row_group(reader, rg_index: int, arena: HostArena | None = None):
+    """Plan every selected column of one row group on the calling thread,
+    one stager a column: ``[(path, finish, stager)]``."""
+    return [_plan_one_column(reader, rg_index, path, node, cm, arena)
+            for path, node, cm in reader.selected_chunks(
+                reader.meta.row_groups[rg_index])]
 
 
 def _finish_row_group(planned, device: torch.device):
@@ -1643,7 +1787,8 @@ def _finish_row_group(planned, device: torch.device):
            for (path, finish, _), staged in zip(planned, staged_lists)}
     if device.type == "cuda":
         # the one fence of the row group: kernels done, and the pinned
-        # slab the copy reads from may be released
+        # slab the copy reads from (and the arenas the plans borrowed)
+        # may be released
         torch.cuda.synchronize(device)
     del slab
     t2 = time.perf_counter()
@@ -1657,23 +1802,125 @@ def read_row_group_device(reader, rg_index: int, *,
                           device=None) -> dict[str, DeviceColumn]:
     """Decode the selected columns of one row group onto ``device``
     (default: the current CUDA device; raises when there is none — pass
-    ``device="cpu"`` to run the kernels' plain versions on the CPU)."""
+    ``device="cpu"`` to run the kernels' plain versions on the CPU).
+    Plans on the calling thread, one arena for every column."""
     dev = _resolve_device(device)
+    arena = lease_arena()
+    out = _finish_row_group(_plan_row_group(reader, rg_index, arena), dev)
+    # an error above drops the lease: a copy may still read its slabs
+    return_arena(arena)
+    return out
+
+
+def pipelined_reads(readers, units, device_for=None, start: int = 0):
+    """Yield ``(unit_index, {path: DeviceColumn})`` for ``units[start:]``
+    (each a ``(reader_index, rg_index)`` pair), planning ahead on a pool
+    of :func:`_plan_threads` workers while the calling thread stages,
+    launches and fences unit k on ``device_for(k)`` (default: the current
+    CUDA device).
+
+    One task a column: a wide row group fans out over the workers, and
+    idle workers take the next unit's columns.  The window holds at
+    least ``n_workers + 1`` tasks and one whole unit ahead.  Each task
+    plans into its own stager and leases its own arena (with one worker,
+    a unit's columns share one), and counts into its own collector,
+    which is merged here once the task has succeeded; a failed task's is
+    dropped.  A unit's first error is raised after all of its tasks are
+    joined.  Arenas go back to the pool only after their unit's fence;
+    on an error or an early close they are dropped, the pool is shut
+    down and joined, and the free arenas are trimmed to 2.  The results
+    equal a serial :func:`read_row_group_device` loop at every thread
+    count, buffer for buffer, and so do the counters (``plan_s`` then
+    sums the workers' seconds)."""
+    order = list(range(start, len(units)))
+    if not order:
+        return
+    if device_for is None:
+        dev = _resolve_device(None)
+        device_for = lambda k: dev  # noqa: E731
     st = current_stats()
-    t0 = time.perf_counter()
-    planned = _plan_row_group(reader, rg_index)
-    if st is not None:
-        st.plan_s += time.perf_counter() - t0
-    return _finish_row_group(planned, dev)
+    n_workers = _plan_threads()
+    ex = ThreadPoolExecutor(max_workers=n_workers)
+    inflight = {}   # unit k -> [future per column, in column order]
+    arenas_of = {}  # unit k -> [leased arenas]
+    state = {"next_j": 0, "tasks": 0}
+
+    def submit_unit():
+        k = order[state["next_j"]]
+        state["next_j"] += 1
+        ri, rgi = units[k]
+        reader = readers[ri]
+        cols = reader.selected_chunks(reader.meta.row_groups[rgi])
+        # one worker runs a unit's tasks one after another, so they can
+        # share one arena; racing tasks need one each
+        shared = lease_arena() if n_workers == 1 and cols else None
+        futs, ars = [], [] if shared is None else [shared]
+        for path, node, cm in cols:
+            a = shared
+            if a is None:
+                a = lease_arena()
+                ars.append(a)
+            futs.append(ex.submit(_plan_column_task, reader, rgi, path,
+                                  node, cm, a, st))
+        inflight[k] = futs
+        arenas_of[k] = ars
+        state["tasks"] += len(futs)
+
+    def fill_window(min_units: int):
+        while state["next_j"] < len(order) and (
+                len(inflight) < min_units
+                or state["tasks"] < n_workers + 1):
+            submit_unit()
+
+    try:
+        fill_window(2)  # this unit and at least one planned ahead
+        for k in order:
+            futs = inflight.pop(k)
+            state["tasks"] -= len(futs)
+            planned = []
+            err = None
+            for f in futs:
+                try:
+                    entry, ws = f.result()
+                except BaseException as e:
+                    err = err if err is not None else e
+                    continue
+                if st is not None:
+                    st.merge_from(ws)
+                planned.append(entry)
+            if err is not None:
+                raise err
+            out = _finish_row_group(planned, device_for(k))
+            for a in arenas_of.pop(k):
+                return_arena(a)
+            fill_window(1)
+            yield k, out
+    finally:
+        # on an error or an early close the leases are dropped, never
+        # recycled (a copy may still read their slabs); the workers are
+        # joined, so no task outlives the reads
+        ex.shutdown(wait=True)
+        trim_arena_pool(keep=2)
 
 
 def read_row_groups_device(reader, rg_indices=None, *, device=None):
     """Iterate ``(rg_index, {path: DeviceColumn})`` over the row groups
-    ``rg_indices`` (default: all), in that order (planning is sequential
-    in this port).  The device is resolved at the call, so a missing GPU
-    raises here, not at the first row group."""
+    ``rg_indices`` (default: all), in that order, planning ahead on a
+    pool of workers (:func:`pipelined_reads`).  The results equal
+    :func:`read_row_group_device`'s for each index.  The device is
+    resolved at the call, so a missing GPU raises here, not at the first
+    row group."""
     dev = _resolve_device(device)
     indices = list(range(reader.row_group_count()) if rg_indices is None
                    else rg_indices)
-    return ((i, read_row_group_device(reader, i, device=dev))
-            for i in indices)
+
+    def gen():
+        reads = pipelined_reads([reader], [(0, i) for i in indices],
+                                lambda k: dev)
+        try:
+            for k, out in reads:
+                yield indices[k], out
+        finally:
+            reads.close()  # an early close joins the pool at once
+
+    return gen()

@@ -2,17 +2,18 @@
 
 The port of ``tpuparquet/shard/scan.py``.  The scan unit is (file, row
 group); units go round-robin over the mesh's slots and each decodes on
-its slot's device through the read path
-(:func:`~tpuparquet_torch.kernels.device.read_row_group_device`).
-Exchange between devices happens only at :func:`gather_column` and
-:func:`gather_byte_column`: each unit densifies straight into its row of
-its rg block (KS1, KS3), and the block is copied to the mesh's other
-devices (replicated) or permuted onto the target (KS4, ``gather_to=``).
+its slot's device through the read pipeline (:func:`pipelined_unit_scan`
+over :func:`~tpuparquet_torch.kernels.device.pipelined_reads`: the
+columns of the next units plan on a pool of workers while the calling
+thread stages and launches the unit before).  Exchange between devices
+happens only at :func:`gather_column` and :func:`gather_byte_column`:
+each unit densifies straight into its row of its rg block (KS1, KS3),
+and the block is copied to the mesh's other devices (replicated) or
+permuted onto the target (KS4, ``gather_to=``); a target outside the
+mesh (a sink device, such as the host beside a mesh of cards) takes
+each unit's row straight (:func:`_assemble_direct`).
 
-Units decode one after another; the reference overlaps the planning of
-one unit with the transfer of the last (``pipelined_unit_scan``), which
-waits for the port's parallel planning (ROADMAP 5c) and gives the same
-results.  Quarantine, salvage, deadlines, hedged reads, filters and
+Quarantine, salvage, deadlines, hedged reads, filters and
 durable checkpoints (ROADMAP A.7) and the telemetry (A.11) are not
 ported: their arguments raise NotImplementedError.
 """
@@ -26,13 +27,14 @@ import torch
 
 from ..io.reader import FileReader
 from ..kernels.decode import scatter_to_dense
-from ..kernels.device import DeviceColumn, read_row_group_device
+from ..kernels.device import DeviceColumn, pipelined_reads
 from ..kernels.gather import byte_densify, place_rows
 from ..stats import current_stats
 from .mesh import Mesh, make_mesh, resolve_out_sharding
 
 __all__ = ["ShardedScan", "scan_units", "open_sources", "cursor_state",
-           "cursor_load", "gather_column", "gather_byte_column"]
+           "cursor_load", "gather_column", "gather_byte_column",
+           "pipelined_unit_scan"]
 
 # ShardedScan arguments of the reference that wait for later slices:
 # name -> (the values that ask for nothing, what waits and where)
@@ -127,6 +129,14 @@ def cursor_load(cursor: dict, units, next_key: str, n_units: int,
     return nxt
 
 
+def pipelined_unit_scan(readers, units, device_for=None, start: int = 0):
+    """Yield ``(unit_index, {path: DeviceColumn})`` for ``units[start:]``
+    (``(file, row group)`` pairs), unit k on ``device_for(k)``: the
+    shared read pipeline of
+    :func:`~tpuparquet_torch.kernels.device.pipelined_reads`."""
+    yield from pipelined_reads(readers, units, device_for, start)
+
+
 class ShardedScan:
     """Decode many files' row groups data-parallel across a mesh.
 
@@ -197,11 +207,11 @@ class ShardedScan:
 
     def run_iter(self):
         """Yield ``(unit_index, {path: DeviceColumn})`` from the cursor
-        position, advancing it past each unit."""
-        for k in range(self._next_unit, len(self.units)):
-            fi, rgi = self.units[k]
-            out = read_row_group_device(self.readers[fi], rgi,
-                                        device=self.device_for(k))
+        position through :func:`pipelined_unit_scan`, advancing the
+        cursor past each unit as it is yielded."""
+        for k, out in pipelined_unit_scan(self.readers, self.units,
+                                          self.device_for,
+                                          start=self._next_unit):
             self._next_unit = k + 1
             yield k, out
 
@@ -312,18 +322,42 @@ def _assemble_and_gather(mesh: Mesh, n_true: int, streams, fill,
     * ``placement is None`` — each block is copied to every other
       distinct device of the mesh (the all-gather);
     * ``placement`` (a device of the mesh) — the blocks are copied to it
-      and KS4 permutes the rows to unit order, rows past ``n_true`` zero.
+      and KS4 permutes the rows to unit order, rows past ``n_true`` zero;
+    * ``placement`` outside the mesh (a sink device) — no global is
+      built: each unit's row fills on its own slot's device, and only
+      the copies of the rows to the sink are the reshard
+      (:func:`_assemble_direct`).
 
     Returns ``(arrays, perm)``: replicated, ``arrays[i]`` is the global
     on the mesh's first device in assembly order and ``perm`` maps unit
     -> row; placed, ``arrays[i]`` is already in unit order."""
     n_rg, sp = mesh.shape["rg"], mesh.shape["sp"]
     if placement is not None and placement not in mesh.distinct_devices():
-        # the reference assembles straight onto a target outside the
-        # scan mesh (_assemble_direct); that needs a second card
-        raise NotImplementedError(
-            f"gather_to={placement} lies outside the scan mesh; direct "
-            "assembly onto another device waits in ROADMAP A.9b")
+        if placement.type == "meta":
+            raise ValueError(f"gather_to={placement}: a meta device holds "
+                             "no data")
+        slots = list(mesh.devices.flat)
+
+        def unit_rows(u):
+            rows = [torch.empty(tuple(shape), dtype=dtype,
+                                device=slots[u % len(slots)])
+                    for shape, dtype in streams]
+            fill(u, [r.view(-1) for r in rows])
+            return rows
+
+        padded = [unit_rows(u) for u in range(n_true)]
+        st = current_stats()
+        _sync(dict.fromkeys(slots))
+        t0 = time.perf_counter()
+        out = _assemble_direct(
+            placement, [([rows[i] for rows in padded], shape, dtype)
+                        for i, (shape, dtype) in enumerate(streams)],
+            n_true)
+        _sync([placement])
+        if st is not None:
+            st.gather_reshard_s += time.perf_counter() - t0
+        _count_gather(out, 1)
+        return list(out), np.arange(n_true, dtype=np.int64)
     U, blocks, perm = _shard_major(n_true, n_rg, sp)
     rpb = U // n_rg
     homes = [mesh.devices[r, 0] for r in range(n_rg)]
@@ -361,6 +395,34 @@ def _assemble_and_gather(mesh: Mesh, n_true: int, streams, fill,
     return out, perm
 
 
+def _assemble_direct(placement, streams, n_true: int):
+    """Assembly onto a sink device outside the scan mesh: each unit's
+    padded row is copied once to ``placement`` and stacked there in unit
+    order; rows at or past ``n_true`` are zero (at least one row).  No
+    permute runs and no global is built.  ``streams`` is a list of
+    ``(rows, row_shape, dtype)``, ``rows[u]`` unit u's padded row on any
+    device.  Returns one ``(max(n_true, 1), *row_shape)`` tensor a
+    stream.
+
+    A host sink fed from cards gets pinned memory, so each row's copy is
+    one asynchronous DMA; the cards are synchronised once at the end."""
+    u_out = max(n_true, 1)
+    srcs = list(dict.fromkeys(r.device for rows, _, _ in streams
+                              for r in rows[:n_true]))
+    pin = placement.type == "cpu" and any(d.type == "cuda" for d in srcs)
+    outs = []
+    for rows, row_shape, dtype in streams:
+        out = torch.empty((u_out,) + tuple(row_shape), dtype=dtype,
+                          device=placement, pin_memory=pin)
+        for u in range(n_true):
+            out[u].copy_(rows[u].view(tuple(row_shape)), non_blocking=pin)
+        out[n_true:] = 0
+        outs.append(out)
+    if pin:
+        _sync(srcs)
+    return tuple(outs)
+
+
 def gather_column(mesh: Mesh, results: list, path: str, *,
                   out_sharding=None, gather_to=None):
     """Gather one fixed-width column across the mesh.
@@ -370,8 +432,9 @@ def gather_column(mesh: Mesh, results: list, path: str, *,
 
     * default — replicated: returns ``(values (U, L, lanes) u32 ndarray,
       per-unit true counts)``, the reference's contract;
-    * ``gather_to=`` (a device of the mesh, or an index into the local
-      cards) — the column assembles on that device in unit order (KS4):
+    * ``gather_to=`` (a device, or an index into the local cards) — the
+      column assembles on that device in unit order (KS4 on a device of
+      the mesh; copies of each unit's row to a device outside it):
       returns ``(values, counts)`` with ``values`` a ``(U', L, lanes)``
       int32 tensor (u32 bits) on it, rows ``>= len(counts)`` zero.
 

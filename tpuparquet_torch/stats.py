@@ -27,16 +27,32 @@ their destinations, summed over the destination slots of the mesh
 slot, even where slots share one card); ``gather_bytes_replicated``, the
 share of those that is a copy beyond the first; ``gather_reshard_s``, the
 wall of the reshard step (the copies between the mesh's devices and the
-placing kernel, after the rows were assembled).
+placing kernel, after the rows were assembled; on a sink outside the
+mesh, the copies of the units' rows to it).
+
+``bytes_read`` and ``read_s`` count the chunk bytes the reader fetched
+(zero-copy views of an in-memory source and range reads of a path
+alike) and the wall spent fetching them.  ``plan_cache_hits``,
+``plan_cache_misses`` and ``plan_cache_evictions`` count the plan cache's
+lookups and LRU drops (``kernels/plancache.py``; all 0 while it is off).
+
+Planning runs on a pool of worker threads (``kernels/device.py``
+``pipelined_reads``): each column's plan counts into a collector of its
+own (:func:`worker_stats`), which the coordinating thread folds into its
+collector (:meth:`DecodeStats.merge_from`) once the task has succeeded,
+so no count is lost and none is counted twice.  ``plan_s`` is then the
+worker-seconds of planning summed over the workers, which may exceed the
+wall of the read.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
-__all__ = ["DecodeStats", "collect_stats", "current_stats"]
+__all__ = ["DecodeStats", "collect_stats", "current_stats",
+           "worker_stats"]
 
 
 @dataclass
@@ -54,6 +70,18 @@ class DecodeStats:
     gather_bytes_moved: int = 0
     gather_bytes_replicated: int = 0
     gather_reshard_s: float = 0.0
+    bytes_read: int = 0
+    read_s: float = 0.0
+    plan_cache_hits: int = 0
+    plan_cache_misses: int = 0
+    plan_cache_evictions: int = 0
+
+    def merge_from(self, other: "DecodeStats") -> None:
+        """Fold a worker collector's counts into this one (on the
+        coordinating thread, after the worker is joined)."""
+        for f in fields(self):
+            setattr(self, f.name,
+                    getattr(self, f.name) + getattr(other, f.name))
 
 
 _tls = threading.local()
@@ -74,3 +102,21 @@ def collect_stats():
         yield st
     finally:
         _tls.active = prev
+
+
+@contextlib.contextmanager
+def worker_stats(like: DecodeStats | None = None):
+    """A fresh collector for a pool worker's task, active on its thread;
+    yields it.  The coordinating thread merges it into its own
+    (:meth:`DecodeStats.merge_from`) after joining the task.  ``like`` is
+    the coordinator's collector; it carries nothing a worker needs here
+    (the reference copies its event log's clock, which the port does not
+    keep)."""
+    prev = getattr(_tls, "active", None)
+    st = DecodeStats()
+    _tls.active = st
+    try:
+        yield st
+    finally:
+        _tls.active = prev
+
