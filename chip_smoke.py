@@ -132,6 +132,13 @@
    rows (K8 then K13), DELTA_LENGTH_BYTE_ARRAY notes.  K8 must launch
    once per URL and amount page, K13 once per amount page, and no
    session page may take K8.
+   3i. Config 2 written by the port's writer in ZSTD (the phase-3 values,
+   8 row groups), and in GZIP and LZ4_RAW at a fifth of the values in 2
+   row groups, each read on the card as in phase 3 (the generator, the
+   CPU run, one plan worker; best of 3 at both worker counts, beside the
+   SNAPPY file's size): the routing and every kernel's launches must be
+   the SNAPPY file's of the same values (delta lanes and byte planes on
+   the decompressed values; no page takes the snappy tokens).
 4. Times each kernel at the main paths' page shapes with CUDA events,
    beside its memory/operation bound, its plain version and, where one
    PyTorch call computes the function or its core, that call; the
@@ -165,8 +172,17 @@
    with 4 (sensor table: DELTA_BINARY_PACKED by KE3 and KE1,
    BYTE_STREAM_SPLIT by KE2, statistics by KE5) and 2 (config 2: the two
    PLAIN columns; the other three intern on the card, KE5 then KE4)
-   pages a row group encoded on the card.  The writes from DeviceValues
-   and from numpy are timed, best of 3.
+   pages a row group encoded on the card.  The writes run on the
+   writer's pool of encode workers (one a usable CPU); the writes from
+   DeviceValues and from numpy are timed, best of 3, at the default
+   workers and at one.
+   5b. Config 2 written in ZSTD from numpy at one encode worker must
+   equal phase 3i's file of the default workers; both are timed, best of
+   3.  A one-column PLAIN int64 file of one 64 MiB page, in ZSTD and in
+   GZIP at the default workers: the page body splits into 64 blocks of 1
+   MiB (``codec_split_blocks``), and read back on the card the values
+   equal the generator and the ZSTD body decodes its 64 frames one a
+   worker (``codec_split_frames``; gzip members inflate in one loop).
 6. The sharded scan: ``ShardedScan`` over config 2's file (6a) and
    config 4's (6b) on the default mesh (1x1, the card), ``run()``, then
    ``gather_column`` of every fixed-width column (KS1) and
@@ -186,8 +202,11 @@
    the replicated and the in-mesh placed gather.
 
 Before phase 1 it prints the card's name and power limit (as
-``nvidia-smi --query-gpu=name,power.limit`` gives them) and the host's
-usable CPU count (``os.sched_getaffinity``), which bounds host planning.
+``nvidia-smi --query-gpu=name,power.limit`` gives them), the host's
+usable CPU count (``os.sched_getaffinity``), which bounds host planning,
+and the codec backends (``codec_backends``: where libz and libzstd were
+loaded from, the ``zstandard`` wheel, the build of ``csrc/lz4raw.c``); a
+codec with no backend fails the run.
 ``read_kernel_splits``, ``encode_kernel_splits``,
 ``shard_kernel_splits`` and ``bss_kernel_splits`` time K1, K2, K4, K5,
 KE1, KE5, KS2, KS3 and K12 alone at phase 4's shapes (K1 also at widths
@@ -204,7 +223,7 @@ K12 also at other tile sizes.
 ``read_passes`` reads four of the files a few times on the host clock,
 for an A/B of another checkout's read passes in the same way;
 ``host_gathers`` times phase 6's gathers onto the host likewise.
-Every kernel must have launched on the paths of phases 3 to 3h, 5 and 6;
+Every kernel must have launched on the paths of phases 3 to 3i, 5, 5b and 6;
 the counts are set to 0 just before each path's read or write and read
 just after.  Exits non-zero, printing no result, when CUDA is
 unavailable or any phase fails.  The last line is
@@ -299,8 +318,10 @@ MR_V2_SCHEMA = """message mr_v2 {
 
 
 def _write(schema: str, groups, optional, data_page_v2: bool = False,
-           column_encodings=None, lists=None) -> bytes:
-    """Write ``[(columns, masks)]`` with the port's writer, SNAPPY;
+           column_encodings=None, lists=None, codec: str = "SNAPPY",
+           encode_threads=None, allow_dict: bool = True) -> bytes:
+    """Write ``[(columns, masks)]`` with the port's writer (``codec``,
+    SNAPPY by default; ``encode_threads`` None: the writer's default);
     ``masks`` is one optional column's mask (``optional`` names it) or a
     dict of them (``optional`` None).  ``lists`` gives each row group's
     ``(offsets, element_masks)`` of its LIST columns."""
@@ -308,9 +329,10 @@ def _write(schema: str, groups, optional, data_page_v2: bool = False,
     from tpuparquet_torch.io.writer import FileWriter
 
     buf = io.BytesIO()
-    w = FileWriter(buf, schema, codec=CompressionCodec.SNAPPY,
+    w = FileWriter(buf, schema, codec=CompressionCodec[codec],
                    data_page_v2=data_page_v2,
-                   column_encodings=column_encodings)
+                   column_encodings=column_encodings,
+                   encode_threads=encode_threads, allow_dict=allow_dict)
     for i, (cols, mask) in enumerate(groups):
         offs, elem = lists[i] if lists is not None else (None, None)
         w.write_columns(cols, masks=mask if optional is None
@@ -4369,6 +4391,206 @@ def _need_any(label, launches, names) -> None:
 
 
 # ----------------------------------------------------------------------
+# Phases 3i and 5b: the GZIP, ZSTD and LZ4_RAW codecs
+# ----------------------------------------------------------------------
+
+# config 2's kernels: the dictionary columns (K1-K3), the optional
+# column's validity (K4), pickup_ts's delta lanes (K7 after K1) and
+# trip_distance_mm's byte planes (K5)
+CONFIG2_KERNELS = ["unpack_u32", "expand_hybrid", "page_dict_fixed",
+                   "levels_to_validity", "planes_to_words", "delta_scan"]
+# phase 5b's split page: one PLAIN int64 page of 64 MiB, 64 blocks of the
+# default TPQ_COMPRESS_BLOCK_KB (1 MiB)
+SPLIT_VALUES = 8_388_608
+SPLIT_SCHEMA = "message split { required int64 v; }"
+
+
+def codec_backends() -> dict:
+    """Print, on one line, the codec backends this host gives the port:
+    where libz and libzstd were loaded from (None: not loaded), the
+    ``zstandard`` wheel's version (None: not installed) and whether
+    ``csrc/lz4raw.c`` built.  Raises when a codec has no backend (ZSTD
+    needs libzstd or the wheel, LZ4_RAW the C compiler; GZIP always has
+    the stdlib ``zlib`` module)."""
+    from tpuparquet_torch import compress, syslibs
+
+    got = {"libz": syslibs.library_path(syslibs.zlib_native()),
+           "libzstd": syslibs.library_path(syslibs.zstd_native())}
+    try:
+        import zstandard
+
+        got["zstandard"] = zstandard.__version__
+    except ImportError:
+        got["zstandard"] = None
+    try:
+        compress._lz4()
+        got["lz4raw.c"] = "built"
+    except RuntimeError as e:
+        got["lz4raw.c"] = f"not built ({e})"
+    print(f"codec backends: libz {got['libz']}, libzstd {got['libzstd']}, "
+          f"zstandard wheel {got['zstandard']}, csrc/lz4raw.c "
+          f"{got['lz4raw.c']}", flush=True)
+    if got["libzstd"] is None and got["zstandard"] is None:
+        raise AssertionError("ZSTD has no backend: no libzstd loads and "
+                             "the zstandard wheel is not installed")
+    if got["lz4raw.c"] != "built":
+        raise AssertionError("LZ4_RAW has no backend: csrc/lz4raw.c "
+                             "did not build")
+    return got
+
+
+ROUTING = ("pages_device_delta_lanes", "pages_device_planes",
+           "pages_device_snappy")
+
+
+def check_codec_read(label, blob, groups, dev, wrappers, snappy_size: int,
+                     snappy_read) -> dict:
+    """Phase 3i: a config-2 file of another codec read on the card:
+    every value, level and mask against the generator, row group 0
+    against the CPU run, the read again at one plan worker (the same
+    buffers, counters and launches), and the routing and launches of
+    ``snappy_read`` (``(launches, stats)`` of the SNAPPY file of the same
+    values read on the card: the transports compete on the decompressed
+    values of every codec, and no page takes the snappy tokens); best of
+    3 at both worker counts.  Returns the launches."""
+    from tpuparquet_torch.io.reader import FileReader
+
+    reader = FileReader(blob)
+    got, launches, st = _drive(reader, dev, wrappers)
+    print(f"{label} launches: {launches}", flush=True)
+    n = _check_read(label, reader, got,
+                    [(c, {"payment_type": m}) for c, m in groups])
+    _same_at_one_worker(label, reader, dev, wrappers, got, launches, st)
+    del got
+    want_launches, snappy_st = snappy_read
+    _routing(label, st, {k: getattr(snappy_st, k) for k in ROUTING})
+    if st.pages_device_snappy or not (st.pages_device_delta_lanes
+                                      or st.pages_device_planes):
+        raise AssertionError(f"{label}: a page took the snappy tokens, or "
+                             "none took a transport")
+    _need(label, launches, CONFIG2_KERNELS)
+    if launches != want_launches:
+        raise AssertionError(f"{label}: launches {launches}, the SNAPPY "
+                             f"file's {want_launches}")
+    print(f"{label}: {len(blob)} bytes (the SNAPPY file of the same values "
+          f"{snappy_size}); the SNAPPY file's launches and routing",
+          flush=True)
+    _best_of(label, reader, dev, n)
+    return launches
+
+
+def codec_reads(groups, blob, snappy_read, dev, wrappers,
+                values_small: int):
+    """Phase 3i: config 2 written by the port's writer in ZSTD (phase
+    3's ``groups``: the SNAPPY file ``blob`` and its transports read,
+    ``snappy_read``, are the yardstick), and in GZIP and LZ4_RAW at
+    ``values_small`` values in 2 row groups (beside a SNAPPY file of the
+    same values, read once for its launches and routing and timed as
+    they are).  Returns
+    ``(ZSTD file, {label: launches})``."""
+    from tpuparquet_torch.io.reader import FileReader
+
+    out = {}
+    t0 = time.perf_counter()
+    blob_z = _write(SCHEMA, groups, "payment_type", codec="ZSTD")
+    print(f"config 2 ZSTD: {len(groups)} row groups, {len(blob_z)} bytes, "
+          f"written in {time.perf_counter() - t0:.2f} s", flush=True)
+    out["3i config 2 ZSTD"] = check_codec_read(
+        "3i config 2 ZSTD", blob_z, groups, dev, wrappers, len(blob),
+        snappy_read)
+    small = config2_groups(values_small, 2)
+    snappy = _write(SCHEMA, small, "payment_type")
+    snappy_reader = FileReader(snappy)
+    _, small_launches, small_st = _drive(snappy_reader, dev, wrappers)
+    _best_of("3i config 2 SNAPPY (the yardstick of GZIP and LZ4_RAW)",
+             snappy_reader, dev, sum(cc.meta_data.num_values for rg in
+                                     snappy_reader.meta.row_groups
+                                     for cc in rg.columns))
+    for codec in ("GZIP", "LZ4_RAW"):
+        label = f"3i config 2 {codec}"
+        t0 = time.perf_counter()
+        cblob = _write(SCHEMA, small, "payment_type", codec=codec)
+        print(f"config 2 {codec}: 2 row groups, {len(cblob)} bytes, "
+              f"written in {time.perf_counter() - t0:.2f} s", flush=True)
+        out[label] = check_codec_read(label, cblob, small, dev, wrappers,
+                                      len(snappy), (small_launches, small_st))
+    return blob_z, out
+
+
+def codec_writes(groups, blob_z, dev, wrappers, n_values) -> dict:
+    """Phase 5b: config 2 in ZSTD from numpy at ``encode_threads=1``
+    equals the file of the default workers (``blob_z``, phase 3i), both
+    timed best of 3; then a one-column PLAIN int64 file of one 64 MiB
+    page in ZSTD and in GZIP at the default workers, with
+    ``TPQ_COMPRESS_BLOCK_KB`` unset: the page must split into 64 blocks,
+    and read back on the card the values must equal the generator and a
+    ZSTD body decode its 64 frames one a worker.  Returns the reads'
+    launches."""
+    from tpuparquet_torch.io.reader import FileReader
+    from tpuparquet_torch.io.writer import _write_threads
+    from tpuparquet_torch.stats import collect_stats
+
+    workers = _write_threads()
+    one = _write(SCHEMA, groups, "payment_type", codec="ZSTD",
+                 encode_threads=1)
+    if one != blob_z:
+        raise AssertionError("5b config 2 ZSTD: the file of 1 encode worker "
+                             f"differs from the file of {workers}")
+    print(f"5b config 2 ZSTD: the files of 1 and {workers} encode workers "
+          f"are equal, {len(one)} bytes", flush=True)
+    del one
+    for threads in (1, None):
+        n_w = threads or workers
+        _best_write(f"5b config 2 ZSTD write from numpy at {n_w} encode "
+                    f"worker{'s' if n_w > 1 else ''}",
+                    lambda t=threads: _write(SCHEMA, groups, "payment_type",
+                                             codec="ZSTD", encode_threads=t),
+                    n_values)
+    if workers < 2:
+        raise AssertionError("5b: the default encode workers are 1, so no "
+                             "page body splits")
+    prev = os.environ.pop("TPQ_COMPRESS_BLOCK_KB", None)
+    launches = dict.fromkeys(wrappers, 0)
+    try:
+        v = np.random.default_rng(53).integers(
+            -(1 << 20), 1 << 20, SPLIT_VALUES).cumsum()
+        for codec in ("ZSTD", "GZIP"):
+            label = f"5b split page {codec}"
+            with collect_stats() as st:
+                t0 = time.perf_counter()
+                blob = _write(SPLIT_SCHEMA, [({"v": v}, None)], None,
+                              codec=codec, allow_dict=False)
+                dt = time.perf_counter() - t0
+            print(f"{label}: {v.nbytes} bytes of values in {len(blob)} "
+                  f"bytes, written in {dt:.4f} s at {workers} workers; "
+                  f"codec_split_blocks {st.codec_split_blocks}", flush=True)
+            if st.codec_split_blocks != 64:
+                raise AssertionError(f"{label}: {st.codec_split_blocks} "
+                                     "blocks, expected 64")
+            got, got_launches, rst = _drive(FileReader(blob), dev, wrappers)
+            vals = got[0][1]["v"].to_numpy()[0]
+            if not _same_values(vals, v):
+                raise AssertionError(f"{label}: the values read on the card "
+                                     "differ from the generator")
+            frames = 64 if codec == "ZSTD" else 0  # gzip members: one loop
+            print(f"{label} read on the card: values match; "
+                  f"codec_split_frames {rst.codec_split_frames}, plan_s "
+                  f"{rst.plan_s:.4f}, routing delta lanes "
+                  f"{rst.pages_device_delta_lanes}, planes "
+                  f"{rst.pages_device_planes}", flush=True)
+            if rst.codec_split_frames != frames:
+                raise AssertionError(f"{label}: {rst.codec_split_frames} "
+                                     f"frames decoded, expected {frames}")
+            for k, c in got_launches.items():
+                launches[k] += c
+            del got
+    finally:
+        if prev is not None:
+            os.environ["TPQ_COMPRESS_BLOCK_KB"] = prev
+    return launches
+
+
+# ----------------------------------------------------------------------
 # Phase 6: the sharded scan
 # ----------------------------------------------------------------------
 
@@ -5225,6 +5447,8 @@ def main(argv=None) -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 
+    codec_backends()
+
     # phase 1: build
     t0 = time.perf_counter()
     build_s = build_kernels()
@@ -5299,6 +5523,8 @@ def main(argv=None) -> int:
               + (["planes_to_words", "delta_scan"] if on else []))
         for k, c in launches.items():
             total_launches[k] += c
+        if on:
+            snappy_read = (launches, st)
         _best_of(label, reader, dev, n_values)
     _set_transports(True)
     sweep_workers("config 2 transports", reader, dev, n_values)
@@ -5493,10 +5719,22 @@ def main(argv=None) -> int:
     del reader_v2, blob_v2
     print(f"launches over the nine reads: {total_launches}", flush=True)
 
+    # phase 3i: config 2 in ZSTD at full size, in GZIP and LZ4_RAW at a
+    # fifth of it
+    blob_z, codec_launches = codec_reads(groups, blob, snappy_read, dev,
+                                         wrappers, args.values // 5)
+    for launches in codec_launches.values():
+        for k, c in launches.items():
+            total_launches[k] += c
+
     # phase 5: the write path.  Each file's row groups are read on the
     # card, each column goes through as_values(), and the writer that
     # made the file writes them back from the card: byte for byte the
     # same file
+    from tpuparquet_torch.io.writer import _write_threads
+
+    print(f"encode workers: {_write_threads()} by default "
+          "(TPQ_WRITE_THREADS, else the usable CPUs)", flush=True)
     sensor_enc = _encodings(SENSORS_ENCODINGS)
     dv_t = _device_groups(FileReader(blob_t), dev)
     launches = check_write("sensor table", blob_t, SENSORS_SCHEMA,
@@ -5533,7 +5771,20 @@ def main(argv=None) -> int:
                 lambda: _write(SCHEMA, dv_2, None), n_values)
     _best_write("config 2 write from numpy",
                 lambda: _write(SCHEMA, groups, "payment_type"), n_values)
-    print(f"launches over the nine reads and two writes: {total_launches}",
+    _best_write("config 2 write from DeviceValues at 1 encode worker",
+                lambda: _write(SCHEMA, dv_2, None, encode_threads=1),
+                n_values)
+    _best_write("config 2 write from numpy at 1 encode worker",
+                lambda: _write(SCHEMA, groups, "payment_type",
+                               encode_threads=1), n_values)
+
+    # phase 5b: ZSTD writes at 1 and the default encode workers, and a
+    # page body split into frames
+    launches = codec_writes(groups, blob_z, dev, wrappers, n_values)
+    for k, c in launches.items():
+        total_launches[k] += c
+    del blob_z
+    print(f"launches over the reads and writes: {total_launches}",
           flush=True)
 
     # phase 6: the sharded scan over config 2's and config 4's files, on

@@ -610,3 +610,49 @@ def test_pipelined_read_same_at_every_worker_count(cuda, monkeypatch):
     assert launches["planes_to_words"] > 0 and launches["delta_scan"] > 0
     chip_smoke._same_at_one_worker("config 2", reader, cuda, wrappers, got,
                                    launches, st)
+
+
+@pytest.mark.parametrize("codec", ["GZIP", "ZSTD", "LZ4_RAW"])
+def test_codec_read_on_card_matches_cpu(cuda, monkeypatch, codec):
+    """Config 2 at 2,000,000 values in each codec: the card's read equals
+    the CPU run buffer for buffer and the generator, with the SNAPPY
+    file's routing and launches (chip_smoke.py's phase 3i, small)."""
+    for k in chip_smoke.TRANSPORT_ENV:
+        monkeypatch.delenv(k, raising=False)
+    groups = chip_smoke.config2_groups(2_000_000, 2)
+    wrappers = {k: getattr(m, k) for m, k in (
+        (bitunpack, "unpack_u32"), (hybrid, "expand_hybrid"),
+        (decode, "page_dict_fixed"), (decode, "levels_to_validity"),
+        (decode, "planes_to_words"), (decode, "delta_scan"),
+        (snappy, "expand_tokens"))}
+    snappy_read = chip_smoke._drive(
+        FileReader(chip_smoke._write(chip_smoke.SCHEMA, groups,
+                                     "payment_type")), cuda, wrappers)[1:]
+    blob = chip_smoke._write(chip_smoke.SCHEMA, groups, "payment_type",
+                             codec=codec)
+    launches = chip_smoke.check_codec_read(codec, blob, groups, cuda,
+                                           wrappers, 0, snappy_read)
+    assert launches["expand_tokens"] == 0
+    out = list(read_row_groups_device(FileReader(blob)))
+    _same_buffers(FileReader(blob), out, groups)
+
+
+def test_device_values_pool_write_equals_serial(cuda, monkeypatch):
+    """Config 2's columns read on the card and written back as
+    ``DeviceValues`` at 4 encode workers (the pool: KE4 and KE5 launch
+    from its threads) and at 1: equal files, equal launch counts."""
+    for k in chip_smoke.TRANSPORT_ENV:
+        monkeypatch.delenv(k, raising=False)
+    blob, _ = chip_smoke.build_config2(2_000_000, 2)
+    dv = chip_smoke._device_groups(FileReader(io.BytesIO(blob)), cuda)
+    wrappers = {k: getattr(encode, k) for k in _encode_launches()}
+    files, counts = [], []
+    for threads in (4, 1):
+        for fn in wrappers.values():
+            fn.launches = 0
+        files.append(chip_smoke._write(chip_smoke.SCHEMA, dv, None,
+                                       encode_threads=threads))
+        counts.append({k: fn.launches for k, fn in wrappers.items()})
+    assert files[0] == files[1] == blob
+    assert counts[0] == counts[1]
+    assert counts[0]["dict_build"] == 8 and counts[0]["lanes_min_max"] == 14

@@ -1,69 +1,172 @@
-"""Block codecs of the read and write path: UNCOMPRESSED and SNAPPY.
+"""Block codecs of the read and write path: UNCOMPRESSED, SNAPPY, GZIP,
+ZSTD and LZ4_RAW.
 
-SNAPPY runs in C (``csrc/snappy.c``), compiled with the host C compiler
-at first use and loaded with ctypes; the same library scans a block's
-tags into the token tables of the device decompressor
-(:func:`snappy_scan_tokens`).  There is no pure-Python fallback:
-without a compiler, SNAPPY raises.  Any other codec raises
-:class:`NotImplementedError` naming it.
+SNAPPY and LZ4_RAW run in C (``csrc/snappy.c``, ``csrc/lz4raw.c``),
+compiled with the host C compiler at first use and loaded with ctypes;
+the snappy library also scans a block's tags into the token tables of
+the device decompressor (:func:`snappy_scan_tokens`).  Neither has a
+pure-Python mirror: without a compiler, SNAPPY and LZ4_RAW raise, and
+``TPQ_NATIVE_CODECS=0`` does not move them.  (The JAX package's mirrors
+write the same bytes as its C codecs, so files are the same either way.)
+
+GZIP and ZSTD bind the system libz and libzstd (``syslibs.py``), with
+the stdlib ``zlib`` module and the optional ``zstandard`` wheel as
+fallbacks; ``TPQ_NATIVE_CODECS=0`` (read per call) puts both on their
+fallbacks.  ``TPQ_ZSTD_LEVEL`` sets the ZSTD level (default 1).  LZO,
+BROTLI and Hadoop-framed LZ4 raise :class:`NotImplementedError` naming
+the codec.
+
+Corrupt input raises :class:`CompressionError`, a ValueError.  The read
+path decompresses into a slab of its arena (:func:`decompress_block`);
+a ZSTD body of two or more frames whose content sizes are recorded
+decodes one frame a worker and counts ``codec_split_frames``.  The write
+path compresses each data page with :func:`page_compress`, which splits
+a GZIP or ZSTD body of at least two ``TPQ_COMPRESS_BLOCK_KB`` blocks
+into independently compressed members or frames (counted in
+``codec_split_blocks``) when the caller holds more than one worker and
+the system library is loaded: the same decoded bytes, and the same file
+bytes as the JAX package's writer, whose native page path splits under
+the same conditions.
 """
 
 from __future__ import annotations
 
 import ctypes
+import io
+import os
 import shutil
 import threading
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from .format.metadata import CompressionCodec
+from .stats import current_stats
+from .syslibs import zlib_native, zstd_native
 from .varint import read_uvarint
 
-__all__ = ["compress_block", "decompress_block", "snappy_scan_tokens",
+__all__ = ["CompressionError", "compress_block", "decompress_block",
+           "native_codecs_enabled", "page_compress", "snappy_scan_tokens",
            "snappy_single_literal_view"]
 
 # the format's shortest copy; the JAX package's writer uses the same
 # floor, which keeps numeric pages' 4..7-byte matches
 _MIN_MATCH = 4
 
+_SUPPORTED = (CompressionCodec.UNCOMPRESSED, CompressionCodec.SNAPPY,
+              CompressionCodec.GZIP, CompressionCodec.ZSTD,
+              CompressionCodec.LZ4_RAW)
+
+
+class CompressionError(ValueError):
+    """A block that does not decode, or decodes to another size than its
+    header says."""
+
+
+def native_codecs_enabled() -> bool:
+    """False under ``TPQ_NATIVE_CODECS=0``: GZIP takes the stdlib module
+    and ZSTD the ``zstandard`` wheel.  Read per call."""
+    return os.environ.get("TPQ_NATIVE_CODECS", "1") != "0"
+
+
+def _zstd_level() -> int:
+    try:
+        return int(os.environ.get("TPQ_ZSTD_LEVEL", "1"))
+    except ValueError:
+        return 1
+
+
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
 
 
-def _snappy():
-    """The loaded snappy library (built on first call)."""
-    global _lib
+def _c_codec(stem: str):
+    """The loaded C codec ``csrc/<stem>.c`` (built on first call)."""
     with _lock:
-        if _lib is None:
+        lib = _libs.get(stem)
+        if lib is None:
             from ._build import CSRC, build
 
             cc = shutil.which("cc") or shutil.which("gcc")
             if cc is None:
                 raise RuntimeError(
-                    "SNAPPY needs a C compiler to build csrc/snappy.c")
-            (path,) = build([(CSRC / "snappy.c",
+                    f"csrc/{stem}.c needs a C compiler to build")
+            (path,) = build([(CSRC / f"{stem}.c",
                               [cc, "-O3", "-shared", "-fPIC"])])
-            lib = ctypes.CDLL(str(path))
-            size_t_p = ctypes.POINTER(ctypes.c_size_t)
-            lib.tpq_snappy_decompress.restype = ctypes.c_int
-            lib.tpq_snappy_decompress.argtypes = [
-                ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
-                ctypes.c_size_t, size_t_p]
-            lib.tpq_snappy_compress_opt.restype = ctypes.c_int
-            lib.tpq_snappy_compress_opt.argtypes = [
-                ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
-                ctypes.c_size_t, size_t_p, ctypes.c_int]
-            lib.tpq_snappy_max_compressed_length.restype = ctypes.c_uint64
-            lib.tpq_snappy_max_compressed_length.argtypes = [
-                ctypes.c_uint64]
-            lib.tpq_snappy_scan_tokens.restype = ctypes.c_int
-            lib.tpq_snappy_scan_tokens.argtypes = [
-                ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                ctypes.c_size_t, ctypes.POINTER(ctypes.c_int64), size_t_p,
-                ctypes.POINTER(ctypes.c_uint64)]
-            _lib = lib
-        return _lib
+            lib = _libs[stem] = _bind(stem, ctypes.CDLL(str(path)))
+        return lib
+
+
+def _bind(stem: str, lib):
+    size_t_p = ctypes.POINTER(ctypes.c_size_t)
+    io_args = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+               ctypes.c_size_t, size_t_p]
+    if stem == "lz4raw":
+        for fn in (lib.tpq_lz4_compress, lib.tpq_lz4_decompress):
+            fn.restype = ctypes.c_int
+            fn.argtypes = io_args
+        lib.tpq_lz4_max_compressed_length.restype = ctypes.c_uint64
+        lib.tpq_lz4_max_compressed_length.argtypes = [ctypes.c_uint64]
+        return lib
+    lib.tpq_snappy_decompress.restype = ctypes.c_int
+    lib.tpq_snappy_decompress.argtypes = io_args
+    lib.tpq_snappy_compress_opt.restype = ctypes.c_int
+    lib.tpq_snappy_compress_opt.argtypes = io_args + [ctypes.c_int]
+    lib.tpq_snappy_max_compressed_length.restype = ctypes.c_uint64
+    lib.tpq_snappy_max_compressed_length.argtypes = [ctypes.c_uint64]
+    lib.tpq_snappy_scan_tokens.restype = ctypes.c_int
+    lib.tpq_snappy_scan_tokens.argtypes = [
+        ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_size_t, ctypes.POINTER(ctypes.c_int64), size_t_p,
+        ctypes.POINTER(ctypes.c_uint64)]
+    return lib
+
+
+def _snappy():
+    """The loaded snappy library (built on first call)."""
+    return _c_codec("snappy")
+
+
+def _lz4():
+    """The loaded LZ4_RAW library (built on first call)."""
+    return _c_codec("lz4raw")
+
+
+class _Wheel(threading.local):
+    """The ``zstandard`` wheel's contexts, one pair a thread (they may
+    not be shared by concurrent calls)."""
+
+    level = None
+
+
+_wheel_ctx = _Wheel()
+
+
+def _zstd_wheel(level: int):
+    """This thread's ``(compressor, decompressor)`` at ``level``; raises
+    CompressionError when the wheel is not installed."""
+    try:
+        import zstandard
+    except ImportError:
+        raise CompressionError(
+            "zstd: the system libzstd is not in use (none loaded, or "
+            "TPQ_NATIVE_CODECS=0) and the zstandard wheel is not "
+            "installed") from None
+    if _wheel_ctx.level != level:
+        _wheel_ctx.c = zstandard.ZstdCompressor(level=level)
+        _wheel_ctx.d = zstandard.ZstdDecompressor()
+        _wheel_ctx.level = level
+    return _wheel_ctx.c, _wheel_ctx.d
+
+
+def _native_zlib():
+    return zlib_native() if native_codecs_enabled() else None
+
+
+def _native_zstd():
+    return zstd_native() if native_codecs_enabled() else None
 
 
 def _u8(data) -> np.ndarray:
@@ -74,43 +177,156 @@ def _u8(data) -> np.ndarray:
 
 def _check_codec(codec) -> CompressionCodec:
     codec = CompressionCodec(codec)
-    if codec not in (CompressionCodec.UNCOMPRESSED,
-                     CompressionCodec.SNAPPY):
+    if codec not in _SUPPORTED:
         raise NotImplementedError(
             f"codec {codec.name} is not supported by tpuparquet_torch "
-            "(UNCOMPRESSED and SNAPPY only)")
+            "(UNCOMPRESSED, SNAPPY, GZIP, ZSTD and LZ4_RAW only)")
     return codec
 
 
+def _check_size(got: int, want: int) -> None:
+    if got != want:
+        raise CompressionError(
+            f"decompressed size {got} != expected {want}")
+
+
+_affinity_workers: int | None = None
+
+
+def _decode_budget() -> int:
+    """Workers for frame-parallel decompression: the process's usable
+    CPUs."""
+    global _affinity_workers
+    if _affinity_workers is None:
+        try:
+            _affinity_workers = len(os.sched_getaffinity(0)) or 1
+        except (AttributeError, OSError):
+            _affinity_workers = os.cpu_count() or 1
+    return _affinity_workers
+
+
+def _zstd_decompress_frames(nat, src, size: int, out, workers: int):
+    """Decode a stream of two or more frames with recorded content sizes
+    one frame a worker; returns the produced length, or None for a
+    stream of one frame or of unrecorded sizes (the caller one-shots
+    it)."""
+    if workers <= 1:
+        return None
+    try:
+        spans = nat.frame_spans(src)
+    except ValueError as e:
+        raise CompressionError(str(e)) from None
+    if spans is None or len(spans) < 2:
+        return None
+    _check_size(sum(s[2] for s in spans), size)
+    dst = np.cumsum([0] + [s[2] for s in spans])
+
+    def one(i):
+        off, clen, ulen = spans[i]
+        return nat.decompress_into(src[off:off + clen],
+                                   out[dst[i]:dst[i] + ulen], ulen)
+
+    with ThreadPoolExecutor(max_workers=min(workers, len(spans))) as ex:
+        try:
+            list(ex.map(one, range(len(spans))))
+        except ValueError as e:
+            raise CompressionError(str(e)) from None
+    st = current_stats()
+    if st is not None:
+        st.codec_split_frames += len(spans)
+    return size
+
+
+def _gzip_stdlib(src: np.ndarray) -> bytes:
+    """Inflate every member of a gzip stream with the stdlib module."""
+    parts = []
+    buf = src.tobytes()
+    try:
+        while buf:
+            d = zlib.decompressobj(wbits=16 + zlib.MAX_WBITS)
+            parts.append(d.decompress(buf))
+            if not d.eof:
+                raise CompressionError("gzip: truncated member")
+            buf = d.unused_data
+    except zlib.error as e:
+        raise CompressionError(f"gzip: {e}") from None
+    return b"".join(parts)
+
+
+def _zstd_wheel_decompress(src: np.ndarray, size: int) -> bytes:
+    """ZSTD through the wheel.  Its one-shot call stops after the first
+    frame, so a body of several frames (the write side's split) is read
+    again as a stream across frames.  (The JAX package streams only when
+    the one-shot call raises, so it refuses a split body on this path.)"""
+    _, d = _zstd_wheel(_zstd_level())
+    try:
+        got = d.decompress(src, max_output_size=size)
+        if len(got) == size:
+            return got
+        with d.stream_reader(io.BytesIO(src.tobytes()),
+                             read_across_frames=True) as r:
+            return r.read(size + 1)
+    except Exception as e:  # the wheel raises its own ZstdError
+        raise CompressionError(f"zstd: {e}") from None
+
+
+def _slab(arena, n: int) -> np.ndarray:
+    # 16 bytes of slack let the C decoders use fixed-width copies
+    return (np.empty(n + 16, dtype=np.uint8) if arena is None
+            else arena.borrow(n + 16))
+
+
 def decompress_block(codec, payload, uncompressed_size: int,
-                     arena=None) -> np.ndarray:
+                     arena=None, workers: int | None = None) -> np.ndarray:
     """Decompress one page body to a u8 array of exactly
-    ``uncompressed_size`` bytes; raises ValueError on corrupt input.
-    With ``arena`` (a :class:`~tpuparquet_torch.kernels.arena.HostArena`)
-    a SNAPPY block decompresses into a slab borrowed from it, valid until
-    the arena's ``release_all``; else into a fresh array."""
+    ``uncompressed_size`` bytes; raises :class:`CompressionError` on
+    corrupt input.  With ``arena`` (a
+    :class:`~tpuparquet_torch.kernels.arena.HostArena`) a block that a C
+    or system library decodes lands in a slab borrowed from it, valid
+    until the arena's ``release_all``; else in a fresh array.
+    ``workers`` bounds the frame-parallel decode of a multi-frame ZSTD
+    body (None: the usable CPUs)."""
     codec = _check_codec(codec)
     src = _u8(payload)
+    if uncompressed_size is None or uncompressed_size < 0:
+        raise CompressionError("missing decompressed size")
     if codec == CompressionCodec.UNCOMPRESSED:
-        if src.size != uncompressed_size:
-            raise ValueError(
-                f"uncompressed page holds {src.size} bytes, header says "
-                f"{uncompressed_size}")
+        _check_size(src.size, uncompressed_size)
         return src
-    lib = _snappy()
-    # 16 bytes of slack let the decoder use fixed-width copies
-    out = (np.empty(uncompressed_size + 16, dtype=np.uint8) if arena is None
-           else arena.borrow(uncompressed_size + 16))
-    produced = ctypes.c_size_t(0)
-    rc = lib.tpq_snappy_decompress(
-        src.ctypes.data, src.size, out.ctypes.data, out.size,
-        ctypes.byref(produced))
-    if rc != 0:
-        raise ValueError(f"snappy: corrupt block (code {rc})")
-    if produced.value != uncompressed_size:
-        raise ValueError(
-            f"snappy: block holds {produced.value} bytes, header says "
-            f"{uncompressed_size}")
+    if codec in (CompressionCodec.SNAPPY, CompressionCodec.LZ4_RAW):
+        out = _slab(arena, uncompressed_size)
+        produced = ctypes.c_size_t(0)
+        if codec == CompressionCodec.SNAPPY:
+            name, rc = "snappy", _snappy().tpq_snappy_decompress(
+                src.ctypes.data, src.size, out.ctypes.data, out.size,
+                ctypes.byref(produced))
+        else:
+            name, rc = "lz4", _lz4().tpq_lz4_decompress(
+                src.ctypes.data, src.size, out.ctypes.data,
+                uncompressed_size, ctypes.byref(produced))
+        if rc != 0:
+            raise CompressionError(f"{name}: corrupt block (code {rc})")
+        _check_size(produced.value, uncompressed_size)
+        return out[:uncompressed_size]
+    gzip = codec == CompressionCodec.GZIP
+    nat = _native_zlib() if gzip else _native_zstd()
+    if nat is None:
+        got = (_gzip_stdlib(src) if gzip
+               else _zstd_wheel_decompress(src, uncompressed_size))
+        _check_size(len(got), uncompressed_size)
+        return np.frombuffer(got, dtype=np.uint8)
+    out = _slab(arena, uncompressed_size)
+    got = None
+    if not gzip:
+        got = _zstd_decompress_frames(
+            nat, src, uncompressed_size, out,
+            _decode_budget() if workers is None else workers)
+    if got is None:
+        try:
+            got = nat.decompress_into(src, out, uncompressed_size)
+        except ValueError as e:
+            raise CompressionError(str(e)) from None
+    _check_size(got, uncompressed_size)
     return out[:uncompressed_size]
 
 
@@ -119,7 +335,7 @@ def snappy_scan_tokens(block):
     ``(tok_out_end, tok_src, literals, out_len)``.  Token ``i`` covers
     output bytes ``[tok_out_end[i-1], tok_out_end[i])``; ``tok_src[i]``
     is ``-(literal offset + 1)`` for a literal, else the output position
-    its copy reads from.  Raises ValueError on a corrupt block."""
+    its copy reads from.  Raises CompressionError on a corrupt block."""
     lib = _snappy()
     buf = _u8(block)
     cap = max(buf.size, 1)  # every token takes at least one input byte
@@ -134,7 +350,7 @@ def snappy_scan_tokens(block):
         cap, lits.ctypes.data, lits.size, ctypes.byref(n_tok),
         ctypes.byref(lit_len), ctypes.byref(out_len))
     if rc != 0:
-        raise ValueError(f"snappy: corrupt block (code {rc})")
+        raise CompressionError(f"snappy: corrupt block (code {rc})")
     t = int(n_tok.value)
     return (tok_end[:t], tok_src[:t], lits[: lit_len.value],
             int(out_len.value))
@@ -171,18 +387,161 @@ def snappy_single_literal_view(block) -> np.ndarray | None:
     return buf[pos : pos + ln]
 
 
+def _c_compress(stem: str, src: np.ndarray) -> bytes:
+    if stem == "snappy":
+        lib = _snappy()
+        cap = lib.tpq_snappy_max_compressed_length(src.size)
+    else:
+        lib = _lz4()
+        cap = lib.tpq_lz4_max_compressed_length(src.size)
+    out = np.empty(cap, dtype=np.uint8)
+    produced = ctypes.c_size_t(0)
+    args = (src.ctypes.data, src.size, out.ctypes.data, out.size,
+            ctypes.byref(produced))
+    rc = (lib.tpq_snappy_compress_opt(*args, _MIN_MATCH) if stem == "snappy"
+          else lib.tpq_lz4_compress(*args))
+    if rc != 0:
+        raise CompressionError(f"{stem}: compress failed (code {rc})")
+    return out[:produced.value].tobytes()
+
+
 def compress_block(codec, data) -> bytes:
+    """One block compressed whole, as the JAX package's registered codec
+    compresses it."""
     codec = _check_codec(codec)
     src = _u8(data)
     if codec == CompressionCodec.UNCOMPRESSED:
         return src.tobytes()
-    lib = _snappy()
-    out = np.empty(lib.tpq_snappy_max_compressed_length(src.size),
+    if codec == CompressionCodec.SNAPPY:
+        return _c_compress("snappy", src)
+    if codec == CompressionCodec.LZ4_RAW:
+        return _c_compress("lz4raw", src)
+    if codec == CompressionCodec.GZIP:
+        nat = _native_zlib()
+        if nat is not None:
+            return nat.compress(src)
+        co = zlib.compressobj(wbits=16 + zlib.MAX_WBITS)  # gzip framing
+        return co.compress(src) + co.flush()
+    level = _zstd_level()
+    nat = _native_zstd()
+    if nat is not None:
+        return nat.compress(src, level)
+    return _zstd_wheel(level)[0].compress(src)
+
+
+# ----------------------------------------------------------------------
+# Write side: the block-parallel split of a page body
+# ----------------------------------------------------------------------
+
+class PageCodecCtx:
+    """The system library's compression of a codec whose frames
+    concatenate (GZIP members, ZSTD frames): a worst-case :meth:`bound`
+    and a :meth:`compress_into` that writes into a caller's buffer."""
+
+    __slots__ = ("codec", "_bound", "_into")
+
+    def __init__(self, codec, bound, into):
+        self.codec = codec
+        self._bound = bound
+        self._into = into
+
+    def bound(self, n: int) -> int:
+        return self._bound(n)
+
+    def compress_into(self, src, out) -> int:
+        return self._into(src, out)
+
+
+def page_codec_settings(codec) -> PageCodecCtx | None:
+    """The split context of ``codec``: GZIP or ZSTD with native codecs on
+    and the system library loaded; None otherwise (the page is then
+    compressed whole, as the JAX package's pure page path does)."""
+    if codec == CompressionCodec.GZIP:
+        nat = _native_zlib()
+        if nat is not None:
+            return PageCodecCtx(codec, nat.compress_bound, nat.compress_into)
+    elif codec == CompressionCodec.ZSTD:
+        nat = _native_zstd()
+        if nat is not None:
+            level = _zstd_level()
+            return PageCodecCtx(
+                codec, nat.compress_bound,
+                lambda src, out: nat.compress_into(src, out, level))
+    return None
+
+
+def _split_block_bytes() -> int:
+    """The split's block size (``TPQ_COMPRESS_BLOCK_KB``, default 1 MiB,
+    at least 64 KiB)."""
+    try:
+        kb = int(os.environ.get("TPQ_COMPRESS_BLOCK_KB", "1024"))
+    except ValueError:
+        kb = 1024
+    return max(64, kb) * 1024
+
+
+def _splits(n: int, workers: int) -> bool:
+    return workers > 1 and n >= 2 * _split_block_bytes()
+
+
+def page_compress_bound(ctx: PageCodecCtx, n: int, workers: int = 1) -> int:
+    """Output capacity :func:`page_compress_into` needs: the frames'
+    worst cases when the split engages, else the codec's bound."""
+    block = _split_block_bytes()
+    if not _splits(n, workers):
+        return ctx.bound(n)
+    nb = -(-n // block)
+    return (nb - 1) * ctx.bound(block) + ctx.bound(n - (nb - 1) * block)
+
+
+def page_compress_into(ctx: PageCodecCtx, src: np.ndarray, out: np.ndarray,
+                       workers: int = 1) -> int:
+    """Compress ``src`` into ``out`` (sized by :func:`page_compress_bound`)
+    and return the produced length.  A body of at least two blocks with
+    more than one worker compresses one block a worker into independent
+    frames, compacted into one stream and counted in
+    ``codec_split_blocks``; the frame boundaries depend only on
+    ``TPQ_COMPRESS_BLOCK_KB``, so every worker count above one writes the
+    same bytes, and one worker writes the single frame."""
+    n = src.size
+    if not _splits(n, workers):
+        return ctx.compress_into(src, out)
+    block = _split_block_bytes()
+    nb = -(-n // block)
+    offs = [0]
+    for i in range(nb):
+        offs.append(offs[-1] + ctx.bound(min(block, n - i * block)))
+
+    def one(i):
+        a = i * block
+        return ctx.compress_into(src[a:min(n, a + block)],
+                                 out[offs[i]:offs[i + 1]])
+
+    with ThreadPoolExecutor(max_workers=min(workers, nb)) as ex:
+        lens = list(ex.map(one, range(nb)))
+    pos = lens[0]
+    for i in range(1, nb):  # compact the frames down to one stream
+        li = lens[i]
+        if offs[i] != pos:
+            out[pos:pos + li] = out[offs[i]:offs[i] + li].copy()
+        pos += li
+    st = current_stats()
+    if st is not None:
+        st.codec_split_blocks += nb
+    return pos
+
+
+def page_compress(codec, data, workers: int = 1) -> bytes:
+    """A data page's body (V1) or values segment (V2) compressed: split
+    into frames by :func:`page_compress_into` when ``workers > 1`` and
+    the codec has a split context, else :func:`compress_block`."""
+    ctx = page_codec_settings(codec) if workers > 1 else None
+    if ctx is None:
+        return compress_block(codec, data)
+    src = _u8(data)
+    out = np.empty(page_compress_bound(ctx, src.size, workers),
                    dtype=np.uint8)
-    produced = ctypes.c_size_t(0)
-    rc = lib.tpq_snappy_compress_opt(
-        src.ctypes.data, src.size, out.ctypes.data, out.size,
-        ctypes.byref(produced), _MIN_MATCH)
-    if rc != 0:
-        raise ValueError(f"snappy: compress failed (code {rc})")
-    return out[:produced.value].tobytes()
+    try:
+        return out[:page_compress_into(ctx, src, out, workers)].tobytes()
+    except ValueError as e:
+        raise CompressionError(str(e)) from None

@@ -143,12 +143,29 @@ def _lex_min_max(rows: np.ndarray):
     return out
 
 
+def _bytes_min_max(col: ByteArrayColumn):
+    """The (min, max) values of a byte column in unsigned byte order:
+    the extremes of each length group (:func:`_lex_min_max` over its
+    rows), then the least and greatest of those, where a value sorts
+    after its own prefixes."""
+    offs = col.offsets.astype(np.int64)
+    lens = np.diff(offs)
+    mins, maxs = [], []
+    for length in np.unique(lens):
+        sel = np.nonzero(lens == length)[0]
+        rows = col.data[offs[:-1][sel][:, None]
+                        + np.arange(int(length), dtype=np.int64)]
+        lo, hi = _lex_min_max(rows) if length else (b"", b"")
+        mins.append(lo)
+        maxs.append(hi)
+    return min(mins), max(maxs)
+
+
 def _statistics(ptype: Type, src, null_count: int, distinct,
                 unsigned: bool = False):
     """Chunk statistics over ``src`` (the dictionary when there is one:
-    every value appears in it).  Floats ignore NaN; bytes carry min/max
-    only over a dictionary (a PLAIN byte chunk writes counts only),
-    fixed-length bytes lexicographic bounds, INT96 none; unsigned
+    every value appears in it).  Floats ignore NaN; bytes and
+    fixed-length bytes carry lexicographic bounds, INT96 none; unsigned
     integers order as unsigned; byte types and unsigned integers write
     no deprecated signed-order min/max."""
     mn = mx = None
@@ -157,9 +174,8 @@ def _statistics(ptype: Type, src, null_count: int, distinct,
         if lo is not None:
             mn, mx = lo.tobytes(), hi.tobytes()
     elif isinstance(src, ByteArrayColumn):
-        if distinct is not None and len(src):
-            vals = src.to_list()
-            mn, mx = min(vals), max(vals)
+        if len(src):
+            mn, mx = _bytes_min_max(src)
     elif ptype == Type.FIXED_LEN_BYTE_ARRAY:
         if len(src):
             mn, mx = _lex_min_max(src)
@@ -185,13 +201,16 @@ def write_chunk(out, node, column, rep, dl: np.ndarray, *, codec,
                 encoding: Encoding = Encoding.PLAIN, page_crc: bool = True,
                 null_count: int = 0, num_rows: int | None = None,
                 data_page_v2: bool = False,
-                allow_dict: bool = True) -> ColumnChunk:
+                allow_dict: bool = True,
+                pipeline_workers: int = 1) -> ColumnChunk:
     """Write one column chunk at the current position of ``out`` (a
     position-tracking binary stream).  ``column`` holds the non-null
     values (an array of the physical dtype, or a
     :class:`ByteArrayColumn`), ``rep``/``dl`` the repetition and
     definition level of every slot (``rep`` None for a flat column),
-    ``num_rows`` the records (default: one per slot)."""
+    ``num_rows`` the records (default: one per slot).  The chunk's one
+    data page takes ``pipeline_workers`` for the block-parallel split of
+    its compressed body, as the JAX writer's single-page chunk does."""
     ptype = Type(node.element.type)
     pos0 = out.tell()
     dictionary, indices = (_maybe_dictionary(column)
@@ -217,11 +236,12 @@ def write_chunk(out, node, column, rep, dl: np.ndarray, *, codec,
             out, node, page_column, rep, dl, codec, null_count=null_count,
             num_rows=len(dl) if num_rows is None else num_rows,
             encoding=encoding, dictionary_size=distinct, statistics=stats,
-            page_crc=page_crc)
+            page_crc=page_crc, compress_workers=pipeline_workers)
     else:
         c, u = write_data_page_v1(
             out, node, page_column, rep, dl, codec, encoding=encoding,
-            dictionary_size=distinct, statistics=stats, page_crc=page_crc)
+            dictionary_size=distinct, statistics=stats, page_crc=page_crc,
+            compress_workers=pipeline_workers)
     total_comp += c
     total_uncomp += u
     encodings = [Encoding.RLE, encoding]

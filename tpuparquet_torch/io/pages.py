@@ -12,6 +12,12 @@ Layouts:
 * **Dictionary page**: PLAIN-encoded distinct values, whole body
   compressed; at most one per chunk, first.
 
+A data page's compressed part goes through
+:func:`~tpuparquet_torch.compress.page_compress`: with
+``compress_workers > 1`` a large GZIP or ZSTD body splits into frames
+compressed one a worker, as the JAX package's native page path splits
+it; the dictionary page is always compressed whole, as there.
+
 The page CRC (``PageHeader.crc``) is the standard gzip-polynomial CRC32
 over the page bytes as they appear in the file, stored as a signed i32.
 """
@@ -24,7 +30,7 @@ import zlib
 
 import numpy as np
 
-from ..compress import compress_block
+from ..compress import compress_block, page_compress
 from ..cpu.bss import encode_byte_stream_split
 from ..cpu.delta import encode_delta_binary_packed, \
     encode_delta_byte_array, encode_delta_length_byte_array
@@ -228,12 +234,15 @@ def _page_values(node, column, encoding, dictionary_size):
 
 def write_data_page_v1(out, node, column, rep, dl, codec, *,
                        encoding=Encoding.PLAIN, dictionary_size=None,
-                       statistics=None, page_crc=True) -> tuple[int, int]:
+                       statistics=None, page_crc=True,
+                       compress_workers: int = 1) -> tuple[int, int]:
     """Append a V1 data page; returns (compressed, uncompressed) sizes
     including the header bytes.  ``column`` holds the non-null values
     (encoded with ``encoding``), or their dictionary indices when
     ``dictionary_size`` is given; ``rep``/``dl`` the levels of every slot
-    (``rep`` is read only for a repeated column)."""
+    (``rep`` is read only for a repeated column).  ``compress_workers``
+    may split the body (:func:`~tpuparquet_torch.compress.
+    page_compress`)."""
     body = bytearray()
     if node.max_rep_level:
         body += encode_hybrid_prefixed(as_uint32(rep),
@@ -243,7 +252,7 @@ def write_data_page_v1(out, node, column, rep, dl, codec, *,
                                        int(node.max_def_level).bit_length())
     values_b, enc = _page_values(node, column, encoding, dictionary_size)
     body += values_b
-    comp = compress_block(codec, bytes(body))
+    comp = page_compress(codec, bytes(body), compress_workers)
     ph = PageHeader(
         type=PageType.DATA_PAGE,
         uncompressed_page_size=len(body),
@@ -266,16 +275,18 @@ def write_data_page_v1(out, node, column, rep, dl, codec, *,
 def write_data_page_v2(out, node, column, rep, dl, codec, *, null_count: int,
                        num_rows: int, encoding=Encoding.PLAIN,
                        dictionary_size=None, statistics=None,
-                       page_crc=True) -> tuple[int, int]:
+                       page_crc=True,
+                       compress_workers: int = 1) -> tuple[int, int]:
     """Append a V2 data page (arguments as :func:`write_data_page_v1`;
-    ``num_rows`` counts records, not level slots); the CRC covers the
-    level bytes and the compressed values as they appear in the file."""
+    ``num_rows`` counts records, not level slots); only the values
+    segment is compressed, and the CRC covers the level bytes and the
+    compressed values as they appear in the file."""
     rl_b = (encode_hybrid(as_uint32(rep), int(node.max_rep_level).bit_length())
             if node.max_rep_level else b"")
     dl_b = (encode_hybrid(as_uint32(dl), int(node.max_def_level).bit_length())
             if node.max_def_level else b"")
     values_b, enc = _page_values(node, column, encoding, dictionary_size)
-    comp = compress_block(codec, values_b)
+    comp = page_compress(codec, values_b, compress_workers)
     ph = PageHeader(
         type=PageType.DATA_PAGE_V2,
         uncompressed_page_size=len(rl_b) + len(dl_b) + len(values_b),

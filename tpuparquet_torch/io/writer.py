@@ -14,16 +14,37 @@ offsets and null-row and null-element masks, and writes one row group:
 one column chunk per leaf, each a dictionary page when it is written
 PLAIN and the dictionary pays (never for BOOLEAN, and not at all with
 ``allow_dict=False``), and one data page (V1, or V2 with
-``data_page_v2=True``), SNAPPY or UNCOMPRESSED, with statistics and page
-CRCs — the JAX package writer's policy for these columns.
+``data_page_v2=True``), UNCOMPRESSED, SNAPPY, GZIP, ZSTD or LZ4_RAW, with
+statistics and page CRCs — the JAX package writer's policy for these
+columns.
+
 ``column_encodings`` writes a column with another encoding the JAX
 package's table allows for its type: RLE (BOOLEAN), DELTA_BINARY_PACKED,
 DELTA_LENGTH_BYTE_ARRAY, DELTA_BYTE_ARRAY or BYTE_STREAM_SPLIT.
+
+A row group's column chunks encode on a pool of ``encode_threads``
+workers (default ``TPQ_WRITE_THREADS``, else the usable CPUs) when it
+has more than one column and more than 65,536 values: each chunk renders
+into a buffer of its own under a stats collector of its own, and the
+calling thread appends the buffers in schema order, rebasing their
+offsets, and merges the collectors, so the file and the counters are
+those of the serial path.  With one worker or a small row group the
+chunks write straight to the file one after another, and the whole
+budget goes to the block-parallel split of a large GZIP or ZSTD page
+(``compress.page_compress``); the pool keeps its pages whole, since its
+workers already fill the budget.  A ``DeviceValues`` column's kernels
+then launch from a pool thread, on the column's device.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
+import torch
 
 from ..cpu.levels import list_levels
 from ..cpu.plain import PHYSICAL_DTYPES, ByteArrayColumn
@@ -32,10 +53,37 @@ from ..format.metadata import CompressionCodec, Encoding, FileMetaData, \
     RowGroup, Type
 from ..format.schema import Schema
 from ..kernels.encode import DeviceValues
+from ..stats import current_stats, worker_stats
 from .chunk import is_unsigned, write_chunk
 from .pages import SUPPORTED_DATA_ENCODINGS, page_crc_default
 
 __all__ = ["FileWriter"]
+
+# a row group of at most this many values (level slots) encodes serially
+_POOL_MIN_VALUES = 65536
+
+
+def _write_threads() -> int:
+    """Encode workers of a row group: ``TPQ_WRITE_THREADS`` (``1``: the
+    serial path), else the usable CPUs."""
+    v = os.environ.get("TPQ_WRITE_THREADS")
+    if v is not None:
+        try:
+            return max(int(v), 1)
+        except ValueError:
+            pass  # a malformed override falls back to the default
+    try:
+        return len(os.sched_getaffinity(0)) or 1
+    except (AttributeError, OSError):
+        return os.cpu_count() or 1
+
+
+def _on_device_of(column):
+    """The current CUDA device set to a ``DeviceValues`` column's card for
+    the block (a pool thread's current device is not the caller's)."""
+    if isinstance(column, DeviceValues) and column.flat.device.type == "cuda":
+        return torch.cuda.device(column.flat.device)
+    return contextlib.nullcontext()
 
 
 def _column_values(leaf, values):
@@ -103,7 +151,8 @@ class FileWriter:
                  codec: CompressionCodec = CompressionCodec.UNCOMPRESSED,
                  page_crc: bool | None = None, data_page_v2: bool = False,
                  column_encodings: dict | None = None,
-                 allow_dict: bool = True):
+                 allow_dict: bool = True,
+                 encode_threads: int | None = None):
         self._f = f
         self._pos = 0
         self.schema = (schema if isinstance(schema, Schema)
@@ -133,6 +182,8 @@ class FileWriter:
                              else page_crc)
         self.data_page_v2 = data_page_v2
         self.allow_dict = allow_dict
+        self.encode_threads = (max(int(encode_threads), 1)
+                               if encode_threads is not None else None)
         self.row_groups: list[RowGroup] = []
         self.total_rows = 0
         self._closed = False
@@ -207,18 +258,60 @@ class FileWriter:
             prepared.append((leaf, vals, rep, dl, dl.size - len(vals)))
         if self._pos == 0:
             self.write(MAGIC)
-        chunks = []
-        total_bytes = total_comp = 0
-        for leaf, vals, rep, dl, nulls in prepared:
-            cc = write_chunk(
-                self, leaf, vals, rep, dl, codec=self.codec,
+
+        def chunk(out, leaf, vals, rep, dl, nulls, workers):
+            return write_chunk(
+                out, leaf, vals, rep, dl, codec=self.codec,
                 encoding=self.column_encodings.get(leaf.flat_name,
                                                    Encoding.PLAIN),
                 page_crc=self.page_crc, null_count=nulls, num_rows=n_rows,
-                data_page_v2=self.data_page_v2, allow_dict=self.allow_dict)
-            total_bytes += cc.meta_data.total_uncompressed_size
-            total_comp += cc.meta_data.total_compressed_size
-            chunks.append(cc)
+                data_page_v2=self.data_page_v2, allow_dict=self.allow_dict,
+                pipeline_workers=workers)
+
+        def render(job):
+            # the chunk at position 0 of its own buffer, its counters in
+            # a collector of its own (the active one is thread-local)
+            buf = io.BytesIO()
+            with worker_stats() as ws, _on_device_of(job[1]):
+                cc = chunk(buf, *job, 1)
+            return buf.getvalue(), cc, ws
+
+        n_workers = (self.encode_threads if self.encode_threads is not None
+                     else _write_threads())
+        total_values = sum(len(job[3]) for job in prepared)
+        if len(prepared) > 1 and n_workers > 1 \
+                and total_values > _POOL_MIN_VALUES:
+            sink = current_stats()
+            chunks = []
+            n_w = min(len(prepared), n_workers)
+            with ThreadPoolExecutor(max_workers=n_w) as ex:
+                # at most n_w + 1 chunks in flight (rendering, or rendered
+                # and not yet appended), so a slow file does not hold
+                # every column's bytes at once
+                ahead = n_w + 1
+                futs = {j: ex.submit(render, prepared[j])
+                        for j in range(min(ahead, len(prepared)))}
+                for i in range(len(prepared)):
+                    blob, cc, ws = futs.pop(i).result()
+                    base = self._pos
+                    self.write(blob)
+                    cc.file_offset += base
+                    cm = cc.meta_data
+                    cm.data_page_offset += base
+                    if cm.dictionary_page_offset is not None:
+                        cm.dictionary_page_offset += base
+                    chunks.append(cc)
+                    if sink is not None:
+                        sink.merge_from(ws)
+                    del blob
+                    if i + ahead < len(prepared):
+                        futs[i + ahead] = ex.submit(render,
+                                                    prepared[i + ahead])
+        else:
+            chunks = [chunk(self, *job, n_workers) for job in prepared]
+        total_bytes = sum(cc.meta_data.total_uncompressed_size
+                          for cc in chunks)
+        total_comp = sum(cc.meta_data.total_compressed_size for cc in chunks)
         self.row_groups.append(RowGroup(
             columns=chunks, total_byte_size=total_bytes,
             num_rows=n_rows or 0, total_compressed_size=total_comp,

@@ -18,6 +18,7 @@ import time
 import torch
 
 __all__ = ["HELPERS", "KERNELS", "build_kernels", "check_tensor",
+           "count_launch",
            "i64_to_lanes", "i64_to_u32_bits", "lanes_to_i64", "launch",
            "stream_of", "u32_to_i64"]
 
@@ -68,6 +69,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _fns: dict = {}
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, a kernel wrapper's count of its
+    launches.  The writer's encode pool launches from several threads,
+    where a bare ``+= 1`` can lose a count."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def build_kernels() -> float:

@@ -16,8 +16,8 @@ import functools
 import numpy as np
 import torch
 
-from ._lib import check_tensor, i64_to_u32_bits, launch, stream_of, \
-    u32_to_i64
+from ._lib import check_tensor, count_launch, i64_to_u32_bits, launch, \
+    stream_of, u32_to_i64
 
 __all__ = ["pad_to_words", "plan_tables64", "unpack_tile_lanes", "unpack_u32",
            "unpack_u32_plain", "unpack_u64", "unpack_u64_plain"]
@@ -86,7 +86,7 @@ def unpack_u32(words: torch.Tensor, width: int, count: int) -> torch.Tensor:
     out = torch.empty(count, dtype=torch.int32, device=words.device)
     launch("unpack_u32", words.data_ptr(), out.data_ptr(), count, width,
            unpack_tile_lanes(), stream_of(out))
-    unpack_u32.launches += 1
+    count_launch(unpack_u32)
     return out
 
 
@@ -171,7 +171,7 @@ def unpack_u64(words: torch.Tensor, width: int, count: int):
     hi = torch.empty(count, dtype=torch.int32, device=dev)
     launch("unpack_u64", words.data_ptr(), lo.data_ptr(), hi.data_ptr(),
            count, width, stream_of(lo))
-    unpack_u64.launches += 1
+    count_launch(unpack_u64)
     return lo, hi
 
 

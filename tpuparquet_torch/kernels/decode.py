@@ -23,8 +23,8 @@ import torch
 
 from ..cpu.delta import scan_delta_structure
 from ..native import delta_native
-from ._lib import check_tensor, i64_to_lanes, i64_to_u32_bits, \
-    lanes_to_i64, launch, stream_of, u32_to_i64
+from ._lib import check_tensor, count_launch, i64_to_lanes, \
+    i64_to_u32_bits, lanes_to_i64, launch, stream_of, u32_to_i64
 from .bitunpack import _check_words, pad_to_words, unpack_u32, \
     unpack_u32_plain, unpack_u64
 from .hybrid import _check_table, expand_hybrid, expand_hybrid_plain
@@ -140,7 +140,7 @@ def page_dict_fixed(dictionary: torch.Tensor, i_bp, i_tbl, icnt: int,
     out = torch.empty(icnt * lanes, dtype=torch.int32, device=dev)
     launch("page_dict_fixed", dictionary.data_ptr(), n_dict, lanes,
            words_ptr, iw, out.data_ptr(), icnt, stream_of(out))
-    page_dict_fixed.launches += 1
+    count_launch(page_dict_fixed)
     return out
 
 
@@ -257,7 +257,7 @@ def page_dict_bytes(dict_offsets: torch.Tensor, dict_data: torch.Tensor,
            dict_data.data_ptr(), dict_data.numel(), words_ptr, iw, non_null,
            icnt, sums.data_ptr(), out.data_ptr(), total_bytes,
            stream_of(out))
-    page_dict_bytes.launches += 1
+    count_launch(page_dict_bytes)
     return out
 
 
@@ -315,7 +315,7 @@ def plain_bytes_from_blob(blob: torch.Tensor, out_offsets: torch.Tensor,
     launch("bytes_from_blob", blob.data_ptr(), blob.numel(),
            out_offsets.data_ptr(), out_offsets.numel(), pos, out.data_ptr(),
            total_bytes, blob_tile_bytes(), stream_of(out))
-    plain_bytes_from_blob.launches += 1
+    count_launch(plain_bytes_from_blob)
     return out
 
 
@@ -357,7 +357,7 @@ def levels_to_validity(def_levels: torch.Tensor, max_def: int):
     launch("levels_to_validity", def_levels.data_ptr(), n, max_def, tile,
            buf.data_ptr() + at, mask.data_ptr(), positions.data_ptr(),
            stream_of(buf))
-    levels_to_validity.launches += 1
+    count_launch(levels_to_validity)
     return mask, positions
 
 
@@ -507,7 +507,7 @@ def planes_to_words(raw32: torch.Tensor, rle32_ends: torch.Tensor,
            rle32_vals.data_ptr(), raw8.data_ptr(), rle8_ends.data_ptr(),
            rle8_vals.data_ptr(), desc, count, lanes, planes_tile_values(),
            out.data_ptr(), stream_of(out))
-    planes_to_words.launches += 1
+    count_launch(planes_to_words)
     return out
 
 
@@ -612,7 +612,7 @@ def delta_scan(dlo: torch.Tensor, dhi, md_lo: torch.Tensor, md_hi,
            md_lo.data_ptr(), md_hi.data_ptr() if wide else None, int(wide),
            block_size, n, first & 0xFFFFFFFFFFFFFFFF, buf.data_ptr() + 4 * at,
            buf.data_ptr(), stream_of(buf))
-    delta_scan.launches += 1
+    count_launch(delta_scan)
     return buf[:words]
 
 
@@ -717,7 +717,7 @@ def scatter_deltas(lo: torch.Tensor, hi, starts: torch.Tensor,
     launch("delta_scatter", lo.data_ptr(), hi.data_ptr() if wide else None,
            starts.data_ptr(), takes.data_ptr(), k, mb, dlo.data_ptr(),
            dhi.data_ptr() if wide else None, out_len, stream_of(dlo))
-    scatter_deltas.launches += 1
+    count_launch(scatter_deltas)
 
 
 scatter_deltas.launches = 0
@@ -812,7 +812,7 @@ def bss_to_lanes(raw: torch.Tensor, count: int, k: int,
     if count:
         launch("bss_to_lanes", raw.data_ptr(), count, k, lanes,
                bss_lanes_tile_rows(lanes), out.data_ptr(), stream_of(out))
-        bss_to_lanes.launches += 1
+        count_launch(bss_to_lanes)
     return out
 
 
@@ -872,7 +872,7 @@ def flba_bytes_to_lanes(raw: torch.Tensor, count: int,
     out = torch.empty(count * lanes, dtype=torch.int32, device=dev)
     launch("flba_to_lanes", raw.data_ptr(), count, type_length, lanes,
            flba_tile_rows(type_length), out.data_ptr(), stream_of(out))
-    flba_bytes_to_lanes.launches += 1
+    count_launch(flba_bytes_to_lanes)
     return out
 
 
@@ -959,7 +959,7 @@ def scatter_to_dense(packed: torch.Tensor, mask, positions, lanes: int = 1,
            None if mask is None else mask.data_ptr(),
            None if positions is None else positions.data_ptr(), n, lanes,
            out.data_ptr(), out.numel(), stream_of(out))
-    scatter_to_dense.launches += 1
+    count_launch(scatter_to_dense)
     return out
 
 

@@ -17,7 +17,9 @@ bytes with int32 offsets for BYTE_ARRAY, bucket-padded, same logical
 lengths, rep and def levels — so the two compare buffer for buffer.
 
 Covered: data pages v1 and v2 (levels outside compression, the
-``num_nulls`` cross-check); UNCOMPRESSED and SNAPPY; required, optional
+``num_nulls`` cross-check); UNCOMPRESSED, SNAPPY, GZIP, ZSTD and LZ4_RAW
+(decompressed on the host into the arena's slabs, a multi-frame ZSTD
+body one frame a worker: ``compress.decompress_block``); required, optional
 and repeated columns of every physical type (rep levels in both page
 versions, any ``max_rep_level``); PLAIN and
 PLAIN_DICTIONARY/RLE_DICTIONARY (K3 at 1 lane for BOOLEAN, INT32 and
@@ -35,7 +37,9 @@ defaults, read per plan: byte planes (``TPQ_DEVICE_PLANES``, K5), delta
 lanes (``TPQ_DEVICE_DELTA``, integers only: K1/K6 then K7) and snappy
 tokens (``TPQ_DEVICE_SNAPPY``, K8), which compete on wire bytes page by
 page exactly as in the reference; a page no transport wins ships its
-decompressed words.  PLAIN BOOLEAN pages ship their bit-packed words and
+decompressed words.  Only the snappy tokens are SNAPPY-only: byte
+planes and delta lanes compete on the decompressed values of every
+codec, as in the reference.  PLAIN BOOLEAN pages ship their bit-packed words and
 K1 unpacks them; PLAIN FIXED_LEN_BYTE_ARRAY pages ship their rows padded
 to whole lanes; both go outside the slab, as the reference uploads them.
 BYTE_ARRAY dictionary pages decode with K9; a
@@ -48,7 +52,8 @@ resolves, then K13 turns FIXED_LEN_BYTE_ARRAY rows into lane words;
 a page whose front coding does not expand its bytes is assembled on the
 host instead (``dba-host``).  V1 levels in the deprecated BIT_PACKED
 encoding decode on the host and stage as they are, as in the reference.
-Other encodings and codecs raise NotImplementedError.
+Other encodings and codecs (LZO, BROTLI, Hadoop-framed LZ4) raise
+NotImplementedError.
 
 ``DeviceColumn.as_values()`` hands a fixed-width column's packed values
 to the write path (``kernels/encode.py``) without moving them.

@@ -44,8 +44,8 @@ import torch
 
 from ..cpu.delta import widths_from_max
 from ..varint import write_uvarint, write_zigzag
-from ._lib import check_tensor, i64_to_lanes, i64_to_u32_bits, \
-    lanes_to_i64, launch, stream_of, u32_to_i64
+from ._lib import check_tensor, count_launch, i64_to_lanes, \
+    i64_to_u32_bits, lanes_to_i64, launch, stream_of, u32_to_i64
 
 __all__ = [
     "DeviceValues",
@@ -178,7 +178,7 @@ def pack_bits(lo: torch.Tensor, hi, width: int, count: int, sel=None):
     launch("pack_bits", lo.data_ptr(), _opt_ptr(hi), n_in, _opt_ptr(sel),
            count, width, pack_warp_miniblocks(), out.data_ptr(),
            stream_of(out))
-    pack_bits.launches += 1
+    count_launch(pack_bits)
     return out
 
 
@@ -255,7 +255,7 @@ def bss_encode_device(flat: torch.Tensor, count: int, k: int,
     if count:
         launch("bss_encode", flat.data_ptr(), count, k, lanes,
                bss_tile_rows(lanes), out.data_ptr(), stream_of(out))
-        bss_encode_device.launches += 1
+        count_launch(bss_encode_device)
     return out
 
 
@@ -340,7 +340,7 @@ def delta_phase1(flat: torch.Tensor, count: int, is32: bool):
         outs = (min_lo, min_hi, mx_lo, mx_hi, alo, ahi)
     launch("delta_encode", flat.data_ptr(), count, int(is32), nb,
            *[_opt_ptr(t) for t in outs], stream_of(flat))
-    delta_phase1.launches += 1
+    count_launch(delta_phase1)
     return (mins, mx, adj) if is32 else outs
 
 
@@ -471,7 +471,7 @@ def lanes_min_max(flat: torch.Tensor, lanes: int, order: str):
     with st.lock:
         launch("min_max", flat.data_ptr(), n, lanes, _ORDERS[order],
                st.scratch.data_ptr(), st.out_ptr, stream)
-        lanes_min_max.launches += 1
+        count_launch(lanes_min_max)
         launch("min_max_wait", stream)
         kmin, kmax = int(st.keys[0]), int(st.keys[1])
     if kmin > kmax:
@@ -594,7 +594,7 @@ def dict_build(flat: torch.Tensor, lanes: int, count: int, lo_lane: int,
            first.data_ptr(), counter.data_ptr(), incl.data_ptr(),
            sums.data_ptr(), dsize.data_ptr(), order.data_ptr(),
            indices.data_ptr(), stream_of(order))
-    dict_build.launches += 1
+    count_launch(dict_build)
     n_dict = int(dsize.item())
     return order[:n_dict], n_dict, indices
 

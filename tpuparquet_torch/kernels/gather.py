@@ -14,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._lib import check_tensor, launch, stream_of, u32_to_i64
+from ._lib import check_tensor, count_launch, launch, stream_of, \
+    u32_to_i64
 from .bitunpack import unpack_u32_plain
 
 __all__ = ["spmd_step_slot", "spmd_step_slot_plain", "spmd_tile_positions",
@@ -120,7 +121,7 @@ def spmd_step_slot(bw: torch.Tensor, run_ends, run_is_rle, run_value,
            dictionary.shape[0], dictionary.shape[1], u, pos0, n_pos,
            spmd_tile_positions(), max(width, 1), n_bp, out.data_ptr(),
            out.shape[1], unit0, stream_of(out))
-    spmd_step_slot.launches += 1
+    count_launch(spmd_step_slot)
 
 
 spmd_step_slot.launches = 0
@@ -212,7 +213,7 @@ def byte_densify(offsets: torch.Tensor, n_packed: int, mask, positions,
            scratch.data_ptr(), out_offsets.data_ptr(), L, data.data_ptr(),
            data.numel(), out_data.data_ptr(), out_data.numel(),
            stream_of(out_data))
-    byte_densify.launches += 1
+    count_launch(byte_densify)
 
 
 byte_densify.launches = 0
@@ -255,7 +256,7 @@ def place_rows(x: torch.Tensor, rows, n_true: int,
     row_bytes = int(np.prod(x.shape[1:], dtype=np.int64)) * x.element_size()
     launch("place_rows", x.data_ptr(), row_bytes, rows.data_ptr(), n_true,
            u_out, out.data_ptr(), stream_of(out))
-    place_rows.launches += 1
+    count_launch(place_rows)
     return out
 
 

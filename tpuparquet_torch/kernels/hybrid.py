@@ -24,8 +24,8 @@ import torch
 from ..cpu.bitpack import pack
 from ..cpu.hybrid import expand_scan, scan_hybrid
 from ..native import hybrid_native, pack_native
-from ._lib import check_tensor, i64_to_u32_bits, launch, stream_of, \
-    u32_to_i64
+from ._lib import check_tensor, count_launch, i64_to_u32_bits, launch, \
+    stream_of, u32_to_i64
 from .bitunpack import _check_words, pad_to_words, unpack_u32, \
     unpack_u32_plain
 
@@ -263,7 +263,7 @@ def expand_hybrid(bp_words: torch.Tensor, table: torch.Tensor, cnt: int,
     launch("expand_hybrid", bp_words.data_ptr(), table.data_ptr(), R,
            out.data_ptr(), cnt, max(w, 1), nbp, hybrid_tile_slots(),
            stream_of(out))
-    expand_hybrid.launches += 1
+    count_launch(expand_hybrid)
     return out
 
 

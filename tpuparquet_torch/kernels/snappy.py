@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..compress import snappy_scan_tokens
-from ._lib import check_tensor, launch, stream_of
+from ._lib import check_tensor, count_launch, launch, stream_of
 from .decode import bucket, u8_to_u32_words_at
 
 __all__ = ["decompress_device", "expand_tokens", "expand_tokens_plain",
@@ -130,7 +130,7 @@ def _launch(te, ts, lits, out_cap, off, n_words, out):
            lits.data_ptr(), lits.numel(), out_cap, off, n_words,
            out.data_ptr(), lk.data_ptr(), bits.data_ptr(), head.data_ptr(),
            stream_of(out))
-    expand_tokens.launches += 1
+    count_launch(expand_tokens)
     return out
 
 

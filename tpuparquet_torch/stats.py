@@ -36,6 +36,12 @@ alike) and the wall spent fetching them.  ``plan_cache_hits``,
 ``plan_cache_misses`` and ``plan_cache_evictions`` count the plan cache's
 lookups and LRU drops (``kernels/plancache.py``; all 0 while it is off).
 
+``codec_split_blocks`` counts the blocks a GZIP or ZSTD page body was
+split into on the write side, ``codec_split_frames`` the ZSTD frames
+decoded one a worker on the read side (``compress.py``); a split body
+read with one frame a worker counts as many frames as it was written
+with blocks.
+
 Planning runs on a pool of worker threads (``kernels/device.py``
 ``pipelined_reads``): each column's plan counts into a collector of its
 own (:func:`worker_stats`), which the coordinating thread folds into its
@@ -75,6 +81,8 @@ class DecodeStats:
     plan_cache_hits: int = 0
     plan_cache_misses: int = 0
     plan_cache_evictions: int = 0
+    codec_split_blocks: int = 0
+    codec_split_frames: int = 0
 
     def merge_from(self, other: "DecodeStats") -> None:
         """Fold a worker collector's counts into this one (on the
