@@ -173,9 +173,16 @@
    BYTE_STREAM_SPLIT by KE2, statistics by KE5) and 2 (config 2: the two
    PLAIN columns; the other three intern on the card, KE5 then KE4)
    pages a row group encoded on the card.  The writes run on the
-   writer's pool of encode workers (one a usable CPU); the writes from
-   DeviceValues and from numpy are timed, best of 3, at the default
-   workers and at one.
+   writer's pool of encode workers (one a usable CPU); the sensor
+   table's writes from DeviceValues and from numpy are timed, best of 3,
+   at the default workers and at one.  Config 2's writes
+   (``check_native_writes``) go from numpy and from DeviceValues at one
+   and the default encode workers, on the native page path and on the
+   pure one (forced), best of 3 in turns: the eight files are byte-equal; on the native leg every data
+   page is assembled by ``csrc/page.c`` (``pages_assembled_native`` =
+   ``pages_written`` less the dictionary pages), on the pure leg none;
+   the walls and the native leg's ``write_encode_s``,
+   ``write_compress_s`` and ``write_assemble_s`` are printed.
    5b. Config 2 written in ZSTD from numpy at one encode worker must
    equal phase 3i's file of the default workers; both are timed, best of
    3.  A one-column PLAIN int64 file of one 64 MiB page, in ZSTD and in
@@ -341,6 +348,19 @@
    window of the calling thread carries that stage; the armed/off
    ``run()`` wall ratio at 50 and 500 Hz, best of 3 in turns.  12f: the
    armed run launches config 2's kernels (K1-K5, K7).
+13. The serve arbiter (``check_arbiter``): a ``ResourceArbiter`` over the
+   usable CPUs with two tenants of weights 1 and 3 (``PHASE13_TENANTS``)
+   is activated, and two ``ShardedScan`` runs of config 2 on the 1x1 mesh
+   go at once, each on a thread of its own under its
+   ``tenant_scope``: inside it ``_plan_threads()`` and
+   ``_write_threads()`` equal the tenant's share, the pair launches
+   config 2's kernels (K1-K5, K7), and each scan's units equal 6a's.  A
+   full queue is refused with ``AdmissionRejected`` (``queue_full``,
+   the tenant's last job wall as its retry-after); after
+   ``note_job_done`` and ``rebalance`` the shares and tenant states are
+   printed.  The pair's wall beside one unbound scan alone, best of 3 in
+   turns.  Deactivated, ``_plan_threads()`` and ``_write_threads()`` are
+   what they were before the arbiter.
 
 Before phase 1 it prints the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit`` gives them), the host's
@@ -367,7 +387,7 @@ for an A/B of another checkout's read passes in the same way, and
 ``host_gathers`` times phase 6's gathers onto the host likewise, and
 ``multihost_ab`` phase 7c against one process's ``run()``, in turns.
 Every kernel must have launched on the paths of phases 3 to 3i, 5, 5b,
-6, 7, 8, 9, 10, 11 and 12;
+6, 7, 8, 9, 10, 11, 12 and 13;
 the counts are set to 0 just before each path's read or write and read
 just after.  Exits non-zero, printing no result, when CUDA is
 unavailable or any phase fails.  The last line is
@@ -7834,6 +7854,202 @@ def check_armed_scan(blob, mesh, dev, wrappers, n_values: int,
     return all_launches
 
 
+# phase 13's tenants and their weights
+PHASE13_TENANTS = (("light", 1.0), ("heavy", 3.0))
+
+
+def check_native_writes(groups, dv_groups, n_values: int,
+                        reps: int = 3) -> None:
+    """Phase 5's native legs: config 2 from numpy (``groups``) and from
+    DeviceValues (``dv_groups``) at one and the default encode workers,
+    on the native page path and on the pure one (forced by a chunk
+    resolving no native context), each written ``reps`` times in turns
+    under a collector.  Every file must equal the first byte for byte;
+    the native leg must assemble every data page natively
+    (``pages_assembled_native`` = ``pages_written`` less the dictionary
+    pages), the pure leg none.  Prints each leg's best wall and the native
+    leg's stage seconds."""
+    from tpuparquet_torch.io import chunk as io_chunk
+    from tpuparquet_torch.io import pages as io_pages
+    from tpuparquet_torch.io.reader import FileReader
+    from tpuparquet_torch.stats import collect_stats
+
+    t5 = time.perf_counter()
+    native_ctx = io_pages._native_page_ctx
+    legs = [(src, threads, native)
+            for src in ("numpy", "DeviceValues") for threads in (1, None)
+            for native in (True, False)]
+    best = dict.fromkeys(legs, float("inf"))
+    stats = {}
+    first = None
+    for _ in range(reps):
+        for leg in legs:
+            src, threads, native = leg
+            io_chunk._native_page_ctx = io_pages._native_page_ctx = (
+                native_ctx if native else (lambda codec: None))
+            try:
+                with collect_stats() as st:
+                    t0 = time.perf_counter()
+                    if src == "numpy":
+                        out = _write(SCHEMA, groups, "payment_type",
+                                     encode_threads=threads)
+                    else:
+                        out = _write(SCHEMA, dv_groups, None,
+                                     encode_threads=threads)
+                    wall = time.perf_counter() - t0
+            finally:
+                io_chunk._native_page_ctx = native_ctx
+                io_pages._native_page_ctx = native_ctx
+            if first is None:
+                first = out
+                n_dict = sum(cc.meta_data.dictionary_page_offset is not None
+                             for rg in FileReader(out).meta.row_groups
+                             for cc in rg.columns)
+            elif out != first:
+                raise AssertionError(f"5 native legs: {leg} wrote other "
+                                     "bytes")
+            want = st.pages_written - n_dict if native else 0
+            if st.pages_assembled_native != want or want < 0:
+                raise AssertionError(
+                    f"5 native legs {leg}: {st.pages_assembled_native} "
+                    f"pages assembled natively of {st.pages_written} "
+                    f"({n_dict} dictionary pages), expected {want}")
+            if wall < best[leg]:
+                best[leg], stats[leg] = wall, st
+    for leg in legs:
+        src, threads, native = leg
+        st = stats[leg]
+        print(f"5 config 2 write from {src} at "
+              f"{threads or 'the default'} encode workers, "
+              f"{'native' if native else 'pure'} page path, "
+              f"best of {reps} in turns: "
+              f"{best[leg]:.4f} s, {n_values / best[leg]:.4e} values/s; "
+              f"pages {st.pages_written}, {st.pages_assembled_native} "
+              f"native; write_encode_s {st.write_encode_s:.4f}, "
+              f"write_compress_s {st.write_compress_s:.4f}, "
+              f"write_assemble_s {st.write_assemble_s:.4f}", flush=True)
+    print(f"5 native legs: {len(legs)} files byte-equal "
+          f"({len(first)} bytes, {n_dict} dictionary pages), "
+          f"{time.perf_counter() - t5:.2f} s", flush=True)
+
+
+def check_arbiter(blob, results, mesh, dev, wrappers,
+                  reps: int = 3) -> dict:
+    """Phase 13: the serve arbiter on the card.  A ``ResourceArbiter``
+    over the usable CPUs with ``PHASE13_TENANTS`` is activated; two
+    ``ShardedScan`` runs of config 2 (``blob``) go at once, each on its
+    own thread under its ``tenant_scope``, where ``_plan_threads()`` and
+    ``_write_threads()`` must equal the tenant's share.  The pair, its
+    kernel counts set to 0 just before, must launch config 2's kernels,
+    and each scan's units must equal ``results`` (6a's).  A full queue
+    must be refused (``AdmissionRejected``, ``queue_full``, the tenant's
+    last job wall as retry-after); after ``note_job_done`` and
+    ``rebalance`` the shares are printed, then the pair's wall beside one
+    unbound scan's, best of ``reps`` in turns.  Deactivated, the budgets
+    must be what they were.  Returns the pair's launches."""
+    from tpuparquet_torch import serve
+    from tpuparquet_torch.errors import AdmissionRejected
+    from tpuparquet_torch.io.writer import _write_threads
+    from tpuparquet_torch.kernels.device import _plan_threads
+    from tpuparquet_torch.shard import ShardedScan
+
+    t13 = time.perf_counter()
+    legacy = (_plan_threads(), _write_threads())
+    arb = serve.ResourceArbiter(total_workers=len(os.sched_getaffinity(0)))
+    for label, weight in PHASE13_TENANTS:
+        arb.register(label, weight=weight)
+    shares = arb.shares()
+    print(f"13 arbiter: {arb.total_workers} workers, shares {shares}",
+          flush=True)
+
+    def scan_as(label, out):
+        try:
+            with serve.tenant_scope(label):
+                out["threads"] = (_plan_threads(), _write_threads())
+                t0 = time.perf_counter()
+                out["results"] = ShardedScan([blob], mesh=mesh).run()
+                _sync(dev)
+                out["wall"] = time.perf_counter() - t0
+        except BaseException as e:  # noqa: BLE001 - raised below
+            out["error"] = e
+
+    def pair():
+        outs = {label: {} for label, _ in PHASE13_TENANTS}
+        threads = [threading.Thread(target=scan_as, args=(lb, o))
+                   for lb, o in outs.items()]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        for lb, o in outs.items():
+            if "error" in o:
+                raise AssertionError(f"13 {lb} scan failed") from o["error"]
+        return outs, wall
+
+    def alone():
+        t0 = time.perf_counter()
+        ShardedScan([blob], mesh=mesh).run()
+        _sync(dev)
+        return time.perf_counter() - t0
+
+    serve.activate(arb)
+    try:
+        _zero(wrappers)
+        outs, _ = pair()
+        launches = _launches_of(wrappers)
+        _need("13 arbiter pair", launches, CONFIG2_KERNELS)
+        for lb, o in outs.items():
+            want = (shares[lb], shares[lb])
+            if o["threads"] != want:
+                raise AssertionError(
+                    f"13 {lb}: plan and write workers {o['threads']} "
+                    f"inside its scope, its share is {shares[lb]}")
+            _same_units(f"13 {lb} scan", dict(enumerate(o["results"])),
+                        results)
+            arb.note_job_done(lb, o["wall"])
+        del outs
+        try:
+            arb.admit("light", queue_depth=8, queue_bound=8)
+        except AdmissionRejected as e:
+            if e.reason != "queue_full" or e.tenant != "light" \
+                    or not e.retry_after_s > 0:
+                raise AssertionError(f"13 admission: {e!r}") from e
+            print(f"13 admission: a full queue refused ({e}), "
+                  f"retry after {e.retry_after_s:.4f} s", flush=True)
+        else:
+            raise AssertionError("13 admission: a full queue admitted a "
+                                 "job")
+        arb.admit("heavy", est_bytes=len(blob))
+        arb.release("heavy", len(blob))
+        rebalanced = arb.rebalance()
+        if sum(rebalanced.values()) != arb.total_workers \
+                and arb.total_workers >= len(rebalanced):
+            raise AssertionError(f"13 rebalance: shares {rebalanced}")
+        print(f"13 rebalance: shares {rebalanced}; tenants "
+              f"{json.dumps(arb.tenants_state(), sort_keys=True)}",
+              flush=True)
+        best_pair = best_alone = float("inf")
+        for _ in range(reps):
+            best_pair = min(best_pair, pair()[1])
+            best_alone = min(best_alone, alone())
+        print(f"13 two tenants' scans at once, best of {reps} in turns: "
+              f"{best_pair:.4f} s for the pair, {best_alone:.4f} s for one "
+              f"unbound scan alone (ratio {best_pair / best_alone:.4f})",
+              flush=True)
+    finally:
+        serve.deactivate(arb)
+    after = (_plan_threads(), _write_threads())
+    if after != legacy or serve.plan_budget() is not None:
+        raise AssertionError(f"13: budgets {after} after the arbiter, "
+                             f"{legacy} before")
+    print(f"13: no arbiter active, plan and write workers {after} (the "
+          f"legacy knobs); phase 13 {time.perf_counter() - t13:.2f} s",
+          flush=True)
+    return launches
+
+
 def kernel_wrappers() -> dict:
     """Every kernel's wrapper by name; each counts its launches in its
     ``launches`` attribute."""
@@ -7880,7 +8096,8 @@ def main(argv=None) -> int:
     from tpuparquet_torch.io.reader import FileReader
     from tpuparquet_torch.kernels._lib import build_kernels
     from tpuparquet_torch.native import bytes_native, delta_native, \
-        hybrid_native, pack_native, plane_native
+        hybrid_native, intern_native, pack_native, page_native, \
+        plane_native
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -7903,7 +8120,7 @@ def main(argv=None) -> int:
     build_s = build_kernels()
     _snappy()
     for native in (hybrid_native, pack_native, delta_native, plane_native,
-                   bytes_native):
+                   bytes_native, intern_native, page_native):
         native()
     print(f"build: kernels {build_s:.2f} s, with the C host helpers "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -8197,16 +8414,9 @@ def main(argv=None) -> int:
                              f"expected {want}")
     for k, c in launches.items():
         total_launches[k] += c
-    _best_write("config 2 write from DeviceValues",
-                lambda: _write(SCHEMA, dv_2, None), n_values)
-    _best_write("config 2 write from numpy",
-                lambda: _write(SCHEMA, groups, "payment_type"), n_values)
-    _best_write("config 2 write from DeviceValues at 1 encode worker",
-                lambda: _write(SCHEMA, dv_2, None, encode_threads=1),
-                n_values)
-    _best_write("config 2 write from numpy at 1 encode worker",
-                lambda: _write(SCHEMA, groups, "payment_type",
-                               encode_threads=1), n_values)
+    # config 2's writes from DeviceValues and numpy at the default and one
+    # encode worker, timed with the native page path on and off
+    check_native_writes(groups, dv_2, n_values)
 
     # phase 5b: ZSTD writes at 1 and the default encode workers, and a
     # page body split into frames
@@ -8320,6 +8530,12 @@ def main(argv=None) -> int:
     # the profiler, SLOs and alerts)
     launches = check_armed_scan(blob, one, dev, wrappers, n_values,
                                 want_staged=snappy_read[1].bytes_staged)
+    for k, c in launches.items():
+        total_launches[k] += c
+
+    # phase 13: two tenants' scans of config 2 at once under the serve
+    # arbiter's shares, admission control and the rebalance
+    launches = check_arbiter(blob, c2["results"], one, dev, wrappers)
     for k, c in launches.items():
         total_launches[k] += c
 

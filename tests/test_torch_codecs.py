@@ -353,7 +353,12 @@ def test_split_bytes_and_counts_as_jax(codec, workers, monkeypatch):
 def test_other_codecs_never_split(codec, monkeypatch):
     monkeypatch.setenv("TPQ_COMPRESS_BLOCK_KB", "64")
     d = np.zeros(500_000, dtype=np.uint8).tobytes()
-    assert compress.page_codec_settings(C[codec]) is None
+    ctx = compress.page_codec_settings(C[codec])
+    jctx = jax_compress.page_codec_settings(_jax(C[codec]))
+    # SNAPPY and LZ4_RAW hand the native page path a context, as the
+    # reference's do, which is never splittable
+    assert (ctx is None) == (jctx is None)
+    assert ctx is None or not ctx.splittable
     with collect_stats() as st:
         got = compress.page_compress(C[codec], d, workers=8)
     assert got == compress.compress_block(C[codec], d)
@@ -665,3 +670,120 @@ def test_gzip_stdlib_and_native_write_the_same_bytes():
     nat = compress.compress_block(C.GZIP, d)
     co = zlib.compressobj(wbits=31)
     assert nat == co.compress(d) + co.flush()
+
+
+# ----------------------------------------------------------------------
+# the codec registry
+# ----------------------------------------------------------------------
+
+class _Rot13(compress.BlockCompressor):
+    """A user's codec: every byte shifted by 13."""
+
+    def compress_block(self, b):
+        return bytes((x + 13) % 256 for x in b)
+
+    def decompress_block(self, b, n):
+        return bytes((x - 13) % 256 for x in b)
+
+
+class _JaxRot13(jax_compress.BlockCompressor):
+    compress_block = _Rot13.compress_block
+    decompress_block = _Rot13.decompress_block
+
+
+@pytest.fixture()
+def user_codec():
+    """Registers ``_Rot13`` on a codec in both packages for the test and
+    puts back what each registry held."""
+    saved = []
+
+    def register(codec):
+        for mod, cls, c in ((compress, _Rot13, C[codec]),
+                            (jax_compress, _JaxRot13, JaxCodec[codec])):
+            with mod._registry_lock:
+                saved.append((mod, int(c), mod._registry.get(int(c))))
+            mod.register_block_compressor(c, cls())
+
+    yield register
+    for mod, key, old in reversed(saved):
+        with mod._registry_lock:
+            if old is None:
+                mod._registry.pop(key, None)
+            else:
+                mod._registry[key] = old
+
+
+def test_builtins_registered_as_jax():
+    assert compress.registered_codecs() == [
+        C(int(c)) for c in jax_compress.registered_codecs()]
+    assert compress.builtin_uncompressed_registered() is \
+        jax_compress.builtin_uncompressed_registered() is True
+    for codec in ("UNCOMPRESSED", "SNAPPY", "GZIP", "ZSTD", "LZ4_RAW"):
+        assert isinstance(compress.get_block_compressor(C[codec]),
+                          compress.BlockCompressor)
+
+
+@pytest.mark.parametrize("codec", ["LZO", "BROTLI", "LZ4"])
+def test_unregistered_codec_raises_as_jax(codec):
+    for mod, c in ((compress, C[codec]), (jax_compress, JaxCodec[codec])):
+        with pytest.raises(mod.CompressionError,
+                           match=f"{codec} is not registered"):
+            mod.get_block_compressor(c)
+
+
+@pytest.mark.parametrize("name", list(PAYLOADS))
+def test_builtin_slots_code_as_the_module(name):
+    """A built-in slot's compressor writes and reads this module's
+    bytes."""
+    d = PAYLOADS[name]
+    for codec in ("UNCOMPRESSED", "SNAPPY", "GZIP", "ZSTD", "LZ4_RAW"):
+        slot = compress.get_block_compressor(C[codec])
+        blob = slot.compress_block(d)
+        assert blob == compress.compress_block(C[codec], d)
+        assert slot.decompress_block(blob, len(d)) == d
+
+
+@pytest.mark.parametrize("codec", ["LZ4", "BROTLI", "SNAPPY"])
+def test_user_compressor_as_jax(codec, user_codec):
+    """A user's compressor on a codec id, built-in or not: both
+    directions go through it in both packages, the same bytes; the
+    native page path gives way (no page context)."""
+    user_codec(codec)
+    d = PAYLOADS["text"]
+    ours = compress.compress_block(C[codec], d)
+    assert ours == bytes(jax_compress.compress_block(JaxCodec[codec], d))
+    assert compress.decompress_block(C[codec], ours, len(d)).tobytes() == d
+    assert C[codec] in compress.registered_codecs()
+    assert compress.page_codec_settings(C[codec]) is None
+    assert jax_compress.page_codec_settings(JaxCodec[codec]) is None
+    with pytest.raises(compress.CompressionError, match="decompressed size"):
+        compress.decompress_block(C[codec], ours, len(d) + 1)
+
+
+def test_user_compressor_writes_and_reads_files_as_jax(user_codec):
+    """A file written through a user's SNAPPY compressor: both writers
+    write the same bytes, and both packages read it back on the host."""
+    user_codec("SNAPPY")
+    ours, theirs, st, jst = _write_both("SNAPPY", n=3_000,
+                                        created_by="tpuparquet_torch")
+    assert ours == theirs
+    assert st.pages_assembled_native == jst.pages_assembled_native == 0
+    a = FileReader(ours).read_row_group_arrays(0)
+    b = JaxFileReader(io.BytesIO(ours)).read_row_group_arrays(0)
+    assert a.keys() == b.keys()
+    for k in a:
+        va, vb = a[k].values, b[k].values
+        if hasattr(vb, "offsets"):
+            np.testing.assert_array_equal(va.offsets, vb.offsets)
+            np.testing.assert_array_equal(va.data, vb.data)
+        else:
+            np.testing.assert_array_equal(np.asarray(va), np.asarray(vb))
+
+
+def test_uncompressed_slot_taken_by_a_user(user_codec):
+    user_codec("UNCOMPRESSED")
+    assert compress.builtin_uncompressed_registered() is \
+        jax_compress.builtin_uncompressed_registered() is False
+    ours, theirs, st, jst = _write_both("UNCOMPRESSED", n=3_000,
+                                        created_by="tpuparquet_torch")
+    assert ours == theirs and st.pages_assembled_native == 0

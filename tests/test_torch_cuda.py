@@ -935,3 +935,32 @@ def test_armed_scan_on_card(cuda):
         want_staged=st.bytes_staged, reps=1)
     for k in chip_smoke.CONFIG2_KERNELS:
         assert launches[k] > 0, k
+
+
+def test_arbiter_pair_on_card(cuda):
+    """Phase 13 at a small size: two tenants' scans of a config-2-shaped
+    file at once on the card, each sized by its share, units equal to a
+    plain scan's, admission refused on a full queue, the budgets back to
+    the legacy knobs once the arbiter is gone."""
+    from tpuparquet_torch.serve import plan_budget
+    from tpuparquet_torch.shard import ShardedScan, make_mesh
+
+    blob, _ = chip_smoke.build_config2(2_000_000, 2)
+    mesh = make_mesh(1)
+    results = ShardedScan([blob], mesh=mesh).run()
+    torch.cuda.synchronize()
+    launches = chip_smoke.check_arbiter(
+        blob, results, mesh, cuda, chip_smoke.kernel_wrappers(), reps=1)
+    for k in chip_smoke.CONFIG2_KERNELS:
+        assert launches[k] > 0, k
+    assert plan_budget() is None
+
+
+def test_native_writes_on_card(cuda):
+    """Phase 5's native legs at a small size: config 2 from numpy and from
+    card-resident DeviceValues, on the native page path and the pure one,
+    at one and the default encode workers: every file byte-equal, every
+    data page native on the native leg."""
+    blob, groups = chip_smoke.build_config2(2_000_000, 2)
+    dv = chip_smoke._device_groups(FileReader(blob), cuda)
+    chip_smoke.check_native_writes(groups, dv, 2_000_000, reps=1)

@@ -12,14 +12,18 @@ ledgers agree, times excluded.  Tolerance: exact for every count, byte,
 frame field and report.
 """
 
+import gc
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import wait as futures_wait
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
 
 import tpuparquet.kernels.arena as jax_arena
+import tpuparquet.kernels.device as jax_device
 import tpuparquet.shard.distributed as jax_dist
 import tpuparquet.shard.scan as jax_scan
 from tpuparquet.obs import attribution as jax_attribution
@@ -30,6 +34,7 @@ from tpuparquet_torch.cpu.plain import ByteArrayColumn
 from tpuparquet_torch.format.metadata import CompressionCodec
 from tpuparquet_torch.io.writer import FileWriter
 from tpuparquet_torch.kernels import arena as port_arena
+from tpuparquet_torch.kernels import device as port_device
 from tpuparquet_torch.obs import attribution, live, progress, trace
 from tpuparquet_torch.shard import distributed as port_dist
 from tpuparquet_torch.shard import make_mesh
@@ -131,26 +136,38 @@ def test_arena_gauge_as_reference(seed):
     seen = []
     for side in SIDES:
         a = side.arena
-        a.take_arena_peak()
-        base = a.arena_occupancy()
-        arenas = [a.lease_arena(), a.lease_arena(), a.HostArena()]
-        trail = []
-        for which, n, release in plan:
-            if release:
-                if which == 2:
-                    arenas[2].release_all()
+        # the gauge and the pool are process-wide: an arena an earlier
+        # test left in a reference cycle is collected now, not by a gc
+        # pass in the middle of the trail (gc stays off until it ends;
+        # the dropped arena below is freed by its reference count), and
+        # the pool's free arenas, whose recycled slabs an earlier test
+        # sized, are dropped, so both sides lease fresh arenas
+        gc.collect()
+        a.trim_arena_pool()
+        gc.disable()
+        try:
+            a.take_arena_peak()
+            base = a.arena_occupancy()
+            arenas = [a.lease_arena(), a.lease_arena(), a.HostArena()]
+            trail = []
+            for which, n, release in plan:
+                if release:
+                    if which == 2:
+                        arenas[2].release_all()
+                    else:
+                        a.return_arena(arenas[which])
+                        arenas[which] = a.lease_arena()
                 else:
-                    a.return_arena(arenas[which])
-                    arenas[which] = a.lease_arena()
-            else:
-                assert arenas[which].borrow(n).size == n
+                    assert arenas[which].borrow(n).size == n
+                trail.append(a.arena_occupancy() - base)
+                if len(trail) % 7 == 0:
+                    trail.append(("peak", a.take_arena_peak() - base))
+            arenas[2] = None  # collected with its borrows outstanding
+            for x in arenas[:2]:
+                a.return_arena(x)
             trail.append(a.arena_occupancy() - base)
-            if len(trail) % 7 == 0:
-                trail.append(("peak", a.take_arena_peak() - base))
-        arenas[2] = None  # collected with its borrows outstanding
-        for x in arenas[:2]:
-            a.return_arena(x)
-        trail.append(a.arena_occupancy() - base)
+        finally:
+            gc.enable()
         seen.append(trail)
     assert seen[1] == seen[0]
     assert seen[1][-1] == 0
@@ -488,11 +505,48 @@ def test_restarted_run_frames_as_reference(corpus, tmp_path):
 @pytest.mark.parametrize("threads", [1])
 def test_ledger_arena_peak_as_reference(corpus, threads, monkeypatch):
     """At one plan worker the arenas' borrows come in one order, and the
-    ledger's peak arena occupancy equals the reference's."""
+    ledger's peak arena occupancy equals the reference's.
+
+    The order is pinned: a unit is finished (and its arenas returned)
+    only once every plan task submitted so far has run, so the unit
+    planned ahead always holds its slabs beside the unit in hand.  Left
+    to the threads, whether the worker borrows the next unit's slabs
+    before the calling thread returns this unit's is a race, which the
+    port's quick CPU finish loses or wins by turns."""
     monkeypatch.setenv("TPQ_PLAN_THREADS", str(threads))
+    plans = []
+    submit = ThreadPoolExecutor.submit
+
+    def tracked_submit(self, fn, *args, **kwargs):
+        fut = submit(self, fn, *args, **kwargs)
+        if getattr(fn, "__name__", "") == "_plan_column_task":
+            plans.append(fut)
+        return fut
+
+    monkeypatch.setattr(ThreadPoolExecutor, "submit", tracked_submit)
+    for mod in (jax_device, port_device):
+        def finish(*args, _finish=mod._finish_row_group):
+            futures_wait(list(plans))
+            return _finish(*args)
+        monkeypatch.setattr(mod, "_finish_row_group", finish)
     peaks = []
     for side in SIDES:
-        side.scan.ShardedScan(corpus, **side.kw).run()
+        # the gauge and the pool are process-wide: both sides lease fresh
+        # arenas (the pool's free ones carry recycled slabs an earlier
+        # test in this process sized), the peak window is closed before
+        # the scan (else its first take reports an earlier test's peak),
+        # and the peak is read above the borrows that live arenas still
+        # hold (gc stays off during the scan, so none is collected in it)
+        gc.collect()
+        side.arena.trim_arena_pool()
+        gc.disable()
+        try:
+            side.arena.take_arena_peak()
+            base = side.arena.arena_occupancy()
+            side.scan.ShardedScan(corpus, **side.kw).run()
+        finally:
+            gc.enable()
         peaks.append(side.attribution.ledgers_state()["scan"][
-            "peak_arena_bytes"])
+            "peak_arena_bytes"] - base)
+    assert plans
     assert peaks[1] == peaks[0] > 0

@@ -28,7 +28,39 @@ that consumes it:
 Entry points run on the current CUDA device unless ``device="cpu"`` (or
 a mesh of ``cpu`` slots) is passed, which runs every kernel's plain
 PyTorch version instead.
+
+The top level also carries the reference's surface: the reader and the
+writer, the format's enums, the schema DSL, the error taxonomy, the fault
+harness, the filter DSL, the counters, the codec registry and ``obs``.
 """
+
+from . import obs  # noqa: F401
+from .compress import BlockCompressor, register_block_compressor  # noqa: F401
+from .errors import (  # noqa: F401
+    CorruptChunkError,
+    CorruptFooterError,
+    CorruptPageError,
+    DeadlineExceededError,
+    DeviceDispatchError,
+    DispatchDeadlineError,
+    ScanError,
+    TransientIOError,
+)
+from .faults import QuarantineReport, inject_faults, retry_transient  # noqa: F401
+from .filter import Filter, col, parse_filter  # noqa: F401
+from .format.dsl import SchemaDefinition, parse_schema_definition  # noqa: F401
+from .format.metadata import (  # noqa: F401
+    CompressionCodec,
+    ConvertedType,
+    Encoding,
+    FieldRepetitionType,
+    PageType,
+    Type,
+)
+from .format.schema import Schema  # noqa: F401
+from .io.reader import FileReader  # noqa: F401
+from .io.writer import FileWriter  # noqa: F401
+from .stats import DecodeStats, collect_stats, trace  # noqa: F401
 
 from .kernels.encode import (  # noqa: F401
     DeviceValues,

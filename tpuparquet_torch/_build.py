@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -35,10 +36,23 @@ def find_nvcc() -> str | None:
     return str(cand) if cand.exists() else None
 
 
+def _local_includes(source: Path, seen: set) -> None:
+    """Add to ``seen`` the files of ``source``'s directory that it
+    includes by ``#include "..."``, and theirs."""
+    for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"',
+                           source.read_text(), re.M):
+        dep = source.parent / name
+        if dep.exists() and dep not in seen:
+            seen.add(dep)
+            _local_includes(dep, seen)
+
+
 def _target(source: Path, cmd: list[str]) -> Path:
     h = hashlib.sha256()
     h.update(source.read_bytes())
-    for dep in sorted(source.parent.glob("*.cuh")):
+    deps = set(source.parent.glob("*.cuh"))
+    _local_includes(source, deps)
+    for dep in sorted(deps):
         h.update(dep.read_bytes())
     h.update("\0".join(cmd).encode())
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
@@ -47,8 +61,10 @@ def _target(source: Path, cmd: list[str]) -> Path:
 def build(jobs: list[tuple[Path, list[str]]]) -> list[Path]:
     """Compile each ``(source, compiler_argv)`` into a shared library
     (the argv gets ``-o <out> <source>`` appended) and return the
-    library paths in order.  Up-to-date libraries are reused; the rest
-    compile concurrently.  Raises RuntimeError with the compiler's
+    library paths in order.  Up-to-date libraries are reused (a name
+    hashes the source, the ``.cuh`` headers beside it, the sources it
+    includes by ``#include "..."`` and the flags); the rest compile
+    concurrently.  Raises RuntimeError with the compiler's
     output when a build fails (:class:`KernelBuildError`)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     outs = [_target(src, cmd) for src, cmd in jobs]

@@ -16,7 +16,16 @@ fallbacks.  ``TPQ_ZSTD_LEVEL`` sets the ZSTD level (default 1).  LZO,
 BROTLI and Hadoop-framed LZ4 raise :class:`NotImplementedError` naming
 the codec.
 
-Corrupt input raises :class:`CompressionError`, a ValueError.  The read
+A process-wide registry maps each codec to its :class:`BlockCompressor`
+(the reference's extension hook, ``register_block_compressor``): the five
+above are registered at import as built-ins.  A compressor a user
+registers on a codec id takes every block of that codec, on both sides,
+and the native page path (``io/pages.py``) then gives way to the pure
+one (:func:`page_codec_settings`, :func:`builtin_uncompressed_registered`).
+
+Corrupt input raises :class:`CompressionError`, a ValueError, in the
+reference's words (``snappy: bad size header``, ``snappy: header size N
+!= expected M``, ``snappy: corrupt block (rc=-1)``).  The read
 path decompresses into a slab of its arena (:func:`decompress_block`);
 a ZSTD body of two or more frames whose content sizes are recorded
 decodes one frame a worker and counts ``codec_split_frames``.  The write
@@ -46,9 +55,13 @@ from .stats import current_stats
 from .syslibs import zlib_native, zstd_native
 from .varint import read_uvarint
 
-__all__ = ["CompressionError", "compress_block", "decompress_block",
-           "native_codecs_enabled", "page_compress", "snappy_scan_tokens",
-           "snappy_single_literal_view"]
+__all__ = ["BlockCompressor", "CompressionError",
+           "builtin_uncompressed_registered", "compress_block",
+           "decompress_block", "get_block_compressor",
+           "native_codecs_enabled", "page_codec_settings", "page_compress",
+           "page_compress_bound", "page_compress_into",
+           "register_block_compressor", "registered_codecs",
+           "snappy_scan_tokens", "snappy_single_literal_view"]
 
 # the format's shortest copy; the JAX package's writer uses the same
 # floor, which keeps numeric pages' 4..7-byte matches
@@ -62,6 +75,75 @@ _SUPPORTED = (CompressionCodec.UNCOMPRESSED, CompressionCodec.SNAPPY,
 class CompressionError(ValueError):
     """A block that does not decode, or decodes to another size than its
     header says."""
+
+
+class BlockCompressor:
+    """One whole-block codec; a subclass implements both directions on
+    ``bytes``."""
+
+    def compress_block(self, block: bytes) -> bytes:
+        raise NotImplementedError
+
+    def decompress_block(self, block: bytes, decompressed_size: int) -> bytes:
+        raise NotImplementedError
+
+
+class _Builtin(BlockCompressor):
+    """A built-in codec's registry slot: this module's C and
+    system-library paths."""
+
+    def __init__(self, codec: CompressionCodec):
+        self.codec = codec
+
+    def compress_block(self, block: bytes) -> bytes:
+        return compress_block(self.codec, block)
+
+    def decompress_block(self, block: bytes, decompressed_size: int) -> bytes:
+        return decompress_block(self.codec, block,
+                                decompressed_size).tobytes()
+
+
+_registry: dict[int, BlockCompressor] = {int(c): _Builtin(c)
+                                         for c in _SUPPORTED}
+_registry_lock = threading.Lock()
+
+
+def register_block_compressor(codec: CompressionCodec,
+                              c: BlockCompressor) -> None:
+    """Register ``c`` on ``codec``: every block of that codec, read or
+    written, then goes through it."""
+    with _registry_lock:
+        _registry[int(codec)] = c
+
+
+def get_block_compressor(codec: CompressionCodec) -> BlockCompressor:
+    with _registry_lock:
+        c = _registry.get(int(codec))
+    if c is None:
+        raise CompressionError(
+            f"compression codec {CompressionCodec(codec).name} is not "
+            "registered (register_block_compressor to plug one in)")
+    return c
+
+
+def registered_codecs() -> list[CompressionCodec]:
+    with _registry_lock:
+        return [CompressionCodec(k) for k in sorted(_registry)]
+
+
+def _user_compressor(codec) -> BlockCompressor | None:
+    """The compressor a user registered on ``codec``, or None while the
+    slot holds the built-in (or nothing)."""
+    with _registry_lock:
+        c = _registry.get(int(codec))
+    return None if c is None or type(c) is _Builtin else c
+
+
+def builtin_uncompressed_registered() -> bool:
+    """True while the UNCOMPRESSED slot holds the built-in pass-through,
+    the condition for the native page path to skip compression; a
+    transform a user registered there keeps control of the bytes."""
+    return _user_compressor(CompressionCodec.UNCOMPRESSED) is None
 
 
 def native_codecs_enabled() -> bool:
@@ -115,6 +197,9 @@ def _bind(stem: str, lib):
     lib.tpq_snappy_compress_opt.argtypes = io_args + [ctypes.c_int]
     lib.tpq_snappy_max_compressed_length.restype = ctypes.c_uint64
     lib.tpq_snappy_max_compressed_length.argtypes = [ctypes.c_uint64]
+    lib.tpq_snappy_uncompressed_length.restype = ctypes.c_int
+    lib.tpq_snappy_uncompressed_length.argtypes = [
+        ctypes.c_void_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_uint64)]
     lib.tpq_snappy_scan_tokens.restype = ctypes.c_int
     lib.tpq_snappy_scan_tokens.argtypes = [
         ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
@@ -194,9 +279,15 @@ _affinity_workers: int | None = None
 
 
 def _decode_budget() -> int:
-    """Workers for frame-parallel decompression: the process's usable
-    CPUs."""
+    """Workers for frame-parallel decompression: the calling thread's
+    share under an active serve arbiter (``serve/arbiter.py``), else the
+    process's usable CPUs."""
     global _affinity_workers
+    from .serve.arbiter import plan_budget
+
+    share = plan_budget()
+    if share is not None:
+        return share
     if _affinity_workers is None:
         try:
             _affinity_workers = len(os.sched_getaffinity(0)) or 1
@@ -286,27 +377,42 @@ def decompress_block(codec, payload, uncompressed_size: int,
     until the arena's ``release_all``; else in a fresh array.
     ``workers`` bounds the frame-parallel decode of a multi-frame ZSTD
     body (None: the usable CPUs)."""
-    codec = _check_codec(codec)
     src = _u8(payload)
     if uncompressed_size is None or uncompressed_size < 0:
         raise CompressionError("missing decompressed size")
+    user = _user_compressor(codec)
+    if user is not None:
+        got = bytes(user.decompress_block(src.tobytes(), uncompressed_size))
+        _check_size(len(got), uncompressed_size)
+        return np.frombuffer(got, dtype=np.uint8)
+    codec = _check_codec(codec)
     if codec == CompressionCodec.UNCOMPRESSED:
         _check_size(src.size, uncompressed_size)
         return src
-    if codec in (CompressionCodec.SNAPPY, CompressionCodec.LZ4_RAW):
+    if codec == CompressionCodec.SNAPPY:
+        lib = _snappy()
+        _snappy_header(lib, src, uncompressed_size)
         out = _slab(arena, uncompressed_size)
         produced = ctypes.c_size_t(0)
-        if codec == CompressionCodec.SNAPPY:
-            name, rc = "snappy", _snappy().tpq_snappy_decompress(
-                src.ctypes.data, src.size, out.ctypes.data, out.size,
-                ctypes.byref(produced))
-        else:
-            name, rc = "lz4", _lz4().tpq_lz4_decompress(
-                src.ctypes.data, src.size, out.ctypes.data,
-                uncompressed_size, ctypes.byref(produced))
+        rc = lib.tpq_snappy_decompress(src.ctypes.data, src.size,
+                                       out.ctypes.data, out.size,
+                                       ctypes.byref(produced))
         if rc != 0:
-            raise CompressionError(f"{name}: corrupt block (code {rc})")
+            raise CompressionError(f"snappy: corrupt block (rc={rc})")
         _check_size(produced.value, uncompressed_size)
+        return out[:uncompressed_size]
+    if codec == CompressionCodec.LZ4_RAW:
+        out = _slab(arena, uncompressed_size)
+        produced = ctypes.c_size_t(0)
+        rc = _lz4().tpq_lz4_decompress(src.ctypes.data, src.size,
+                                       out.ctypes.data, uncompressed_size,
+                                       ctypes.byref(produced))
+        if rc != 0:
+            raise CompressionError(f"lz4: corrupt block (rc={rc})")
+        if produced.value != uncompressed_size:
+            raise CompressionError(
+                f"lz4: stream produced {produced.value} bytes, expected "
+                f"{uncompressed_size}")
         return out[:uncompressed_size]
     gzip = codec == CompressionCodec.GZIP
     nat = _native_zlib() if gzip else _native_zstd()
@@ -330,6 +436,23 @@ def decompress_block(codec, payload, uncompressed_size: int,
     return out[:uncompressed_size]
 
 
+def _snappy_header(lib, src: np.ndarray, expected: int) -> None:
+    """Check a snappy block's varint size header against the page's
+    size before decoding, in the reference's words (a single-literal
+    block's mismatch is worded as the reference's zero-copy view words
+    it)."""
+    total = ctypes.c_uint64()
+    if lib.tpq_snappy_uncompressed_length(src.ctypes.data, src.size,
+                                          ctypes.byref(total)) != 0:
+        raise CompressionError("snappy: bad size header")
+    if total.value != expected:
+        view = snappy_single_literal_view(src)
+        if view is not None:
+            _check_size(view.size, expected)
+        raise CompressionError(
+            f"snappy: header size {total.value} != expected {expected}")
+
+
 def snappy_scan_tokens(block):
     """Parse a snappy block's tag stream without decompressing it:
     ``(tok_out_end, tok_src, literals, out_len)``.  Token ``i`` covers
@@ -350,7 +473,7 @@ def snappy_scan_tokens(block):
         cap, lits.ctypes.data, lits.size, ctypes.byref(n_tok),
         ctypes.byref(lit_len), ctypes.byref(out_len))
     if rc != 0:
-        raise CompressionError(f"snappy: corrupt block (code {rc})")
+        raise CompressionError(f"snappy: corrupt block (rc={rc})")
     t = int(n_tok.value)
     return (tok_end[:t], tok_src[:t], lits[: lit_len.value],
             int(out_len.value))
@@ -387,29 +510,44 @@ def snappy_single_literal_view(block) -> np.ndarray | None:
     return buf[pos : pos + ln]
 
 
-def _c_compress(stem: str, src: np.ndarray) -> bytes:
-    if stem == "snappy":
-        lib = _snappy()
-        cap = lib.tpq_snappy_max_compressed_length(src.size)
-    else:
-        lib = _lz4()
-        cap = lib.tpq_lz4_max_compressed_length(src.size)
-    out = np.empty(cap, dtype=np.uint8)
+def _c_bound(stem: str, n: int) -> int:
+    """The C codec's worst-case output for ``n`` input bytes."""
+    return int(_snappy().tpq_snappy_max_compressed_length(n)
+               if stem == "snappy"
+               else _lz4().tpq_lz4_max_compressed_length(n))
+
+
+def _c_compress_into(stem: str, src, out: np.ndarray) -> int:
+    """Compress ``src`` into the caller's u8 buffer (at least
+    :func:`_c_bound` bytes) with the C codec; returns the produced
+    length, with no intermediate buffer and no copy out."""
+    src = _u8(src)
+    if out.size < _c_bound(stem, src.size):
+        raise CompressionError(f"{stem}: output buffer too small")
     produced = ctypes.c_size_t(0)
     args = (src.ctypes.data, src.size, out.ctypes.data, out.size,
             ctypes.byref(produced))
-    rc = (lib.tpq_snappy_compress_opt(*args, _MIN_MATCH) if stem == "snappy"
-          else lib.tpq_lz4_compress(*args))
+    rc = (_snappy().tpq_snappy_compress_opt(*args, _MIN_MATCH)
+          if stem == "snappy" else _lz4().tpq_lz4_compress(*args))
     if rc != 0:
-        raise CompressionError(f"{stem}: compress failed (code {rc})")
-    return out[:produced.value].tobytes()
+        raise CompressionError(f"{stem}: compress failed (rc={rc})")
+    return int(produced.value)
+
+
+def _c_compress(stem: str, src: np.ndarray) -> bytes:
+    out = np.empty(_c_bound(stem, src.size), dtype=np.uint8)
+    return out[:_c_compress_into(stem, src, out)].tobytes()
 
 
 def compress_block(codec, data) -> bytes:
-    """One block compressed whole, as the JAX package's registered codec
-    compresses it."""
-    codec = _check_codec(codec)
+    """One block compressed whole by the compressor registered on
+    ``codec``: the built-ins as the JAX package's registered codecs
+    compress it."""
     src = _u8(data)
+    user = _user_compressor(codec)
+    if user is not None:
+        return bytes(user.compress_block(src.tobytes()))
+    codec = _check_codec(codec)
     if codec == CompressionCodec.UNCOMPRESSED:
         return src.tobytes()
     if codec == CompressionCodec.SNAPPY:
@@ -434,14 +572,17 @@ def compress_block(codec, data) -> bytes:
 # ----------------------------------------------------------------------
 
 class PageCodecCtx:
-    """The system library's compression of a codec whose frames
-    concatenate (GZIP members, ZSTD frames): a worst-case :meth:`bound`
-    and a :meth:`compress_into` that writes into a caller's buffer."""
+    """A built-in codec's compression into a caller's buffer, for the
+    native page path and the block split: a worst-case :meth:`bound` and
+    a :meth:`compress_into`.  ``splittable`` marks the codecs whose frames
+    concatenate (GZIP members, ZSTD frames), the ones the block split may
+    cut."""
 
-    __slots__ = ("codec", "_bound", "_into")
+    __slots__ = ("codec", "splittable", "_bound", "_into")
 
-    def __init__(self, codec, bound, into):
+    def __init__(self, codec, bound, into, splittable: bool = False):
         self.codec = codec
+        self.splittable = splittable
         self._bound = bound
         self._into = into
 
@@ -453,20 +594,32 @@ class PageCodecCtx:
 
 
 def page_codec_settings(codec) -> PageCodecCtx | None:
-    """The split context of ``codec``: GZIP or ZSTD with native codecs on
-    and the system library loaded; None otherwise (the page is then
-    compressed whole, as the JAX package's pure page path does)."""
+    """The compression context of ``codec`` for the native page path, as
+    the reference hands it out: SNAPPY and LZ4_RAW in C, GZIP and ZSTD
+    (splittable) through the loaded system library.  None for
+    UNCOMPRESSED, under ``TPQ_NATIVE_CODECS=0``, with no system library,
+    or when a user's compressor is registered on the codec (the page path
+    then compresses through :func:`compress_block`)."""
+    if not native_codecs_enabled() or _user_compressor(codec) is not None:
+        return None
+    if codec in (CompressionCodec.SNAPPY, CompressionCodec.LZ4_RAW):
+        stem = "snappy" if codec == CompressionCodec.SNAPPY else "lz4raw"
+        return PageCodecCtx(codec, lambda n: _c_bound(stem, n),
+                            lambda src, out: _c_compress_into(stem, src,
+                                                              out))
     if codec == CompressionCodec.GZIP:
         nat = _native_zlib()
         if nat is not None:
-            return PageCodecCtx(codec, nat.compress_bound, nat.compress_into)
+            return PageCodecCtx(codec, nat.compress_bound, nat.compress_into,
+                                splittable=True)
     elif codec == CompressionCodec.ZSTD:
         nat = _native_zstd()
         if nat is not None:
             level = _zstd_level()
             return PageCodecCtx(
                 codec, nat.compress_bound,
-                lambda src, out: nat.compress_into(src, out, level))
+                lambda src, out: nat.compress_into(src, out, level),
+                splittable=True)
     return None
 
 
@@ -480,15 +633,15 @@ def _split_block_bytes() -> int:
     return max(64, kb) * 1024
 
 
-def _splits(n: int, workers: int) -> bool:
-    return workers > 1 and n >= 2 * _split_block_bytes()
+def _splits(ctx: PageCodecCtx, n: int, workers: int) -> bool:
+    return ctx.splittable and workers > 1 and n >= 2 * _split_block_bytes()
 
 
 def page_compress_bound(ctx: PageCodecCtx, n: int, workers: int = 1) -> int:
     """Output capacity :func:`page_compress_into` needs: the frames'
     worst cases when the split engages, else the codec's bound."""
     block = _split_block_bytes()
-    if not _splits(n, workers):
+    if not _splits(ctx, n, workers):
         return ctx.bound(n)
     nb = -(-n // block)
     return (nb - 1) * ctx.bound(block) + ctx.bound(n - (nb - 1) * block)
@@ -504,7 +657,7 @@ def page_compress_into(ctx: PageCodecCtx, src: np.ndarray, out: np.ndarray,
     ``TPQ_COMPRESS_BLOCK_KB``, so every worker count above one writes the
     same bytes, and one worker writes the single frame."""
     n = src.size
-    if not _splits(n, workers):
+    if not _splits(ctx, n, workers):
         return ctx.compress_into(src, out)
     block = _split_block_bytes()
     nb = -(-n // block)
@@ -536,7 +689,7 @@ def page_compress(codec, data, workers: int = 1) -> bytes:
     into frames by :func:`page_compress_into` when ``workers > 1`` and
     the codec has a split context, else :func:`compress_block`."""
     ctx = page_codec_settings(codec) if workers > 1 else None
-    if ctx is None:
+    if ctx is None or not ctx.splittable:
         return compress_block(codec, data)
     src = _u8(data)
     out = np.empty(page_compress_bound(ctx, src.size, workers),

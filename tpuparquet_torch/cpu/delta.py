@@ -28,7 +28,6 @@ import numpy as np
 
 from ..native import bytes_native, delta_native, pack_native
 from ..varint import read_uvarint, read_zigzag, write_uvarint, write_zigzag
-from .bitpack import unpack
 from .plain import ByteArrayColumn
 
 __all__ = [
@@ -125,54 +124,20 @@ def scan_delta_structure(data, pos: int = 0,
                           mb_pos=p, mb_start=s, end_pos=end)
 
 
-# the host unpack materialises a (count, width) bit matrix: batches of 1M
-# values keep it to tens of MB
-_UNPACK_SLAB_VALUES = 1 << 20
-
-
 def decode_delta_binary_packed(data, dtype=np.int64, pos: int = 0):
     """Decode one DELTA_BINARY_PACKED stream: ``(values, end_pos)``, the
     position where its payload ends.  All arithmetic is uint64, so it
-    wraps as two's complement for both widths (the cast truncates)."""
+    wraps as two's complement for both widths (the cast truncates).  The
+    decode is one C pass (``csrc/delta.c`` ``tpq_delta_decode``) over the
+    scanned structure."""
     dtype = np.dtype(dtype)
     st = scan_delta_structure(data, pos)
     if st.total == 0:
         return np.empty(0, dtype=dtype), st.end_pos
-    n_deltas = st.total - 1
-    mb_size = st.mb_size
-    deltas = np.zeros(n_deltas, dtype=np.uint64)  # w == 0 blocks stay 0
-    buf = (data if isinstance(data, np.ndarray)
-           else np.frombuffer(data, dtype=np.uint8))
-    for w, src_contig, p_w, s_w, t_w, dst_contig in st.grouped():
-        nbytes = mb_size * w // 8
-        k = len(p_w)
-        slab = max(_UNPACK_SLAB_VALUES // mb_size, 1)
-        for lo_i in range(0, k, slab):
-            hi_i = min(lo_i + slab, k)
-            kk = hi_i - lo_i
-            if src_contig:
-                seg = buf[p_w[lo_i] : p_w[lo_i] + nbytes * kk]
-            else:
-                seg = delta_native().gather_segments(buf, p_w[lo_i:hi_i],
-                                                     nbytes)
-            vals = unpack(seg, mb_size * kk, w).astype(np.uint64)
-            s_s, t_s = s_w[lo_i:hi_i], t_w[lo_i:hi_i]
-            if dst_contig:
-                n_take = int(t_s.sum())  # only the last can be partial
-                deltas[s_s[0] : s_s[0] + n_take] = vals[:n_take]
-            else:
-                vals = vals.reshape(kk, mb_size)
-                keep = np.arange(mb_size)[None, :] < t_s[:, None]
-                deltas[(s_s[:, None]
-                        + np.arange(mb_size)[None, :])[keep]] = vals[keep]
-    deltas += np.repeat(
-        np.asarray(st.md_blocks, dtype=np.int64).view(np.uint64),
-        st.block_size)[:n_deltas]
-    out = np.empty(st.total, dtype=np.uint64)
-    out[0] = np.uint64(st.first & 0xFFFFFFFFFFFFFFFF)
-    np.cumsum(deltas, out=out[1:])
-    out[1:] += out[0]
-    return out.view(np.int64).astype(dtype), st.end_pos
+    out = delta_native().decode_all(data, st)
+    if out is None:
+        raise ValueError("delta miniblock overruns the data")
+    return out.view(np.int64).astype(dtype, copy=False), st.end_pos
 
 
 def encode_delta_binary_packed(values, block_size: int = 128,

@@ -67,12 +67,21 @@ def _first_occurrence_rank(first_idx: np.ndarray):
 
 def _build_int_dictionary_smallrange(arr: np.ndarray):
     """O(n + range) interning of an integer column whose value range is
-    at most ``4 n`` and ``2^24``; None otherwise."""
+    at most ``4 n`` and ``2^24`` (the reference's gate); None otherwise.
+    4- and 8-byte columns intern in C, narrower ones in numpy."""
     n = arr.size
     lo, hi = int(arr.min()), int(arr.max())
     span = hi - lo + 1
     if span > 4 * n or span > 1 << 24:
         return None
+    if arr.itemsize in (4, 8):
+        # one C pass (csrc/intern.c): the ids and the first-occurrence
+        # order fall out of the sequential scan
+        from ..native import intern_native
+
+        uniq_pos, indices = intern_native().intern_range(
+            np.ascontiguousarray(arr), lo, span)
+        return arr[uniq_pos], indices
     off = arr.astype(np.int64) - lo
     first = np.full(span, n, dtype=np.int64)
     # reversed fancy assignment keeps the smallest original index

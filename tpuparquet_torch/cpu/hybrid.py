@@ -169,21 +169,26 @@ def decode_hybrid_prefixed(data, count: int, width: int, pos: int = 0):
 
 def encode_hybrid(values, width: int) -> bytes:
     """Encode values with RLE for constant stretches >= 8, else
-    bit-packing, in one C pass (``csrc/hybrid.c``), byte for byte the JAX
-    package's stream.  Bit-packed runs cover groups of 8 values; the final
-    partial group is padded with zeros (readers stop at the count).  The
-    streams carry levels and dictionary indices: widths 0..32."""
+    bit-packing, in one C pass, byte for byte the JAX package's stream.
+    Bit-packed runs cover groups of 8 values; the final partial group is
+    padded with zeros (readers stop at the count).  Levels and dictionary
+    indices arrive as (u)int32 and encode straight from their words
+    (``csrc/hybrid.c``); any other array widens to u64 first
+    (``csrc/pack.c``, widths up to 64), so a negative value wraps high
+    and is refused.  int32 takes the u64 pass at width 32, where a
+    negative's u32 view would fit."""
     v = np.asarray(values)
-    if not 0 <= width <= 32:
-        raise ValueError(f"hybrid width {width} out of range 0..32")
+    if not 0 <= width <= 64:
+        raise ValueError(f"hybrid width {width} out of range 0..64")
     if width == 0 or v.size == 0:
         return b""
-    from ..native import hybrid_native
+    from ..native import hybrid_native, pack_native
 
-    u = v.astype(np.uint64)  # negatives wrap high and are refused
-    if bool((u >> np.uint64(32)).any()):
-        raise ValueError(f"value {int(u.max())} does not fit in {width} bits")
-    return hybrid_native().encode32(u.astype(np.uint32), width)
+    if width <= 32 and (v.dtype == np.uint32
+                        or (v.dtype == np.int32 and width < 32)):
+        return hybrid_native().encode32(as_uint32(v), width)
+    return pack_native().hybrid_encode(np.asarray(v, dtype=np.uint64),
+                                       width)
 
 
 def encode_hybrid_prefixed(values, width: int) -> bytes:

@@ -10,10 +10,12 @@
  * size the output arrays.  tpq_gather_segments concatenates one width
  * class's miniblock payloads for the device planner
  * (kernels/decode.py _plan_delta) when they do not lie back to back.
- * tpq_dba_assemble rebuilds front-coded values, each from its
- * predecessor, which is sequential by nature; tpq_common_prefix measures
- * the prefix each value shares with the one before it (the writer's side:
- * a Python loop over a million values took minutes).
+ * tpq_delta_decode turns a scanned structure into the values in one pass
+ * (unpack, min_delta, prefix sum).  tpq_dba_assemble rebuilds front-coded
+ * values, each from its predecessor, which is sequential by nature;
+ * tpq_common_prefix measures the prefix each value shares with the one
+ * before it (the writer's side: a Python loop over a million values took
+ * minutes).
  *
  * Return codes of the scan: 0 ok, -1 truncated varint, -5 truncated
  * width list, -6 width > max_width, -7 truncated payload, -8 output cap
@@ -109,6 +111,83 @@ long long tpq_delta_scan_blocks(
     *n_blocks_out = nb;
     *n_mb_out = nm;
     *end_pos_out = pos;
+    return 0;
+}
+
+/* Full DELTA_BINARY_PACKED decode from a scanned structure (the
+ * miniblock table tpq_delta_scan_blocks emits): unpack every recorded
+ * miniblock's w-bit LSB-first deltas, add the per-block min_delta,
+ * prefix-sum from first.  One C pass (ctypes releases the GIL) with no
+ * full-size temporaries.  All arithmetic is uint64 two's-complement
+ * wrap; out holds total values.
+ * Returns 0, or -7 when a miniblock payload overruns data (the scan
+ * already rejects this; defensive). */
+long long tpq_delta_decode(
+    const uint8_t *data, long long data_len,
+    const int64_t *md_blocks, long long n_blocks,
+    const int32_t *mb_w, const int64_t *mb_pos, const int64_t *mb_start,
+    long long n_mb, long long mb_size, long long block_size,
+    long long total, uint64_t first, uint64_t *out) {
+    if (total <= 0)
+        return 0;
+    long long n_deltas = total - 1;
+    __builtin_memset(out + 1, 0, (size_t)n_deltas * 8);
+    for (long long m = 0; m < n_mb; m++) {
+        int w = mb_w[m];
+        long long pos = mb_pos[m];
+        long long nbytes = mb_size * w / 8;
+        if (w <= 0 || w > 64 || pos < 0 || pos + nbytes > data_len
+            || mb_start[m] < 0 || mb_start[m] >= n_deltas)
+            return -7;
+        long long take = n_deltas - mb_start[m];
+        if (take > mb_size)
+            take = mb_size;
+        const uint8_t *p = data + pos;
+        uint64_t *dst = out + 1 + mb_start[m];
+        uint64_t mask = (w == 64) ? ~(uint64_t)0
+                                  : (((uint64_t)1 << w) - 1);
+        /* speculative 16-byte loads need headroom past the last value's
+         * final byte; values near data_len take the byte-wise path */
+        long long fast = ((data_len - pos) - 16) * 8 / w;
+        if (fast > take)
+            fast = take;
+        if (fast < 0)
+            fast = 0;
+        long long j = 0;
+        for (; j < fast; j++) {
+            long long bit = j * (long long)w;
+            unsigned __int128 v;
+            __builtin_memcpy(&v, p + (bit >> 3), 16);
+            dst[j] = (uint64_t)(v >> (bit & 7)) & mask;
+        }
+        for (; j < take; j++) {
+            long long bit = j * (long long)w;
+            long long byte = bit >> 3;
+            int shift = (int)(bit & 7);
+            int need = (shift + w + 7) >> 3;
+            unsigned __int128 acc = 0;
+            for (int k = 0; k < need; k++)
+                acc |= (unsigned __int128)p[byte + k] << (8 * k);
+            dst[j] = (uint64_t)(acc >> shift) & mask;
+        }
+    }
+    uint64_t acc = first;
+    out[0] = acc;
+    long long i = 0;
+    for (long long b = 0; b < n_blocks && i < n_deltas; b++) {
+        uint64_t md = (uint64_t)md_blocks[b];
+        long long lim = i + block_size;
+        if (lim > n_deltas)
+            lim = n_deltas;
+        for (; i < lim; i++) {
+            acc += md + out[1 + i];
+            out[1 + i] = acc;
+        }
+    }
+    for (; i < n_deltas; i++) {   /* deltas past the declared blocks */
+        acc += out[1 + i];
+        out[1 + i] = acc;
+    }
     return 0;
 }
 

@@ -10,7 +10,8 @@
  * tpq_hybrid_repack re-packs one as a single bit-packed run without the
  * expanded intermediate (kernels/hybrid.py plan_stream_args): on a
  * def-level stream of many short runs those were the planner's hottest
- * numpy passes.
+ * numpy passes.  tpq_hybrid_encode writes a hybrid stream of u64 values
+ * (cpu/hybrid.py encode_hybrid past the u32 fast path of hybrid.c).
  *
  * The writers keep a u64 accumulator and flush whole 64-bit words
  * (one unaligned store per 64 output bits); at most one value straddles
@@ -126,6 +127,89 @@ static inline uint64_t load_bits(const uint8_t *bp, long long bp_len,
     }
     w >>= shift;
     return w & (((uint64_t)1 << width) - 1);
+}
+
+/* Emit one bit-packed region (header + 8-value groups, zero-padded
+ * tail group): shared by the mid-stream and end-of-stream flushes of
+ * tpq_hybrid_encode.  Returns the new offset, or -1 when cap would
+ * overflow. */
+static long long emit_bp_region(const uint64_t *v, long long bp_n,
+                                int width, uint8_t *out, long long cap,
+                                long long o) {
+    if (bp_n <= 0)
+        return o;
+    long long groups = (bp_n + 7) / 8;
+    if (o + 10 + groups * width + 8 > cap)
+        return -1;
+    o = emit_uvarint(out, o, ((uint64_t)groups << 1) | 1);
+    long long full = bp_n / 8 * 8;
+    if (full)
+        o += pack_words(v, full, width, out + o);
+    if (bp_n > full) { /* zero-padded tail group */
+        uint64_t tmp[8] = {0};
+        for (long long k = 0; k < bp_n - full; k++)
+            tmp[k] = v[full + k];
+        o += pack_words(tmp, 8, width, out + o);
+    }
+    return o;
+}
+
+/* Hybrid RLE/BP encode of u64 values at widths 1..64: RLE for constant
+ * stretches >= 8, bit-packing for the rest (8-value groups, zero-padded
+ * tail), byte for byte the stream of hybrid.c's tpq_hybrid_encode32 at
+ * widths up to 32 (cpu/hybrid.py encode_hybrid takes this one for wider
+ * values and for arrays that are not u32).  out needs 8 bytes of slack
+ * past the worst case.  Returns 0 with *out_len, -1 if a value exceeds
+ * width bits, -2 on a bad width, -3 when cap would overflow. */
+long long tpq_hybrid_encode(const uint64_t *v, long long n, int width,
+                            uint8_t *out, long long cap,
+                            long long *out_len) {
+    if (width <= 0 || width > 64)
+        return -2;
+    const uint64_t lim_mask =
+        width >= 64 ? 0 : ~((uint64_t)0) << width;
+    for (long long i = 0; i < n; i++)
+        if (v[i] & lim_mask)
+            return -1;
+    const int vbytes = (width + 7) / 8;
+    long long o = 0;
+    long long pending = 0; /* start of the un-emitted bit-packed region */
+    long long i = 0;
+    while (i < n) {
+        /* find the constant run starting at i */
+        long long e = i + 1;
+        while (e < n && v[e] == v[i])
+            e++;
+        if (e - i >= 8) { /* long run: flush pending BP, then RLE */
+            long long flush_end = i;
+            if ((flush_end - pending) % 8) {
+                long long r = pending + ((i - pending + 7) / 8) * 8;
+                flush_end = r < e ? r : e;
+            }
+            o = emit_bp_region(v + pending, flush_end - pending, width,
+                               out, cap, o);
+            if (o < 0)
+                return -3;
+            if (e - flush_end >= 1) {
+                if (o + 10 + vbytes > cap)
+                    return -3;
+                o = emit_uvarint(out, o,
+                                 (uint64_t)(e - flush_end) << 1);
+                uint64_t x = v[i];
+                for (int b = 0; b < vbytes; b++) {
+                    out[o++] = (uint8_t)x;
+                    x >>= 8;
+                }
+            }
+            pending = e;
+        }
+        i = e;
+    }
+    o = emit_bp_region(v + pending, n - pending, width, out, cap, o);
+    if (o < 0)
+        return -3;
+    *out_len = o;
+    return 0;
 }
 
 /* Expand a hybrid RLE/BP run table to values — pass 2 of the two-pass

@@ -25,9 +25,10 @@ fault event (``obs/``); the deadline and hedge workers re-enter the
 caller's trace context, each hedged branch is a ``read_replica`` span
 (the losers ``cancelled``), and an expiry is a ``deadline_exceeded``
 error span and, with the latency digests armed, an observation of the
-``deadline`` label's digest.  The reference's hedges also carry the serve arbiter's
-tenant binding into their branches, which waits for the arbiter
-(ROADMAP A.11).
+``deadline`` label's digest.  Both workers also take the caller's serve
+tenant binding (``serve/arbiter.py`` :func:`~tpuparquet_torch.serve.
+tenant_scope`), so bounded work sizes its pools from the tenant's
+share.
 
 A hung read becomes :class:`~tpuparquet_torch.errors.DeadlineExceededError`
 (transient: retried, then quarantined); a hung dispatch
@@ -286,6 +287,7 @@ def call_with_deadline(fn, budget: float | None, *, site: str,
     if budget is None or budget <= 0:
         return fn()
     from .obs import trace as _trace
+    from .serve import arbiter as _arbiter
     from .stats import current_stats, merge_worker_stats, worker_stats
 
     st = current_stats()
@@ -293,12 +295,15 @@ def call_with_deadline(fn, budget: float | None, *, site: str,
     box: dict = {}
     wd = watchdog()
     # the worker re-enters the caller's trace context, so the bounded
-    # work's spans parent under the caller's open span
+    # work's spans parent under the caller's open span, and the caller's
+    # tenant binding, so its plan pool sizes from the tenant's share
     tctx = _trace.current_ctx()
+    tenant = _arbiter.current_binding()
 
     def run():
         try:
-            with _trace.adopt(tctx), worker_stats(like=st) as ws:
+            with _trace.adopt(tctx), _arbiter.tenant_scope(tenant), \
+                    worker_stats(like=st) as ws:
                 try:
                     box["result"] = fn()
                 except BaseException as e:  # noqa: BLE001 - re-raised
@@ -357,9 +362,13 @@ def hedged_call(fns, *, delay: float, site: str,
         return fns[0]()
     from .obs import trace as _trace
     from .obs.recorder import flight
+    from .serve import arbiter as _arbiter
     from .stats import current_stats, merge_worker_stats, worker_stats
 
     st = current_stats()
+    # each branch's worker takes the caller's tenant binding, as the
+    # deadline's worker does
+    tenant = _arbiter.current_binding()
     q: queue.SimpleQueue = queue.SimpleQueue()
     starts: dict[int, float] = {}
     # one open span a branch under the caller's context, which the
@@ -378,7 +387,8 @@ def hedged_call(fns, *, delay: float, site: str,
 
         def run():
             try:
-                with _trace.adopt(bctx), worker_stats(like=st) as ws:
+                with _trace.adopt(bctx), _arbiter.tenant_scope(tenant), \
+                        worker_stats(like=st) as ws:
                     try:
                         out = (True, fns[i]())
                     except BaseException as e:  # noqa: BLE001 - re-raised

@@ -21,6 +21,8 @@ __all__ = [
     "DispatchDeadlineError",
     "KernelBuildError",
     "KernelLaunchError",
+    "ServeStateError",
+    "AdmissionRejected",
     "QUARANTINE_ERRORS",
     "never_quarantine",
 ]
@@ -158,6 +160,29 @@ class KernelBuildError(RuntimeError):
 class KernelLaunchError(RuntimeError):
     """A kernel's launch, or a CUDA helper beside it, returned a CUDA
     error (``kernels/_lib.py`` ``launch``)."""
+
+
+class ServeStateError(RuntimeError):
+    """An operation out of the serve layer's order, e.g. activating a
+    second process-wide :class:`~tpuparquet_torch.serve.ResourceArbiter`
+    while another is active.  A caller's bug, not a scan failure."""
+
+
+class AdmissionRejected(ServeStateError):
+    """Admission control shed a job before it started
+    (:meth:`tpuparquet_torch.serve.ResourceArbiter.admit`).
+
+    Always retryable: the job was never queued, so resubmitting after
+    ``retry_after_s`` cannot duplicate it.  ``tenant``, ``reason``
+    (``"queue_full"``, ``"byte_budget"``, ``"deadline_budget"``) and
+    ``retry_after_s`` are what a client's backoff reads."""
+
+    def __init__(self, msg: str, *, tenant: str, reason: str,
+                 retry_after_s: float):
+        super().__init__(msg)
+        self.tenant = tenant
+        self.reason = reason
+        self.retry_after_s = retry_after_s
 
 
 # What a quarantining scan may absorb a unit: the clean failures

@@ -44,9 +44,10 @@ Fault sites (``site`` of :meth:`FaultInjector.inject`) and their kinds:
                                       no index) — ``oserror``,
                                       ``transient``, ``corrupt``,
                                       ``truncate``
-``io.pages.page_write``               a data page's write (firing costs
-                                      nothing: the page is written as it
-                                      would have been) — ``transient``
+``io.pages.page_write``               a data page's native write (a
+                                      firing drops the page to the pure
+                                      path, which writes the same
+                                      bytes) — ``transient``
 ``kernels.device.page_payload``       the device plan's page loop —
                                       ``corrupt``, ``truncate``
 ``kernels.device.page_dispatch``      the device plan, a data page —

@@ -76,6 +76,7 @@ from ..obs import recorder as _flightrec
 from ..stats import current_stats, worker_stats
 from .pages import (
     DecodedPage,
+    _native_page_ctx,
     crc_verify_default,
     decode_data_page_v1,
     decode_data_page_v2,
@@ -472,6 +473,7 @@ def write_chunk(out, node, column, rep, dl: np.ndarray, *, codec,
     total_comp = total_uncomp = 0
     dict_page_offset = None
     distinct = None
+    native_ctx = _native_page_ctx(codec)
     # stage marker: page writes emit no span while they run, so the
     # sampler needs one to put their stacks under "write"
     ptok = _profiler.stage_begin("write") \
@@ -498,13 +500,15 @@ def write_chunk(out, node, column, rep, dl: np.ndarray, *, codec,
                     num_rows=n_values if num_rows is None else num_rows,
                     encoding=encoding, dictionary_size=distinct,
                     statistics=stats, page_crc=page_crc,
-                    compress_workers=pipeline_workers)
+                    compress_workers=pipeline_workers,
+                    native_ctx=native_ctx)
             else:
                 c, u = write_data_page_v1(
                     out, node, page_column, rep, dl, codec,
                     encoding=encoding, dictionary_size=distinct,
                     statistics=stats, page_crc=page_crc,
-                    compress_workers=pipeline_workers)
+                    compress_workers=pipeline_workers,
+                    native_ctx=native_ctx)
             total_comp += c
             total_uncomp += u
             page_entries = [(stats, data_page_offset, c, 0)]
@@ -512,7 +516,7 @@ def write_chunk(out, node, column, rep, dl: np.ndarray, *, codec,
             u, page_entries = _write_split_pages(
                 out, node, handler, page_column, dl, codec, encoding,
                 bounds, distinct, stats, dictionary, data_page_v2,
-                page_crc, pipeline_workers)
+                page_crc, pipeline_workers, native_ctx)
             total_comp += sum(e[2] for e in page_entries)
             total_uncomp += u
     finally:
@@ -547,7 +551,7 @@ def write_chunk(out, node, column, rep, dl: np.ndarray, *, codec,
 
 def _write_split_pages(out, node, handler, page_column, dl, codec,
                        encoding, bounds, dict_size, chunk_stats, dictionary,
-                       data_page_v2, page_crc, pipeline_workers):
+                       data_page_v2, page_crc, pipeline_workers, native_ctx):
     """The data pages of a split chunk, one a ``bounds`` entry, each with
     its own statistics.  With ``pipeline_workers`` > 1 one worker renders
     page N+1 while this thread writes page N (the same bytes).  Returns
@@ -570,12 +574,13 @@ def _write_split_pages(out, node, handler, page_column, dl, codec,
             c, u = write_data_page_v2(
                 sink, node, vals, rep0, dl[a:b], codec, null_count=pg_null,
                 num_rows=b - a, encoding=encoding, dictionary_size=dict_size,
-                statistics=pg_stats, page_crc=page_crc)
+                statistics=pg_stats, page_crc=page_crc,
+                native_ctx=native_ctx)
         else:
             c, u = write_data_page_v1(
                 sink, node, vals, rep0, dl[a:b], codec, encoding=encoding,
                 dictionary_size=dict_size, statistics=pg_stats,
-                page_crc=page_crc)
+                page_crc=page_crc, native_ctx=native_ctx)
         return c, u, pg_stats
 
     def render(a, b):

@@ -18,6 +18,18 @@ A data page's compressed part goes through
 compressed one a worker, as the JAX package's native page path splits
 it; the dictionary page is always compressed whole, as there.
 
+Data pages take the native page path: ``csrc/page.c`` lays the body
+into one buffer in one pass, the codec compresses it in place and the
+CRC runs in C, with no intermediate Python bytes
+(:func:`_write_page_native`).  The file bytes
+are the pure path's either way.  A page the native path cannot write
+(a user's compressor registered on the codec, a short buffer, a value
+the encoder refuses, or a fault fired at ``io.pages.page_write``) is
+written by the pure path instead, before anything of it was written.
+``pages_written`` counts every page, ``pages_assembled_native`` the
+native ones, and ``write_encode_s``, ``write_compress_s`` and
+``write_assemble_s`` the native path's stages.
+
 The page CRC (``PageHeader.crc``) is the standard gzip-polynomial CRC32
 over the page bytes as they appear in the file, stored as a signed i32.
 
@@ -36,11 +48,14 @@ from __future__ import annotations
 
 import os
 import struct
+import time
 import zlib
 
 import numpy as np
 
-from ..compress import compress_block, decompress_block, page_compress
+from ..compress import builtin_uncompressed_registered, compress_block, \
+    decompress_block, page_codec_settings, page_compress, \
+    page_compress_bound, page_compress_into
 from ..cpu.bss import decode_byte_stream_split, encode_byte_stream_split
 from ..cpu.delta import decode_delta_binary_packed, \
     decode_delta_byte_array, decode_delta_length_byte_array, \
@@ -57,6 +72,8 @@ from ..errors import CorruptPageError, TransientIOError
 from ..faults import fault_point, filter_bytes
 from ..format.compact import CompactWriter
 from ..kernels.encode import DeviceValues
+from ..native import hybrid_encode_cap, page_native
+from ..stats import current_stats
 from ..format.metadata import (
     CompressionCodec,
     DataPageHeader,
@@ -161,7 +178,9 @@ def scan_levels_v1(raw, n: int, max_level: int, pos: int,
     of a length-prefixed hybrid stream, left unexpanded, or the int32
     levels of a deprecated BIT_PACKED stream (``ceil(n * width / 8)``
     bytes, MSB-first), decoded on the host as the reference decodes them;
-    both None when ``max_level == 0``, which has no stream."""
+    both None when ``max_level == 0``, which has no stream.  Any other
+    ``encoding`` (RLE, another value, a number outside the enum, or none)
+    reads as RLE, as the reference's device plan reads it."""
     if max_level == 0:
         return None, None, pos
     width = int(max_level).bit_length()
@@ -169,10 +188,6 @@ def scan_levels_v1(raw, n: int, max_level: int, pos: int,
         nbytes = (n * width + 7) // 8
         return (None, decode_levels_bitpacked(raw[pos : pos + nbytes], n,
                                               max_level), pos + nbytes)
-    if encoding != Encoding.RLE:
-        raise NotImplementedError(
-            f"level encoding {Encoding(encoding).name} is not supported "
-            "by tpuparquet_torch (RLE, BIT_PACKED)")
     if pos + 4 > len(raw):
         raise ValueError("truncated hybrid length prefix")
     (size,) = struct.unpack_from("<I", raw, pos)
@@ -384,16 +399,163 @@ def decode_dictionary_page(header: PageHeader, payload, codec, node):
                         node.element.type_length)
 
 
-def _page_write_site(node, n: int) -> None:
-    """The fault site ``io.pages.page_write``.  In the reference a
-    transient fault here drops the page from its native writer to its
-    pure one, which writes the same bytes; the port has one writer, so
-    the page is written as it would have been."""
+def _native_page_ctx(codec):
+    """``(page pass, codec context or None)`` when the native page path
+    writes the pure path's bytes for ``codec``, else None: a compressor
+    a user registered on the codec (the UNCOMPRESSED slot included), or
+    no native context for it
+    (:func:`~tpuparquet_torch.compress.page_codec_settings`).  A chunk
+    resolves it once for all its pages."""
+    if codec == CompressionCodec.UNCOMPRESSED:
+        return (page_native(), None) if builtin_uncompressed_registered() \
+            else None
+    pc = page_codec_settings(codec)
+    return None if pc is None else (page_native(), pc)
+
+
+def _native_values_view(ptype: Type, column, encoding) -> np.ndarray:
+    """A page's values segment as u8 for the native page pass: a view of
+    a PLAIN fixed-width numpy column (the bytes ``encode_plain`` would
+    make), else the encoded bytes."""
+    if encoding == Encoding.PLAIN and isinstance(column, np.ndarray):
+        dt = PHYSICAL_DTYPES.get(ptype)
+        if (ptype not in (Type.BOOLEAN, Type.FIXED_LEN_BYTE_ARRAY)
+                and dt is not None and column.dtype == np.dtype(dt)
+                and column.ndim == 1):
+            return np.ascontiguousarray(column).view(np.uint8)
+        if (ptype == Type.FIXED_LEN_BYTE_ARRAY
+                and column.dtype == np.uint8 and column.ndim == 2):
+            return np.ascontiguousarray(column).reshape(-1)
+    return np.frombuffer(encode_values(ptype, encoding, column),
+                         dtype=np.uint8)
+
+
+def _write_page_native(out, node, column, rep, dl, codec, encoding, ctx, *,
+                       v2: bool, num_rows=None, null_count=None,
+                       dictionary_size=None, statistics=None,
+                       page_crc=True, workers: int = 1):
+    """One data page through the native path: the whole body encoded into
+    one buffer (levels and dictionary indices or values, one C pass),
+    compressed into another, its CRC taken in C, then the header and the
+    body written with no intermediate Python bytes.  Returns the pure
+    path's ``(compressed, uncompressed)`` sizes, or None when the page
+    must take the pure path (a fault fired at ``io.pages.page_write``, a
+    short buffer, a value the pass refuses): nothing was written then."""
+    pg, pcodec = ctx
+    st = current_stats()
+    n = len(dl)
     try:
         fault_point("io.pages.page_write", column=".".join(node.path),
                     values=n)
-    except TransientIOError:
-        pass
+        t0 = time.perf_counter() if st is not None else 0.0
+        if dictionary_size is not None:
+            idx = as_uint32(np.asarray(column))
+            idx_width = max(int(dictionary_size - 1).bit_length(), 1) \
+                if dictionary_size > 1 else 1
+            values = None
+            enc_kind = Encoding.RLE_DICTIONARY
+        else:
+            idx = None
+            idx_width = 0
+            values = _native_values_view(Type(node.element.type), column,
+                                         encoding)
+            enc_kind = encoding
+        rep_w = int(node.max_rep_level).bit_length()
+        def_w = int(node.max_def_level).bit_length()
+        rep_arr = as_uint32(rep) if node.max_rep_level else None
+        dl_arr = as_uint32(dl) if node.max_def_level else None
+        cap = 16
+        if rep_arr is not None:
+            cap += 4 + hybrid_encode_cap(n, rep_w)
+        if dl_arr is not None:
+            cap += 4 + hybrid_encode_cap(n, def_w)
+        cap += (1 + hybrid_encode_cap(idx.size, idx_width)
+                if idx is not None else values.size)
+        scratch = np.empty(cap, dtype=np.uint8)
+        enc = pg.encode(rep_arr, dl_arr, n, rep_w, def_w, v2, idx,
+                        idx_width, values, scratch)
+        if enc is None:
+            return None
+        rep_len, dl_len, val_len = enc
+        uncomp = rep_len + dl_len + val_len
+        t1 = time.perf_counter() if st is not None else 0.0
+        # V1 compresses the whole body, V2 the values segment only (its
+        # levels stay raw in the file)
+        lev = rep_len + dl_len
+        if pcodec is None:  # UNCOMPRESSED
+            segs = [scratch[:uncomp]]
+        elif v2:
+            outbuf = np.empty(page_compress_bound(pcodec, val_len, workers),
+                              dtype=np.uint8)
+            comp_vals = page_compress_into(pcodec, scratch[lev:uncomp],
+                                           outbuf, workers)
+            segs = [scratch[:lev], outbuf[:comp_vals]]
+        else:
+            outbuf = np.empty(page_compress_bound(pcodec, uncomp, workers),
+                              dtype=np.uint8)
+            comp = page_compress_into(pcodec, scratch[:uncomp], outbuf,
+                                      workers)
+            segs = [outbuf[:comp]]
+        crc = None
+        if page_crc:
+            c = 0
+            for seg in segs:
+                c = pg.crc32(seg, c)
+            crc = c - (1 << 32) if c >= (1 << 31) else c
+        comp_total = sum(seg.size for seg in segs)
+        t2 = time.perf_counter() if st is not None else 0.0
+        if v2:
+            ph = PageHeader(
+                type=PageType.DATA_PAGE_V2,
+                uncompressed_page_size=uncomp,
+                compressed_page_size=comp_total,
+                crc=crc,
+                data_page_header_v2=DataPageHeaderV2(
+                    num_values=n,
+                    num_nulls=null_count,
+                    num_rows=num_rows,
+                    encoding=enc_kind,
+                    definition_levels_byte_length=dl_len,
+                    repetition_levels_byte_length=rep_len,
+                    is_compressed=codec != CompressionCodec.UNCOMPRESSED,
+                    statistics=statistics,
+                ),
+            )
+        else:
+            ph = PageHeader(
+                type=PageType.DATA_PAGE,
+                uncompressed_page_size=uncomp,
+                compressed_page_size=comp_total,
+                crc=crc,
+                data_page_header=DataPageHeader(
+                    num_values=n,
+                    encoding=enc_kind,
+                    definition_level_encoding=Encoding.RLE,
+                    repetition_level_encoding=Encoding.RLE,
+                    statistics=statistics,
+                ),
+            )
+        hdr = _header_bytes(ph)
+    except (TransientIOError, ValueError):
+        # nothing of the page is written yet: the pure path writes it,
+        # the same bytes
+        return None
+    out.write(hdr)
+    for seg in segs:
+        out.write(memoryview(seg))
+    if st is not None:
+        st.write_encode_s += t1 - t0
+        st.write_compress_s += t2 - t1
+        st.pages_assembled_native += 1
+        st.write_assemble_s += time.perf_counter() - t2
+    return len(hdr) + comp_total, len(hdr) + uncomp
+
+
+def _record_page_written() -> None:
+    """Every written page, on either path, counts ``pages_written``."""
+    st = current_stats()
+    if st is not None:
+        st.pages_written += 1
 
 
 def _header_bytes(ph: PageHeader) -> bytes:
@@ -444,15 +606,26 @@ def _page_values(node, column, encoding, dictionary_size):
 def write_data_page_v1(out, node, column, rep, dl, codec, *,
                        encoding=Encoding.PLAIN, dictionary_size=None,
                        statistics=None, page_crc=True,
-                       compress_workers: int = 1) -> tuple[int, int]:
+                       compress_workers: int = 1,
+                       native_ctx="auto") -> tuple[int, int]:
     """Append a V1 data page; returns (compressed, uncompressed) sizes
     including the header bytes.  ``column`` holds the non-null values
     (encoded with ``encoding``), or their dictionary indices when
     ``dictionary_size`` is given; ``rep``/``dl`` the levels of every slot
     (``rep`` is read only for a repeated column).  ``compress_workers``
     may split the body (:func:`~tpuparquet_torch.compress.
-    page_compress`)."""
-    _page_write_site(node, len(dl))
+    page_compress`).  ``native_ctx`` is the chunk's
+    :func:`_native_page_ctx` (None: the pure path; ``"auto"`` resolves
+    it here)."""
+    ctx = _native_page_ctx(codec) if native_ctx == "auto" else native_ctx
+    if ctx is not None:
+        res = _write_page_native(
+            out, node, column, rep, dl, codec, encoding, ctx, v2=False,
+            dictionary_size=dictionary_size, statistics=statistics,
+            page_crc=page_crc, workers=compress_workers)
+        if res is not None:
+            _record_page_written()
+            return res
     body = bytearray()
     if node.max_rep_level:
         body += encode_hybrid_prefixed(as_uint32(rep),
@@ -479,19 +652,29 @@ def write_data_page_v1(out, node, column, rep, dl, codec, *,
     hdr = _header_bytes(ph)
     out.write(hdr)
     out.write(comp)
+    _record_page_written()
     return len(hdr) + len(comp), len(hdr) + len(body)
 
 
 def write_data_page_v2(out, node, column, rep, dl, codec, *, null_count: int,
                        num_rows: int, encoding=Encoding.PLAIN,
                        dictionary_size=None, statistics=None,
-                       page_crc=True,
-                       compress_workers: int = 1) -> tuple[int, int]:
+                       page_crc=True, compress_workers: int = 1,
+                       native_ctx="auto") -> tuple[int, int]:
     """Append a V2 data page (arguments as :func:`write_data_page_v1`;
     ``num_rows`` counts records, not level slots); only the values
     segment is compressed, and the CRC covers the level bytes and the
     compressed values as they appear in the file."""
-    _page_write_site(node, len(dl))
+    ctx = _native_page_ctx(codec) if native_ctx == "auto" else native_ctx
+    if ctx is not None:
+        res = _write_page_native(
+            out, node, column, rep, dl, codec, encoding, ctx, v2=True,
+            num_rows=num_rows, null_count=null_count,
+            dictionary_size=dictionary_size, statistics=statistics,
+            page_crc=page_crc, workers=compress_workers)
+        if res is not None:
+            _record_page_written()
+            return res
     rl_b = (encode_hybrid(as_uint32(rep), int(node.max_rep_level).bit_length())
             if node.max_rep_level else b"")
     dl_b = (encode_hybrid(as_uint32(dl), int(node.max_def_level).bit_length())
@@ -519,6 +702,7 @@ def write_data_page_v2(out, node, column, rep, dl, codec, *, null_count: int,
     out.write(rl_b)
     out.write(dl_b)
     out.write(comp)
+    _record_page_written()
     return (len(hdr) + ph.compressed_page_size,
             len(hdr) + ph.uncompressed_page_size)
 
@@ -540,4 +724,5 @@ def write_dictionary_page(out, node, dictionary, codec,
     hdr = _header_bytes(ph)
     out.write(hdr)
     out.write(comp)
+    _record_page_written()
     return len(hdr) + len(comp), len(hdr) + len(body)

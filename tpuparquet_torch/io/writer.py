@@ -88,8 +88,16 @@ _POOL_MIN_VALUES = 65536
 
 
 def _write_threads() -> int:
-    """Encode workers of a row group: ``TPQ_WRITE_THREADS`` (``1``: the
-    serial path), else the usable CPUs."""
+    """Encode workers of a row group: the calling thread's tenant share
+    under an active serve arbiter (one share bounds all of a tenant's
+    workers), else ``TPQ_WRITE_THREADS`` (``1``: the serial path), else
+    the usable CPUs."""
+    from ..serve import arbiter as _arbiter
+
+    share = _arbiter.write_budget()
+    if share is not None:
+        return share
+    _arbiter.warn_if_oversubscribed()
     v = os.environ.get("TPQ_WRITE_THREADS")
     if v is not None:
         try:

@@ -1310,7 +1310,7 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager,
             if h is None or h.num_values is None or h.num_values < 0:
                 raise ValueError("DATA_PAGE header missing data_page_header")
             n = h.num_values
-            enc = Encoding(h.encoding)
+            enc = h.encoding
             snappy = snappy and enc == Encoding.PLAIN
             if snappy and not max_rep and not max_def and fixed:
                 # a flat required PLAIN page holds no level bytes, so
@@ -1344,7 +1344,7 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager,
                 raise ValueError(
                     "DATA_PAGE_V2 header missing data_page_header_v2")
             n = h.num_values
-            enc = Encoding(h.encoding)
+            enc = h.encoding
             snappy = snappy and enc == Encoding.PLAIN
             # V2 keeps the levels outside compression: planning needs only
             # the level bytes, and the values block decompresses on its own
@@ -1524,9 +1524,18 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager,
             chunk_bytes += nb
             ops.append(op)
         else:
-            raise NotImplementedError(
-                f"column {col_path!r}: encoding {enc.name} of "
-                f"{ptype.name} is not supported by tpuparquet_torch")
+            # no device kernel takes this (encoding, type), or the number
+            # is none of the format's: the values decode on the host,
+            # which raises the reference's words for what it cannot read
+            tr = "host"
+            reason = "no device kernel for this encoding"
+            if st is not None:
+                st.pages_host_values += 1
+            op, nb = _degraded_page_op(values_seg, enc, ptype, type_length,
+                                       None, 0, non_null, dl_ref, n, dwidth,
+                                       stager, col_path, data_i - 1)
+            chunk_bytes += nb
+            ops.append(op)
         if chunk_bytes > _I32_MAX:
             raise ValueError(f"{chunk_bytes} bytes of BYTE_ARRAY values "
                              "overflow the int32 offsets of the device "
@@ -1536,8 +1545,8 @@ def plan_chunk_device(blob, cm, node, base: int, stager: _Stager,
             ev.page(column=col_path, page=data_i - 1,
                     page_type=("v2" if kind == PageType.DATA_PAGE_V2
                                else "v1"),
-                    encoding=enc.name, codec=codec_name, num_values=n,
-                    non_null=non_null,
+                    encoding=Encoding(enc).name, codec=codec_name,
+                    num_values=n, non_null=non_null,
                     transport=tr if tr is not None else "unknown",
                     wire_bytes=wire_ev, raw_bytes=raw_ev, gate=gate,
                     reason=reason, plan_s=time.perf_counter() - t_pg)
@@ -2031,9 +2040,19 @@ def _resolve_device(device) -> torch.device:
 
 
 def _plan_threads() -> int:
-    """Plan workers of :func:`pipelined_reads`: ``TPQ_PLAN_THREADS`` when
-    set (at least 1; a malformed value is ignored), else one a usable
-    CPU."""
+    """Plan workers of :func:`pipelined_reads`: the calling thread's
+    tenant share under an active serve arbiter (``serve/arbiter.py``,
+    read per call, so a rebalance takes effect at the next unit), else
+    ``TPQ_PLAN_THREADS`` when set (at least 1; a malformed value is
+    ignored), else one a usable CPU.  Outside an arbiter it also warns
+    once when ``TPQ_PLAN_THREADS`` and ``TPQ_WRITE_THREADS`` together
+    exceed the usable CPUs."""
+    from ..serve import arbiter as _arbiter
+
+    share = _arbiter.plan_budget()
+    if share is not None:
+        return share
+    _arbiter.warn_if_oversubscribed()
     v = os.environ.get("TPQ_PLAN_THREADS")
     if v is not None:
         try:

@@ -4,14 +4,17 @@ structure, strided lane/byte-plane passes and the BYTE_ARRAY passes.
 ``csrc/hybrid.c`` scans hybrid run headers into run tables, takes the
 max and value counts of their bit-packed lanes and encodes hybrid
 streams for the writer; ``csrc/pack.c`` packs bits (the delta-lane
-transport's offsets, DELTA_BINARY_PACKED miniblocks) and expands or
-re-packs run tables; ``csrc/delta.c`` walks the blocks of a
+transport's offsets, DELTA_BINARY_PACKED miniblocks), expands or
+re-packs run tables and encodes hybrid streams of u64 values; ``csrc/delta.c`` walks the blocks of a
 DELTA_BINARY_PACKED stream and gathers its miniblocks, rebuilds
-DELTA_BYTE_ARRAY values and measures the writer's shared prefixes; ``csrc/plane.c``
+DELTA_BYTE_ARRAY values and measures the writer's shared prefixes, and
+decodes a whole DELTA_BINARY_PACKED stream in one pass; ``csrc/plane.c``
 scans and gathers the strided lanes and byte planes of the plane
 transport, and ``csrc/bytes.c`` scans PLAIN BYTE_ARRAY length prefixes,
 gathers and emits variable-length values and interns them for the
-writer's dictionary, one C pass each (the numpy or Python formulations
+writer's dictionary; ``csrc/intern.c`` interns small-range integer
+columns, and ``csrc/page.c`` lays a written data page's body into one
+buffer and takes its CRC, one C pass each (the numpy or Python formulations
 cost several passes, or a loop per value).  Each compiles with the host
 C compiler at first use and loads with ctypes.  There is no numpy
 fallback: without a compiler they raise.
@@ -25,9 +28,10 @@ import threading
 
 import numpy as np
 
-__all__ = ["NativeBytes", "NativeDelta", "NativeHybrid", "NativePack",
-           "NativePlane", "TOO_MANY_DISTINCT", "bytes_native",
-           "delta_native", "hybrid_native", "pack_native", "plane_native"]
+__all__ = ["NativeBytes", "NativeDelta", "NativeHybrid", "NativeIntern",
+           "NativePack", "NativePage", "NativePlane", "TOO_MANY_DISTINCT",
+           "bytes_native", "delta_native", "hybrid_native", "intern_native",
+           "pack_native", "page_native", "plane_native"]
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -175,6 +179,10 @@ class NativePack:
         self._delta_emit.restype = _LL
         self._delta_emit.argtypes = [_P, _P, _LL, _LL, _P, _LL, _LL, _P, _LL,
                                      ctypes.POINTER(_LL)]
+        self._hybrid_encode = lib.tpq_hybrid_encode
+        self._hybrid_encode.restype = _LL
+        self._hybrid_encode.argtypes = [_P, _LL, ctypes.c_int, _P, _LL,
+                                        ctypes.POINTER(_LL)]
         self._expand = lib.tpq_hybrid_expand32
         self._repack = lib.tpq_hybrid_repack
         for fn in (self._expand, self._repack):
@@ -195,6 +203,23 @@ class NativePack:
         if rc != 0:
             raise ValueError(f"bit width {width} out of range 1..64")
         return out[:n]
+
+    def hybrid_encode(self, values: np.ndarray, width: int) -> bytes:
+        """Hybrid encode of u64 values at ``width`` (1..64) in one C pass,
+        byte for byte :meth:`NativeHybrid.encode32`'s stream where both
+        apply; raises on a value that does not fit."""
+        v = np.ascontiguousarray(values, dtype=np.uint64)
+        cap = hybrid_encode_cap(v.size, width)
+        out = np.empty(cap, dtype=np.uint8)
+        out_len = _LL()
+        rc = self._hybrid_encode(v.ctypes.data, v.size, width,
+                                 out.ctypes.data, cap, ctypes.byref(out_len))
+        if rc == -1:
+            raise ValueError(
+                f"value {int(v.max())} does not fit in {width} bits")
+        if rc != 0:
+            raise ValueError(f"hybrid encode failed (rc={rc})")
+        return out[: out_len.value].tobytes()
 
     def delta_emit(self, adj, widths, mb_size: int, min_deltas,
                    n_miniblocks: int) -> np.ndarray:
@@ -288,6 +313,30 @@ class NativeDelta:
         self._prefix = lib.tpq_common_prefix
         self._prefix.restype = None
         self._prefix.argtypes = [_P, _P, _LL, _P]
+        self._decode = lib.tpq_delta_decode
+        self._decode.restype = _LL
+        self._decode.argtypes = [_P, _LL, _P, _LL, _P, _P, _P, _LL, _LL,
+                                 _LL, _LL, ctypes.c_uint64, _P]
+
+    def decode_all(self, data, st) -> np.ndarray | None:
+        """The whole DELTA_BINARY_PACKED decode of a scanned structure
+        (:class:`~tpuparquet_torch.cpu.delta.DeltaStructure`) in one C
+        pass: every miniblock unpacked, the block's min_delta added, the
+        prefix sum from ``first``.  Returns the ``(total,)`` u64 values
+        (two's-complement wrap, byte for byte the JAX package's decode),
+        or None when the pass declines a miniblock that overruns the data
+        (the structure scan rejects those first)."""
+        buf = _u8(data)
+        md = np.ascontiguousarray(st.md_blocks, dtype=np.int64)
+        w = np.ascontiguousarray(st.mb_w, dtype=np.int32)
+        p = np.ascontiguousarray(st.mb_pos, dtype=np.int64)
+        s = np.ascontiguousarray(st.mb_start, dtype=np.int64)
+        out = np.empty(max(st.total, 1), dtype=np.uint64)[: st.total]
+        rc = self._decode(buf.ctypes.data, buf.size, md.ctypes.data, md.size,
+                          w.ctypes.data, p.ctypes.data, s.ctypes.data,
+                          w.size, st.mb_size, st.block_size, st.total,
+                          st.first & 0xFFFFFFFFFFFFFFFF, out.ctypes.data)
+        return out if rc == 0 else None
 
     def gather_segments(self, src, positions, nbytes: int) -> np.ndarray:
         """The ``nbytes``-byte segments of ``src`` at ``positions``,
@@ -525,6 +574,88 @@ class NativeBytes:
         return firsts[:d].copy(), indices
 
 
+class NativePage:
+    """ctypes bindings of ``csrc/page.c``: a data page's body laid into
+    one buffer in one pass, and zlib's CRC-32 (slice-by-8)."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._encode = lib.tpq_page_encode
+        self._encode.restype = _LL
+        self._encode.argtypes = [_P, _P, _LL, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, _P, _LL, ctypes.c_int, _P, _LL,
+                                 _P, _LL, ctypes.POINTER(_LL),
+                                 ctypes.POINTER(_LL), ctypes.POINTER(_LL)]
+        self._crc = lib.tpq_crc32
+        self._crc.restype = ctypes.c_uint32
+        self._crc.argtypes = [_P, _LL, ctypes.c_uint32]
+
+    def crc32(self, buf, crc: int = 0) -> int:
+        """``zlib.crc32(buf, crc)``."""
+        b = _u8(buf)
+        return int(self._crc(b.ctypes.data, b.size, crc & 0xFFFFFFFF))
+
+    def encode(self, rep, dl, n: int, rep_width: int, def_width: int,
+               v2: bool, idx, idx_width: int, values, out: np.ndarray):
+        """Lay one data page's uncompressed body into ``out``: ``[rep
+        stream][def stream][values]``, the level streams length-prefixed
+        (V1) or bare (V2).  ``rep``/``dl`` are u32 levels or None (no
+        stream); the values are ``idx`` (u32 dictionary indices, hybrid
+        encoded behind their width byte) or ``values`` (encoded u8 bytes,
+        copied).  Returns ``(rep_len, dl_len, val_len)``, framing
+        included, or None when ``out`` is too small; raises on a level or
+        index that does not fit its width."""
+        def _c(a):
+            # C walks n consecutive words from the base pointer
+            return None if a is None else np.ascontiguousarray(a)
+
+        def _p(a):
+            return None if a is None else a.ctypes.data
+
+        rep, dl, idx, values = _c(rep), _c(dl), _c(idx), _c(values)
+        rep_len, dl_len, val_len = _LL(), _LL(), _LL()
+        rc = self._encode(
+            _p(rep), _p(dl), n, rep_width, def_width, 1 if v2 else 0,
+            _p(idx), 0 if idx is None else idx.size, idx_width,
+            _p(values), 0 if values is None else values.size,
+            out.ctypes.data, out.size, ctypes.byref(rep_len),
+            ctypes.byref(dl_len), ctypes.byref(val_len))
+        if rc == -1:
+            raise ValueError("level/index value does not fit its width")
+        if rc != 0:
+            return None
+        return int(rep_len.value), int(dl_len.value), int(val_len.value)
+
+
+class NativeIntern:
+    """ctypes bindings of ``csrc/intern.c``."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._range32 = lib.tpq_intern_range32
+        self._range64 = lib.tpq_intern_range64
+        for fn, lo_t in ((self._range32, ctypes.c_uint32),
+                         (self._range64, ctypes.c_uint64)):
+            fn.restype = _LL
+            fn.argtypes = [_P, _LL, lo_t, _LL, _P, _P, _P]
+
+    def intern_range(self, arr: np.ndarray, lo: int, rng: int):
+        """First-occurrence intern of a 4- or 8-byte integer column whose
+        values lie in ``[lo, lo + rng)`` (``lo`` and ``rng`` from its true
+        minimum and maximum): ``(first index a value int64[D], ids
+        int32[n])``.  Raises on a value outside the range."""
+        fn = self._range64 if arr.itemsize == 8 else self._range32
+        u = np.ascontiguousarray(arr).view(
+            np.uint64 if arr.itemsize == 8 else np.uint32)
+        mask = (1 << (8 * arr.itemsize)) - 1
+        rank = np.full(rng, -1, dtype=np.int32)
+        uniq_pos = np.empty(rng, dtype=np.int64)
+        indices = np.empty(max(u.size, 1), dtype=np.int32)[: u.size]
+        d = fn(u.ctypes.data, u.size, lo & mask, rng, rank.ctypes.data,
+               uniq_pos.ctypes.data, indices.ctypes.data)
+        if d < 0:
+            raise ValueError(f"value outside interning range (rc={d})")
+        return uniq_pos[:d].copy(), indices
+
+
 def bytes_native() -> NativeBytes:
     """The BYTE_ARRAY passes (raises without a C compiler)."""
     return _native("bytes", NativeBytes)
@@ -539,6 +670,16 @@ def delta_native() -> NativeDelta:
 def hybrid_native() -> NativeHybrid:
     """The hybrid run scanner (raises without a C compiler)."""
     return _native("hybrid", NativeHybrid)
+
+
+def intern_native() -> NativeIntern:
+    """The small-range integer intern (raises without a C compiler)."""
+    return _native("intern", NativeIntern)
+
+
+def page_native() -> NativePage:
+    """The page body pass and the CRC (raises without a C compiler)."""
+    return _native("page", NativePage)
 
 
 def pack_native() -> NativePack:

@@ -17,6 +17,18 @@ transport carried, under the JAX package's counter names
 ``pages_device_snappy``).  On the write side, ``pages_device_encoded``
 counts the data pages whose values encoded on the device
 (:class:`~tpuparquet_torch.kernels.encode.DeviceValues`), the JAX name.
+``pages_host_values`` counts the data pages whose values no device kernel
+takes (an encoding the device plan lacks for the column's type), decoded
+on the host and staged as they are.
+
+The writer counts, as the reference does: ``pages_written`` (every page,
+dictionary pages included, on either page path), ``pages_assembled_native``
+(the data pages whose body the one-pass C pipeline assembled,
+``io/pages.py`` ``_write_page_native``), and that pipeline's seconds a
+stage: ``write_encode_s`` (levels and values into one buffer),
+``write_compress_s`` (the block compression and the page CRC) and
+``write_assemble_s`` (the header and the writes); the pure page path
+counts none of them.
 
 ``pages_crc_verified`` counts the pages whose header CRC was checked and
 matched, ``crc_mismatches`` those that did not (the read then raises).
@@ -110,7 +122,7 @@ import time
 from dataclasses import dataclass, field, fields
 
 __all__ = ["DecodeStats", "adopt_stats", "collect_stats", "current_stats",
-           "merge_worker_stats", "worker_stats"]
+           "merge_worker_stats", "trace", "worker_stats"]
 
 
 @dataclass
@@ -129,6 +141,7 @@ class DecodeStats:
     pages_device_delta_lanes: int = 0
     pages_device_snappy: int = 0
     pages_device_encoded: int = 0
+    pages_host_values: int = 0
     pages_crc_verified: int = 0
     crc_mismatches: int = 0
     gather_bytes_moved: int = 0
@@ -165,6 +178,13 @@ class DecodeStats:
     bloom_hits: int = 0
     filter_rows_in: int = 0
     filter_rows_out: int = 0
+    # the write pipeline (io/pages.py)
+    pages_written: int = 0
+    pages_assembled_native: int = 0
+    # (walls: merged and shipped, not compared by ``==``)
+    write_encode_s: float = field(default=0.0, compare=False)
+    write_compress_s: float = field(default=0.0, compare=False)
+    write_assemble_s: float = field(default=0.0, compare=False)
     # the owning scope's wall: never merged (a worker's is not the
     # scope's), and not compared (two scopes of equal counts are equal)
     wall_s: float = field(default=0.0, compare=False)
@@ -356,3 +376,22 @@ def merge_worker_stats(st: DecodeStats | None, ws: DecodeStats | None, *,
         setattr(st, f, getattr(st, f) + getattr(ws, f))
     if st.events is not None and ws.events is not None:
         st.events.faults.extend(ws.events.faults)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """A ``torch.profiler`` trace of the enclosed scope, written into
+    ``log_dir`` as a Chrome trace (the reference's twin writes JAX's
+    profiler trace): host activity, and the card's kernels and copies
+    when CUDA is available.  The counters above stay host-side and
+    cheap."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, \
+        tensorboard_trace_handler
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
