@@ -361,6 +361,32 @@
    printed.  The pair's wall beside one unbound scan alone, best of 3 in
    turns.  Deactivated, ``_plan_threads()`` and ``_write_threads()`` are
    what they were before the arbiter.
+14. Remote sources, the range caches and ``DatasetScan``
+   (``check_remote``), config 2 from a file in a temporary directory,
+   one ``read_row_group_device`` call a row group (each row group's
+   chunk ranges prefetched as coalesced spans into the disk tier),
+   beside the same loop in memory and from the path.  14a: through
+   ``EmulatedStoreSource`` (``PHASE14_EMU``: 2 ms a request, a throttle,
+   a reset and a short response every 7th, 11th and 13th request), cold
+   (empty tiers) then warm, at the default and 1 plan worker: buffers
+   equal to the in-memory read's; cold, ``remote_ranges_fetched`` the
+   spans, ``ranges_coalesced`` the chunks less the spans,
+   ``remote_bytes`` the spans' bytes, ``remote_retry`` the faults the
+   emulator fired in the pass, a disk hit a chunk; warm, no fetch and a
+   disk hit a chunk.  14b: the same through ``HttpByteRangeSource`` from
+   ``tools/httpfault.FaultHTTPServer`` on 127.0.0.1, every 5th request
+   answered 429 with ``Retry-After`` (``remote_retry`` the 429s).  14c:
+   two processes (``--remote-child``) over one ``TPQ_CACHE_DISK_SHARED``
+   directory at once: each one's row-group checksums equal the local
+   read's; fleet disk hits twice the chunks, no miss, no eviction, the
+   chunks asked of the store between one and two times the chunks,
+   ``remote_retry`` the fired faults, an entry a chunk, no lock left.
+   14d: config 2's row groups written into four hive partitions
+   (``region=<v>/part-0.parquet``) read by ``DatasetScan`` from an
+   ``emu://`` root with a filter on ``region`` that prunes two:
+   ``dataset_files_pruned`` 2, units equal a ``ShardedScan`` of the
+   survivors' buffer for buffer, gathers (replicated and to device 0)
+   the generator's, K1-K5, K7, KS1 and KS4 launching.
 
 Before phase 1 it prints the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit`` gives them), the host's
@@ -387,7 +413,7 @@ for an A/B of another checkout's read passes in the same way, and
 ``host_gathers`` times phase 6's gathers onto the host likewise, and
 ``multihost_ab`` phase 7c against one process's ``run()``, in turns.
 Every kernel must have launched on the paths of phases 3 to 3i, 5, 5b,
-6, 7, 8, 9, 10, 11, 12 and 13;
+6, 7, 8, 9, 10, 11, 12, 13 and 14;
 the counts are set to 0 just before each path's read or write and read
 just after.  Exits non-zero, printing no result, when CUDA is
 unavailable or any phase fails.  The last line is
@@ -4382,21 +4408,29 @@ def _plan_workers(threads) -> int:
 
 
 @contextlib.contextmanager
-def _plan_threads_env(threads):
-    """``TPQ_PLAN_THREADS`` set to ``threads`` (None: unset) inside the
+def _env(**kv):
+    """The environment variables ``kv`` set (None: unset) inside the
     block, restored after."""
-    prev = os.environ.get("TPQ_PLAN_THREADS")
-    if threads is None:
-        os.environ.pop("TPQ_PLAN_THREADS", None)
-    else:
-        os.environ["TPQ_PLAN_THREADS"] = str(threads)
+    prev = {k: os.environ.get(k) for k in kv}
+    for k, v in kv.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
     try:
         yield
     finally:
-        if prev is None:
-            os.environ.pop("TPQ_PLAN_THREADS", None)
-        else:
-            os.environ["TPQ_PLAN_THREADS"] = prev
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _plan_threads_env(threads):
+    """``TPQ_PLAN_THREADS`` set to ``threads`` (None: unset) inside the
+    block, restored after."""
+    return _env(TPQ_PLAN_THREADS=threads)
 
 
 def _best_one(label, reader, dev, n_values, reps: int = 3, note: str = "",
@@ -8050,6 +8084,393 @@ def check_arbiter(blob, results, mesh, dev, wrappers,
     return launches
 
 
+# phase 14's emulated store (``EmulatedStoreSource`` knobs): a fixed
+# latency a request, and a throttle (HTTP 429), a reset and a short
+# response on every 7th, 11th and 13th request of a source
+PHASE14_EMU = {"latency_ms": 2.0, "throttle_every": 7, "reset_every": 11,
+               "short_every": 13}
+# phase 14b's origin answers every 5th request with 429 and Retry-After
+PHASE14_HTTP_THROTTLE = 5
+PHASE14_RETRY_AFTER_S = 0.05
+# phase 14d's hive partitions, config 2's row groups two a partition, and
+# the two its filter keeps
+PHASE14_REGIONS = ("ap", "eu", "sa", "us")
+PHASE14_KEEP = ("eu", "us")
+REMOTE_COUNTERS = ("remote_ranges_fetched", "ranges_coalesced",
+                   "remote_bytes", "remote_retry", "cache_hits_mem",
+                   "cache_misses_mem", "cache_hits_disk",
+                   "cache_misses_disk", "cache_evictions_disk")
+
+
+def _emu_faults(first: int, last: int, knobs: dict) -> int:
+    """How many of an emulated source's requests ``first..last`` fail (a
+    throttle, a reset or a short response: each one a retry)."""
+    every = [knobs[k] for k in ("throttle_every", "reset_every",
+                                "short_every") if knobs.get(k)]
+    return sum(1 for n in range(first, last + 1)
+               if any(n % e == 0 for e in every))
+
+
+def _chunk_spans(reader) -> tuple:
+    """``(chunks, spans, span bytes)`` of a pass that prefetches each row
+    group's chunk ranges coalesced under ``TPQ_RANGE_COALESCE_GAP``."""
+    from tpuparquet_torch.io.source import coalesce_gap_default, \
+        coalesce_ranges
+
+    n = n_spans = span_bytes = 0
+    for rg in reader.meta.row_groups:
+        ranges = [(reader._chunk_start(cm), cm.total_compressed_size)
+                  for _p, _n, cm in reader.selected_chunks(rg)]
+        spans = coalesce_ranges(ranges, coalesce_gap_default())
+        n += len(ranges)
+        n_spans += len(spans)
+        span_bytes += sum(z for _s, z, _m in spans)
+    return n, n_spans, span_bytes
+
+
+def _row_group_pass(reader, dev, wrappers):
+    """Every row group of ``reader``, one ``read_row_group_device`` call
+    each (a source's chunk ranges prefetched into the disk tier first),
+    the kernel counts set to 0 just before.  Returns ``(outputs,
+    launches, collector, wall)``."""
+    from tpuparquet_torch.kernels.device import read_row_group_device
+    from tpuparquet_torch.stats import collect_stats
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with collect_stats() as st:
+        got = [(i, read_row_group_device(reader, i, device=dev))
+               for i in range(reader.row_group_count())]
+        _sync(dev)
+    wall = time.perf_counter() - t0
+    _no_ladder("a remote read", st)
+    return got, {k: fn.launches for k, fn in wrappers.items()}, st, wall
+
+
+def _counters(st) -> dict:
+    return {k: getattr(st, k) for k in REMOTE_COUNTERS}
+
+
+def _fresh_tier(cache: str) -> None:
+    """An empty disk tier in ``cache`` and no tier singletons."""
+    import shutil
+
+    from tpuparquet_torch.io.rangecache import reset_range_caches
+
+    shutil.rmtree(cache, ignore_errors=True)
+    os.makedirs(cache)
+    reset_range_caches()
+
+
+def _check_cold_warm(label, open_reader, faults_of, want, dev, wrappers,
+                     threads, cache) -> dict:
+    """A cold pass (an empty tier), then a warm one (a new reader over
+    the filled tier), at ``threads`` plan workers.  Cold: the buffers are
+    ``want``'s, every chunk range is fetched in one coalesced span or
+    saved by one (``remote_ranges_fetched + ranges_coalesced`` = the
+    chunks, ``remote_bytes`` = the spans' bytes), ``remote_retry`` = the
+    faults ``faults_of(reader, before)`` counts, and every chunk read
+    hits the disk tier.  Warm: no fetch, a disk hit a chunk.  Returns
+    the walls and counters."""
+    out = {}
+    _fresh_tier(cache)
+    with _plan_threads_env(threads):
+        for leg in ("cold", "warm"):
+            reader = open_reader()  # the footer's reads outside the pass
+            before = faults_of(reader, None)
+            got, launches, st, wall = _row_group_pass(reader, dev,
+                                                      wrappers)
+            faults = faults_of(reader, before)
+            n, n_spans, span_bytes = _chunk_spans(reader)
+            reader.close()
+            _same_columns(f"{label} {leg}", got, want)
+            del got
+            c = _counters(st)
+            bad = []
+            if leg == "cold":
+                if c["remote_ranges_fetched"] + c["ranges_coalesced"] != n:
+                    bad.append(f"fetched + coalesced != {n} chunks")
+                if c["remote_ranges_fetched"] != n_spans:
+                    bad.append(f"fetched != {n_spans} spans")
+                if c["remote_bytes"] != span_bytes:
+                    bad.append(f"remote_bytes != {span_bytes}")
+                if c["remote_retry"] != faults:
+                    bad.append(f"remote_retry != {faults} faults")
+            elif c["remote_ranges_fetched"] or c["remote_retry"]:
+                bad.append("a warm pass fetched")
+            if c["cache_hits_disk"] != n or c["cache_misses_disk"]:
+                bad.append(f"disk hits != {n} chunks")
+            if bad:
+                raise AssertionError(f"{label} {leg}: {bad}: {c}")
+            _need(f"{label} {leg}", launches, CONFIG2_KERNELS)
+            out[leg] = (wall, c, launches)
+            print(f"{label} {leg} at {_plan_workers(threads)} plan "
+                  f"workers: {wall:.4f} s; {c}; injected faults "
+                  f"{faults}", flush=True)
+    return out
+
+
+def _add(total, launches) -> None:
+    for k, c in launches.items():
+        total[k] = total.get(k, 0) + c
+
+
+def remote_child(argv) -> int:
+    """One process of phase 14c (``chip_smoke.py --remote-child OUT URI
+    KNOBS DEVICE``): reads URI row group by row group on DEVICE
+    (``cuda``: this process's card) through the process's range caches
+    (the ``TPQ_CACHE_*`` environment), the footer read before the pass,
+    and writes to OUT each row group's checksum, the pass's remote and
+    cache counters, and the faults its emulated source (knobs: the JSON
+    KNOBS) fired in the pass."""
+    out, uri, knobs, device = argv
+    if device == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from tpuparquet_torch.io.reader import FileReader
+    from tpuparquet_torch.io.source import EmulatedStoreSource, \
+        parse_source_uri
+
+    knobs = json.loads(knobs)
+    dev = torch.device(device, 0) if device == "cuda" \
+        else torch.device(device)
+    src = EmulatedStoreSource(parse_source_uri(uri)[1], uri, **knobs)
+    reader = FileReader(src)
+    first = src._requests + 1
+    got, _launches, st, wall = _row_group_pass(reader, dev, {})
+    faults = _emu_faults(first, src._requests, knobs)
+    sums = [unit_checksum(cols) for _i, cols in got]
+    reader.close()
+    with open(out, "w") as f:
+        json.dump({"checksums": sums, "counters": _counters(st),
+                   "faults": faults, "wall": wall}, f)
+    return 0
+
+
+def _shared_pair(uri: str, cache: str, tmp: str, dev) -> list:
+    """Phase 14c's two processes on ``dev``'s type, started at once over
+    one shared disk tier; each has 300 s, and both are killed past
+    it."""
+    env = dict(os.environ, TPQ_CACHE_DISK_DIR=cache,
+               TPQ_CACHE_DISK_SHARED="1")
+    outs = [os.path.join(tmp, f"shared{r}.json") for r in (0, 1)]
+    logs = [os.path.join(tmp, f"shared{r}.log") for r in (0, 1)]
+    procs = []
+    try:
+        for r in (0, 1):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--remote-child", outs[r], uri,
+                     json.dumps(PHASE14_EMU), dev.type], env=env,
+                    stdout=log,
+                    stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + 300
+        while any(p.poll() is None for p in procs) \
+                and time.monotonic() < deadline:
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if any(p.returncode != 0 for p in procs):
+        tails = []
+        for r, p in enumerate(procs):
+            with open(logs[r]) as f:
+                tails.append(f"process {r} (exit {p.returncode}):\n"
+                             f"{f.read()[-3000:]}")
+        raise AssertionError("14c: a process failed\n" + "\n".join(tails))
+    found = []
+    for o in outs:
+        with open(o) as f:
+            found.append(json.load(f))
+    return found
+
+
+def check_remote(blob, groups, reader, mesh, dev, wrappers,
+                 c2_pass_s: float) -> dict:
+    """Phase 14: config 2 read through the byte-range sources and the
+    range caches, and a partitioned dataset scanned through
+    ``DatasetScan``.  Returns the launches of its main-path reads."""
+    import glob
+
+    from tpuparquet_torch import DatasetScan, ShardedScan, col
+    from tpuparquet_torch.dataset.manifest import partition_dir
+    from tpuparquet_torch.io.reader import FileReader
+    from tpuparquet_torch.io.source import EmulatedStoreSource, \
+        HttpByteRangeSource
+    from tpuparquet_torch.stats import collect_stats
+    from tools.httpfault import FaultHTTPServer, FaultPlan
+
+    t14 = time.perf_counter()
+    total: dict = {}
+    want, launches, _st, local_s = _row_group_pass(reader, dev, wrappers)
+    _need("14 local", launches, CONFIG2_KERNELS)
+    _add(total, launches)
+    with tempfile.TemporaryDirectory(
+            prefix=".smoke-", dir=os.path.dirname(
+                os.path.abspath(__file__))) as tmp:
+        path = os.path.join(tmp, "config2.parquet")
+        with open(path, "wb") as f:
+            f.write(blob)
+        cache = os.path.join(tmp, "cache")
+        with FileReader(path) as r:
+            _g, _l, _s, path_s = _row_group_pass(r, dev, wrappers)
+        del _g
+        print(f"14 local: phase 3's pass {c2_pass_s:.4f} s "
+              "(read_row_groups_device, in memory); one "
+              f"read_row_group_device a row group {local_s:.4f} s in "
+              f"memory, {path_s:.4f} s from its path", flush=True)
+
+        # 14a: emu://, cold then warm, at the default and 1 plan worker
+        def open_emu():
+            return FileReader(EmulatedStoreSource(
+                path, "emu://" + path, **PHASE14_EMU))
+
+        def emu_faults(r, before):
+            n = r._source._requests
+            return n + 1 if before is None else _emu_faults(before, n,
+                                                            PHASE14_EMU)
+
+        walls = {}
+        with _env(TPQ_CACHE_DISK_DIR=cache, TPQ_CACHE_DISK_MB=None,
+                  TPQ_CACHE_DISK_SHARED=None):
+            for threads in (None, 1):
+                got = _check_cold_warm("14a emu", open_emu, emu_faults,
+                                       want, dev, wrappers, threads, cache)
+                for leg, (wall, _c, launches) in got.items():
+                    walls[("emu", leg, _plan_workers(threads))] = wall
+                    _add(total, launches)
+
+            # 14b: http:// from an origin on 127.0.0.1 that throttles
+            srv = FaultHTTPServer(("127.0.0.1", 0), tmp)
+            th = threading.Thread(target=srv.serve_forever, daemon=True)
+            th.start()
+            try:
+                url = f"{srv.base_url}/config2.parquet"
+                srv.plan = FaultPlan(throttle_every=PHASE14_HTTP_THROTTLE,
+                                     retry_after_s=PHASE14_RETRY_AFTER_S)
+
+                def open_http():
+                    return FileReader(HttpByteRangeSource(url))
+
+                def http_faults(_r, before):
+                    n = srv._requests
+                    return n + 1 if before is None else sum(
+                        1 for k in range(before, n + 1)
+                        if k % PHASE14_HTTP_THROTTLE == 0)
+
+                for threads in (None, 1):
+                    got = _check_cold_warm("14b http", open_http,
+                                           http_faults, want, dev,
+                                           wrappers, threads, cache)
+                    if got["cold"][1]["remote_retry"] < 1:
+                        raise AssertionError("14b: no 429 retried")
+                    for leg, (wall, _c, launches) in got.items():
+                        walls[("http", leg, _plan_workers(threads))] = wall
+                        _add(total, launches)
+            finally:
+                srv.shutdown()
+                srv.server_close()
+                th.join(10.0)
+        print(f"14a/14b walls (s): {walls}; every 429 carried "
+              f"Retry-After {PHASE14_RETRY_AFTER_S} s", flush=True)
+
+        # 14c: two processes at once over one shared disk tier
+        _fresh_tier(cache)
+        t0 = time.perf_counter()
+        found = _shared_pair("emu://" + path, cache, tmp, dev)
+        pair_s = time.perf_counter() - t0
+        n = _chunk_spans(reader)[0]
+        sums = [unit_checksum(cols) for _i, cols in want]
+        fleet = {k: sum(f["counters"][k] for f in found)
+                 for k in REMOTE_COUNTERS}
+        asked = fleet["remote_ranges_fetched"] + fleet["ranges_coalesced"]
+        bad = []
+        if any(f["checksums"] != sums for f in found):
+            bad.append("a process's buffers differ from the local read's")
+        if fleet["cache_hits_disk"] != 2 * n or fleet["cache_misses_disk"] \
+                or fleet["cache_evictions_disk"]:
+            bad.append(f"disk hits != 2 x {n} chunks, or a miss or an "
+                       "eviction")
+        if not n <= asked <= 2 * n:
+            bad.append(f"{asked} chunk ranges asked of the store, not "
+                       f"{n}-{2 * n}")
+        if fleet["remote_retry"] != sum(f["faults"] for f in found):
+            bad.append("remote_retry != the injected faults")
+        entries = glob.glob(os.path.join(cache, "*.tpqc"))
+        if len(entries) != n or os.path.exists(
+                os.path.join(cache, "index.lock")):
+            bad.append(f"{len(entries)} entries (not {n}) or a lock left")
+        if bad:
+            raise AssertionError(f"14c: {bad}: fleet {fleet}")
+        print(f"14c shared disk tier, two processes at once: {pair_s:.2f} "
+              f"s with their start; fleet {fleet}; the processes' passes "
+              f"{[round(f['wall'], 4) for f in found]} s; {len(entries)} "
+              "entries, no lock left", flush=True)
+
+        # 14d: DatasetScan over four hive partitions on an emu:// root
+        root = os.path.join(tmp, "trips")
+        g2 = [(c, {"payment_type": m}) for c, m in groups]
+        per = len(groups) // len(PHASE14_REGIONS)
+        kept = []
+        for i, region in enumerate(PHASE14_REGIONS):
+            d = os.path.join(root, partition_dir(["region"],
+                                                 {"region": region}))
+            os.makedirs(d)
+            part = groups[i * per:(i + 1) * per]
+            with open(os.path.join(d, "part-0.parquet"), "wb") as f:
+                f.write(_write(SCHEMA, part, "payment_type"))
+            if region in PHASE14_KEEP:
+                kept += g2[i * per:(i + 1) * per]
+        f_keep = col("region").isin(list(PHASE14_KEEP))
+        fixed = list(groups[0][0])
+        with _env(TPQ_CACHE_DISK_DIR=None):
+            with collect_stats() as st:
+                ds = DatasetScan("emu://" + root, mesh=mesh, filter=f_keep)
+            for fn in wrappers.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            results = ds.run()
+            gathered = {name: ds.gather_column(results, name)
+                        for name in fixed}
+            placed = {name: ds.gather_column(
+                results, name, gather_to=0 if dev.type == "cuda" else dev)
+                for name in fixed}
+            _sync(dev)
+            ds_s = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in wrappers.items()}
+            with ShardedScan(ds.sources, mesh=mesh) as plain:
+                plain_units = plain.run()
+            ds.close()
+        if st.dataset_files_pruned != 2 or ds.files_pruned != 2:
+            raise AssertionError(f"14d: {st.dataset_files_pruned} files "
+                                 "pruned, not 2")
+        if sorted(p["region"] for p in ds.partitions.values()) != \
+                sorted(PHASE14_KEEP):
+            raise AssertionError(f"14d: partitions {ds.partitions}")
+        _same_columns("14d units", list(enumerate(results)),
+                      list(enumerate(plain_units)))
+        for name in fixed:
+            _check_fixed_gather("14d", name, gathered[name], kept, results)
+            _same_gather("14d", name, placed[name], gathered[name],
+                         "to device 0")
+        _need("14d", launches, CONFIG2_KERNELS + ["scatter_to_dense",
+                                                  "place_rows"])
+        _add(total, launches)
+        print(f"14d DatasetScan of {ds.sources}: {len(results)} units, "
+              f"dataset_files_pruned {st.dataset_files_pruned}, run() and "
+              f"{2 * len(fixed)} gathers (replicated, to device 0) "
+              f"{ds_s:.4f} s; units equal a ShardedScan of the "
+              "survivors', gathers the generator's; "
+              f"launches {launches}", flush=True)
+    print(f"phase 14 (remote sources, range caches, DatasetScan): "
+          f"{time.perf_counter() - t14:.2f} s", flush=True)
+    return total
+
+
 def kernel_wrappers() -> dict:
     """Every kernel's wrapper by name; each counts its launches in its
     ``launches`` attribute."""
@@ -8084,6 +8505,8 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--multihost-child"]:
         return multihost_child(argv[1:])
+    if argv[:1] == ["--remote-child"]:
+        return remote_child(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--values", type=int, default=50_000_000)
     ap.add_argument("--groups", type=int, default=8)
@@ -8536,6 +8959,14 @@ def main(argv=None) -> int:
     # phase 13: two tenants' scans of config 2 at once under the serve
     # arbiter's shares, admission control and the rebalance
     launches = check_arbiter(blob, c2["results"], one, dev, wrappers)
+    for k, c in launches.items():
+        total_launches[k] += c
+
+    # phase 14: config 2 through emu:// and http:// sources and the range
+    # caches, cold and warm (14a, 14b), two processes over one shared
+    # disk tier (14c), and a DatasetScan of hive partitions (14d)
+    launches = check_remote(blob, groups, reader, one, dev, wrappers,
+                            c2_pass_s)
     for k, c in launches.items():
         total_launches[k] += c
 

@@ -964,3 +964,21 @@ def test_native_writes_on_card(cuda):
     blob, groups = chip_smoke.build_config2(2_000_000, 2)
     dv = chip_smoke._device_groups(FileReader(blob), cuda)
     chip_smoke.check_native_writes(groups, dv, 2_000_000, reps=1)
+
+
+def test_remote_reads_and_dataset_on_card(cuda):
+    """Phase 14 at a small size: config 2 through ``emu://`` and an
+    ``http://`` origin on 127.0.0.1, cold then warm (exact fetch, coalesce,
+    retry and disk-hit counts, buffers equal to the in-memory read's), two
+    processes over one shared disk tier, and a ``DatasetScan`` of four
+    hive partitions pruned to two, config 2's kernels launching."""
+    from tpuparquet_torch.shard import make_mesh
+
+    # 200,000 rows a row group, one a partition: the transports engage
+    blob, groups = chip_smoke.build_config2(4_000_000, 4)
+    launches = chip_smoke.check_remote(
+        blob, groups, FileReader(blob), make_mesh(1), cuda,
+        chip_smoke.kernel_wrappers(), 0.0)
+    for k in chip_smoke.CONFIG2_KERNELS + ["scatter_to_dense",
+                                           "place_rows"]:
+        assert launches[k] > 0, k

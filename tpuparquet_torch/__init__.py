@@ -25,13 +25,25 @@ that consumes it:
         units = scan.run()
         values, counts = scan.gather_column(units, "fare")
 
+A reader's source may be a byte-range source or its URI (``file://``,
+``emu://``, ``http(s)://``; ``io/source.py``), read through the range
+caches (``io/rangecache.py``), and a partitioned dataset directory scans
+through its manifest or its hive directories (:class:`DatasetScan`):
+
+    from tpuparquet_torch import DatasetScan
+
+    with DatasetScan("emu:///data/trips", "fare",
+                     filter="region == 'eu'") as ds:
+        units = ds.run()
+
 Entry points run on the current CUDA device unless ``device="cpu"`` (or
 a mesh of ``cpu`` slots) is passed, which runs every kernel's plain
 PyTorch version instead.
 
 The top level also carries the reference's surface: the reader and the
 writer, the format's enums, the schema DSL, the error taxonomy, the fault
-harness, the filter DSL, the counters, the codec registry and ``obs``.
+harness, the filter DSL, the counters, the codec registry, the source and
+range-cache hooks, :class:`DatasetScan` and ``obs``.
 """
 
 from . import obs  # noqa: F401
@@ -58,6 +70,12 @@ from .format.metadata import (  # noqa: F401
     Type,
 )
 from .format.schema import Schema  # noqa: F401
+from .io import (  # noqa: F401
+    invalidate_source_caches,
+    open_byte_source,
+    parse_source_uri,
+    reset_range_caches,
+)
 from .io.reader import FileReader  # noqa: F401
 from .io.writer import FileWriter  # noqa: F401
 from .stats import DecodeStats, collect_stats, trace  # noqa: F401
@@ -76,3 +94,4 @@ from .shard import (  # noqa: F401
     make_mesh,
     sharded_dict_decode,
 )
+from .dataset import DatasetScan  # noqa: F401

@@ -15,6 +15,7 @@ __all__ = [
     "CorruptPageError",
     "CorruptChunkError",
     "CorruptFooterError",
+    "CorruptManifestError",
     "TransientIOError",
     "DeviceDispatchError",
     "DeadlineExceededError",
@@ -99,8 +100,19 @@ class CorruptFooterError(ScanError, ValueError):
         return c
 
 
+class CorruptManifestError(ScanError, ValueError):
+    """A partitioned dataset's manifest snapshot or commit journal failed
+    its framing checks: not the envelope format, an unknown version, a
+    CRC mismatch over the canonical body, or a body that fails structural
+    validation (``dataset/manifest.py``).  ``file`` names the manifest;
+    the resolver degrades to the newest older snapshot that validates."""
+
+
 class TransientIOError(ScanError, OSError):
-    """An I/O failure that may succeed on retry."""
+    """An I/O failure that may succeed on retry.  A remote source's
+    throttle (HTTP 429 or 503 with a ``Retry-After`` header,
+    ``io/source.py``) sets ``retry_after_s``, which
+    ``faults.retry_transient`` honours up to its backoff cap."""
 
 
 class DeviceDispatchError(ScanError, RuntimeError):

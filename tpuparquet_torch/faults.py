@@ -55,6 +55,20 @@ Fault sites (``site`` of :meth:`FaultInjector.inject`) and their kinds:
 ``kernels.device.unit_dispatch``      ``_finish_row_group``, a unit —
                                       ``dispatch``
 ``kernels.device.hang``               ``_finish_row_group`` — ``hang``
+``io.remote.open``                    a byte-range source's open
+                                      (``io/source.py``) — ``oserror``,
+                                      ``transient``
+``io.remote.throttle``                each range request, before the read
+                                      (the HTTP 429 slot) — ``transient``
+``io.remote.range``                   a range request's payload (a short
+                                      response raises transient, never
+                                      returns) — ``oserror``,
+                                      ``transient``, ``corrupt``,
+                                      ``truncate``
+``dataset.manifest.load``             a manifest or commit journal's
+                                      bytes (``dataset/manifest.py``) —
+                                      ``oserror``, ``transient``,
+                                      ``corrupt``, ``truncate``
 ====================================  =====================================
 
 Kinds: ``oserror`` raises ``OSError(EIO)``; ``transient``
@@ -100,9 +114,9 @@ __all__ = [
 
 #: Every instrumented site and the kinds it supports.  Sites match rules
 #: by string equality, so a drifted name never fires: the tests check
-#: the instrumented sites against this table.  The reference's remote
-#: (``io.remote.*``) and dataset sites wait for the modules that own
-#: them.
+#: the instrumented sites against this table.  The reference's
+#: ``dataset.manifest.write`` and ``dataset.file.promote`` wait for the
+#: dataset writer, the only module that fires them.
 SITES: dict[str, tuple] = {
     "io.reader.open": ("oserror", "transient"),
     "io.reader.chunk_read": ("oserror", "transient",
@@ -119,6 +133,12 @@ SITES: dict[str, tuple] = {
     "format.footer.blob": ("corrupt", "truncate"),
     "format.pageindex": ("oserror", "transient",
                          "corrupt", "truncate"),
+    "io.remote.open": ("oserror", "transient"),
+    "io.remote.throttle": ("transient",),
+    "io.remote.range": ("oserror", "transient",
+                        "corrupt", "truncate"),
+    "dataset.manifest.load": ("oserror", "transient",
+                              "corrupt", "truncate"),
 }
 
 _active: "FaultInjector | None" = None

@@ -818,8 +818,13 @@ def read_row_group_filtered(reader, rg_index: int, f: Filter,
         return node, cd, kept
 
     # stage 2: filter columns decode first, predicate runs exactly on
-    # the candidate rows (kept is a page-granular superset of cand)
+    # the candidate rows (kept is a page-granular superset of cand).  A
+    # byte-range source fetches the chunks each stage reads first,
+    # coalesced: the filter columns here, the other columns below
     fcols = sorted(f.columns())
+    reader.prefetch_ranges([
+        (reader._chunk_start(cms[p]), cms[p].total_compressed_size, p)
+        for p in fcols if p in cms])
     decoded = {}
     for path in fcols:
         if path not in cms:
@@ -850,7 +855,11 @@ def read_row_group_filtered(reader, rg_index: int, f: Filter,
         keep2 = np.zeros(num_rows, dtype=bool)
         keep2[surviving] = True
     out = {}
-    for path, node, _cm in reader.selected_chunks(rg):
+    sel = reader.selected_chunks(rg)
+    reader.prefetch_ranges([
+        (reader._chunk_start(cm), cm.total_compressed_size, p)
+        for p, _n, cm in sel if p not in decoded])
+    for path, node, _cm in sel:
         if path in decoded:
             node, cd, kept = decoded[path]
         else:

@@ -1,7 +1,10 @@
 """FileReader subset: footer, schema and column-chunk byte ranges.
 
-Opens a path, a bytes-like object or a file object (read whole, from
-its start).  A path stays open and each chunk's byte range is read from
+Opens a path, a byte-range source (``io/source.py``: a
+:class:`~tpuparquet_torch.io.source.ByteRangeSource`, a ``file://``,
+``emu://`` or ``http(s)://`` URI, or a bare path ``TPQ_SOURCE``
+reroutes), a bytes-like object or a file object (read whole, from its
+start).  A path stays open and each chunk's byte range is read from
 it on demand (the seek and the read under the handle's lock, since the
 plan workers of ``kernels/device.py`` read chunks of one reader at
 once); the bytes of an in-memory source are held once and every chunk is
@@ -47,6 +50,18 @@ inside is never closed, only dropped.  Decoding is the device path's job
 (``kernels/device.py``); :meth:`FileReader.read_row_group_arrays` is the
 host decode (``io/chunk.py`` ``read_chunk``), the filtered read's oracle.
 
+A byte-range source takes the remote read path.  Its footer, page-index
+and bloom ranges go through the memory tier of the range caches
+(``io/rangecache.py``, keyed by the source's etag and the range), its
+chunk ranges through the disk tier; a miss fetches (retried, counted in
+``remote_retry``) and counts ``remote_ranges_fetched`` and
+``remote_bytes``.  :meth:`FileReader.prefetch_chunks` and
+:meth:`FileReader.prefetch_ranges` coalesce a row group's missing chunk
+ranges under ``TPQ_RANGE_COALESCE_GAP`` and fetch the spans in parallel
+into the disk tier (``ranges_coalesced`` counts the requests a span
+saved).  A corrupt page or chunk evicts the source's cached ranges from
+both tiers, so a retry reads the store, not the poison.
+
 Predicate pushdown reads three things here: :meth:`FileReader.page_index`
 (each column's pages with their row ranges and logical bounds, checked
 by ``format/validate.py`` ``validate_page_index``; a column whose index
@@ -66,6 +81,7 @@ import struct
 import threading
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 from ..deadline import call_with_deadline, hedge_delay_default, \
     hedged_call, read_deadline_default, read_latency
@@ -90,8 +106,11 @@ from ..obs import profiler as _profiler
 from ..obs import recorder as _flightrec
 from ..obs import trace as _trace
 from ..obs.recorder import flight
-from ..stats import current_stats
+from ..stats import current_stats, merge_worker_stats, worker_stats
 from .chunk import ChunkData, read_chunk
+from .rangecache import disk_cache, invalidate_source_caches, mem_cache
+from .source import ByteRangeSource, RangeSourceFile, \
+    coalesce_gap_default, coalesce_ranges, open_byte_source
 from .values import handler_for
 
 __all__ = ["FileReader"]
@@ -118,8 +137,71 @@ class _IoHandle:
         self.inflight = 0   # under the reader's _count_lock
 
 
+def _cached_range(source, start: int, size: int, fetch) -> bytes:
+    """One absolute range of a byte-range source through the memory tier
+    (keyed by the source's etag and the range); a miss calls ``fetch()``
+    and counts ``remote_ranges_fetched`` and ``remote_bytes``."""
+    key = source.etag() + (start, size)
+    mc = mem_cache()
+    data = None if mc is None else mc.get(key)
+    if data is None:
+        data = fetch()
+        st = current_stats()
+        if st is not None:
+            st.remote_ranges_fetched += 1
+            st.remote_bytes += size
+        if mc is not None:
+            mc.put(key, data)
+    return data
+
+
+class _MetaRangeFile:
+    """A file object over a byte-range source whose every read is one
+    absolute range through the memory tier (keyed by the source's etag),
+    so reopens of one object (the fingerprint, a handle swapped after an
+    expiry, a replica) cost no round trips.  A miss fetches with the
+    retry ladder (``remote_retry``) and counts ``remote_ranges_fetched``
+    and ``remote_bytes``.  Its position is its own."""
+
+    def __init__(self, source):
+        self.source = source
+        self.name = source.uri
+        self._pos = 0
+
+    def read(self, size: int = -1) -> bytes:
+        end = self.source.size()
+        if size is None or size < 0:
+            size = max(0, end - self._pos)
+        else:
+            size = min(size, max(0, end - self._pos))
+        if size == 0:
+            return b""
+        start = self._pos
+        data = _cached_range(
+            self.source, start, size, lambda: retry_transient(
+                lambda: self.source.get_range(start, size),
+                counter="remote_retry"))
+        self._pos += size
+        return data
+
+    def seek(self, offset: int, whence: int = os.SEEK_SET) -> int:
+        if whence == os.SEEK_SET:
+            self._pos = offset
+        elif whence == os.SEEK_CUR:
+            self._pos += offset
+        elif whence == os.SEEK_END:
+            self._pos = self.source.size() + offset
+        else:
+            raise ValueError(f"bad whence {whence}")
+        return self._pos
+
+    def tell(self) -> int:
+        return self._pos
+
+
 class FileReader:
-    """Parquet file metadata + chunk access over a file or a buffer."""
+    """Parquet file metadata + chunk access over a file, a byte-range
+    source or a buffer."""
 
     def __init__(self, source, *columns: str,
                  verify_crc: bool | None = None,
@@ -146,7 +228,25 @@ class FileReader:
         self.salvage_report = None
         self.metadata_findings = None
         self._plan_fp = _FP_UNSET
-        if isinstance(source, (str, os.PathLike)):
+        # a byte-range source rides behind a file object, so the handle,
+        # hedge and deadline machinery below serves it unchanged
+        self._source = (source if isinstance(source, ByteRangeSource)
+                        else open_byte_source(source)
+                        if isinstance(source, str) else None)
+        if self._source is not None:
+            self.name = self._source.uri
+            f = RangeSourceFile(self._source)
+            try:
+                fault_point("io.reader.open", file=self.name)
+                self._size = self._source.size()
+                self.meta = self._resolve_metadata(
+                    _MetaRangeFile(self._source), f, strict_metadata,
+                    salvage, salvage_like)
+            except BaseException:
+                f.close()
+                raise
+            self._io = _IoHandle(f, True, self.name)
+        elif isinstance(source, (str, os.PathLike)):
             self.name = os.fspath(source)
             f = open(source, "rb")
             try:
@@ -335,11 +435,29 @@ class FileReader:
                 fault_point("io.chunk.hang", file=self.name, column=path)
                 blob = self._buf[start : start + size]
             else:
-                blob = memoryview(self._read_chunk_bytes(start, size, path))
-                if len(blob) < size:
-                    raise CorruptChunkError(
-                        f"column chunk short read: {len(blob)}/{size} "
-                        "bytes", column=path, file=self.name)
+                # a source's chunk ranges live in the disk tier: a hit
+                # skips the fetch, a miss fetches through the whole read
+                # policy and fills the tier
+                dcache = ckey = got = None
+                if self._source is not None:
+                    dcache = disk_cache()
+                    if dcache is not None:
+                        ckey = self._source.etag() + (start, size)
+                        got = dcache.get(ckey)
+                if got is None:
+                    got = self._read_chunk_bytes(start, size, path)
+                    if len(got) < size:
+                        raise CorruptChunkError(
+                            f"column chunk short read: {len(got)}/{size} "
+                            "bytes", column=path, file=self.name)
+                    if self._source is not None:
+                        st = current_stats()
+                        if st is not None:
+                            st.remote_ranges_fetched += 1
+                            st.remote_bytes += len(got)
+                        if dcache is not None:
+                            dcache.put(ckey, got)
+                blob = memoryview(got)
         finally:
             if ptok is not None:
                 _profiler.wait_end(ptok)
@@ -368,6 +486,10 @@ class FileReader:
             raise ValueError("byte range overruns the file")
         if self._io is None:
             return bytes(self._buf[start : start + size])
+        if self._source is not None:
+            # the page-index and bloom blobs live in the memory tier
+            return _cached_range(self._source, start, size,
+                                 lambda: self._source.get_range(start, size))
         with self._count_lock:
             h = self._io
             h.inflight += 1
@@ -429,10 +551,12 @@ class FileReader:
                 ci_blob = filter_bytes(
                     "format.pageindex",
                     retry_transient(lambda: self._read_range(
-                        cc.column_index_offset, cc.column_index_length)),
+                        cc.column_index_offset, cc.column_index_length),
+                        counter=self._retry_counter),
                     column=path)
                 oi_blob = retry_transient(lambda: self._read_range(
-                    cc.offset_index_offset, cc.offset_index_length))
+                    cc.offset_index_offset, cc.offset_index_length),
+                    counter=self._retry_counter)
                 ci = ColumnIndex.from_bytes(ci_blob)
                 oi = OffsetIndex.from_bytes(oi_blob)
                 findings = validate_page_index(
@@ -524,7 +648,9 @@ class FileReader:
                                             r.pos + (header.numBytes or 0))
 
                 blob = filter_bytes("format.pageindex",
-                                    retry_transient(read), column=column)
+                                    retry_transient(
+                                        read, counter=self._retry_counter),
+                                    column=column)
                 got = SplitBlockBloom.from_bytes(blob)
             except (ScanError, OSError, ValueError, ThriftError,
                     IndexError, KeyError, TypeError, OverflowError) as e:
@@ -611,8 +737,9 @@ class FileReader:
             if filter is not None:
                 return read_row_group_filtered(self, rg_index, filter)[0]
             out = {}
-            for path, node, cm in self.selected_chunks(
-                    self.meta.row_groups[rg_index]):
+            rg = self.meta.row_groups[rg_index]
+            self.prefetch_chunks(rg)
+            for path, node, cm in self.selected_chunks(rg):
                 blob, start = self.chunk_blob(cm, path)
                 out[path] = read_chunk(blob, _rebase(cm, start), node,
                                        verify_crc=self.verify_crc)
@@ -622,9 +749,99 @@ class FileReader:
                                                  CorruptChunkError)):
                 # the bytes no longer match the footer: drop the file's
                 # cached plans (only a fingerprint already computed can
-                # have any)
+                # have any), and a source's cached ranges, which may
+                # have served the bad bytes
                 invalidate_fingerprint(self.cached_plan_fingerprint())
+                self.drop_range_caches()
             raise e.annotate(row_group=rg_index, file=self.name)
+
+    def drop_range_caches(self) -> None:
+        """Evict this reader's source from both range-cache tiers (a
+        no-op for a path or a buffer): the corruption hook, so a retry
+        refetches from the store."""
+        if self._source is not None:
+            invalidate_source_caches(self._source.uri)
+
+    def prefetch_chunks(self, rg) -> None:
+        """Fetch the selected chunk ranges of one row group into the disk
+        tier ahead of their reads (a no-op but for a byte-range source)."""
+        if self._source is None:
+            return
+        self.prefetch_ranges([
+            (self._chunk_start(cm), cm.total_compressed_size, path)
+            for path, _node, cm in self.selected_chunks(rg)])
+
+    def prefetch_ranges(self, entries) -> None:
+        """Coalesce ``(start, size, path)`` requests not already in the
+        disk tier under ``TPQ_RANGE_COALESCE_GAP`` and fetch the spans in
+        parallel on the plan workers' budget, each member range stored in
+        the tier.  Counts ``remote_ranges_fetched`` a span issued,
+        ``ranges_coalesced`` the requests a span saved and
+        ``remote_bytes`` the spans' bytes, gap bytes included.  A span
+        that fails past its retries is not cached: the chunk read then
+        fetches it again and raises with its coordinates."""
+        if self._source is None or not entries:
+            return
+        dcache = disk_cache()
+        if dcache is None:
+            return
+        etag = self._source.etag()
+        missing = [(s, n) for s, n, _p in entries
+                   if not dcache.contains(etag + (s, n))]
+        if not missing:
+            return
+        spans = coalesce_ranges(missing, coalesce_gap_default())
+
+        def fetch_span(start, size):
+            def one():
+                if self._read_deadline:
+                    return call_with_deadline(
+                        lambda: self._source.get_range(start, size),
+                        self._read_deadline, site="io.remote.range",
+                        file=self.name)
+                return self._source.get_range(start, size)
+            try:
+                return retry_transient(one, counter="remote_retry")
+            except (ScanError, OSError):
+                return None  # the chunk read fetches and raises it
+
+        from ..kernels.device import _plan_threads
+
+        n_workers = min(_plan_threads(), len(spans))
+        if n_workers <= 1:
+            fetched = [fetch_span(s, n) for s, n, _m in spans]
+        else:
+            like = current_stats()
+
+            def task(start, size):
+                # a collector a worker, merged after the join
+                with worker_stats(like=like) as ws:
+                    out = fetch_span(start, size)
+                return out, ws
+
+            with ThreadPoolExecutor(max_workers=n_workers) as ex:
+                futs = [ex.submit(task, s, n) for s, n, _m in spans]
+                fetched = []
+                for fu in futs:
+                    out, ws = fu.result()
+                    merge_worker_stats(like, ws, failed=out is None)
+                    fetched.append(out)
+        st = current_stats()
+        for (start, size, members), data in zip(spans, fetched):
+            if data is None:
+                continue
+            if _flightrec._active is not None:
+                _flightrec.flight(
+                    "prefetch_span", site="io.reader", file=self.name,
+                    start=start, size=size, members=len(members))
+            if st is not None:
+                st.remote_ranges_fetched += 1
+                st.remote_bytes += size
+                st.ranges_coalesced += len(members) - 1
+            for mi in members:
+                ms, mn = missing[mi]
+                dcache.put(etag + (ms, mn),
+                           bytes(data[ms - start : ms - start + mn]))
 
     @property
     def plan_fingerprint(self):
@@ -643,12 +860,22 @@ class FileReader:
         """``(CRC32 of the footer's thrift bytes, file size, footer
         length)``, or None when the tail cannot hold a footer.  A file's
         footer is read under the handle's lock, which the chunk reads
-        take too."""
+        take too; a source's through the memory tier, where the open
+        left the footer's ranges."""
         size = self._size
         if size < 12 or self.salvaged:
             return None
         try:
-            if self._io is None:
+            if self._source is not None:
+                mf = _MetaRangeFile(self._source)
+                mf.seek(size - 8)
+                # the whole 8-byte tail: the range the footer read cached
+                (flen,) = struct.unpack("<I", mf.read(8)[:4])
+                if flen <= 0 or size - 8 - flen < 4:
+                    return None
+                mf.seek(size - 8 - flen)
+                crc = zlib.crc32(mf.read(flen))
+            elif self._io is None:
                 (flen,) = struct.unpack("<I", self._buf[size - 8 : size - 4])
                 if flen <= 0 or size - 8 - flen < 4:
                     return None
@@ -722,7 +949,7 @@ class FileReader:
                     self._reopen_after_expiry()
                     raise
 
-            return retry_transient(_hedged)
+            return retry_transient(_hedged, counter=self._retry_counter)
         if self._read_deadline:
             def fn():
                 try:
@@ -743,7 +970,13 @@ class FileReader:
             read_latency.record(time.monotonic() - t0)
             return out
 
-        return retry_transient(_timed)
+        return retry_transient(_timed, counter=self._retry_counter)
+
+    @property
+    def _retry_counter(self) -> str:
+        """The counter the retry ladder bumps: ``remote_retry`` for a
+        byte-range source, so a flaky store is told from a flaky disk."""
+        return "remote_retry" if self._source is not None else "io_retries"
 
     def _note_hedge_win(self, i: int) -> None:
         """A mirror's win means the primary lost (slow or hung, which a
@@ -767,7 +1000,8 @@ class FileReader:
         read would queue behind it.  The primary gets a fresh handle and
         lock, and the mirror handles this reader opened are dropped (a
         hedge branch may have been the hung one); a dropped handle is
-        closed only when idle.  A file object given by the caller cannot
+        closed only when idle.  A byte-range source is reopened
+        (``source.reopen()``); a file object given by the caller cannot
         be reopened."""
         with self._mirror_lock:
             for i, h in enumerate(self._mirror_handles):
@@ -780,7 +1014,12 @@ class FileReader:
         if self._io is None or not self._io.owns:
             return
         try:
-            f = open(self.name, "rb")
+            if self._source is not None:
+                ns = self._source.reopen()
+                f = RangeSourceFile(ns)
+                self._source = ns
+            else:
+                f = open(self.name, "rb")
         except OSError:
             return  # keep the old handle; the retry ladder decides
         nh = _IoHandle(f, True, self.name)
@@ -802,7 +1041,13 @@ class FileReader:
         if hasattr(src, "read"):
             nh = _IoHandle(src, False, getattr(src, "name", None))
         else:
-            nh = _IoHandle(open(src, "rb"), True, os.fspath(src))
+            bs = (src if isinstance(src, ByteRangeSource)
+                  else open_byte_source(src) if isinstance(src, str)
+                  else None)
+            if bs is not None:
+                nh = _IoHandle(RangeSourceFile(bs), True, bs.uri)
+            else:
+                nh = _IoHandle(open(src, "rb"), True, os.fspath(src))
         with self._mirror_lock:
             cur = self._mirror_handles[mi]
             if cur is None:

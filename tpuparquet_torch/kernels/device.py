@@ -2098,14 +2098,18 @@ def _plan_one_column(reader, rg_index: int, path, node, cm,
             cache_key=cache_key, cache_state=cache_state)
     except ScanError as e:
         if isinstance(e, (CorruptPageError, CorruptChunkError)):
-            # the bytes no longer match the footer: its plans are stale
+            # the bytes no longer match the footer: its plans are stale,
+            # and a source's cached ranges may have served the bad bytes
+            # (evicted, so a retry of the unit reads the store)
             invalidate_fingerprint(fingerprint)
+            reader.drop_range_caches()
         _trace.close_span(tsp, status="error")
         raise e.annotate(column=path, file=reader.name, row_group=rg_index)
     except ValueError as e:
         # codec-layer domain errors become taxonomy errors with
         # coordinates
         invalidate_fingerprint(fingerprint)
+        reader.drop_range_caches()
         _trace.close_span(tsp, status="error")
         raise CorruptChunkError(str(e), column=path, file=reader.name,
                                 row_group=rg_index) from e
@@ -2276,7 +2280,11 @@ def read_row_group_device(reader, rg_index: int, *, device=None,
         except ScanError as e:
             raise e.annotate(row_group=rg_index)
         return _stage_chunks(reader, chunks, dev)
-    cols = reader.selected_chunks(reader.meta.row_groups[rg_index])
+    rg = reader.meta.row_groups[rg_index]
+    cols = reader.selected_chunks(rg)
+    # a byte-range source fetches the row group's chunk ranges first,
+    # coalesced and in parallel, so the column plans read the disk tier
+    reader.prefetch_chunks(rg)
     n_workers = min(_plan_threads(), max(len(cols), 1))
     if n_workers <= 1:
         arenas = [lease_arena()]

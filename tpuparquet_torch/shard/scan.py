@@ -79,6 +79,7 @@ from ..errors import QUARANTINE_ERRORS, DeadlineExceededError, \
     never_quarantine
 from ..faults import QuarantineReport, retry_transient
 from ..filter import bind_filter
+from ..io.rangecache import invalidate_source_caches
 from ..io.reader import FileReader
 from ..kernels.decode import scatter_to_dense
 from ..kernels.device import DeviceColumn, _usable_cpus, \
@@ -164,10 +165,10 @@ def open_sources(sources, columns, *, on_error: str = "raise",
                  hedge_delay: float | None = None,
                  read_deadline: float | None = None,
                  postmortem: str | None = None) -> list:
-    """Open each source (a path, bytes or a file object) with the
-    ``columns`` projection, a transient failure retried
-    (``faults.retry_transient``).  Returns the readers aligned with
-    ``sources``.  Under ``on_error="raise"`` a failure propagates; under
+    """Open each source (a path, a byte-range source or its URI, bytes or
+    a file object) with the ``columns`` projection, a transient failure
+    retried (``faults.retry_transient``).  Returns the readers aligned
+    with ``sources``.  Under ``on_error="raise"`` a failure propagates; under
     ``"quarantine"`` a file that fails to open gets a file-level entry in
     ``quarantine`` (``disposition`` ``"quarantined"``, and ``path`` for a
     path source), counts ``files_quarantined``, and its reader is None.
@@ -190,7 +191,9 @@ def open_sources(sources, columns, *, on_error: str = "raise",
     merged into each entry.  Salvage is deterministic, so every process
     derives the same readers.  ``postmortem`` (a path or None) receives
     an incident a file this call salvages or quarantines
-    (``obs/postmortem.py``).  Raw crash types propagate."""
+    (``obs/postmortem.py``).  A string source that fails to open has its
+    cached ranges evicted from both tiers (``io/rangecache.py``) before
+    its salvage.  Raw crash types propagate."""
     if salvage and on_error != "quarantine":
         # under "raise" the first open failure aborts before a salvage
         # could run: the request would be silently inert
@@ -258,6 +261,10 @@ def open_sources(sources, columns, *, on_error: str = "raise",
     for i, err in sorted(failures.items()):
         primary = _replicas(sources[i])[0]
         path = primary if isinstance(primary, str) else None
+        if path is not None:
+            # a failed open may have read, or left, stale cached ranges:
+            # the salvage below and the next scan read the store
+            invalidate_source_caches(path)
         if salvage:
             try:
                 with counted_if_recorded(i):

@@ -80,6 +80,19 @@ and ``metadata_rejects`` (footers the strict metadata check refused,
 deadline worker folds in only :data:`_FAULT_OBSERVABILITY_FIELDS`
 (:func:`merge_worker_stats`).
 
+Remote sources count, as the reference does: ``remote_ranges_fetched``
+(range requests issued to a byte-range source after coalescing; a cache
+hit issues none), ``ranges_coalesced`` (requests a coalesced span saved:
+a prefetch of R ranges fetched as M spans adds M and R - M),
+``remote_bytes`` (the payload of every request issued, gap bytes
+included) and ``remote_retry`` (the retry ladder's re-issues against a
+remote source, the twin of ``io_retries``).  The range caches
+(``io/rangecache.py``) count ``cache_{hits,misses,evictions}_{mem,disk}``
+on the calling thread's collector: a tier's hits and misses add up to
+its lookups.  A dataset scan counts ``dataset_files_pruned`` (files its
+partition filter skipped, never opened) and ``dataset_orphans_swept``
+(staging files and broken journals moved to ``_quarantine/``).
+
 Predicate pushdown (``filter.py``) counts, as the reference does:
 ``row_groups_pruned`` (row groups a verdict skipped whole),
 ``pages_pruned`` (data pages skipped inside kept row groups, summed over
@@ -171,6 +184,20 @@ class DecodeStats:
     deadline_exceeded: int = 0
     hedges_issued: int = 0
     hedges_won: int = 0
+    # remote byte-range sources (io/source.py, io/rangecache.py)
+    remote_ranges_fetched: int = 0
+    ranges_coalesced: int = 0
+    remote_bytes: int = 0
+    remote_retry: int = 0
+    cache_hits_mem: int = 0
+    cache_misses_mem: int = 0
+    cache_evictions_mem: int = 0
+    cache_hits_disk: int = 0
+    cache_misses_disk: int = 0
+    cache_evictions_disk: int = 0
+    # partitioned datasets (dataset/)
+    dataset_files_pruned: int = 0
+    dataset_orphans_swept: int = 0
     # predicate pushdown (filter.py)
     row_groups_pruned: int = 0
     pages_pruned: int = 0
@@ -354,7 +381,8 @@ def worker_stats(like: DecodeStats | None = None):
 # expiries, hedges); anything else from a failed attempt would be a
 # phantom count
 _FAULT_OBSERVABILITY_FIELDS = ("faults_injected", "crc_mismatches",
-                               "io_retries", "dispatch_retries",
+                               "io_retries", "remote_retry",
+                               "dispatch_retries",
                                "deadline_exceeded", "hedges_issued",
                                "hedges_won")
 
