@@ -387,6 +387,29 @@
    ``dataset_files_pruned`` 2, units equal a ``ShardedScan`` of the
    survivors' buffer for buffer, gathers (replicated and to device 0)
    the generator's, K1-K5, K7, KS1 and KS4 launching.
+15. The scan server and the command-line tool over config 2's file
+   (``check_server``), every job a quarantine-mode ``ShardedScan`` on
+   the 1x1 mesh.  15a: a ``ScanServer`` with phase 13's tenants and
+   weights runs two jobs a tenant; each ends ``done`` with 6a's units,
+   the jobs launch K1-K5 and K7, each tenant's ledger is under its label
+   and the ledgers summed equal the live registry's totals; the status
+   document is printed, and one job a tenant at once is timed best of 3
+   beside phase 13's pair.  15b: a drain asked for when the first unit
+   lands: the running job ends ``drained`` with its cursor flushed, the
+   queued one comes back ``drained``, and a successor on the same state
+   directory resumes both; the union of the keyed outputs is 6a's units,
+   each decoded once.  15c: one job reads ``emu://`` (phase 14's knobs)
+   with the disk tier armed, cold, at ``TPQ_PREFETCH_DEPTH=0`` and at the
+   default: 6a's units, ``remote_ranges_fetched`` the spans,
+   ``ranges_coalesced`` the chunks less the spans, ``remote_bytes`` the
+   spans' bytes and a disk hit a chunk on the job's stats; three rounds
+   of the two depths in turns, the walls' medians and ranges printed.
+   15d: ``ScanServer(plan_cache_mb=256)`` runs one scan twice from an
+   empty plan cache, three rounds: the second job hits once a chunk;
+   the walls' and ``plan_s``' medians and ranges printed.  15e: ``parquet_tool.main`` in this process:
+   ``verify`` (exit 0, K1-K5 and K7 launching), ``serve`` of a two-tenant
+   spec with sink directories (exit 0, the unit files 6a's arrays),
+   ``tenants`` on its status export and ``meta`` (exit 0).
 
 Before phase 1 it prints the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit`` gives them), the host's
@@ -413,7 +436,7 @@ for an A/B of another checkout's read passes in the same way, and
 ``host_gathers`` times phase 6's gathers onto the host likewise, and
 ``multihost_ab`` phase 7c against one process's ``run()``, in turns.
 Every kernel must have launched on the paths of phases 3 to 3i, 5, 5b,
-6, 7, 8, 9, 10, 11, 12, 13 and 14;
+6, 7, 8, 9, 10, 11, 12, 13, 14 and 15;
 the counts are set to 0 just before each path's read or write and read
 just after.  Exits non-zero, printing no result, when CUDA is
 unavailable or any phase fails.  The last line is
@@ -7968,7 +7991,7 @@ def check_native_writes(groups, dv_groups, n_values: int,
 
 
 def check_arbiter(blob, results, mesh, dev, wrappers,
-                  reps: int = 3) -> dict:
+                  reps: int = 3, walls: dict | None = None) -> dict:
     """Phase 13: the serve arbiter on the card.  A ``ResourceArbiter``
     over the usable CPUs with ``PHASE13_TENANTS`` is activated; two
     ``ShardedScan`` runs of config 2 (``blob``) go at once, each on its
@@ -7979,7 +8002,8 @@ def check_arbiter(blob, results, mesh, dev, wrappers,
     must be refused (``AdmissionRejected``, ``queue_full``, the tenant's
     last job wall as retry-after); after ``note_job_done`` and
     ``rebalance`` the shares are printed, then the pair's wall beside one
-    unbound scan's, best of ``reps`` in turns.  Deactivated, the budgets
+    unbound scan's, best of ``reps`` in turns (the pair's into
+    ``walls["pair"]`` when ``walls`` is given).  Deactivated, the budgets
     must be what they were.  Returns the pair's launches."""
     from tpuparquet_torch import serve
     from tpuparquet_torch.errors import AdmissionRejected
@@ -8068,6 +8092,8 @@ def check_arbiter(blob, results, mesh, dev, wrappers,
         for _ in range(reps):
             best_pair = min(best_pair, pair()[1])
             best_alone = min(best_alone, alone())
+        if walls is not None:
+            walls["pair"] = best_pair
         print(f"13 two tenants' scans at once, best of {reps} in turns: "
               f"{best_pair:.4f} s for the pair, {best_alone:.4f} s for one "
               f"unbound scan alone (ratio {best_pair / best_alone:.4f})",
@@ -8468,6 +8494,368 @@ def check_remote(blob, groups, reader, mesh, dev, wrappers,
               f"launches {launches}", flush=True)
     print(f"phase 14 (remote sources, range caches, DatasetScan): "
           f"{time.perf_counter() - t14:.2f} s", flush=True)
+    return total
+
+
+# phase 15's plan-cache budget (MB) and the seconds a job may take
+PHASE15_PLAN_CACHE_MB = 256
+PHASE15_JOB_S = 600.0
+
+
+def _server(mesh, **kw):
+    """A ``ScanServer`` over the usable CPUs on ``mesh`` with phase 13's
+    tenants."""
+    from tpuparquet_torch.serve import ResourceArbiter, ScanServer
+
+    srv = ScanServer(arbiter=ResourceArbiter(
+        total_workers=len(os.sched_getaffinity(0))), mesh=mesh, **kw)
+    for label, weight in PHASE13_TENANTS:
+        srv.add_tenant(label, weight=weight)
+    return srv
+
+
+def _done(label, jobs) -> None:
+    """Every job of ``jobs`` ended ``done`` within the phase's time."""
+    for job in jobs:
+        if not job.wait(PHASE15_JOB_S) or job.state != "done":
+            raise AssertionError(f"{label}: job {job.as_dict()}") \
+                from job.error
+
+
+def _tenant_jobs(path, mesh, dev, per_tenant: int):
+    """``per_tenant`` jobs a tenant of phase 13 over ``path`` through one
+    server, all submitted at once; ``(jobs, wall, status)``."""
+    # a rebalance every 0.25 s, so the tenants' ledgers feed the shares
+    # while the jobs run
+    srv = _server(mesh, rebalance_interval=0.25)
+    try:
+        t0 = time.perf_counter()
+        jobs = [srv.submit(label, [path], job_id=f"{label}-{i}")
+                for i in range(per_tenant) for label, _ in PHASE13_TENANTS]
+        _done("15a", jobs)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        status = srv.status()
+    finally:
+        srv.shutdown()
+    return jobs, wall, status
+
+
+def check_server_pair(path, results, mesh, dev, wrappers, pair13_s,
+                      reps: int = 3) -> dict:
+    """Phase 15a (see the module docstring); returns its launches."""
+    from tpuparquet_torch.obs import attribution, live
+
+    live.reset_registry()
+    attribution.reset_ledgers()
+    _zero(wrappers)
+    jobs, wall, status = _tenant_jobs(path, mesh, dev, 2)
+    launches = _launches_of(wrappers)
+    _need("15a server jobs", launches, CONFIG2_KERNELS)
+    for job in jobs:
+        _same_units(f"15a {job.tenant}/{job.job_id}", job.outputs, results)
+        if job.units_done != len(results) or job.units_quarantined:
+            raise AssertionError(f"15a: {job.as_dict()}")
+    leds = attribution.ledgers_state()
+    counters = live.registry().snapshot()["counters"]
+    total: dict = {}
+    for d in leds.values():
+        for k, v in d["counters"].items():
+            total[k] = total.get(k, 0) + v
+    # the registry's scope wall is no ledger counter
+    reg = {k: v for k, v in counters.items()
+           if not k.startswith("profile_") and k != "wall_s"}
+    if total != reg or sorted(leds) != sorted(
+            lb for lb, _ in PHASE13_TENANTS):
+        raise AssertionError(f"15a: ledgers {sorted(leds)} summed {total} "
+                             f"differ from the registry's {reg}")
+    for label, _ in PHASE13_TENANTS:
+        rgs = leds[label]["counters"]["row_groups"]
+        if rgs != 2 * len(results):
+            raise AssertionError(f"15a: {label}'s ledger counts {rgs} row "
+                                 f"groups, not {2 * len(results)}")
+    del jobs
+    print(f"15a two jobs a tenant through a ScanServer: {wall:.4f} s, "
+          f"every unit 6a's; ledgers {sorted(leds)} sum to the registry; "
+          f"launches {launches}; status "
+          f"{json.dumps(status, sort_keys=True)}", flush=True)
+    best = float("inf")
+    for _ in range(reps):
+        jobs, wall, _status = _tenant_jobs(path, mesh, dev, 1)
+        del jobs
+        best = min(best, wall)
+    beside = ("" if pair13_s is None else
+              f"; phase 13's thread pair {pair13_s:.4f} s (ratio "
+              f"{best / pair13_s:.4f})")
+    print(f"15a one job a tenant at once through the server, best of "
+          f"{reps}: {best:.4f} s{beside}", flush=True)
+    return launches
+
+
+def check_drain_resume(path, results, mesh, dev, wrappers, tmp) -> dict:
+    """Phase 15b (see the module docstring); returns its launches."""
+    state = os.path.join(tmp, "state")
+    decodes: dict = {}
+    outs: dict = {}
+    box: dict = {}
+
+    def sink_for(job_id):
+        def sink(k, out):
+            decodes[(job_id, k)] = decodes.get((job_id, k), 0) + 1
+            outs[(job_id, k)] = out
+            if "asked" not in box:
+                box["asked"] = True
+                box["srv"].request_drain()  # once the first unit lands
+        return sink
+
+    def submit_all(srv):
+        return [srv.submit("light", [path], job_id=job_id,
+                           checkpoint_every=1, sink=sink_for(job_id))
+                for job_id in ("a", "b")]
+
+    _zero(wrappers)
+    srv = box["srv"] = _server(mesh, state_dir=state)
+    try:
+        first = submit_all(srv)
+        if not first[0].wait(PHASE15_JOB_S):
+            raise AssertionError("15b: the running job did not stop")
+    finally:
+        srv.shutdown(timeout=PHASE15_JOB_S)
+    got = [(j.state, j.units_done) for j in first]
+    if got != [("drained", 1), ("drained", 0)]:
+        raise AssertionError(f"15b: after the drain {got}, expected the "
+                             "running job drained after its first unit "
+                             "and the queued one drained untouched")
+    cursors = sorted(os.listdir(state))
+    srv = _server(mesh, state_dir=state)
+    try:
+        second = submit_all(srv)
+        _done("15b successor", second)
+    finally:
+        srv.shutdown()
+    launches = _launches_of(wrappers)
+    _need("15b drain and resume", launches, CONFIG2_KERNELS)
+    for job_id in ("a", "b"):
+        keys = sorted(k for j, k in outs if j == job_id)
+        if keys != list(range(len(results))):
+            raise AssertionError(f"15b {job_id}: units {keys}")
+        _same_units(f"15b {job_id}", {k: outs[(job_id, k)] for k in keys},
+                    results)
+    if set(decodes.values()) != {1}:
+        raise AssertionError(f"15b: a unit decoded twice: {decodes}")
+    del outs
+    print(f"15b drain after the first unit: {got} (cursors {cursors}); "
+          f"the successor resumed both to done, the union 6a's units, "
+          f"each decoded once; launches {launches}", flush=True)
+    return launches
+
+
+def _spread(walls) -> str:
+    """Walls as ``median [min, max]``."""
+    w = sorted(walls)
+    return f"{w[len(w) // 2]:.4f} [{w[0]:.4f}, {w[-1]:.4f}]"
+
+
+def check_server_prefetch(path, results, reader, mesh, dev, wrappers,
+                          tmp, rounds: int = 3) -> dict:
+    """Phase 15c (see the module docstring), ``rounds`` rounds of the two
+    depths in turns; returns its launches."""
+    cache = os.path.join(tmp, "cache")
+    n, n_spans, span_bytes = _chunk_spans(reader)
+    # phase 14's emulator knobs, as the sources a URI opens read them
+    knobs = {f"TPQ_EMU_{k.upper()}": str(v) for k, v in PHASE14_EMU.items()}
+    want = {"remote_ranges_fetched": n_spans, "ranges_coalesced": n - n_spans,
+            "remote_bytes": span_bytes, "cache_hits_disk": n,
+            "cache_misses_disk": 0, "cache_evictions_disk": 0}
+    total: dict = {}
+    walls: dict = {"0": [], "default": []}
+    for _ in range(rounds):
+        for depth in ("0", None):
+            label = f"15c emu:// prefetch depth {depth or 'default'}"
+            _fresh_tier(cache)
+            with _env(TPQ_CACHE_DISK_DIR=cache, TPQ_CACHE_DISK_MB=None,
+                      TPQ_CACHE_DISK_SHARED=None, TPQ_PREFETCH_DEPTH=depth,
+                      **knobs):
+                _zero(wrappers)
+                srv = _server(mesh)
+                try:
+                    t0 = time.perf_counter()
+                    job = srv.submit("light", ["emu://" + path])
+                    _done(label, [job])
+                    _sync(dev)
+                    wall = time.perf_counter() - t0
+                finally:
+                    srv.shutdown()
+            launches = _launches_of(wrappers)
+            _need(label, launches, CONFIG2_KERNELS)
+            _add(total, launches)
+            _same_units(label, job.outputs, results)
+            c = _counters(job.stats)
+            if {k: c[k] for k in want} != want:
+                raise AssertionError(f"{label}: counters {c}, expected "
+                                     f"{want}")
+            walls[depth or "default"].append(wall)
+            del job
+    print(f"15c emu:// through the server, cold, {rounds} rounds in turns, "
+          f"every job's counters {want} (remote_retry "
+          f"{c['remote_retry']}): wall at TPQ_PREFETCH_DEPTH=0 "
+          f"{_spread(walls['0'])} s, at the default "
+          f"{_spread(walls['default'])} s (median [min, max])", flush=True)
+    return total
+
+
+def check_server_plan_cache(path, results, reader, mesh, dev, wrappers,
+                            rounds: int = 3) -> dict:
+    """Phase 15d (see the module docstring), ``rounds`` rounds of a cold
+    and a warm job from an empty cache; returns its launches."""
+    from tpuparquet_torch.kernels.plancache import clear_plan_cache
+
+    n = _chunk_count(reader)
+    walls: dict = {"cold": [], "warm": []}
+    plan: dict = {"cold": [], "warm": []}
+    _zero(wrappers)
+    for r in range(rounds):
+        clear_plan_cache()
+        srv = _server(mesh, plan_cache_mb=PHASE15_PLAN_CACHE_MB)
+        jobs = []
+        try:
+            for leg in ("cold", "warm"):
+                t0 = time.perf_counter()
+                job = srv.submit("light", [path], job_id=f"{leg}-{r}")
+                _done("15d", [job])
+                _sync(dev)
+                walls[leg].append(time.perf_counter() - t0)
+                plan[leg].append(job.stats.plan_s)
+                jobs.append(job)
+        finally:
+            srv.shutdown()
+            clear_plan_cache()
+        got = [(j.stats.plan_cache_hits, j.stats.plan_cache_misses)
+               for j in jobs]
+        if got != [(0, n), (n, 0)] or jobs[1].stats.chunks != n:
+            raise AssertionError(f"15d: plan cache (hits, misses) {got}, "
+                                 f"expected {[(0, n), (n, 0)]}")
+        for j in jobs:
+            _same_units(f"15d {j.job_id}", j.outputs, results)
+        del jobs
+    launches = _launches_of(wrappers)
+    _need("15d plan cache", launches, CONFIG2_KERNELS)
+    print(f"15d plan cache of {PHASE15_PLAN_CACHE_MB} MB, {rounds} rounds "
+          f"from an empty cache: the warm job hit {n} of {n} chunks each "
+          f"round; walls cold {_spread(walls['cold'])} s, warm "
+          f"{_spread(walls['warm'])} s; plan_s cold "
+          f"{_spread(plan['cold'])}, warm {_spread(plan['warm'])} "
+          f"(median [min, max])", flush=True)
+    return launches
+
+
+def _tool(*argv) -> tuple:
+    """``parquet_tool.main(argv)`` in this process: ``(rc, stdout)``."""
+    from tpuparquet_torch.cli import parquet_tool
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = parquet_tool.main(list(argv))
+    return rc, out.getvalue()
+
+
+def check_tool(path, results, dev, wrappers, tmp) -> dict:
+    """Phase 15e (see the module docstring); returns its launches."""
+    import signal
+
+    device = "cuda" if dev.type == "cuda" else str(dev)
+    total: dict = {}
+    _zero(wrappers)
+    t0 = time.perf_counter()
+    rc, out = _tool("verify", "--device", device, path)
+    verify_s = time.perf_counter() - t0
+    launches = _launches_of(wrappers)
+    if rc != 0 or "all row groups bit-exact" not in out:
+        raise AssertionError(f"15e verify exited {rc}:\n{out}")
+    _need("15e verify", launches, CONFIG2_KERNELS)
+    _add(total, launches)
+    print(f"15e parquet_tool verify ({verify_s:.2f} s, the host decode "
+          f"included): exit 0; launches {launches}\n{out.rstrip()}",
+          flush=True)
+
+    root = os.path.join(tmp, "serve")
+    spec = {"status_export": os.path.join(root, "status.json"),
+            "state_dir": os.path.join(root, "state"),
+            "tenants": [{"label": lb, "weight": w}
+                        for lb, w in PHASE13_TENANTS],
+            "jobs": [{"tenant": lb, "job_id": "all", "sources": [path],
+                      "sink_dir": os.path.join(root, lb)}
+                     for lb, _ in PHASE13_TENANTS]}
+    os.makedirs(root)
+    spec_path = os.path.join(root, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    _zero(wrappers)
+    old = signal.getsignal(signal.SIGTERM)
+    t0 = time.perf_counter()
+    try:
+        rc, out = _tool("serve", "--device", device, spec_path)
+    finally:
+        signal.signal(signal.SIGTERM, old)
+    serve_s = time.perf_counter() - t0
+    launches = _launches_of(wrappers)
+    if rc != 0:
+        raise AssertionError(f"15e serve exited {rc}:\n{out}")
+    _need("15e serve", launches, CONFIG2_KERNELS)
+    _add(total, launches)
+    for label, _ in PHASE13_TENANTS:
+        files = sorted(os.listdir(os.path.join(root, label)))
+        if files != sorted(f"unit{k}.npz" for k in range(len(results))):
+            raise AssertionError(f"15e serve {label}: files {files}")
+        for k, cols in enumerate(results):
+            with np.load(os.path.join(root, label, f"unit{k}.npz")) as z:
+                for name, col in cols.items():
+                    for i, arr in enumerate(col.to_numpy()):
+                        key = f"{name}.{i}"
+                        if (arr is None) != (key not in z.files) or (
+                                arr is not None and not _same_values(
+                                    z[key], np.asarray(arr))):
+                            raise AssertionError(
+                                f"15e serve {label} unit {k}: {key}")
+    print(f"15e parquet_tool serve ({serve_s:.2f} s): exit 0, "
+          f"{len(results)} unit files a tenant equal 6a's arrays; "
+          f"launches {launches}\n{out.rstrip()}", flush=True)
+    rc, out = _tool("tenants", spec["status_export"])
+    if rc != 0:
+        raise AssertionError(f"15e tenants exited {rc}")
+    print(f"15e parquet_tool tenants: exit 0\n{out.rstrip()}", flush=True)
+    rc, out = _tool("meta", path)
+    if rc != 0:
+        raise AssertionError(f"15e meta exited {rc}")
+    lines = out.rstrip().splitlines()
+    print(f"15e parquet_tool meta: exit 0, {len(lines)} lines; "
+          f"{' / '.join(lines[:7])}", flush=True)
+    return total
+
+
+def check_server(blob, results, reader, mesh, dev, wrappers,
+                 pair13_s: float | None = None) -> dict:
+    """Phase 15 (15a-15e), 15a's wall printed beside ``pair13_s`` (phase
+    13's pair) when given; returns the launches of its paths."""
+    t15 = time.perf_counter()
+    total: dict = {}
+    with tempfile.TemporaryDirectory(
+            prefix=".smoke-", dir=os.path.dirname(
+                os.path.abspath(__file__))) as tmp:
+        path = os.path.join(tmp, "config2.parquet")
+        with open(path, "wb") as f:
+            f.write(blob)
+        _add(total, check_server_pair(path, results, mesh, dev, wrappers,
+                                      pair13_s))
+        _add(total, check_drain_resume(path, results, mesh, dev, wrappers,
+                                       tmp))
+        _add(total, check_server_prefetch(path, results, reader, mesh, dev,
+                                          wrappers, tmp))
+        _add(total, check_server_plan_cache(path, results, reader, mesh,
+                                            dev, wrappers))
+        _add(total, check_tool(path, results, dev, wrappers, tmp))
+    print(f"phase 15 (the scan server and the command-line tool): "
+          f"{time.perf_counter() - t15:.2f} s", flush=True)
     return total
 
 
@@ -8958,7 +9346,9 @@ def main(argv=None) -> int:
 
     # phase 13: two tenants' scans of config 2 at once under the serve
     # arbiter's shares, admission control and the rebalance
-    launches = check_arbiter(blob, c2["results"], one, dev, wrappers)
+    walls13: dict = {}
+    launches = check_arbiter(blob, c2["results"], one, dev, wrappers,
+                             walls=walls13)
     for k, c in launches.items():
         total_launches[k] += c
 
@@ -8967,6 +9357,14 @@ def main(argv=None) -> int:
     # disk tier (14c), and a DatasetScan of hive partitions (14d)
     launches = check_remote(blob, groups, reader, one, dev, wrappers,
                             c2_pass_s)
+    for k, c in launches.items():
+        total_launches[k] += c
+
+    # phase 15: config 2 through the scan server (15a), its drain and
+    # resume (15b), its prefetch over emu:// (15c) and plan cache (15d),
+    # and the command-line tool's verify, serve, tenants and meta (15e)
+    launches = check_server(blob, c2["results"], reader, one, dev, wrappers,
+                            walls13["pair"])
     for k, c in launches.items():
         total_launches[k] += c
 

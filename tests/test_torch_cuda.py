@@ -982,3 +982,65 @@ def test_remote_reads_and_dataset_on_card(cuda):
     for k in chip_smoke.CONFIG2_KERNELS + ["scatter_to_dense",
                                            "place_rows"]:
         assert launches[k] > 0, k
+
+
+def test_server_and_tool_on_card(cuda):
+    """Phase 15 at a small size: config 2 (200,000 rows a row group, so
+    the transports engage) through a two-tenant ``ScanServer``, its drain
+    and resume, its prefetch over ``emu://`` and its plan cache, and the
+    command-line tool's verify, serve, tenants and meta, config 2's
+    kernels launching."""
+    from tpuparquet_torch.shard import ShardedScan, make_mesh
+
+    blob, _ = chip_smoke.build_config2(4_000_000, 4)
+    mesh = make_mesh(1)
+    results = ShardedScan([blob], mesh=mesh).run()
+    torch.cuda.synchronize()
+    launches = chip_smoke.check_server(blob, results, FileReader(blob), mesh,
+                                       cuda, chip_smoke.kernel_wrappers())
+    for k in chip_smoke.CONFIG2_KERNELS:
+        assert launches[k] > 0, k
+
+
+def test_server_job_and_verify_on_card_equal_cpu(cuda, tmp_path):
+    """A ``ScanServer`` job on the card gives the CPU mesh's job buffer for
+    buffer, byte planes among its pages; ``parquet_tool verify`` on the
+    card prints what it prints with ``--device cpu``, timings aside."""
+    import contextlib
+    import re
+
+    from tpuparquet_torch.cli import parquet_tool
+    from tpuparquet_torch.serve import ResourceArbiter, ScanServer
+    from tpuparquet_torch.shard import make_mesh
+
+    blob, _ = chip_smoke.build_config2(2_000_000, 2)
+    path = str(tmp_path / "config2.parquet")
+    with open(path, "wb") as f:
+        f.write(blob)
+    jobs = []
+    for mesh in (make_mesh(1), make_mesh(1, devices=["cpu"])):
+        with ScanServer(arbiter=ResourceArbiter(total_workers=2),
+                        mesh=mesh) as srv:
+            srv.add_tenant("t")
+            job = srv.submit("t", [path])
+            assert job.wait(300) and job.state == "done", job.as_dict()
+        jobs.append(job)
+    card, cpu = jobs
+    assert card.stats.pages_device_planes > 0
+    assert card.stats.pages_device_planes == cpu.stats.pages_device_planes
+    assert sorted(card.outputs) == sorted(cpu.outputs) == [0, 1]
+    for k, cols in card.outputs.items():
+        for name, col in cols.items():
+            a, b = col.padded_buffers(), cpu.outputs[k][name].padded_buffers()
+            assert a.keys() == b.keys()
+            for key in a:
+                np.testing.assert_array_equal(a[key], b[key])
+    outs = []
+    for device in ("cuda", "cpu"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert parquet_tool.main(["verify", "--device", device,
+                                      path]) == 0
+        outs.append(re.sub(r"cpu [0-9.]+ms  device [0-9.]+ms", "-",
+                           buf.getvalue()))
+    assert outs[0] == outs[1] and "all row groups bit-exact" in outs[0]

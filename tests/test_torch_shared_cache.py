@@ -10,7 +10,11 @@ run :data:`CHILD` (``python -c``), code in this file; the JAX package's
 run ``tests/shared_cache_child.py``.  A fleet may mix the two packages
 over one directory (their entry frames and journal records are the
 same), and a child of each package, alone on the same files, counts the
-same.  Every child has a timeout of its own.
+same.  Two of the port's servers over one tier keep each span's origin
+fetches to one a process (the reference's ``TestFleetOriginEconomy``),
+a process that joins the tier sweeps only dead writers' files, and a
+replay during a put's append leaves the journal offset at its end.
+Every child has a timeout of its own.
 """
 
 from __future__ import annotations
@@ -323,3 +327,158 @@ class TestPoisonFleetVisibility:
         # once; the next process replayed it, evicting nothing itself
         assert results[0]["counters"]["cache_evictions_disk"] == 1
         assert results[1]["counters"]["cache_evictions_disk"] == 0
+
+
+#: the port's server child: ``python -c SERVE_CHILD OUT CORPUS_JSON``.  A
+#: one-tenant ``ScanServer`` job over the corpus on a CPU mesh, its
+#: prefetch planner on (``TPQ_PREFETCH_DEPTH``); writes the digest of every
+#: unit's arrays, in unit order, and the job's counters to OUT.
+SERVE_CHILD = r"""
+import hashlib, json, os, sys
+import numpy as np
+from tpuparquet_torch.serve import ResourceArbiter, ScanServer
+from tpuparquet_torch.shard import make_mesh
+
+out, corpus = sys.argv[1], sys.argv[2]
+COUNTERS = %r
+with open(corpus) as f:
+    sources = json.load(f)["sources"]
+h = hashlib.sha256()
+server = ScanServer(arbiter=ResourceArbiter(total_workers=2),
+                    mesh=make_mesh(1, devices=["cpu"]))
+try:
+    server.add_tenant("fleet")
+    job = server.submit("fleet", sources)
+    assert job.wait(300.0), "serve job did not finish"
+    assert job.state == "done", f"job state {job.state}: {job.error}"
+    for k in sorted(job.outputs):
+        h.update(str(k).encode())
+        for path in sorted(job.outputs[k]):
+            h.update(path.encode())
+            for part in job.outputs[k][path].to_numpy():
+                a = np.ascontiguousarray(np.asarray(part))
+                h.update(str(a.dtype).encode())
+                h.update(str(a.shape).encode())
+                h.update(a.tobytes())
+finally:
+    server.shutdown(drain=False)
+result = {"pid": os.getpid(), "digest": h.hexdigest(),
+          "counters": {k: getattr(job.stats, k) for k in COUNTERS},
+          "lockcheck": []}
+with open(out + ".tmp", "w") as f:
+    json.dump(result, f)
+os.replace(out + ".tmp", out)
+""" % (COUNTERS,)
+
+
+class TestFleetOriginEconomy:
+    """Two server processes over one shared disk tier, each job's
+    prefetch planner warming it: the servers decode the same bytes as
+    the JAX package's server; each coalesced span reached the origin at
+    most once a process, and the shared tier took the rest."""
+
+    def test_two_servers_one_cache_origin_once_per_span(self, tmp_path):
+        paths, corpus_json, cache = _setup(tmp_path)
+        procs, outs = [], []
+        for i in range(2):
+            out = tmp_path / f"s{i}.json"
+            env = _env(cache)
+            env["TPQ_PREFETCH_DEPTH"] = "2"
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", SERVE_CHILD, str(out), corpus_json],
+                cwd=REPO, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE))
+            outs.append(out)
+        for i, p in enumerate(procs):
+            _finish(p, f"server {i}")
+        results = [_result(o) for o in outs]
+        d = tmp_path / "jax-cache"
+        d.mkdir()
+        ref = tmp_path / "jax.json"
+        p = subprocess.Popen(
+            [sys.executable, JAX_CHILD, "serve", corpus_json, str(ref)],
+            cwd=REPO, env=_env(d), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE)
+        _finish(p, "the JAX package's server")
+        assert results[0]["digest"] == results[1]["digest"] == \
+            _result(ref)["digest"]
+        n_spans = len(_entries(cache))
+        assert n_spans == SPANS
+        hits = sum(r["counters"]["cache_hits_disk"] for r in results)
+        misses = sum(r["counters"]["cache_misses_disk"] for r in results)
+        assert misses <= 2 * n_spans
+        assert hits + misses == 2 * SPANS and hits > 0
+        # a chunk range fetched at most once a process: the footer's
+        # ranges are the memory tier's misses
+        for r in results:
+            c = r["counters"]
+            assert c["remote_ranges_fetched"] - c["cache_misses_mem"] \
+                <= SPANS
+        assert sum(r["counters"]["cache_evictions_disk"]
+                   for r in results) == 0
+        assert not os.path.exists(cache / "index.lock")
+
+
+class TestSharedTierRaces:
+    def test_join_sweeps_only_the_dead_writers_files(self, tmp_path):
+        """A process that joins the shared tier sweeps the entry and
+        temporary files the journal does not own only when their writer
+        is dead: a live writer may be between its entry's rename and its
+        journal record, or mid-write of its temporary file, and a sweep
+        of those made its put fail or its record name a missing file (a
+        fleet miss: two processes over one tier missed 1 chunk of 80 in
+        about one run of 20)."""
+        from tpuparquet_torch.io.rangecache import SharedDiskRangeCache
+
+        live = subprocess.Popen([sys.executable, "-c",
+                                 "import time; time.sleep(120)"])
+        dead = subprocess.Popen([sys.executable, "-c", "pass"])
+        dead.wait(TIMEOUT_S)
+        d = tmp_path / "c"
+        d.mkdir()
+        try:
+            SharedDiskRangeCache(str(d), 1 << 20)  # the first member
+            h = "ab" * 20
+            names = {}
+            for who, pid in (("live", live.pid), ("dead", dead.pid)):
+                entry = f"{h}.{pid:x}-1.tpqc"
+                names[who] = [entry, f"{h}.{pid:x}-2.tpqc.{pid}.77.tmp",
+                              f"index.tpqj.{pid}.tmp"]
+                for fn in names[who]:
+                    (d / fn).write_bytes(b"PART")
+            (d / ("ff" * 20 + ".tpqc")).write_bytes(b"no writer")
+            SharedDiskRangeCache(str(d), 1 << 20)  # a second one joins
+            left = set(os.listdir(d))
+            assert set(names["live"]) <= left
+            assert not set(names["dead"]) & left
+            assert "ff" * 20 + ".tpqc" not in left
+        finally:
+            live.kill()
+            live.wait(TIMEOUT_S)
+
+    def test_a_replay_during_an_append_keeps_the_offset(self, tmp_path,
+                                                        monkeypatch):
+        """A replay on another thread between a put's journal write and
+        its offset update took the new records, and the put then moved
+        the offset past them again: the offset stood beyond the journal's
+        end, later replays read nothing, and another process's puts went
+        unseen (a second put of the same key, an orphaned entry file)."""
+        from tpuparquet_torch.io import rangecache as rc
+
+        d = tmp_path / "c"
+        d.mkdir()
+        ours = rc.SharedDiskRangeCache(str(d), 1 << 20)
+        theirs = rc.SharedDiskRangeCache(str(d), 1 << 20)
+        fsync = os.fsync
+
+        def fsync_then_replay(fd):
+            fsync(fd)
+            ours._replay()  # what a reading thread may do at this point
+
+        monkeypatch.setattr(rc.os, "fsync", fsync_then_replay)
+        ours.put(("etag", 0, 4), b"abcd")
+        monkeypatch.setattr(rc.os, "fsync", fsync)
+        assert ours._joff == os.path.getsize(d / "index.tpqj")
+        theirs.put(("etag", 8, 4), b"efgh")  # another process's put
+        assert ours.contains(("etag", 8, 4))
+        assert ours.get(("etag", 8, 4)) == b"efgh"

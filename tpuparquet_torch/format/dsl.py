@@ -13,10 +13,15 @@ converted types, ``precision`` and ``scale`` on the element) and a
 ``fixed_len_byte_array(16)`` field ``(UUID)`` and an int32 or int64
 field ``(INT(8|16|32|64, true|false))`` (the INTEGER logical type and the
 ``INT_n``/``UINT_n`` converted type; width 64 on int64, the others on
-int32), as the JAX package's parser does.  Other types, annotations and
+int32), and a binary field ``(JSON)`` (the JSON logical and converted
+types), as the JAX package's parser does.  Other types, annotations and
 field ids raise :class:`NotImplementedError` naming what was found, so a
 schema this package cannot decode is refused at the door rather than
 misread.
+
+``str()`` of a :class:`SchemaDefinition` prints any schema a footer holds
+in this form, every logical and converted type included, as the JAX
+package's printer does.
 """
 
 from __future__ import annotations
@@ -24,8 +29,8 @@ from __future__ import annotations
 import re
 
 from .metadata import ConvertedType, DecimalType, FieldRepetitionType, \
-    IntType, LogicalType, MicroSeconds, MilliSeconds, SchemaElement, \
-    StringType, TimestampType, TimeUnit, Type, UUIDType
+    IntType, JsonType, LogicalType, MicroSeconds, MilliSeconds, \
+    SchemaElement, StringType, TimestampType, TimeUnit, Type, UUIDType
 
 __all__ = [
     "ColumnDefinition",
@@ -93,6 +98,63 @@ class SchemaDefinition:
                 "elements")
         return cls(root)
 
+    def __str__(self) -> str:
+        if self.root is None:
+            return "message empty {\n}\n"
+        out = [f"message {self.root.name} {{\n"]
+        _print_cols(out, self.root.children, 2)
+        out.append("}\n")
+        return "".join(out)
+
+
+def _print_cols(out: list, cols: list, indent: int) -> None:
+    for col in cols:
+        se = col.element
+        pad = " " * indent
+        rep = FieldRepetitionType(se.repetition_type).name.lower()
+        if se.type is None:
+            out.append(f"{pad}{rep} group {se.name}")
+            if se.converted_type is not None:
+                out.append(f" ({ConvertedType(se.converted_type).name})")
+            out.append(" {\n")
+            _print_cols(out, col.children, indent + 2)
+            out.append(f"{pad}}}\n")
+        else:
+            tname = _TYPE_PRINT[Type(se.type)]
+            if se.type == Type.FIXED_LEN_BYTE_ARRAY:
+                tname = f"fixed_len_byte_array({se.type_length})"
+            out.append(f"{pad}{rep} {tname} {se.name}")
+            if se.logicalType is not None:
+                out.append(f" ({_print_logical(se.logicalType)})")
+            elif se.converted_type is not None:
+                out.append(f" ({ConvertedType(se.converted_type).name})")
+            if se.field_id is not None:
+                out.append(f" = {se.field_id}")
+            out.append(";\n")
+
+
+def _unit_name(unit: TimeUnit) -> str:
+    if unit.NANOS is not None:
+        return "NANOS"
+    if unit.MICROS is not None:
+        return "MICROS"
+    return "MILLIS"
+
+
+def _print_logical(lt: LogicalType) -> str:
+    name, val = lt.set_member()
+    if name in ("TIMESTAMP", "TIME"):
+        utc = "true" if val.isAdjustedToUTC else "false"
+        return f"{name}({_unit_name(val.unit)}, {utc})"
+    if name == "DECIMAL":
+        return f"DECIMAL({val.precision}, {val.scale})"
+    if name == "INTEGER":
+        signed = "true" if val.isSigned else "false"
+        return f"INT({val.bitWidth}, {signed})"
+    if name in ("STRING", "DATE", "UUID", "ENUM", "JSON", "BSON"):
+        return name
+    return name or "UNKNOWN"
+
 
 _TOKEN_RE = re.compile(
     r"(?P<ws>\s+)|(?P<ident>[A-Za-z_][A-Za-z0-9_]*)|(?P<num>[0-9]+)"
@@ -104,6 +166,7 @@ _TYPES = {"boolean": Type.BOOLEAN, "int32": Type.INT32, "int64": Type.INT64,
           "fixed_len_byte_array": Type.FIXED_LEN_BYTE_ARRAY}
 _DECIMAL_TYPES = (Type.BYTE_ARRAY, Type.FIXED_LEN_BYTE_ARRAY, Type.INT32,
                   Type.INT64)
+_TYPE_PRINT = {v: k for k, v in _TYPES.items()}
 _REPETITIONS = {"required": FieldRepetitionType.REQUIRED,
                 "optional": FieldRepetitionType.OPTIONAL,
                 "repeated": FieldRepetitionType.REPEATED}
@@ -225,12 +288,15 @@ def parse_schema_definition(text: str) -> SchemaDefinition:
         elif (ann == "UUID" and ptype == Type.FIXED_LEN_BYTE_ARRAY
               and se.type_length == 16):
             se.logicalType = LogicalType(UUID=UUIDType())
+        elif ann == "JSON" and ptype == Type.BYTE_ARRAY:
+            se.logicalType = LogicalType(JSON=JsonType())
+            se.converted_type = ConvertedType.JSON
         else:
             raise NotImplementedError(
                 f"field {fname!r}: annotation {ann!r} is not supported by "
                 "tpuparquet_torch (STRING on binary, TIMESTAMP on int64, "
                 "DECIMAL, INT on int32/int64, UUID on "
-                "fixed_len_byte_array(16))")
+                "fixed_len_byte_array(16), JSON on binary)")
         expect(")", line)
 
     def field() -> ColumnDefinition:

@@ -5,11 +5,11 @@ type)`` tuples mirroring ``parquet.thrift`` — and a single generic
 compact-protocol encoder/decoder in this module walks the declarations.
 Unknown fields are skipped on read (forward compatibility), absent
 optional fields are omitted on write.  This copy declares the structs the
-read and write paths touch, with the logical types of the list,
-string, timestamp, decimal, integer, UUID and float16 annotations, the page
-index (``ColumnIndex``, ``OffsetIndex``) and the bloom filter header;
-fields it does not declare (other logical types, encryption) are skipped
-on read and never written.
+read and write paths touch, with every logical type of the union, the
+page encoding stats and a row group's sorting columns (which a rescue
+copies), the page index (``ColumnIndex``, ``OffsetIndex``) and the bloom
+filter header; fields it does not declare (encryption) are skipped on
+read and never written.
 
 Enums carry the exact numeric values from the spec (``parquet.thrift``:
 ``Type`` block at :32, ``ConvertedType`` :48, ``FieldRepetitionType`` :182,
@@ -26,6 +26,8 @@ from .compact import CT, CompactReader, CompactWriter
 __all__ = [
     "Type", "ConvertedType", "FieldRepetitionType", "Encoding",
     "CompressionCodec", "PageType", "Statistics", "StringType", "ListType",
+    "MapType", "EnumType", "DateType", "NullType", "TimeType", "JsonType",
+    "BsonType", "PageEncodingStats", "SortingColumn",
     "MilliSeconds", "MicroSeconds", "NanoSeconds", "TimeUnit",
     "TimestampType", "DecimalType", "IntType", "UUIDType", "Float16Type",
     "LogicalType", "SchemaElement", "BoundaryOrder",
@@ -398,7 +400,23 @@ class StringType(ThriftStruct):
     FIELDS = []
 
 
+class MapType(ThriftStruct):
+    FIELDS = []
+
+
 class ListType(ThriftStruct):
+    FIELDS = []
+
+
+class EnumType(ThriftStruct):
+    FIELDS = []
+
+
+class DateType(ThriftStruct):
+    FIELDS = []
+
+
+class NullType(ThriftStruct):
     FIELDS = []
 
 
@@ -428,12 +446,24 @@ class TimestampType(ThriftStruct):
     FIELDS = [(1, "isAdjustedToUTC", BOOL), (2, "unit", _S(TimeUnit))]
 
 
+class TimeType(ThriftStruct):
+    FIELDS = [(1, "isAdjustedToUTC", BOOL), (2, "unit", _S(TimeUnit))]
+
+
 class DecimalType(ThriftStruct):
     FIELDS = [(1, "scale", I32), (2, "precision", I32)]
 
 
 class IntType(ThriftStruct):
     FIELDS = [(1, "bitWidth", I8), (2, "isSigned", BOOL)]
+
+
+class JsonType(ThriftStruct):
+    FIELDS = []
+
+
+class BsonType(ThriftStruct):
+    FIELDS = []
 
 
 class UUIDType(ThriftStruct):
@@ -445,15 +475,21 @@ class Float16Type(ThriftStruct):
 
 
 class LogicalType(ThriftStruct):
-    """Union (parquet.thrift:322-344), cut to the members this package
-    writes; the others are skipped on read."""
+    """Union: exactly one member set (parquet.thrift:322-344)."""
 
     FIELDS = [
         (1, "STRING", _S(StringType)),
+        (2, "MAP", _S(MapType)),
         (3, "LIST", _S(ListType)),
+        (4, "ENUM", _S(EnumType)),
         (5, "DECIMAL", _S(DecimalType)),
+        (6, "DATE", _S(DateType)),
+        (7, "TIME", _S(TimeType)),
         (8, "TIMESTAMP", _S(TimestampType)),
         (10, "INTEGER", _S(IntType)),
+        (11, "UNKNOWN", _S(NullType)),
+        (12, "JSON", _S(JsonType)),
+        (13, "BSON", _S(BsonType)),
         (14, "UUID", _S(UUIDType)),
         (15, "FLOAT16", _S(Float16Type)),
     ]
@@ -568,6 +604,22 @@ class KeyValue(ThriftStruct):
     FIELDS = [(1, "key", STRING), (2, "value", STRING)]
 
 
+class PageEncodingStats(ThriftStruct):
+    FIELDS = [
+        (1, "page_type", _TEnum(PageType)),
+        (2, "encoding", _TEnum(Encoding)),
+        (3, "count", I32),
+    ]
+
+
+class SortingColumn(ThriftStruct):
+    FIELDS = [
+        (1, "column_idx", I32),
+        (2, "descending", BOOL),
+        (3, "nulls_first", BOOL),
+    ]
+
+
 class ColumnMetaData(ThriftStruct):
     FIELDS = [
         (1, "type", _TEnum(Type)),
@@ -582,6 +634,7 @@ class ColumnMetaData(ThriftStruct):
         (10, "index_page_offset", I64),
         (11, "dictionary_page_offset", I64),
         (12, "statistics", _S(Statistics)),
+        (13, "encoding_stats", _TList(_S(PageEncodingStats))),
         (14, "bloom_filter_offset", I64),
         (15, "bloom_filter_length", I32),
     ]
@@ -604,6 +657,7 @@ class RowGroup(ThriftStruct):
         (1, "columns", _TList(_S(ColumnChunk))),
         (2, "total_byte_size", I64),
         (3, "num_rows", I64),
+        (4, "sorting_columns", _TList(_S(SortingColumn))),
         (5, "file_offset", I64),
         (6, "total_compressed_size", I64),
         (7, "ordinal", I16),

@@ -10,8 +10,8 @@ Dremel rules:
 
 from __future__ import annotations
 
-from .dsl import SchemaDefinition, SchemaValidationError, \
-    parse_schema_definition
+from .dsl import ColumnDefinition, SchemaDefinition, \
+    SchemaValidationError, parse_schema_definition
 from .metadata import FieldRepetitionType, SchemaElement, Type
 
 __all__ = ["SchemaNode", "Schema"]
@@ -21,7 +21,7 @@ class SchemaNode:
     """One node of the runtime schema tree."""
 
     __slots__ = ("element", "children", "parent", "path",
-                 "max_rep_level", "max_def_level")
+                 "max_rep_level", "max_def_level", "store")
 
     def __init__(self, element: SchemaElement, parent=None):
         self.element = element
@@ -30,6 +30,9 @@ class SchemaNode:
         self.path: tuple[str, ...] = ()
         self.max_rep_level = 0
         self.max_def_level = 0
+        # a leaf's row buffer and cursor (io/store.py), attached by the
+        # reader and the writer; None on groups
+        self.store = None
 
     @property
     def name(self) -> str:
@@ -47,6 +50,10 @@ class SchemaNode:
     def type_length(self) -> int | None:
         """Byte length of a FIXED_LEN_BYTE_ARRAY leaf, else None."""
         return self.element.type_length
+
+    @property
+    def repetition_type(self) -> FieldRepetitionType | None:
+        return self.element.repetition_type
 
     @property
     def is_leaf(self) -> bool:
@@ -165,3 +172,14 @@ class Schema:
 
         walk(self.root)
         return out
+
+    def definition(self) -> SchemaDefinition:
+        """The DSL view of the tree (``str()`` of it prints the text)."""
+        def build(node: SchemaNode) -> ColumnDefinition:
+            return ColumnDefinition(node.element,
+                                    [build(c) for c in node.children])
+
+        return SchemaDefinition(build(self.root))
+
+    def __str__(self) -> str:
+        return str(self.definition())

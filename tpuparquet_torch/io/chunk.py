@@ -61,6 +61,7 @@ from ..format.metadata import (
     ColumnMetaData,
     CompressionCodec,
     Encoding,
+    KeyValue,
     OffsetIndex,
     PageHeader,
     PageLocation,
@@ -450,7 +451,8 @@ def write_chunk(out, node, column, rep, dl: np.ndarray, *, codec,
                 page_index: bool = False,
                 bloom: bool = False,
                 page_rows: int = 0,
-                pipeline_workers: int = 1) -> ColumnChunk:
+                pipeline_workers: int = 1,
+                kv_metadata: dict | None = None) -> ColumnChunk:
     """Write one column chunk at the current position of ``out`` (a
     position-tracking binary stream).  ``column`` holds the non-null
     values (an array of the physical dtype, or a
@@ -462,7 +464,8 @@ def write_chunk(out, node, column, rep, dl: np.ndarray, *, codec,
     chunk takes ``pipeline_workers`` for the block-parallel split of its
     compressed body, as the JAX writer's does; a split chunk renders
     each next page on one worker while this thread writes the page
-    before, when ``pipeline_workers`` > 1."""
+    before, when ``pipeline_workers`` > 1.  ``kv_metadata`` goes into the
+    chunk's metadata, sorted by key."""
     ptype = Type(node.element.type)
     handler = handler_for(node.element)
     pos0 = out.tell()
@@ -536,6 +539,9 @@ def write_chunk(out, node, column, rep, dl: np.ndarray, *, codec,
         data_page_offset=data_page_offset,
         dictionary_page_offset=dict_page_offset,
         statistics=stats,
+        key_value_metadata=([KeyValue(key=k, value=v)
+                             for k, v in sorted(kv_metadata.items())]
+                            if kv_metadata else None),
     )
     cc = ColumnChunk(file_offset=pos0, meta_data=cm)
     if page_index and stats is not None:

@@ -433,6 +433,23 @@ def _pid_alive(pid: int) -> bool:
     return True
 
 
+def _writer_pid(fn: str) -> int | None:
+    """The process that names itself in a shared tier's entry file
+    (``<hash>.<pid:x>-<gen:x>.tpqc``) or temporary file (an entry's
+    ``<entry>.<pid>.<thread>.tmp``, the journal's
+    ``index.tpqj.<pid>.tmp``); None for a name of another form."""
+    try:
+        if fn.endswith(".tmp"):
+            parts = fn[: -len(".tmp")].split(".")
+            return int(parts[-2] if _SUFFIX + "." in fn else parts[-1])
+        if fn.endswith(_SUFFIX):
+            stamp = fn[: -len(_SUFFIX)].rsplit(".", 1)[1]
+            return int(stamp.split("-")[0], 16)
+    except (IndexError, ValueError):
+        pass
+    return None
+
+
 class _DirLock:
     """Cross-process mutex on the cache directory: an ``O_EXCL`` lock
     file carrying the holder's pid, with dead-holder recovery — a
@@ -596,13 +613,18 @@ class SharedDiskRangeCache(DiskRangeCache):
                 _unlink_quiet(os.path.join(self._dir, fn))
             # unlink orphans: entry files the journal does not own
             # (kill between publish and journal append, or between an
-            # eviction record and its unlink) and .tmp stragglers
+            # eviction record and its unlink) and .tmp stragglers; but
+            # a live process's: it may be publishing them now, and it
+            # journals (or drops) them under the lock this join holds
             owned = {fn for fn, _nb in live.values()}
             for fn in os.listdir(self._dir):
-                if fn.endswith(".tmp"):
-                    _unlink_quiet(os.path.join(self._dir, fn))
-                elif fn.endswith(_SUFFIX) and fn not in owned:
-                    _unlink_quiet(os.path.join(self._dir, fn))
+                if not (fn.endswith(".tmp") or (fn.endswith(_SUFFIX)
+                                                and fn not in owned)):
+                    continue
+                pid = _writer_pid(fn)
+                if pid is not None and _pid_alive(pid):
+                    continue
+                _unlink_quiet(os.path.join(self._dir, fn))
             if doomed or len(records) > max(64, 4 * len(live)):
                 self._compact_init(live)
             self._index = OrderedDict(live)
@@ -745,13 +767,17 @@ class SharedDiskRangeCache(DiskRangeCache):
                 f.write(blob)
                 f.flush()
                 os.fsync(f.fileno())
+                end = f.tell()
         except OSError:
             return
         with self._lock:
             for rec in records:
                 self._apply_record(rec, self._index, None)
             self._bytes = sum(nb for _fn, nb in self._index.values())
-            self._joff += len(blob)
+            # the journal's end, not the old offset plus our records: a
+            # replay on another thread of this process may have read
+            # them (and moved the offset past them) since the write
+            self._joff = end
 
     # -- contract ---------------------------------------------------------
     def get(self, key):

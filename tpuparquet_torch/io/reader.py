@@ -1,4 +1,4 @@
-"""FileReader subset: footer, schema and column-chunk byte ranges.
+"""FileReader: footer, schema, column-chunk byte ranges and rows.
 
 Opens a path, a byte-range source (``io/source.py``: a
 :class:`~tpuparquet_torch.io.source.ByteRangeSource`, a ``file://``,
@@ -62,6 +62,12 @@ into the disk tier (``ranges_coalesced`` counts the requests a span
 saved).  A corrupt page or chunk evicts the source's cached ranges from
 both tiers, so a retry reads the store, not the poison.
 
+The row API reads records on the host, as the reference does:
+:meth:`FileReader.rows` and :meth:`FileReader.next_row` assemble them
+(``io/store.py``) from each row group's :meth:`FileReader.
+read_row_group_arrays`; :meth:`FileReader.pre_load` and
+:meth:`FileReader.skip_row_group` move through the row groups.
+
 Predicate pushdown reads three things here: :meth:`FileReader.page_index`
 (each column's pages with their row ranges and logical bounds, checked
 by ``format/validate.py`` ``validate_page_index``; a column whose index
@@ -111,6 +117,7 @@ from .chunk import ChunkData, read_chunk
 from .rangecache import disk_cache, invalidate_source_caches, mem_cache
 from .source import ByteRangeSource, RangeSourceFile, \
     coalesce_gap_default, coalesce_ranges, open_byte_source
+from .store import assemble_record, attach_stores
 from .values import handler_for
 
 __all__ = ["FileReader"]
@@ -223,6 +230,10 @@ class FileReader:
         self._read_deadline = (read_deadline if read_deadline is not None
                                else read_deadline_default())
         self._count_lock = threading.Lock()  # inflight and hedge streak
+        # disk-tier keys a prefetch of this reader is fetching now, each
+        # with the event its fetch sets when it ends
+        self._prefetching: dict = {}
+        self._prefetch_lock = threading.Lock()
         self._hedge_losses = 0  # mirror wins in a row, no primary read
         self.salvaged = False
         self.salvage_report = None
@@ -276,8 +287,14 @@ class FileReader:
         self._bloom_cache: dict = {}
         self.pageindex_findings: list = []
         self.schema = Schema.from_elements(self.meta.schema)
+        attach_stores(self.schema)
         if columns:
             self.schema.set_selected_columns(*columns)
+        self._rg_pos = 0          # the next row group the rows load
+        self._loaded = False      # a row group is loaded into the stores
+        self._current_rg = 0      # the last loaded (or next) row group
+        self._current_record = 0
+        self._rg_records = 0
 
     def _resolve_metadata(self, f, pages, strict_metadata, salvage,
                           salvage_like) -> FileMetaData:
@@ -392,6 +409,84 @@ class FileReader:
 
     def row_group_count(self) -> int:
         return len(self.meta.row_groups)
+
+    def metadata(self) -> FileMetaData:
+        return self.meta
+
+    def key_value_metadata(self) -> dict:
+        return {kv.key: kv.value
+                for kv in (self.meta.key_value_metadata or [])}
+
+    def column_meta_data(self, column: str) -> tuple[dict, ColumnMetaData]:
+        """The file's key-value metadata and ``column``'s chunk metadata
+        in the current row group of the row API."""
+        rg = self.meta.row_groups[self._current_rg]
+        for cc in rg.columns:
+            if ".".join(cc.meta_data.path_in_schema) == column:
+                return self.key_value_metadata(), cc.meta_data
+        raise KeyError(f"no such column {column!r}")
+
+    def current_row_group(self):
+        return self.meta.row_groups[self._current_rg]
+
+    def get_schema_definition(self):
+        """The schema's DSL view (``str()`` of it is the text)."""
+        return self.schema.definition()
+
+    # -- the row API: records assembled on the host from a row group's
+    # host decode (read_row_group_arrays), as the reference reads rows
+
+    def pre_load(self) -> None:
+        """Load the next row group now."""
+        if not self._loaded:
+            self._load_next()
+
+    def skip_row_group(self) -> None:
+        """Skip the rest of the current row group, or the next one when
+        none is loaded."""
+        if self._loaded:
+            self._loaded = False
+        else:
+            self._rg_pos += 1
+
+    def _load_next(self) -> None:
+        if self._rg_pos >= len(self.meta.row_groups):
+            raise EOFError("no more row groups")
+        idx = self._rg_pos
+        data = self.read_row_group_arrays(idx)
+        for leaf in self.schema.leaves:
+            cd = data.get(leaf.flat_name)
+            if cd is None:
+                leaf.store.mark_skipped()
+            else:
+                leaf.store.load_decoded(cd.values, cd.rep_levels,
+                                        cd.def_levels)
+        self._current_rg = idx
+        self._rg_pos += 1
+        self._loaded = True
+        self._current_record = 0
+        self._rg_records = self.meta.row_groups[idx].num_rows
+
+    def next_row(self) -> dict:
+        """The next record as a dict (groups as dicts, repeated fields as
+        lists, nulls left out); EOFError at the end of the file."""
+        while True:
+            if not self._loaded:
+                self._load_next()  # EOFError when none is left
+            if self._current_record < self._rg_records:
+                self._current_record += 1
+                if self._current_record >= self._rg_records:
+                    self._loaded = False  # the next call moves on
+                return assemble_record(self.schema)
+            self._loaded = False
+
+    def rows(self):
+        """Iterate over the records left."""
+        while True:
+            try:
+                yield self.next_row()
+            except EOFError:
+                return
 
     def selected_chunks(self, rg):
         """``[(path, node, cm)]`` for the selected columns of a row
@@ -779,7 +874,9 @@ class FileReader:
         ``ranges_coalesced`` the requests a span saved and
         ``remote_bytes`` the spans' bytes, gap bytes included.  A span
         that fails past its retries is not cached: the chunk read then
-        fetches it again and raises with its coordinates."""
+        fetches it again and raises with its coordinates.  A range that
+        another thread's prefetch through this reader is fetching is
+        waited for instead."""
         if self._source is None or not entries:
             return
         dcache = disk_cache()
@@ -790,6 +887,33 @@ class FileReader:
                    if not dcache.contains(etag + (s, n))]
         if not missing:
             return
+        # a range another thread's prefetch through this reader is
+        # fetching now (the scan server's planner ahead of the decode, or
+        # the decode itself) is waited for, not fetched a second time
+        mine, waits = [], []
+        with self._prefetch_lock:
+            for s, n in missing:
+                ev = self._prefetching.get(etag + (s, n))
+                if ev is not None:
+                    waits.append(ev)
+                elif not dcache.contains(etag + (s, n)):
+                    # (a fetch that ended since the first look stored
+                    # its ranges before it left the table)
+                    self._prefetching[etag + (s, n)] = threading.Event()
+                    mine.append((s, n))
+        try:
+            if mine:
+                self._fetch_spans(mine, dcache, etag)
+        finally:
+            with self._prefetch_lock:
+                for s, n in mine:
+                    self._prefetching.pop(etag + (s, n)).set()
+        for ev in waits:
+            ev.wait()
+
+    def _fetch_spans(self, missing, dcache, etag) -> None:
+        """Fetch ``missing`` ``(start, size)`` ranges coalesced into spans
+        and store each in the disk tier (:meth:`prefetch_ranges`)."""
         spans = coalesce_ranges(missing, coalesce_gap_default())
 
         def fetch_span(start, size):

@@ -3,7 +3,9 @@
 A :class:`ValueHandler` knows one leaf's physical type and its sort
 order (signed or unsigned integers, from ``UINT_n`` or an unsigned
 ``INTEGER`` logical type), coerces predicate constants to the column's
-storage (:meth:`ValueHandler.coerce_one`), reduces a column to its
+storage (:meth:`ValueHandler.coerce_one`; :meth:`ValueHandler.get_values`
+for the row writer's values), turns a decoded column into Python values
+for the row reader (:meth:`ValueHandler.to_pylist`), reduces a column to its
 ``(min, max)`` under that order and frames one value as the Statistics,
 page index and bloom filter hold it: PLAIN, without a length prefix.
 """
@@ -100,6 +102,37 @@ class ValueHandler:
             if isinstance(v, (tuple, list, np.ndarray)) and len(v) == 3:
                 return np.asarray(v, dtype="<u4").tobytes()
             raise TypeError("INT96 expects 12 bytes or 3 uint32 words")
+        raise TypeError(f"unsupported physical type {p}")
+
+    def get_values(self, v, repeated: bool) -> list:
+        """A row's value of the leaf as a list of coerced values: a scalar
+        is one value; a repeated leaf takes a sequence too, each item one
+        value."""
+        if repeated and isinstance(v, (list, tuple, np.ndarray)):
+            return [self.coerce_one(x) for x in v]
+        return [self.coerce_one(v)]
+
+    def to_pylist(self, column) -> list:
+        """A decoded column as Python values: bools, ints (an unsigned
+        column's as the non-negative int), floats, and bytes for BYTE_ARRAY,
+        FIXED_LEN_BYTE_ARRAY and INT96 (its 12 bytes)."""
+        p = self.ptype
+        if isinstance(column, ByteArrayColumn):
+            return column.to_list()
+        arr = np.asarray(column)
+        if p == Type.BOOLEAN:
+            return [bool(x) for x in arr]
+        if p in (Type.INT32, Type.INT64):
+            if self.unsigned:
+                udt = np.uint32 if p == Type.INT32 else np.uint64
+                return [int(x) for x in arr.view(udt)]
+            return [int(x) for x in arr]
+        if p in (Type.FLOAT, Type.DOUBLE):
+            return [float(x) for x in arr]
+        if p in (Type.FIXED_LEN_BYTE_ARRAY, Type.INT96):
+            if p == Type.INT96:
+                arr = arr.view(np.uint8).reshape(len(arr), 12)
+            return [bytes(row) for row in arr]
         raise TypeError(f"unsupported physical type {p}")
 
     def finalize(self, buffered: list):

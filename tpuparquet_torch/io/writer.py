@@ -39,6 +39,15 @@ salvages itself; every page, index and bloom offset lies behind it.
 footer.  With the same ``created_by`` the two writers' default files
 are equal byte for byte.
 
+The row path takes records instead: :meth:`FileWriter.add_data`
+shreds one (a dict of the top-level fields, groups as dicts, repeated
+fields as lists) into the leaves' buffers (``io/store.py``), and
+:meth:`FileWriter.flush_row_group` writes the buffered rows as one row
+group, on its own or once their approximate size reaches
+``max_row_group_size``, and at :meth:`FileWriter.close`.  The two paths
+write the same chunks for the same values; a row group is one or the
+other.
+
 ``column_encodings`` writes a column with another encoding the JAX
 package's table allows for its type: RLE (BOOLEAN), DELTA_BINARY_PACKED,
 DELTA_LENGTH_BYTE_ARRAY, DELTA_BYTE_ARRAY or BYTE_STREAM_SPLIT.
@@ -69,6 +78,7 @@ import torch
 
 from ..cpu.levels import list_levels
 from ..cpu.plain import PHYSICAL_DTYPES, ByteArrayColumn
+from ..format.dsl import SchemaDefinition
 from ..format.footer import MAGIC, write_footer
 from ..format.metadata import CompressionCodec, ConvertedType, Encoding, \
     FileMetaData, KeyValue, RowGroup, Type
@@ -79,6 +89,7 @@ from ..obs import trace as _trace
 from ..stats import current_stats, worker_stats
 from .chunk import write_chunk
 from .pages import SUPPORTED_DATA_ENCODINGS, page_crc_default
+from .store import attach_stores, shred_record
 from .values import is_unsigned
 
 __all__ = ["FileWriter"]
@@ -243,7 +254,7 @@ def _prepare_struct(leaf, values, masks: dict):
 class FileWriter:
     """Streaming Parquet writer over a binary file object.
 
-    ``schema`` is a :class:`Schema` or a DSL string
+    ``schema`` is a :class:`Schema`, a ``SchemaDefinition`` or a DSL string
     (``message m { required int64 a; optional int32 b; }``);
     ``column_encodings`` maps a leaf's dotted name to its value encoding
     (default PLAIN); ``allow_dict=False`` writes PLAIN columns without a
@@ -251,7 +262,9 @@ class FileWriter:
     on unless ``TPQ_PAGE_CRC=0``); ``write_stats=False`` writes no
     statistics; ``page_index``, ``bloom_columns``, ``page_rows`` and
     ``salvage_hint`` as the module docstring says (None: their
-    environment defaults); ``version``, ``created_by`` and
+    environment defaults); ``max_row_group_size`` bounds the row path's
+    row groups in approximate bytes (None: one row group a
+    :meth:`flush_row_group`); ``version``, ``created_by`` and
     ``kv_metadata`` fill the footer.  Use as a context manager or call
     :meth:`close`."""
 
@@ -268,14 +281,21 @@ class FileWriter:
                  bloom_columns=None,
                  page_rows: int | None = None,
                  salvage_hint: bool | None = None,
-                 encode_threads: int | None = None):
+                 encode_threads: int | None = None,
+                 max_row_group_size: int | None = None):
         self._f = f
         self._pos = 0
         self.version = version
         self.created_by = created_by
         self.kv_metadata = dict(kv_metadata or {})
-        self.schema = (schema if isinstance(schema, Schema)
-                       else Schema.from_string(schema))
+        if isinstance(schema, Schema):
+            self.schema = schema
+        elif isinstance(schema, SchemaDefinition):
+            self.schema = Schema.from_definition(schema)
+        else:
+            self.schema = Schema.from_string(schema)
+        attach_stores(self.schema)
+        self.max_row_group_size = max_row_group_size
         self.column_encodings = {k: Encoding(v) for k, v in
                                  (column_encodings or {}).items()}
         for path, enc in self.column_encodings.items():
@@ -318,6 +338,8 @@ class FileWriter:
                                if encode_threads is not None else None)
         self.row_groups: list[RowGroup] = []
         self.total_rows = 0
+        self._buffered_rows = 0
+        self._approx_size = 0
         self._closed = False
 
     # position-tracking stream interface for the chunk layer
@@ -330,7 +352,9 @@ class FileWriter:
 
     def write_columns(self, columns: dict, *, masks: dict | None = None,
                       offsets: dict | None = None,
-                      element_masks: dict | None = None):
+                      element_masks: dict | None = None,
+                      kv_metadata: dict | None = None,
+                      kv_per_column: dict | None = None):
         """Write one row group.  ``columns`` maps leaf name -> the
         column's **non-null** values (in the representation the module
         docstring lists for the leaf's type); ``masks`` maps an optional
@@ -353,9 +377,15 @@ class FileWriter:
         (for a MAP: ``(keys, values)``) sharing ``offsets[f]``;
         ``element_masks[f]`` is then a dict keyed by leaf flat name
         (e.g. ``"m.key_value.value"``), where the element group's flat
-        name marks null elements."""
+        name marks null elements.
+
+        ``kv_metadata`` goes into every chunk's metadata and
+        ``kv_per_column`` (leaf name -> dict) into one chunk's, as
+        :meth:`flush_row_group` puts them."""
         if self._closed:
             raise ValueError("writer is closed")
+        if self._buffered_rows:
+            raise ValueError("cannot mix write_columns with buffered rows")
         masks = masks or {}
         prepared = []
         n_rows = None
@@ -439,10 +469,67 @@ class FileWriter:
             elif n_rows != rows:
                 raise ValueError("column row counts differ")
             prepared.append((leaf, vals, rep, dl, dl.size - len(vals)))
+        self._flush_prepared(prepared, n_rows or 0, kv_metadata or {},
+                             kv_per_column or {})
+
+    # -- the row path ------------------------------------------------------
+
+    def add_data(self, row: dict) -> None:
+        """Shred one record (a dict of the top-level fields; groups as
+        dicts, repeated fields as lists) into the leaves' buffers; the
+        buffered rows flush as a row group once their approximate size
+        reaches ``max_row_group_size``."""
+        if self._closed:
+            raise ValueError("writer is closed")
+        shred_record(self.schema, row)
+        self._buffered_rows += 1
+        self._approx_size += _approx_record_size(row)
+        if self.max_row_group_size is not None \
+                and self._approx_size >= self.max_row_group_size:
+            self.flush_row_group()
+
+    def current_row_group_size(self) -> int:
+        """The approximate bytes of the buffered rows."""
+        return self._approx_size
+
+    def current_file_size(self) -> int:
+        return self._pos
+
+    def flush_row_group(self, *, kv_metadata: dict | None = None,
+                        kv_per_column: dict | None = None) -> None:
+        """Write the buffered rows as one row group (nothing when none is
+        buffered).  ``kv_metadata`` goes into every chunk's metadata,
+        ``kv_per_column`` (leaf name -> dict) into one chunk's, over
+        it."""
+        if self._buffered_rows == 0:
+            return
+        prepared = []
+        for leaf in self.schema.leaves:
+            store = leaf.store
+            rep, dl = store.num_records_levels()
+            prepared.append((leaf, store.handler.finalize(store.values),
+                             rep if leaf.max_rep_level else None, dl,
+                             int((dl != leaf.max_def_level).sum())))
+        n_rows = self._buffered_rows
+        # the buffers reset before the write, so a failed write does not
+        # write them twice
+        for leaf in self.schema.leaves:
+            leaf.store.reset()
+        self._buffered_rows = 0
+        self._approx_size = 0
+        self._flush_prepared(prepared, n_rows, kv_metadata or {},
+                             kv_per_column or {})
+
+    def _flush_prepared(self, prepared, n_rows: int, kv_global: dict,
+                        kv_per_column: dict) -> None:
+        """Write one row group of ``(leaf, values, rep, dl, nulls)``
+        columns, in schema order."""
         if self._pos == 0:
             self._write_head()
 
         def chunk(out, leaf, vals, rep, dl, nulls, workers):
+            kv = dict(kv_global)
+            kv.update(kv_per_column.get(leaf.flat_name, {}))
             return write_chunk(
                 out, leaf, vals, rep, dl, codec=self.codec,
                 encoding=self.column_encodings.get(leaf.flat_name,
@@ -451,7 +538,8 @@ class FileWriter:
                 data_page_v2=self.data_page_v2, allow_dict=self.allow_dict,
                 write_stats=self.write_stats, page_index=self.page_index,
                 bloom=leaf.flat_name in self.bloom_columns,
-                page_rows=self.page_rows, pipeline_workers=workers)
+                page_rows=self.page_rows, pipeline_workers=workers,
+                kv_metadata=kv)
 
         # pool workers re-enter the writing thread's trace context
         tctx = _trace.current_ctx()
@@ -509,9 +597,9 @@ class FileWriter:
         total_comp = sum(cc.meta_data.total_compressed_size for cc in chunks)
         self.row_groups.append(RowGroup(
             columns=chunks, total_byte_size=total_bytes,
-            num_rows=n_rows or 0, total_compressed_size=total_comp,
+            num_rows=n_rows, total_compressed_size=total_comp,
             ordinal=len(self.row_groups)))
-        self.total_rows += n_rows or 0
+        self.total_rows += n_rows
 
     def _write_head(self) -> None:
         """The leading magic, then the salvage hint frame when it is on
@@ -552,6 +640,7 @@ class FileWriter:
     def close(self) -> None:
         if self._closed:
             return
+        self.flush_row_group()
         if self._pos == 0:
             self._write_head()  # an empty file is framed too
         self._write_indexes()
@@ -573,3 +662,26 @@ class FileWriter:
     def __exit__(self, exc_type, exc, tb):
         if exc_type is None:
             self.close()
+
+
+def _approx_record_size(row) -> int:
+    """A record's size for ``max_row_group_size``: in a dict a string or
+    bytes value counts its length and 8, a nested dict or list its
+    members' and 8, any other value 16; in a list each item its own
+    size (a string or bytes item its length, any other scalar 8)."""
+    if isinstance(row, dict):
+        t = 0
+        for v in row.values():
+            c = v.__class__
+            if c is str or c is bytes:
+                t += len(v) + 8
+            elif c is dict or c is list or c is tuple:
+                t += _approx_record_size(v) + 8
+            else:
+                t += 16
+        return t
+    if isinstance(row, (list, tuple)):
+        return sum(_approx_record_size(v) for v in row)
+    if isinstance(row, (bytes, bytearray, str)):
+        return len(row)
+    return 8

@@ -21,7 +21,8 @@ import threading
 import numpy as np
 
 __all__ = ["HostArena", "ArenaPool", "lease_arena", "return_arena",
-           "trim_arena_pool", "thread_arena", "discard_thread_arena",
+           "trim_arena_pool", "set_arena_retention", "thread_arena",
+           "discard_thread_arena",
            "arena_occupancy", "take_arena_peak"]
 
 
@@ -179,6 +180,15 @@ class ArenaPool:
         with self._lock:
             del self._free[keep:]
 
+    def set_retention(self, max_arenas: int) -> int:
+        """Set the free-list cap; returns the previous cap.  The scan
+        server raises it to its worker budget (each concurrent tenant
+        worker leases an arena) and restores it on shutdown."""
+        with self._lock:
+            prev = self.max_arenas
+            self.max_arenas = max(int(max_arenas), 0)
+        return prev
+
 
 _POOL = ArenaPool()
 
@@ -198,6 +208,12 @@ def trim_arena_pool(keep: int = 0) -> None:
     :meth:`ArenaPool.trim`); called by the pipelined reader when a
     scan ends, and available to long-lived hosts."""
     _POOL.trim(keep)
+
+
+def set_arena_retention(max_arenas: int) -> int:
+    """Set the shared pool's free-list cap (:meth:`ArenaPool.set_retention`);
+    returns the previous cap."""
+    return _POOL.set_retention(max_arenas)
 
 
 _local = threading.local()

@@ -37,12 +37,33 @@ from collections import OrderedDict
 import numpy as np
 
 __all__ = ["PlanCache", "plan_cache", "plan_cache_budget",
+           "set_plan_cache_budget",
            "invalidate_fingerprint", "clear_plan_cache"]
+
+_override_lock = threading.Lock()
+_budget_override_mb: float | None = None
+
+
+def set_plan_cache_budget(mb: float | None) -> float | None:
+    """Set the budget in MB for the process, over ``TPQ_PLAN_CACHE_MB``
+    (None clears the override): the scan server arms a shared plan cache
+    for its lifetime without touching the environment.  Returns the
+    previous override, which the server restores on shutdown."""
+    global _budget_override_mb
+    with _override_lock:
+        prev = _budget_override_mb
+        _budget_override_mb = mb
+    return prev
 
 
 def plan_cache_budget() -> int:
-    """Cache byte budget (0 = disabled) from ``TPQ_PLAN_CACHE_MB``.
-    Read per call so same-process A/B runs can flip it."""
+    """Cache byte budget (0 = disabled): the override of
+    :func:`set_plan_cache_budget` when one is set, else
+    ``TPQ_PLAN_CACHE_MB``.  Read per call so same-process A/B runs can
+    flip it."""
+    mb = _budget_override_mb
+    if mb is not None:
+        return max(int(float(mb) * (1 << 20)), 0)
     v = os.environ.get("TPQ_PLAN_CACHE_MB")
     if not v:
         return 0

@@ -1,10 +1,18 @@
-"""tpuparquet_torch.serve: the serve layer's shared state.
+"""tpuparquet_torch.serve: the long-lived multi-tenant scan server.
 
-:mod:`.arbiter` holds one process-wide worker budget split into
-per-tenant shares (adjusted from the ledgers, digests and SLO burn
-rates), with admission control that sheds load by a retryable
-rejection.  The reference's scan server (``ScanServer``, ``ScanJob``),
-which drives tenants' scans over it, is not ported yet.
+* :mod:`.arbiter` holds one process-wide worker budget split into
+  per-tenant shares (adjusted from the ledgers, digests and SLO burn
+  rates), with admission control that sheds load by a retryable
+  rejection;
+* :mod:`.server` runs tenants' :class:`~tpuparquet_torch.shard.scan.
+  ShardedScan` jobs from bounded per-tenant queues over the shared plan
+  cache and arena pool, with a graceful drain whose durable cursors a
+  successor resumes;
+* :mod:`.prefetch` warms the disk tier ahead of a job's cursor, as deep
+  as its latency objective asks.
+
+The arbiter imports at once (the thread budgets read it); the server,
+which pulls in the whole scan stack, loads at its first use.
 """
 
 from .arbiter import (  # noqa: F401
@@ -26,6 +34,8 @@ from .arbiter import (  # noqa: F401
 __all__ = [
     "AdmissionRejected",
     "ResourceArbiter",
+    "ScanJob",
+    "ScanServer",
     "ServeStateError",
     "activate",
     "active",
@@ -38,3 +48,12 @@ __all__ = [
     "warn_if_oversubscribed",
     "write_budget",
 ]
+
+
+def __getattr__(name: str):
+    if name in ("ScanServer", "ScanJob"):
+        from . import server as _server
+
+        return getattr(_server, name)
+    raise AttributeError(
+        f"module {__name__!r} has no attribute {name!r}")

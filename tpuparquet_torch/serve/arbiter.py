@@ -55,6 +55,7 @@ __all__ = [
     "tenant_scope",
     "serve_workers",
     "queue_bound_default",
+    "rebalance_interval_default",
     "warn_if_oversubscribed",
 ]
 
@@ -91,6 +92,18 @@ def queue_bound_default() -> int:
         except ValueError:
             pass
     return 8
+
+
+def rebalance_interval_default() -> float:
+    """Seconds between the scan server's rebalances
+    (``TPQ_SERVE_REBALANCE_S``, default 1.0, at least 0.05)."""
+    v = os.environ.get("TPQ_SERVE_REBALANCE_S")
+    if v is not None:
+        try:
+            return max(float(v), 0.05)
+        except ValueError:
+            pass
+    return 1.0
 
 
 class _TenantState:

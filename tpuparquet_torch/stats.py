@@ -247,33 +247,175 @@ class DecodeStats:
         """Sparse JSON form of every recorded histogram."""
         return {name: h.as_dict() for name, h in sorted(self.hists.items())}
 
+    @property
+    def values_per_sec(self) -> float:
+        return self.values / self.wall_s if self.wall_s > 0 else 0.0
+
+    @property
+    def compression_ratio(self) -> float:
+        if self.bytes_compressed == 0:
+            return 1.0
+        return self.bytes_uncompressed / self.bytes_compressed
+
+    def as_dict(self) -> dict:
+        """Every counter by name, the walls rounded to microseconds, and
+        the derived selectivity, values a second and compression
+        ratio (the profile's and the tools' view)."""
+        return {
+            "row_groups": self.row_groups,
+            "chunks": self.chunks,
+            "pages": self.pages,
+            "pages_device_snappy": self.pages_device_snappy,
+            "pages_device_planes": self.pages_device_planes,
+            "pages_device_delta_lanes": self.pages_device_delta_lanes,
+            "pages_device_encoded": self.pages_device_encoded,
+            "pages_host_values": self.pages_host_values,
+            "values": self.values,
+            "bytes_compressed": self.bytes_compressed,
+            "bytes_uncompressed": self.bytes_uncompressed,
+            "bytes_staged": self.bytes_staged,
+            "bytes_read": self.bytes_read,
+            "read_s": round(self.read_s, 6),
+            "pages_crc_verified": self.pages_crc_verified,
+            "crc_mismatches": self.crc_mismatches,
+            "faults_injected": self.faults_injected,
+            "io_retries": self.io_retries,
+            "dispatch_retries": self.dispatch_retries,
+            "pages_degraded": self.pages_degraded,
+            "units_degraded": self.units_degraded,
+            "units_quarantined": self.units_quarantined,
+            "files_salvaged": self.files_salvaged,
+            "row_groups_recovered": self.row_groups_recovered,
+            "files_quarantined": self.files_quarantined,
+            "metadata_rejects": self.metadata_rejects,
+            "deadline_exceeded": self.deadline_exceeded,
+            "hedges_issued": self.hedges_issued,
+            "hedges_won": self.hedges_won,
+            "checkpoints_written": self.checkpoints_written,
+            "pages_written": self.pages_written,
+            "pages_assembled_native": self.pages_assembled_native,
+            "write_encode_s": round(self.write_encode_s, 6),
+            "write_compress_s": round(self.write_compress_s, 6),
+            "write_assemble_s": round(self.write_assemble_s, 6),
+            "codec_split_blocks": self.codec_split_blocks,
+            "codec_split_frames": self.codec_split_frames,
+            "row_groups_pruned": self.row_groups_pruned,
+            "pages_pruned": self.pages_pruned,
+            "rows_pruned": self.rows_pruned,
+            "bloom_hits": self.bloom_hits,
+            "dataset_files_pruned": self.dataset_files_pruned,
+            "dataset_orphans_swept": self.dataset_orphans_swept,
+            "filter_rows_in": self.filter_rows_in,
+            "filter_rows_out": self.filter_rows_out,
+            "selectivity": round(
+                self.filter_rows_out / self.filter_rows_in, 6)
+            if self.filter_rows_in else None,
+            "gather_bytes_moved": self.gather_bytes_moved,
+            "gather_bytes_replicated": self.gather_bytes_replicated,
+            "gather_reshard_s": round(self.gather_reshard_s, 6),
+            "plan_cache_hits": self.plan_cache_hits,
+            "plan_cache_misses": self.plan_cache_misses,
+            "plan_cache_evictions": self.plan_cache_evictions,
+            "remote_ranges_fetched": self.remote_ranges_fetched,
+            "ranges_coalesced": self.ranges_coalesced,
+            "remote_bytes": self.remote_bytes,
+            "remote_retry": self.remote_retry,
+            "cache_hits_mem": self.cache_hits_mem,
+            "cache_misses_mem": self.cache_misses_mem,
+            "cache_evictions_mem": self.cache_evictions_mem,
+            "cache_hits_disk": self.cache_hits_disk,
+            "cache_misses_disk": self.cache_misses_disk,
+            "cache_evictions_disk": self.cache_evictions_disk,
+            "plan_s": round(self.plan_s, 6),
+            "transfer_s": round(self.transfer_s, 6),
+            "dispatch_s": round(self.dispatch_s, 6),
+            "wall_s": round(self.wall_s, 6),
+            "values_per_sec": round(self.values_per_sec, 1),
+            "compression_ratio": round(self.compression_ratio, 3),
+        }
+
     def summary(self) -> str:
-        """One line: what was decoded, the pruning when a filter ran and
-        the salvage when a file needed it (the reference's ``PRUNE`` and
-        ``SALVAGE`` clauses)."""
-        line = (f"decoded {self.values:,} values in {self.pages} pages / "
-                f"{self.chunks} chunks / {self.row_groups} row groups; "
-                f"{self.bytes_compressed:,}B -> "
-                f"{self.bytes_uncompressed:,}B")
-        if self.bytes_staged:
-            line += f"; staged {self.bytes_staged:,}B to device"
-        if (self.row_groups_pruned or self.pages_pruned or self.rows_pruned
-                or self.bloom_hits or self.filter_rows_in):
-            line += (f"; PRUNE: {self.row_groups_pruned} row groups / "
-                     f"{self.pages_pruned} pages / {self.rows_pruned} rows "
-                     f"pruned, {self.bloom_hits} bloom hits")
-            if self.filter_rows_in:
-                line += (f", selectivity "
-                         f"{self.filter_rows_out / self.filter_rows_in:.4f} "
-                         f"({self.filter_rows_out:,}/"
-                         f"{self.filter_rows_in:,})")
-        if self.files_salvaged or self.files_quarantined \
-                or self.metadata_rejects:
-            line += (f"; SALVAGE: {self.files_salvaged} files salvaged "
-                     f"({self.row_groups_recovered} row groups recovered), "
-                     f"{self.files_quarantined} files quarantined, "
-                     f"{self.metadata_rejects} metadata rejects")
-        return line
+        """One line: what was decoded and how fast, then a clause for
+        each layer that counted something (FAULTS, TIME, WRITE, PRUNE,
+        GATHER, PLAN CACHE, REMOTE, SALVAGE)."""
+        d = self.as_dict()
+        return (
+            f"decoded {d['values']:,} values in {d['pages']} pages / "
+            f"{d['chunks']} chunks / {d['row_groups']} row groups; "
+            f"{d['bytes_compressed']:,}B -> {d['bytes_uncompressed']:,}B "
+            f"(x{d['compression_ratio']}); "
+            f"{d['wall_s']:.4f}s = {d['values_per_sec']:,.0f} values/s"
+            + (f"; staged {d['bytes_staged']:,}B to device"
+               if d["bytes_staged"] else "")
+            + (f"; plan {d['plan_s']:.3f}s / transfer "
+               f"{d['transfer_s']:.3f}s / dispatch {d['dispatch_s']:.3f}s"
+               if d["transfer_s"] else "")
+            + (f"; crc verified {d['pages_crc_verified']} pages"
+               if d["pages_crc_verified"] else "")
+            + (f"; FAULTS: {d['crc_mismatches']} crc mismatches, "
+               f"{d['faults_injected']} injected, "
+               f"{d['io_retries']} io retries, "
+               f"{d['dispatch_retries']} dispatch retries, "
+               f"{d['pages_degraded']}p/{d['units_degraded']}u degraded "
+               f"to host, {d['units_quarantined']} quarantined"
+               if (d["crc_mismatches"] or d["faults_injected"]
+                   or d["io_retries"] or d["dispatch_retries"]
+                   or d["pages_degraded"] or d["units_degraded"]
+                   or d["units_quarantined"]) else "")
+            + (f"; TIME: {d['deadline_exceeded']} deadlines exceeded, "
+               f"{d['hedges_issued']} hedges issued "
+               f"({d['hedges_won']} won), "
+               f"{d['checkpoints_written']} checkpoints"
+               if (d["deadline_exceeded"] or d["hedges_issued"]
+                   or d["checkpoints_written"]) else "")
+            + (f"; WRITE: {d['pages_written']} pages "
+               f"({d['pages_assembled_native']} native), "
+               f"encode {d['write_encode_s']:.3f}s / compress "
+               f"{d['write_compress_s']:.3f}s / assemble "
+               f"{d['write_assemble_s']:.3f}s"
+               + (f", {d['codec_split_blocks']} split blocks"
+                  if d["codec_split_blocks"] else "")
+               if d["pages_written"] else "")
+            + (f"; {d['codec_split_frames']} codec frames "
+               f"decoded parallel" if d["codec_split_frames"] else "")
+            + (f"; PRUNE: {d['row_groups_pruned']} row groups / "
+               f"{d['pages_pruned']} pages / {d['rows_pruned']} rows "
+               f"pruned, {d['bloom_hits']} bloom hits"
+               + (f", selectivity {d['selectivity']:.4f} "
+                  f"({d['filter_rows_out']:,}/{d['filter_rows_in']:,})"
+                  if d["filter_rows_in"] else "")
+               if (d["row_groups_pruned"] or d["pages_pruned"]
+                   or d["rows_pruned"] or d["bloom_hits"]
+                   or d["filter_rows_in"]) else "")
+            + (f"; GATHER: {d['gather_bytes_moved']:,}B to consumers "
+               f"({d['gather_bytes_replicated']:,}B replication), "
+               f"reshard {d['gather_reshard_s']:.3f}s"
+               if (d["gather_bytes_moved"] or d["gather_reshard_s"])
+               else "")
+            + (f"; PLAN CACHE: {d['plan_cache_hits']} hits / "
+               f"{d['plan_cache_misses']} misses / "
+               f"{d['plan_cache_evictions']} evictions"
+               if (d["plan_cache_hits"] or d["plan_cache_misses"]
+                   or d["plan_cache_evictions"]) else "")
+            + (f"; REMOTE: {d['remote_ranges_fetched']} ranges "
+               f"({d['ranges_coalesced']} coalesced away), "
+               f"{d['remote_bytes']:,}B fetched, "
+               f"{d['remote_retry']} retries; cache mem "
+               f"{d['cache_hits_mem']}/{d['cache_misses_mem']}"
+               f"/{d['cache_evictions_mem']} disk "
+               f"{d['cache_hits_disk']}/{d['cache_misses_disk']}"
+               f"/{d['cache_evictions_disk']} (hit/miss/evict)"
+               if (d["remote_ranges_fetched"] or d["remote_retry"]
+                   or d["cache_hits_mem"] or d["cache_misses_mem"]
+                   or d["cache_hits_disk"] or d["cache_misses_disk"])
+               else "")
+            + (f"; SALVAGE: {d['files_salvaged']} files salvaged "
+               f"({d['row_groups_recovered']} row groups recovered), "
+               f"{d['files_quarantined']} files quarantined, "
+               f"{d['metadata_rejects']} metadata rejects"
+               if (d["files_salvaged"] or d["files_quarantined"]
+                   or d["metadata_rejects"]) else "")
+        )
 
     def to_state(self) -> dict:
         """The exact JSON-serializable state: every counter unrounded,
