@@ -410,6 +410,31 @@
    ``verify`` (exit 0, K1-K5 and K7 launching), ``serve`` of a two-tenant
    spec with sink directories (exit 0, the unit files 6a's arrays),
    ``tenants`` on its status export and ``meta`` (exit 0).
+16. The dataset writer, compaction and ``floor`` over config 2's rows
+   (``check_dataset``, ``check_floor``).  16a: a ``DatasetWriter``
+   writes config 2's row groups, one ``write_columns`` each, partitioned
+   by ``rate_code`` (five values) at ``TPQ_DATASET_TARGET_MB=8`` and
+   ``TPQ_PAGE_ROWS=65536``, and commits once: every manifest name is
+   the SHA-1 of its file's bytes, and a ``DatasetScan`` on the card
+   gives each partition's rows in write order, each file a run of its
+   own partition's rows.  16b: a child (``python -c`` through
+   ``dataset_child``, a timeout of its own) keeps a spare writer's
+   partial open and commits one more row group, SIGKILLing itself at
+   the first promote: a scan then sees 16a's rows, ``resume_from=``
+   publishes v2, a scan sees both, each once, and ``sweep_orphans``
+   moves the dead child's partial to ``_quarantine/``.  16c:
+   ``parquet_tool compact --sort-by trip_distance_mm --keep 1`` in a
+   subprocess prints the reference's lines (the old files as ``gc``
+   lines); the new snapshot holds each partition's rows stably sorted;
+   ``trip_distance_mm < 2000`` scans before and after equal the
+   generator's survivors with ``pages_pruned`` (and the other pruning
+   counters) worked out from the page index; ``rate_code == 3`` prunes
+   the other partitions' files.  16d: 1,000,000 rows as ``Trip``
+   objects through ``floor.Writer.write_columns`` in four row groups,
+   read on the card against the generator; ``floor.Reader``'s first
+   10,000 objects, and ``write_many``'s columns against the columnar
+   path's.  Each read must launch K1-K4, and K5 and K7 where its
+   routing counters say a page took byte planes or delta lanes.
 
 Before phase 1 it prints the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit`` gives them), the host's
@@ -436,7 +461,7 @@ for an A/B of another checkout's read passes in the same way, and
 ``host_gathers`` times phase 6's gathers onto the host likewise, and
 ``multihost_ab`` phase 7c against one process's ``run()``, in turns.
 Every kernel must have launched on the paths of phases 3 to 3i, 5, 5b,
-6, 7, 8, 9, 10, 11, 12, 13, 14 and 15;
+6, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 16;
 the counts are set to 0 just before each path's read or write and read
 just after.  Exits non-zero, printing no result, when CUDA is
 unavailable or any phase fails.  The last line is
@@ -449,6 +474,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import datetime
 import io
 import json
 import os
@@ -458,6 +485,8 @@ import sys
 import tempfile
 import threading
 import time
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -8859,6 +8888,592 @@ def check_server(blob, results, reader, mesh, dev, wrappers,
     return total
 
 
+# ----------------------------------------------------------------------
+# Phase 16: the dataset writer, a killed commit, compaction, floor
+# ----------------------------------------------------------------------
+
+# config 2 partitioned by rate_code (NYC TLC's RatecodeID, five values)
+DATASET_KEY = "rate_code"
+DATASET_COLUMNS = ("pickup_ts", "passenger_count", "trip_distance_mm",
+                   "payment_type")
+# 16c's data filter: trip_distance_mm below 2 km (about 3.8% of rows)
+DATASET_NEAR_MM = 2000
+
+
+def routed_kernels(st) -> list:
+    """The kernels a read of config 2's columns launches by its routing:
+    K1-K4 always, K5 when a page took byte planes and K7 when one took
+    delta lanes.  The transports' competition decides per page, and a
+    partition's or a small row group's pages can go either way."""
+    return (["unpack_u32", "expand_hybrid", "page_dict_fixed",
+             "levels_to_validity"]
+            + (["planes_to_words"] if st.pages_device_planes else [])
+            + (["delta_scan"] if st.pages_device_delta_lanes else []))
+
+
+TRIP_SCHEMA = """message trip {
+    required int64 pickup (TIMESTAMP(MILLIS, false));
+    required int32 passenger_count;
+    required int32 rate_code;
+    required int64 trip_distance_mm;
+    optional int32 payment_type;
+}"""
+
+
+@dataclasses.dataclass
+class Trip:
+    """16d's object: one config-2 row, ``pickup`` a datetime under
+    TIMESTAMP(MILLIS)."""
+
+    pickup: datetime.datetime
+    passenger_count: int
+    rate_code: int
+    trip_distance_mm: int
+    payment_type: Optional[int] = None
+
+
+def _row_aligned(cols, mask) -> dict:
+    """A config-2 row group's columns row-aligned: payment_type spread
+    over its mask, 0 at the null rows."""
+    pay = np.zeros(mask.size, dtype=np.int32)
+    pay[mask] = cols["payment_type"]
+    return {**cols, "payment_type": pay}
+
+
+def _dataset_writer(root, **kw):
+    """The port's DatasetWriter of config 2 (SNAPPY, as its file)."""
+    from tpuparquet_torch import DatasetWriter
+    from tpuparquet_torch.format.metadata import CompressionCodec
+
+    return DatasetWriter(root, SCHEMA, [DATASET_KEY],
+                         codec=CompressionCodec.SNAPPY, **kw)
+
+
+def _write_groups(w, groups) -> None:
+    """One ``write_columns`` a config-2 row group."""
+    for cols, mask in groups:
+        w.write_columns(_row_aligned(cols, mask),
+                        masks={"payment_type": mask})
+
+
+def _streams(groups, base=None) -> dict:
+    """rate_code -> (row-aligned data columns, payment mask) of the rows
+    of ``groups`` in the order they were written, after ``base``'s."""
+    parts: dict = {}
+    if base is not None:
+        for code, s in base.items():
+            parts[code] = [s]
+    for cols, mask in groups:
+        ra = _row_aligned(cols, mask)
+        key = ra[DATASET_KEY]
+        for code in np.unique(key).tolist():
+            sel = key == code
+            parts.setdefault(code, []).append(
+                ({c: ra[c][sel] for c in DATASET_COLUMNS}, mask[sel]))
+    return {code: ({c: np.concatenate([p[0][c] for p in lst])
+                    for c in DATASET_COLUMNS},
+                   np.concatenate([p[1] for p in lst]))
+            for code, lst in parts.items()}
+
+
+def _unit_rows(out) -> tuple:
+    """A unit's DeviceColumns as row-aligned host columns and the
+    payment mask."""
+    cols = {}
+    mask = out["payment_type"].mask.cpu().numpy()
+    for name in DATASET_COLUMNS:
+        vals = out[name].to_numpy()[0]
+        if name == "payment_type":
+            full = np.zeros(mask.size, dtype=vals.dtype)
+            full[mask] = vals
+            vals = full
+        cols[name] = vals
+    return cols, mask
+
+
+def _dataset_scan(label, root, mesh, dev, wrappers, filter=None) -> dict:
+    """A ``DatasetScan`` of ``root`` on ``mesh``, the counts set to 0 just
+    before: its files (manifest path -> partition code, its units' rows
+    in row-group order), the units (path, row group, rows), the
+    launches, the collector and the wall (open and run)."""
+    from tpuparquet_torch import DatasetScan
+    from tpuparquet_torch.stats import collect_stats
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    with collect_stats() as st:
+        t0 = time.perf_counter()
+        ds = DatasetScan(root, mesh=mesh, filter=filter)
+        results = ds.run()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    _no_ladder(label, st)
+    path_of = [os.path.relpath(s, root).replace(os.sep, "/")
+               for s in ds.sources]
+    code_of = {p: part[DATASET_KEY]
+               for p, (_, part, _, _) in zip(path_of, ds.files())}
+    units = []
+    for (fi, rgi), out in zip(ds.units, results):
+        units.append((path_of[fi], rgi, _unit_rows(out)))
+    files_pruned = ds.files_pruned
+    ds.close()
+    del results
+    files: dict = {}
+    for path, rgi, rows in sorted(units, key=lambda u: (u[0], u[1])):
+        files.setdefault(path, []).append(rows)
+    files = {p: ({c: np.concatenate([r[0][c] for r in lst])
+                  for c in DATASET_COLUMNS},
+                 np.concatenate([r[1] for r in lst]))
+             for p, lst in files.items()}
+    return {"files": files, "code_of": code_of, "units": units,
+            "launches": launches, "stats": st, "wall": wall,
+            "files_pruned": files_pruned}
+
+
+def _locate(label, scan, streams) -> dict:
+    """Each scanned file's rows as a run of its partition's stream: path
+    -> (code, start, rows).  The runs tile every stream exactly, and a
+    file lies under its own ``rate_code=<v>/`` directory."""
+    spans = {}
+    for path, (cols, mask) in scan["files"].items():
+        code = scan["code_of"][path]
+        if not path.startswith(f"{DATASET_KEY}={code}/"):
+            raise AssertionError(f"{label}: {path} is not under its "
+                                 f"partition {code}")
+        s_cols, s_mask = streams[code]
+        n = mask.size
+        found = None
+        for pos in np.flatnonzero(
+                s_cols["pickup_ts"] == cols["pickup_ts"][0]).tolist():
+            if pos + n <= s_mask.size and np.array_equal(
+                    s_mask[pos:pos + n], mask) and all(
+                    np.array_equal(s_cols[c][pos:pos + n], cols[c])
+                    for c in DATASET_COLUMNS):
+                found = pos
+                break
+        if found is None:
+            raise AssertionError(f"{label}: {path}'s rows are no run of "
+                                 f"partition {code}'s rows")
+        spans[path] = (code, found, n)
+    for code, (_, s_mask) in streams.items():
+        runs = sorted((s, n) for c, s, n in spans.values() if c == code)
+        at = 0
+        for s, n in runs:
+            if s != at:
+                raise AssertionError(f"{label}: partition {code}'s files "
+                                     f"leave a gap or overlap at row {at}")
+            at += n
+        if at != s_mask.size:
+            raise AssertionError(f"{label}: partition {code}'s files hold "
+                                 f"{at} rows, written {s_mask.size}")
+    return spans
+
+
+def _manifest(root) -> tuple:
+    from tpuparquet_torch.dataset.manifest import resolve_manifest
+
+    body, version, findings = resolve_manifest(root)
+    if body is None or findings:
+        raise AssertionError(f"{root}: no valid snapshot ({findings})")
+    return body, version
+
+
+def _check_addresses(label, root) -> dict:
+    """Every manifest entry's name is the SHA-1 (first 16 hex digits) of
+    its file's bytes, with its size; returns the snapshot's body."""
+    import hashlib
+
+    body, _ = _manifest(root)
+    for e in body["files"]:
+        with open(os.path.join(root, e["path"]), "rb") as f:
+            data = f.read()
+        digest = hashlib.sha1(data).hexdigest()[:16]
+        if e["path"].rsplit("/", 1)[-1] != f"part-{digest}.parquet" \
+                or e["sha1"] != digest or e["bytes"] != len(data):
+            raise AssertionError(f"{label}: {e['path']} is not the "
+                                 "address of its bytes")
+    return body
+
+
+def _want_pruning(root, spans, streams, page_rows: int) -> dict:
+    """16c's filter on the snapshot's files: the survivors of each
+    (path, row group) and the counters the scan must give, from each
+    file's page index (a page of trip_distance_mm is a candidate when
+    its minimum is below DATASET_NEAR_MM; a row group with none is
+    pruned) and its rows in the generator's streams."""
+    from tpuparquet_torch.io.reader import FileReader
+
+    want = dict.fromkeys(PRUNE_COUNTERS, 0)
+    keep_of = {}
+    for path, (code, start, _) in sorted(spans.items()):
+        s_cols, _ = streams[code]
+        with FileReader(os.path.join(root, path)) as r:
+            keeps, cands, pruned = [], [], []
+            at = start
+            for rg in range(r.row_group_count()):
+                n = r.meta.row_groups[rg].num_rows
+                keep = s_cols["trip_distance_mm"][at:at + n] \
+                    < DATASET_NEAR_MM
+                pages = r.page_index(rg, ["trip_distance_mm"])[
+                    "trip_distance_mm"]
+                cand = np.array([p[2] < DATASET_NEAR_MM for p in pages])
+                if not cand.any():
+                    pruned.append(rg)
+                keeps.append(keep)
+                cands.append(cand)
+                keep_of[(path, rg)] = (at, keep)
+                at += n
+        got = _want_counts(keeps, cands, pruned, page_rows,
+                           len(DATASET_COLUMNS), 1)
+        for k in PRUNE_COUNTERS:
+            want[k] += got[k]
+    return {"counters": want, "keep_of": keep_of}
+
+
+def _check_filtered_scan(label, scan, want, streams, spans) -> None:
+    """A filtered scan's units against the generator's survivors, and
+    its pruning counters against ``want``."""
+    for path, rg, (cols, mask) in scan["units"]:
+        code = spans[path][0]
+        at, keep = want["keep_of"][(path, rg)]
+        s_cols, s_mask = streams[code]
+        n = keep.size
+        if not np.array_equal(mask, s_mask[at:at + n][keep]) or not all(
+                np.array_equal(cols[c], s_cols[c][at:at + n][keep])
+                for c in DATASET_COLUMNS):
+            raise AssertionError(f"{label}: {path} row group {rg}'s "
+                                 "survivors differ from the generator's")
+    got = {k: getattr(scan["stats"], k) for k in PRUNE_COUNTERS}
+    if got != want["counters"]:
+        raise AssertionError(f"{label}: counters {got}, expected "
+                             f"{want['counters']}")
+
+
+def dataset_child(argv) -> int:
+    """16b's child: ``ROOT VALUES SEED``.  A spare writer's partial (up
+    to 1,000 rows of one partition) is left open, an orphan once this
+    process dies; then one config-2 row
+    group of ``VALUES`` values (seed ``SEED``) is committed on top of
+    ROOT's snapshot; the process SIGKILLs itself at the commit's first
+    promote step."""
+    import signal
+
+    root, n_values, seed = argv[0], int(argv[1]), int(argv[2])
+    ((cols, mask),) = config2_groups(n_values, 1, seed)
+    spare = _dataset_writer(root)
+    ra = _row_aligned(cols, mask)
+    head = np.flatnonzero(ra[DATASET_KEY] == ra[DATASET_KEY][0])[:1000]
+    spare.write_columns({c: v[head] for c, v in ra.items()},
+                        masks={"payment_type": mask[head]})
+
+    def hook(label):
+        if label[0] == "promote":
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    w = _dataset_writer(root, step_hook=hook)
+    _write_groups(w, [(cols, mask)])
+    w.commit()
+    return 3  # the hook kills the process before this
+
+
+def _run_dataset_child(root, n_values: int, seed: int, knobs: dict):
+    """16b's child through ``python -c`` in this script's directory, with
+    a timeout of its own; returns its pid once it died by SIGKILL."""
+    import signal
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; "
+            "sys.exit(chip_smoke.dataset_child(sys.argv[2:]))")
+    env = dict(os.environ)
+    env.update(knobs)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, here, root, str(n_values), str(seed)],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode != -signal.SIGKILL:
+        raise AssertionError(f"16b: the child exited {proc.returncode}, "
+                             f"not by SIGKILL: {err.decode()[-2000:]}")
+    return proc.pid
+
+
+def check_dataset(groups, mesh, dev, wrappers, target_mb: float = 8,
+                  compact_mb: float = 64, page_rows: int = 65_536) -> dict:
+    """Phase 16 (16a-16c), config 2's rows partitioned by rate_code
+    through the port's DatasetWriter; returns the launches of its scans.
+    ``target_mb``, ``compact_mb`` and ``page_rows`` are the write's and
+    the compaction's ``TPQ_DATASET_TARGET_MB`` and ``TPQ_PAGE_ROWS``."""
+    from tpuparquet_torch import col
+    from tpuparquet_torch.dataset import sweep_orphans
+    from tpuparquet_torch.faults import QuarantineReport
+
+    t16 = time.perf_counter()
+    total: dict = {}
+    knobs = {"TPQ_DATASET_TARGET_MB": str(target_mb),
+             "TPQ_PAGE_ROWS": str(page_rows)}
+    with tempfile.TemporaryDirectory(
+            prefix=".smoke-", dir=os.path.dirname(
+                os.path.abspath(__file__))) as tmp:
+        root = os.path.join(tmp, "trips")
+        # 16a: the partitioned write, one write_columns a row group
+        with _env(**knobs):
+            t0 = time.perf_counter()
+            with _dataset_writer(root) as w:
+                _write_groups(w, groups)
+            write_s = time.perf_counter() - t0
+        body = _check_addresses("16a", root)
+        streams = _streams(groups)
+        scan = _dataset_scan("16a", root, mesh, dev, wrappers)
+        spans = _locate("16a", scan, streams)
+        _need("16a", scan["launches"], routed_kernels(scan["stats"]))
+        _add(total, scan["launches"])
+        n_rows = sum(m.size for _, m in streams.values())
+        per_part = {c: int(m.size) for c, (_, m) in sorted(streams.items())}
+        print(f"16a DatasetWriter: {n_rows} rows into {len(body['files'])} "
+              f"files over {len(streams)} partitions {per_part}, written and "
+              f"committed in {write_s:.2f} s "
+              f"({n_rows / write_s:.0f} rows/s); every name the SHA-1 of "
+              f"its bytes; DatasetScan on {dev}: {scan['wall']:.4f} s, "
+              f"{len(scan['units'])} units, each partition's rows the "
+              f"generator's in write order; pages through planes "
+              f"{scan['stats'].pages_device_planes}, delta lanes "
+              f"{scan['stats'].pages_device_delta_lanes} of "
+              f"{scan['stats'].pages}; launches {scan['launches']}",
+              flush=True)
+
+        # 16b: a commit killed at its first promote, then resumed
+        per = groups[0][1].size
+        ((cols_b, mask_b),) = config2_groups(5 * per, 1, 7)
+        t0 = time.perf_counter()
+        pid = _run_dataset_child(root, 5 * per, 7, knobs)
+        child_s = time.perf_counter() - t0
+        scan = _dataset_scan("16b killed", root, mesh, dev, wrappers)
+        if _locate("16b killed", scan, streams) != spans:
+            raise AssertionError("16b: the killed commit changed the "
+                                 "visible files")
+        _add(total, scan["launches"])
+        t0 = time.perf_counter()
+        with _env(**knobs), _dataset_writer(root, resume_from=root) as w:
+            version = w.commit()
+        resume_s = time.perf_counter() - t0
+        if version != 2:
+            raise AssertionError(f"16b: the resume published version "
+                                 f"{version}, not 2")
+        streams = _streams([(cols_b, mask_b)], base=streams)
+        _check_addresses("16b", root)
+        scan = _dataset_scan("16b resumed", root, mesh, dev, wrappers)
+        spans = _locate("16b resumed", scan, streams)
+        _add(total, scan["launches"])
+        q = QuarantineReport()
+        swept = sweep_orphans(root, quarantine=q)
+        orphan = f".partial.{pid}.1"
+        if swept != [f"_tmp/{orphan}"] or not os.path.exists(
+                os.path.join(root, "_quarantine", orphan)) \
+                or os.listdir(os.path.join(root, "_tmp")):
+            raise AssertionError(f"16b: swept {swept}, expected the dead "
+                                 f"child's partial {orphan}")
+        print(f"16b a commit of {mask_b.size} rows killed at its first "
+              f"promote (child {child_s:.2f} s with its start): the scan "
+              f"saw 16a's rows; resume_from= published v{version} in "
+              f"{resume_s:.3f} s, the scan {scan['wall']:.4f} s saw 16a's "
+              f"rows and the new group's, each once; sweep_orphans moved "
+              f"{swept} to _quarantine/", flush=True)
+
+        # 16c: the filtered scan, compaction through the CLI, the same
+        # scan again, and a partition filter
+        near = col("trip_distance_mm") < DATASET_NEAR_MM
+        want = _want_pruning(root, spans, streams, page_rows)
+        before = _dataset_scan("16c before", root, mesh, dev, wrappers,
+                               filter=near)
+        _check_filtered_scan("16c before", before, want, streams, spans)
+        _add(total, before["launches"])
+        v2, _ = _manifest(root)
+        old = sorted(e["path"] for e in v2["files"])
+        env = dict(os.environ)
+        env.update(knobs, TPQ_DATASET_TARGET_MB=str(compact_mb))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "tpuparquet_torch.cli.parquet_tool",
+             "compact", "--sort-by", "trip_distance_mm", "--keep", "1",
+             root], cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=env, capture_output=True, text=True, timeout=900)
+        compact_s = time.perf_counter() - t0
+        v3, version = _manifest(root)
+        lines = res.stdout.splitlines()
+        head = (f"compacted {root}: {len(old)} -> {len(v3['files'])} "
+                f"files, {n_rows + mask_b.size} rows, manifest v{version}")
+        if res.returncode != 0 or not lines or lines[0] != head \
+                or sorted(ln for ln in lines[1:]) != sorted(
+                    f"  gc {p}" for p in old):
+            raise AssertionError(f"16c: compact exited {res.returncode}: "
+                                 f"{res.stdout[-2000:]} "
+                                 f"{res.stderr[-2000:]}")
+        _check_addresses("16c", root)
+        # the compaction reads each partition's files in manifest order
+        # and sorts the rows stably by trip_distance_mm
+        ordered = {}
+        for code in streams:
+            s_cols, s_mask = streams[code]
+            runs = [spans[p][1:] for p in old if spans[p][0] == code]
+            idx = np.concatenate([np.arange(s, s + n) for s, n in runs])
+            idx = idx[np.argsort(s_cols["trip_distance_mm"][idx],
+                                 kind="stable")]
+            ordered[code] = ({c: s_cols[c][idx] for c in DATASET_COLUMNS},
+                             s_mask[idx])
+        scan = _dataset_scan("16c compacted", root, mesh, dev, wrappers)
+        c_spans = _locate("16c compacted", scan, ordered)
+        _add(total, scan["launches"])
+        want_after = _want_pruning(root, c_spans, ordered, page_rows)
+        after = _dataset_scan("16c after", root, mesh, dev, wrappers,
+                              filter=near)
+        _check_filtered_scan("16c after", after, want_after, ordered,
+                             c_spans)
+        _add(total, after["launches"])
+        three = _dataset_scan("16c rate_code == 3", root, mesh, dev,
+                              wrappers, filter=col(DATASET_KEY) == 3)
+        others = sum(1 for e in v3["files"]
+                     if e["partition"][DATASET_KEY] != 3)
+        if three["stats"].dataset_files_pruned != others \
+                or three["files_pruned"] != others or set(
+                    three["code_of"].values()) != {3}:
+            raise AssertionError(
+                f"16c: rate_code == 3 pruned "
+                f"{three['stats'].dataset_files_pruned} files, expected "
+                f"{others}")
+        _locate("16c rate_code == 3", three, {3: ordered[3]})
+        _add(total, three["launches"])
+        print(f"16c parquet_tool compact --sort-by trip_distance_mm "
+              f"--keep 1: {compact_s:.2f} s with its start, "
+              f"'{lines[0]}', {len(lines) - 1} gc lines; the rows stably "
+              f"sorted by trip_distance_mm within each partition; "
+              f"trip_distance_mm < {DATASET_NEAR_MM}: before "
+              f"{before['wall']:.4f} s, pages_pruned "
+              f"{before['stats'].pages_pruned}, after "
+              f"{after['wall']:.4f} s, pages_pruned "
+              f"{after['stats'].pages_pruned} (both from the page "
+              f"statistics), {after['stats'].filter_rows_out} rows the "
+              f"generator's; rate_code == 3 pruned {others} files",
+              flush=True)
+    print(f"phase 16a-c (the dataset writer, a killed commit, "
+          f"compaction): {time.perf_counter() - t16:.2f} s", flush=True)
+    return total
+
+
+def check_floor(groups, dev, wrappers, n_objects: int = 1_000_000,
+                n_row_path: int = 10_000) -> dict:
+    """Phase 16d: ``n_objects`` of config 2's rows as :class:`Trip`
+    objects written by ``floor.Writer.write_columns`` in four row groups,
+    read on ``dev`` against the generator; ``floor.Reader``'s first
+    ``n_row_path`` objects; the row path's file of those objects against
+    the columnar path's.  Returns the read's launches."""
+    from tpuparquet_torch import floor
+    from tpuparquet_torch.format.metadata import CompressionCodec
+    from tpuparquet_torch.io.reader import FileReader
+    from tpuparquet_torch.io.writer import FileWriter
+
+    t16 = time.perf_counter()
+    cols, mask = groups[0]
+    n = min(n_objects, mask.size)
+    ra = {k: v[:n] for k, v in _row_aligned(cols, mask).items()}
+    mask = mask[:n]
+    epoch = datetime.datetime(1970, 1, 1)
+    objs = [Trip(epoch + datetime.timedelta(milliseconds=t), p, r, d,
+                 y if m else None)
+            for t, p, r, d, y, m in zip(
+                ra["pickup_ts"].tolist(), ra["passenger_count"].tolist(),
+                ra["rate_code"].tolist(), ra["trip_distance_mm"].tolist(),
+                ra["payment_type"].tolist(), mask.tolist())]
+
+    def columnar(batch, n_groups):
+        buf = io.BytesIO()
+        w = floor.Writer(FileWriter(buf, TRIP_SCHEMA,
+                                    codec=CompressionCodec.SNAPPY))
+        step = -(-len(batch) // n_groups)
+        for lo in range(0, len(batch), step):
+            w.write_columns(batch[lo:lo + step])
+        w.close()
+        return buf.getvalue()
+
+    t0 = time.perf_counter()
+    blob = columnar(objs, 4)
+    col_s = time.perf_counter() - t0
+    from tpuparquet_torch.kernels.device import read_row_groups_device
+    from tpuparquet_torch.stats import collect_stats
+
+    reader = FileReader(blob)
+    for fn in wrappers.values():
+        fn.launches = 0
+    with collect_stats() as st:
+        t0 = time.perf_counter()
+        got = list(read_row_groups_device(reader, device=dev))
+        _sync(dev)
+        read_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    _no_ladder("16d", st)
+    if len(got) != 4:
+        raise AssertionError(f"16d: {len(got)} row groups, not 4")
+    at = 0
+    for rg, out in got:
+        rows = out["payment_type"].num_values
+        want = {"pickup": ra["pickup_ts"][at:at + rows],
+                "passenger_count": ra["passenger_count"][at:at + rows],
+                "rate_code": ra["rate_code"][at:at + rows],
+                "trip_distance_mm": ra["trip_distance_mm"][at:at + rows]}
+        m = mask[at:at + rows]
+        for name, vals in want.items():
+            if not _same_values(out[name].to_numpy()[0], vals):
+                raise AssertionError(f"16d row group {rg} {name} differs")
+        pay = out["payment_type"]
+        if not np.array_equal(pay.mask.cpu().numpy(), m) or not \
+                _same_values(pay.to_numpy()[0],
+                             ra["payment_type"][at:at + rows][m]):
+            raise AssertionError(f"16d row group {rg} payment_type "
+                                 "differs")
+        at += rows
+    if at != n:
+        raise AssertionError(f"16d: {at} rows read, wrote {n}")
+    _need("16d", launches, routed_kernels(st))
+    del got
+    k = min(n_row_path, n)
+    r = floor.Reader(FileReader(blob), cls=Trip)
+    back = []
+    while len(back) < k and r.next():
+        back.append(r.scan())
+    if back != objs[:k]:
+        raise AssertionError("16d: floor.Reader's objects differ")
+    t0 = time.perf_counter()
+    buf = io.BytesIO()
+    w = floor.Writer(FileWriter(buf, TRIP_SCHEMA,
+                                codec=CompressionCodec.SNAPPY))
+    w.write_many(objs[:k])
+    w.close()
+    row_s = time.perf_counter() - t0
+    rows_blob, cols_blob = buf.getvalue(), columnar(objs[:k], 1)
+    a = FileReader(rows_blob).read_row_group_arrays(0)
+    b = FileReader(cols_blob).read_row_group_arrays(0)
+    for name in b:
+        if not (np.array_equal(a[name].def_levels, b[name].def_levels)
+                and _same_values(np.asarray(a[name].values),
+                                 np.asarray(b[name].values))):
+            raise AssertionError(f"16d: the row path's {name} differs "
+                                 "from the columnar path's")
+    print(f"16d floor: {n} Trip objects by write_columns in 4 row groups "
+          f"{col_s:.2f} s ({n / col_s:.0f} objects/s); the row path "
+          f"(write_many) {k} objects {row_s:.2f} s ({k / row_s:.0f} "
+          f"objects/s), its columns the columnar path's; "
+          f"read_row_groups_device on {dev} {read_s:.4f} s, the "
+          f"generator's columns; floor.Reader's first {k} objects equal; "
+          f"launches {launches}; phase 16d {time.perf_counter() - t16:.2f} "
+          "s", flush=True)
+    return launches
+
+
 def kernel_wrappers() -> dict:
     """Every kernel's wrapper by name; each counts its launches in its
     ``launches`` attribute."""
@@ -9367,6 +9982,15 @@ def main(argv=None) -> int:
                             walls13["pair"])
     for k, c in launches.items():
         total_launches[k] += c
+
+    # phase 16: config 2 hive-partitioned by rate_code through the
+    # DatasetWriter (16a), a commit killed at its first promote and
+    # resumed (16b), compaction through the CLI with filtered scans before
+    # and after (16c), and floor's Trip objects (16d)
+    for launches in (check_dataset(groups, one, dev, wrappers),
+                     check_floor(groups, dev, wrappers)):
+        for k, c in launches.items():
+            total_launches[k] += c
 
     # phase 4: kernel times at the main paths' shapes
     kernels = time_kernels(groups, mix_groups, groups4, groups_s, groups_t,

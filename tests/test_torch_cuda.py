@@ -1044,3 +1044,34 @@ def test_server_job_and_verify_on_card_equal_cpu(cuda, tmp_path):
         outs.append(re.sub(r"cpu [0-9.]+ms  device [0-9.]+ms", "-",
                            buf.getvalue()))
     assert outs[0] == outs[1] and "all row groups bit-exact" in outs[0]
+
+
+def test_dataset_write_and_compaction_on_card(cuda):
+    """Phase 16a-16c at a small size: config 2 (200,000 rows a row group,
+    so the transports engage) written by the port's DatasetWriter,
+    hive-partitioned by rate_code, and read by ``DatasetScan`` on the
+    card; a commit killed at its first promote and resumed; compaction
+    through ``parquet_tool compact``, then filtered scans before and after
+    with exact pruning counters, K1-K4 launching (K5 and K7 as routed)."""
+    from tpuparquet_torch.shard import make_mesh
+
+    _, groups = chip_smoke.build_config2(4_000_000, 4)
+    launches = chip_smoke.check_dataset(
+        groups, make_mesh(1), cuda, chip_smoke.kernel_wrappers(),
+        target_mb=2, compact_mb=8, page_rows=16_384)
+    for k in chip_smoke.CONFIG2_KERNELS[:4]:
+        assert launches[k] > 0, k
+
+
+def test_floor_file_read_on_card(cuda):
+    """Phase 16d at a small size: config 2's rows as ``Trip`` objects
+    written by ``floor.Writer.write_columns`` in four row groups and read
+    by ``read_row_groups_device`` on the card, the generator's columns;
+    ``floor.Reader``'s objects and the row path's columns agree; K1-K4
+    launching (K5 and K7 as routed)."""
+    _, groups = chip_smoke.build_config2(4_000_000, 4)
+    launches = chip_smoke.check_floor(groups, cuda,
+                                      chip_smoke.kernel_wrappers(),
+                                      n_objects=200_000, n_row_path=2_000)
+    for k in chip_smoke.CONFIG2_KERNELS[:4]:
+        assert launches[k] > 0, k

@@ -245,7 +245,32 @@ def test_hung_unit_dispatch_quarantined_within_budget(tmp_path):
                                       np.arange(k * N, (k + 1) * N))
 
 
-def test_scan_deadline_stops_between_units_resumable(tmp_path):
+class _SteadyClock:
+    """A scan module's ``time`` whose ``monotonic`` moves one microsecond
+    a call (all else is the real module).  The deadline error's text
+    carries the elapsed time rounded to milliseconds, so on the wall
+    clock a pause of half a millisecond before the first check (a full
+    garbage collection, a preempted worker on a loaded box) changes one
+    side's text; on this clock both read ``elapsed_s=0.0``."""
+
+    def __init__(self):
+        self._t = 1000.0
+
+    def monotonic(self) -> float:
+        self._t += 1e-6
+        return self._t
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def test_scan_deadline_stops_between_units_resumable(tmp_path,
+                                                     monkeypatch):
+    import tpuparquet.shard.scan as jax_scan_mod
+    import tpuparquet_torch.shard.scan as port_scan_mod
+
+    for mod in (port_scan_mod, jax_scan_mod):
+        monkeypatch.setattr(mod, "time", _SteadyClock())
     p = tmp_path / "f.parquet"
     write_file(p)
     errs = []

@@ -225,6 +225,7 @@ def test_sites_are_the_reference_sites():
     src = "\n".join(p.read_text() for p in
                     (REPO / "tpuparquet_torch").rglob("*.py")
                     if p.name != "faults.py")
+    assert port_faults.SITES == jax_faults.SITES
     for site, kinds in port_faults.SITES.items():
         assert jax_faults.SITES[site] == kinds, site
         assert re.search(rf'"{re.escape(site)}"', src), site

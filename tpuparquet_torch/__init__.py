@@ -40,10 +40,21 @@ Entry points run on the current CUDA device unless ``device="cpu"`` (or
 a mesh of ``cpu`` slots) is passed, which runs every kernel's plain
 PyTorch version instead.
 
+A :class:`DatasetWriter` writes such a dataset, hive-partitioned, each
+commit atomic (a manifest journal), and :func:`compact_dataset` merges
+its small files; ``floor`` maps dataclasses to rows and back:
+
+    from tpuparquet_torch import DatasetWriter, compact_dataset
+
+    with DatasetWriter("/data/trips", schema, ["region"]) as w:
+        w.write_columns({"region": regions, "fare": fares})
+    compact_dataset("/data/trips", sort_by="fare")
+
 The top level also carries the reference's surface: the reader and the
 writer, the format's enums, the schema DSL, the error taxonomy, the fault
 harness, the filter DSL, the counters, the codec registry, the source and
-range-cache hooks, :class:`DatasetScan` and ``obs``.
+range-cache hooks, the schema builders (``new_*``, ``logical_*``), the
+dataset writer, scan and compaction, and ``obs``.
 """
 
 from . import obs  # noqa: F401
@@ -60,6 +71,23 @@ from .errors import (  # noqa: F401
 )
 from .faults import QuarantineReport, inject_faults, retry_transient  # noqa: F401
 from .filter import Filter, col, parse_filter  # noqa: F401
+from .format.builder import (  # noqa: F401
+    logical_bson,
+    logical_date,
+    logical_decimal,
+    logical_enum,
+    logical_int,
+    logical_json,
+    logical_string,
+    logical_time,
+    logical_timestamp,
+    logical_uuid,
+    new_data_column,
+    new_group,
+    new_list_column,
+    new_map_column,
+    new_root,
+)
 from .format.dsl import SchemaDefinition, parse_schema_definition  # noqa: F401
 from .format.metadata import (  # noqa: F401
     CompressionCodec,
@@ -94,4 +122,4 @@ from .shard import (  # noqa: F401
     make_mesh,
     sharded_dict_decode,
 )
-from .dataset import DatasetScan  # noqa: F401
+from .dataset import DatasetScan, DatasetWriter, compact_dataset  # noqa: F401

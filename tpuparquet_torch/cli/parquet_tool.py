@@ -11,8 +11,10 @@ per-column transport and timing table, with ``--json``, ``--events``,
 scan's progress file), ``watch`` (the RED view of a time-series ring),
 ``slo report``, ``serve`` (a :class:`~tpuparquet_torch.serve.ScanServer`
 from a JSON spec), ``tenants`` (a server's status export), ``flame``
-(a sampling profile), ``doctor`` (a scan trace's bound stage) and
-``rescue`` (a torn file's recoverable row groups into a clean file).
+(a sampling profile), ``doctor`` (a scan trace's bound stage),
+``rescue`` (a torn file's recoverable row groups into a clean file) and
+``compact`` (a partitioned dataset's small files merged through its
+atomic manifest commit, ``dataset/compact.py``).
 
 ``verify``, ``profile`` and ``serve`` decode on ``--device`` (default
 ``cuda``, the current card; ``cpu`` runs every kernel's plain version):
@@ -1366,6 +1368,30 @@ def cmd_split(args, out=None) -> int:
     return 0
 
 
+def cmd_compact(args, out=None) -> int:
+    """Merge a partitioned dataset's small files into rolling
+    target-sized ones through the atomic manifest commit."""
+    out = out or sys.stdout
+    from ..dataset import compact_dataset
+
+    try:
+        rep = compact_dataset(
+            args.dataset,
+            sort_by=args.sort_by,
+            target_mb=args.target_mb,
+            manifest_keep=args.keep,
+        )
+    except (FileNotFoundError, ValueError, NotImplementedError) as e:
+        print(f"compact: {e}", file=out)
+        return 1
+    print(f"compacted {args.dataset}: {rep['files_before']} -> "
+          f"{rep['files_after']} files, {rep['rows']} rows, "
+          f"manifest v{rep['version']}", file=out)
+    for rel in rep["gc"]:
+        print(f"  gc {rel}", file=out)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="parquet-tool", description="Tool to manage parquet files")
@@ -1580,6 +1606,20 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("file")
     sp.set_defaults(fn=cmd_split)
 
+    cp = sub.add_parser(
+        "compact",
+        help="merge a partitioned dataset's small files atomically")
+    cp.add_argument("--sort-by", default=None,
+                    help="re-sort each partition by this data column "
+                         "so page min/max stats become tight")
+    cp.add_argument("--target-mb", type=int, default=None,
+                    help="rolling output file target in MiB "
+                         "(default: TPQ_DATASET_TARGET_MB or 64)")
+    cp.add_argument("--keep", type=int, default=None,
+                    help="manifest snapshots to retain "
+                         "(default: TPQ_DATASET_MANIFEST_KEEP or 3)")
+    cp.add_argument("dataset", help="dataset root directory or URI")
+    cp.set_defaults(fn=cmd_compact)
     return p
 
 

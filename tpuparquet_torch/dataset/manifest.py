@@ -1,14 +1,16 @@
-"""Dataset manifests and commit journals, read side.
+"""Dataset manifests and commit journals.
 
-The port of the reading half of ``tpuparquet/dataset/manifest.py``.  A
-partitioned dataset directory is resolved only through its newest valid
-manifest snapshot (``_manifest-<version>.json``), never by listing its
-data files: the writer publishes its files first and the snapshot last,
-so a snapshot names a complete commit.  Each snapshot, and the
+A partitioned dataset directory is resolved only through its newest
+valid manifest snapshot (``_manifest-<version>.json``), never by listing
+its data files: the writer publishes its files first and the snapshot
+last, so a snapshot names a complete commit.  Each snapshot, and the
 write-ahead journal of a commit in flight (``_commit.json``), is a
-versioned JSON envelope with a CRC-32 over its canonical body; a
-snapshot that fails it degrades the resolver to the one before, with a
-finding.
+versioned JSON envelope with a CRC-32 over its canonical body, written
+to a temporary file in the same directory, flushed, fsynced, renamed
+over the target and the directory fsynced
+(:func:`atomic_write_envelope`), so a kill at any byte leaves the old
+artifact or the new one whole; a snapshot that fails its CRC degrades
+the resolver to the one before, with a finding.
 
 Layout of a dataset root::
 
@@ -19,10 +21,10 @@ Layout of a dataset root::
     key=value/.../part-<sha1>.parquet   published data files
 
 A root with no manifest is read as hive directories (``key=value``, as
-pyarrow and hive write them, :func:`discover_hive`).  The blob reads are
-the fault site ``dataset.manifest.load`` (``corrupt`` and ``truncate``
-too: the CRC catches them).  The envelope writers wait with the dataset
-writer, the only module that calls them.
+pyarrow and hive write them, :func:`discover_hive`).  Fault sites:
+``dataset.manifest.write`` before an envelope's write,
+``dataset.manifest.load`` on the blob reads (``corrupt`` and
+``truncate`` too: the CRC catches them).
 """
 
 from __future__ import annotations
@@ -51,11 +53,17 @@ __all__ = [
     "manifest_name",
     "list_manifest_versions",
     "file_uri",
+    "atomic_write_envelope",
     "load_envelope",
     "validate_manifest_body",
     "resolve_manifest",
     "journal_path",
     "load_journal",
+    "write_journal",
+    "clear_journal",
+    "write_manifest",
+    "manifest_keep_default",
+    "prune_manifests",
     "hive_token",
     "parse_hive_token",
     "partition_dir",
@@ -117,6 +125,47 @@ def _canonical(obj) -> bytes:
     scan cursor: sorted, separator-pinned)."""
     return json.dumps(obj, sort_keys=True,
                       separators=(",", ":")).encode()
+
+
+def _fsync_dir(d: str) -> None:
+    """Make a rename in ``d`` durable (best effort: some file systems
+    refuse a directory fsync)."""
+    try:
+        dfd = os.open(d, os.O_RDONLY)
+        try:
+            os.fsync(dfd)
+        finally:
+            os.close(dfd)
+    except OSError:
+        pass
+
+
+def atomic_write_envelope(path: str, fmt: str, body: dict) -> None:
+    """Publish a manifest or journal body durably and atomically: the
+    CRC-framed envelope goes to ``.<name>.tmp.<pid>`` beside ``path``,
+    is flushed and fsynced, renamed over ``path``, and the directory is
+    fsynced.  A kill at any byte leaves the previous complete artifact
+    or the new one, never a torn one."""
+    fault_point("dataset.manifest.write", file=path)
+    doc = {"format": fmt,
+           "file_version": ENVELOPE_VERSION,
+           "crc32": zlib.crc32(_canonical(body)),
+           "body": body}
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    tmp = os.path.join(d, f".{os.path.basename(path)}.tmp.{os.getpid()}")
+    try:
+        with open(tmp, "w") as f:
+            json.dump(doc, f, sort_keys=True)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    _fsync_dir(d)
 
 
 def _read_blob(src) -> bytes:
@@ -250,6 +299,50 @@ def load_journal(root_path: str):
     body = load_envelope(p, JOURNAL_FORMAT, display=JOURNAL_NAME)
     validate_manifest_body(body, name=JOURNAL_NAME)
     return body
+
+
+def write_journal(root_path: str, body: dict) -> None:
+    atomic_write_envelope(journal_path(root_path), JOURNAL_FORMAT, body)
+
+
+def clear_journal(root_path: str) -> None:
+    try:
+        os.unlink(journal_path(root_path))
+    except FileNotFoundError:
+        pass
+
+
+def write_manifest(root_path: str, body: dict) -> str:
+    p = os.path.join(root_path, manifest_name(body["version"]))
+    atomic_write_envelope(p, MANIFEST_FORMAT, body)
+    return p
+
+
+def manifest_keep_default() -> int:
+    """How many snapshots a commit keeps (``TPQ_DATASET_MANIFEST_KEEP``,
+    default 3, at least 1); compaction's GC may then delete the data
+    files no kept snapshot names."""
+    try:
+        v = int(os.environ.get("TPQ_DATASET_MANIFEST_KEEP", ""))
+    except ValueError:
+        return 3
+    return max(v, 1)
+
+
+def prune_manifests(root_path: str, keep: int | None = None) -> list:
+    """Drop all but the newest ``keep`` snapshots; returns the pruned
+    versions.  An old snapshot is superseded committed state (readers
+    resolve newest first), so its removal is safe."""
+    if keep is None:
+        keep = manifest_keep_default()
+    versions = list_manifest_versions(root_path)
+    pruned = versions[:-keep] if keep < len(versions) else []
+    for v in pruned:
+        try:
+            os.unlink(os.path.join(root_path, manifest_name(v)))
+        except FileNotFoundError:
+            pass
+    return pruned
 
 
 # ----------------------------------------------------------------------

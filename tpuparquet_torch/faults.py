@@ -69,6 +69,12 @@ Fault sites (``site`` of :meth:`FaultInjector.inject`) and their kinds:
                                       bytes (``dataset/manifest.py``) —
                                       ``oserror``, ``transient``,
                                       ``corrupt``, ``truncate``
+``dataset.manifest.write``            before a manifest or journal
+                                      envelope's write — ``oserror``,
+                                      ``transient``
+``dataset.file.promote``              a staged data file's move into its
+                                      partition (``dataset/writer.py``)
+                                      — ``oserror``, ``transient``
 ====================================  =====================================
 
 Kinds: ``oserror`` raises ``OSError(EIO)``; ``transient``
@@ -114,9 +120,7 @@ __all__ = [
 
 #: Every instrumented site and the kinds it supports.  Sites match rules
 #: by string equality, so a drifted name never fires: the tests check
-#: the instrumented sites against this table.  The reference's
-#: ``dataset.manifest.write`` and ``dataset.file.promote`` wait for the
-#: dataset writer, the only module that fires them.
+#: the instrumented sites against this table.
 SITES: dict[str, tuple] = {
     "io.reader.open": ("oserror", "transient"),
     "io.reader.chunk_read": ("oserror", "transient",
@@ -137,8 +141,10 @@ SITES: dict[str, tuple] = {
     "io.remote.throttle": ("transient",),
     "io.remote.range": ("oserror", "transient",
                         "corrupt", "truncate"),
+    "dataset.manifest.write": ("oserror", "transient"),
     "dataset.manifest.load": ("oserror", "transient",
                               "corrupt", "truncate"),
+    "dataset.file.promote": ("oserror", "transient"),
 }
 
 _active: "FaultInjector | None" = None

@@ -5,9 +5,13 @@ The parquet-mr style text form of a schema: one message of fields, each
 name [(LIST)|(MAP)] { ... }``) or a primitive typed ``boolean``, ``int32``,
 ``int64``, ``int96``, ``float``, ``double``, ``binary`` or
 ``fixed_len_byte_array(N)``.  A binary field may carry ``(STRING)``
-(the STRING logical type and the UTF8 converted type), an int64 field
-``(TIMESTAMP(MILLIS|MICROS, true|false))``, which sets the TIMESTAMP
-logical type and its converted type, a binary, fixed-length, int32 or
+(the STRING logical type and the UTF8 converted type), ``(ENUM)`` or
+``(BSON)``, an int64 field ``(TIMESTAMP(MILLIS|MICROS|NANOS,
+true|false))``, which sets the TIMESTAMP logical type and its converted
+type (none for NANOS), an int32 field ``(DATE)`` or ``(TIME(MILLIS,
+true|false))`` and an int64 field ``(TIME(MICROS|NANOS, true|false))``
+(the DATE and TIME logical types, and their converted types but for
+NANOS), a binary, fixed-length, int32 or
 int64 field ``(DECIMAL(precision, scale))`` (the DECIMAL logical and
 converted types, ``precision`` and ``scale`` on the element) and a
 ``fixed_len_byte_array(16)`` field ``(UUID)`` and an int32 or int64
@@ -21,16 +25,20 @@ misread.
 
 ``str()`` of a :class:`SchemaDefinition` prints any schema a footer holds
 in this form, every logical and converted type included, as the JAX
-package's printer does.
+package's printer does; :meth:`SchemaDefinition.validate` and
+:meth:`SchemaDefinition.validate_strict` check a constructed tree's
+LIST and MAP shapes and each annotation's physical type with the JAX
+package's rules and words.
 """
 
 from __future__ import annotations
 
 import re
 
-from .metadata import ConvertedType, DecimalType, FieldRepetitionType, \
-    IntType, JsonType, LogicalType, MicroSeconds, MilliSeconds, \
-    SchemaElement, StringType, TimestampType, TimeUnit, Type, UUIDType
+from .metadata import BsonType, ConvertedType, DateType, DecimalType, \
+    EnumType, FieldRepetitionType, IntType, JsonType, LogicalType, \
+    MicroSeconds, MilliSeconds, NanoSeconds, SchemaElement, StringType, \
+    TimestampType, TimeType, TimeUnit, Type, UUIDType
 
 __all__ = [
     "ColumnDefinition",
@@ -72,6 +80,15 @@ class SchemaDefinition:
 
     def __init__(self, root: ColumnDefinition):
         self.root = root
+
+    def validate(self) -> None:
+        _validate_column(self.root, is_root=True, strict=False)
+
+    def validate_strict(self) -> None:
+        """:meth:`validate` with the spec's names enforced (``list`` and
+        ``element``, ``key_value`` with a required ``key`` and a
+        ``value``)."""
+        _validate_column(self.root, is_root=True, strict=True)
 
     @classmethod
     def from_schema_elements(cls, elems: list) -> "SchemaDefinition":
@@ -170,10 +187,22 @@ _TYPE_PRINT = {v: k for k, v in _TYPES.items()}
 _REPETITIONS = {"required": FieldRepetitionType.REQUIRED,
                 "optional": FieldRepetitionType.OPTIONAL,
                 "repeated": FieldRepetitionType.REPEATED}
-_TIME_UNITS = {"MILLIS": (ConvertedType.TIMESTAMP_MILLIS, "MILLIS",
-                          MilliSeconds),
-               "MICROS": (ConvertedType.TIMESTAMP_MICROS, "MICROS",
-                          MicroSeconds)}
+# a time unit's TimeUnit member class, and the converted types of a
+# TIMESTAMP and of a TIME in it (NANOS has none)
+_TIME_UNITS = {"MILLIS": (MilliSeconds, ConvertedType.TIMESTAMP_MILLIS,
+                          ConvertedType.TIME_MILLIS),
+               "MICROS": (MicroSeconds, ConvertedType.TIMESTAMP_MICROS,
+                          ConvertedType.TIME_MICROS),
+               "NANOS": (NanoSeconds, None, None)}
+# the plain logical types: their LogicalType member class, the converted
+# type they set and the physical type they annotate
+_PLAIN_LOGICAL = {
+    "STRING": (StringType, ConvertedType.UTF8, Type.BYTE_ARRAY),
+    "ENUM": (EnumType, ConvertedType.ENUM, Type.BYTE_ARRAY),
+    "JSON": (JsonType, ConvertedType.JSON, Type.BYTE_ARRAY),
+    "BSON": (BsonType, ConvertedType.BSON, Type.BYTE_ARRAY),
+    "DATE": (DateType, ConvertedType.DATE, Type.INT32),
+}
 
 
 def _tokenize(text: str) -> list:
@@ -213,27 +242,39 @@ def parse_schema_definition(text: str) -> SchemaDefinition:
             raise SchemaParseError(f"expected {word!r}, got {got!r}", line)
         return line
 
-    def timestamp(fname: str, se: SchemaElement, line) -> None:
+    def time_type(what: str, fname: str, ptype, se: SchemaElement,
+                  line) -> None:
+        """``(UNIT, true|false)`` of a TIMESTAMP on int64, or of a TIME
+        on int32 (MILLIS) or int64 (MICROS, NANOS)."""
         expect("(", line)
         unit, line = take("time unit")
         if unit not in _TIME_UNITS:
-            raise NotImplementedError(
-                f"field {fname!r}: TIMESTAMP unit {unit!r} is not supported "
-                "by tpuparquet_torch (MILLIS, MICROS)")
+            raise SchemaParseError(
+                f"unknown unit annotation {unit!r} for {what}", line)
         sep, line = take("','")
         if sep != ",":
             raise SchemaParseError(f"expected ',', got {sep!r}", line)
         utc, line = take("boolean")
         if utc not in ("true", "false"):
-            raise SchemaParseError(f"invalid boolean {utc!r} for TIMESTAMP",
+            raise SchemaParseError(f"invalid boolean {utc!r} for {what}",
                                    line)
         expect(")", line)
-        ct, member, cls = _TIME_UNITS[unit]
-        tu = TimeUnit()
-        setattr(tu, member, cls())
-        se.logicalType = LogicalType(TIMESTAMP=TimestampType(
-            isAdjustedToUTC=utc == "true", unit=tu))
-        se.converted_type = ct
+        cls, ts_ct, time_ct = _TIME_UNITS[unit]
+        want = Type.INT32 if what == "TIME" and unit == "MILLIS" \
+            else Type.INT64
+        if ptype != want:
+            raise NotImplementedError(
+                f"field {fname!r}: {what}({unit}) is not supported by "
+                f"tpuparquet_torch on {Type(ptype).name}")
+        tu = TimeUnit(**{unit: cls()})
+        if what == "TIME":
+            se.logicalType = LogicalType(TIME=TimeType(
+                isAdjustedToUTC=utc == "true", unit=tu))
+            se.converted_type = time_ct
+        else:
+            se.logicalType = LogicalType(TIMESTAMP=TimestampType(
+                isAdjustedToUTC=utc == "true", unit=tu))
+            se.converted_type = ts_ct
 
     def number(what: str) -> int:
         tok, line = take(what)
@@ -276,27 +317,31 @@ def parse_schema_definition(text: str) -> SchemaDefinition:
 
     def annotation(fname: str, ptype, se: SchemaElement, line) -> None:
         ann, line = take("annotation")
-        if ann == "STRING" and ptype == Type.BYTE_ARRAY:
-            se.logicalType = LogicalType(STRING=StringType())
-            se.converted_type = ConvertedType.UTF8
-        elif ann == "TIMESTAMP" and ptype == Type.INT64:
-            timestamp(fname, se, line)
+        plain = _PLAIN_LOGICAL.get(ann)
+        if plain is not None and ptype == plain[2]:
+            cls, ct, _ = plain
+            se.logicalType = LogicalType(**{ann: cls()})
+            se.converted_type = ct
+        elif ann in ("TIMESTAMP", "TIME") and ptype in (Type.INT32,
+                                                        Type.INT64):
+            time_type(ann, fname, ptype, se, line)
         elif ann == "DECIMAL" and ptype in _DECIMAL_TYPES:
             decimal(se, line)
         elif ann == "INT" and ptype in (Type.INT32, Type.INT64):
             integer(fname, ptype, se, line)
-        elif (ann == "UUID" and ptype == Type.FIXED_LEN_BYTE_ARRAY
-              and se.type_length == 16):
+        elif ann == "UUID" and ptype == Type.FIXED_LEN_BYTE_ARRAY:
+            if se.type_length != 16:
+                raise SchemaValidationError(
+                    f"field {fname} is annotated as UUID but is not a "
+                    "fixed_len_byte_array(16)")
             se.logicalType = LogicalType(UUID=UUIDType())
-        elif ann == "JSON" and ptype == Type.BYTE_ARRAY:
-            se.logicalType = LogicalType(JSON=JsonType())
-            se.converted_type = ConvertedType.JSON
         else:
             raise NotImplementedError(
                 f"field {fname!r}: annotation {ann!r} is not supported by "
-                "tpuparquet_torch (STRING on binary, TIMESTAMP on int64, "
+                "tpuparquet_torch (STRING, ENUM, JSON and BSON on binary, "
+                "DATE on int32, TIME on int32/int64, TIMESTAMP on int64, "
                 "DECIMAL, INT on int32/int64, UUID on "
-                "fixed_len_byte_array(16), JSON on binary)")
+                "fixed_len_byte_array(16))")
         expect(")", line)
 
     def field() -> ColumnDefinition:
@@ -373,3 +418,262 @@ def parse_schema_definition(text: str) -> SchemaDefinition:
                                toks[i][1])
     root.element.num_children = len(root.children) or None
     return SchemaDefinition(root)
+
+
+# ----------------------------------------------------------------------
+# Validation: the LIST and MAP shapes and each annotation's physical type
+# (the JAX package's rules and words)
+# ----------------------------------------------------------------------
+
+def _lt_member(se: SchemaElement) -> str | None:
+    if se.logicalType is None:
+        return None
+    return se.logicalType.set_member()[0]
+
+
+def _validate_column(col: ColumnDefinition, is_root: bool, strict: bool) -> None:
+    se = col.element
+    if se is None:
+        raise SchemaValidationError("column has no schema element")
+    if not se.name:
+        raise SchemaValidationError("column has no name")
+    if not is_root and not col.children and se.type is None:
+        raise SchemaValidationError(
+            f"field {se.name} has neither children nor a type"
+        )
+    if se.type is not None and col.children:
+        raise SchemaValidationError(
+            f"field {se.name} has a type but also children"
+        )
+
+    lt = _lt_member(se)
+    ct = se.converted_type
+    ptype = se.type
+
+    def type_check(cond: bool, msg: str):
+        if not cond:
+            raise SchemaValidationError(f"field {se.name} {msg}")
+
+    if lt == "LIST" or ct == ConvertedType.LIST:
+        _validate_list(col, strict)
+    elif lt == "MAP" or ct in (ConvertedType.MAP, ConvertedType.MAP_KEY_VALUE):
+        _validate_map(col, strict)
+    elif lt == "DATE" or ct == ConvertedType.DATE:
+        type_check(ptype == Type.INT32, "is annotated as DATE but is not an int32")
+    elif lt == "TIMESTAMP":
+        type_check(
+            ptype in (Type.INT64, Type.INT96),
+            "is annotated as TIMESTAMP but is not an int64/int96",
+        )
+    elif lt == "TIME":
+        t = se.logicalType.TIME
+        if t.unit.MILLIS is not None:
+            type_check(ptype == Type.INT32,
+                       "is annotated as TIME(MILLIS) but is not an int32")
+        else:
+            type_check(ptype == Type.INT64,
+                       "is annotated as TIME(MICROS|NANOS) but is not an int64")
+    elif lt == "UUID":
+        type_check(
+            ptype == Type.FIXED_LEN_BYTE_ARRAY and se.type_length == 16,
+            "is annotated as UUID but is not a fixed_len_byte_array(16)",
+        )
+    elif lt == "ENUM":
+        type_check(ptype == Type.BYTE_ARRAY,
+                   "is annotated as ENUM but is not a binary")
+    elif lt == "JSON":
+        type_check(ptype == Type.BYTE_ARRAY,
+                   "is annotated as JSON but is not a binary")
+    elif lt == "BSON":
+        type_check(ptype == Type.BYTE_ARRAY,
+                   "is annotated as BSON but is not a binary")
+    elif lt == "DECIMAL":
+        _validate_decimal(col)
+    elif lt == "INTEGER":
+        it = se.logicalType.INTEGER
+        want = Type.INT64 if it.bitWidth == 64 else Type.INT32
+        type_check(
+            ptype == want,
+            f"is annotated as INT({it.bitWidth}, ...) but element type is "
+            f"{ptype}",
+        )
+    elif ct == ConvertedType.UTF8:
+        type_check(ptype == Type.BYTE_ARRAY,
+                   "is annotated as UTF8 but is not binary")
+    elif ct == ConvertedType.TIME_MILLIS:
+        type_check(ptype == Type.INT32,
+                   "is annotated as TIME_MILLIS but is not int32")
+    elif ct == ConvertedType.TIME_MICROS:
+        type_check(ptype == Type.INT64,
+                   "is annotated as TIME_MICROS but is not int64")
+    elif ct == ConvertedType.TIMESTAMP_MILLIS:
+        type_check(ptype == Type.INT64,
+                   "is annotated as TIMESTAMP_MILLIS but is not int64")
+    elif ct == ConvertedType.TIMESTAMP_MICROS:
+        type_check(ptype == Type.INT64,
+                   "is annotated as TIMESTAMP_MICROS but is not int64")
+    elif ct in (
+        ConvertedType.UINT_8, ConvertedType.UINT_16, ConvertedType.UINT_32,
+        ConvertedType.INT_8, ConvertedType.INT_16, ConvertedType.INT_32,
+    ):
+        type_check(
+            ptype == Type.INT32,
+            f"is annotated as {ConvertedType(ct).name} but is not int32",
+        )
+    elif ct in (ConvertedType.UINT_64, ConvertedType.INT_64):
+        type_check(
+            ptype == Type.INT64,
+            f"is annotated as {ConvertedType(ct).name} but is not int64",
+        )
+    elif ct == ConvertedType.INTERVAL:
+        type_check(
+            ptype == Type.FIXED_LEN_BYTE_ARRAY and se.type_length == 12,
+            "is annotated as INTERVAL but is not a fixed_len_byte_array(12)",
+        )
+    else:
+        for c in col.children:
+            _validate_column(c, is_root=False, strict=strict)
+
+
+def _validate_list(col: ColumnDefinition, strict: bool) -> None:
+    se = col.element
+    if se.type is not None:
+        raise SchemaValidationError(
+            f"field {se.name} is not a group but annotated as LIST"
+        )
+    rep = se.repetition_type
+    if rep not in (FieldRepetitionType.OPTIONAL, FieldRepetitionType.REQUIRED):
+        raise SchemaValidationError(
+            f"field {se.name} is a LIST but has repetition type {rep}"
+        )
+    if len(col.children) != 1:
+        raise SchemaValidationError(
+            f"field {se.name} is a LIST but has {len(col.children)} children"
+        )
+    child = col.children[0]
+    if child.name != "list":
+        if strict:
+            raise SchemaValidationError(
+                f'field {se.name} is a LIST but its child is not named "list"'
+            )
+        # Backward-compatibility forms (LogicalTypes.md rules 1-4):
+        #  1. repeated primitive field     -> field type is the element type
+        #  2. repeated group, >1 children  -> the group is the element type
+        #  3. repeated group named "array"/"<name>_tuple"/"bag", 1 child
+        #  4. otherwise, repeated group with 1 child is the element itself
+        if child.element.type is None and not child.children:
+            raise SchemaValidationError(
+                f"field {se.name} is a LIST but the repeated group inside it "
+                'is not called "list" and contains no fields'
+            )
+    else:
+        if (child.element.type is not None
+                or child.element.repetition_type != FieldRepetitionType.REPEATED):
+            raise SchemaValidationError(
+                f"field {se.name} is a LIST but its child is not a repeated group"
+            )
+        if len(child.children) != 1:
+            raise SchemaValidationError(
+                f"field {se.name}.list has {len(child.children)} children"
+            )
+        elem = child.children[0]
+        if elem.name != "element":
+            raise SchemaValidationError(
+                f'{se.name}.list has a child but it\'s called '
+                f'{elem.name!r}, not "element"'
+            )
+        erep = elem.element.repetition_type
+        if erep not in (FieldRepetitionType.OPTIONAL, FieldRepetitionType.REQUIRED):
+            raise SchemaValidationError(
+                f"{se.name}.list.element has disallowed repetition type {erep}"
+            )
+    # Validate the repeated child itself (covers backward-compat form 1,
+    # where the element is a repeated primitive and has no children of its
+    # own) — annotations on it must still type-check.
+    _validate_column(child, is_root=False, strict=strict)
+
+
+def _validate_map(col: ColumnDefinition, strict: bool) -> None:
+    se = col.element
+    if strict and se.converted_type == ConvertedType.MAP_KEY_VALUE:
+        raise SchemaValidationError(
+            f"field {se.name} is incorrectly annotated as MAP_KEY_VALUE"
+        )
+    if se.type is not None:
+        raise SchemaValidationError(
+            f"field {se.name} is not a group but annotated as MAP"
+        )
+    if len(col.children) != 1:
+        raise SchemaValidationError(
+            f"field {se.name} is a MAP but has {len(col.children)} children"
+        )
+    kv = col.children[0]
+    if (kv.element.type is not None
+            or kv.element.repetition_type != FieldRepetitionType.REPEATED):
+        raise SchemaValidationError(
+            f"field {se.name} is a MAP but its child is not a repeated group"
+        )
+    if strict:
+        if kv.name != "key_value":
+            raise SchemaValidationError(
+                f'field {se.name} is a MAP but its child is not named "key_value"'
+            )
+        found_key = found_value = False
+        for c in kv.children:
+            if c.name == "key":
+                if c.element.repetition_type != FieldRepetitionType.REQUIRED:
+                    raise SchemaValidationError(
+                        f'field {se.name}.key_value.key is not of repetition '
+                        'type "required"'
+                    )
+                found_key = True
+            elif c.name == "value":
+                found_value = True
+            else:
+                raise SchemaValidationError(
+                    f"field {se.name} is a MAP so {se.name}.key_value.{c.name} "
+                    "is not allowed"
+                )
+        if not found_key:
+            raise SchemaValidationError(
+                f"field {se.name} is missing {se.name}.key_value.key"
+            )
+        if not found_value:
+            raise SchemaValidationError(
+                f"field {se.name} is missing {se.name}.key_value.value"
+            )
+    else:
+        if len(kv.children) != 2:
+            raise SchemaValidationError(
+                f"field {se.name} is a MAP but {se.name}.{kv.name} contains "
+                f"{len(kv.children)} children (expected 2)"
+            )
+    for c in kv.children:
+        _validate_column(c, is_root=False, strict=strict)
+
+
+def _validate_decimal(col: ColumnDefinition) -> None:
+    se = col.element
+    dec = se.logicalType.DECIMAL
+    ptype = se.type
+    if ptype == Type.INT32:
+        lo, hi = 1, 9
+    elif ptype == Type.INT64:
+        lo, hi = 1, 18
+    elif ptype == Type.FIXED_LEN_BYTE_ARRAY:
+        # Spec: precision <= floor(log10(2^(8n-1) - 1)); for n=16 that is 38
+        # (decimal128, as pyarrow/Spark emit).  floor(log10(x)) == digits-1.
+        n = se.type_length or 0
+        lo, hi = 1, len(str(2 ** (8 * n - 1) - 1)) - 1 if n else 0
+    elif ptype == Type.BYTE_ARRAY:
+        lo, hi = 1, None
+    else:
+        raise SchemaValidationError(
+            f"field {se.name} is annotated as DECIMAL but type {ptype} is "
+            "unsupported"
+        )
+    if dec.precision < lo or (hi is not None and dec.precision > hi):
+        raise SchemaValidationError(
+            f"field {se.name} is annotated as DECIMAL but precision "
+            f"{dec.precision} is out of bounds"
+        )

@@ -9,7 +9,8 @@ INT96, ``(N, L)`` u8 rows for FIXED_LEN_BYTE_ARRAY, a
 or for an int32, int64, float or double leaf a
 :class:`~tpuparquet_torch.kernels.encode.DeviceValues` of its dtype,
 whose statistics, dictionary intern and PLAIN, DELTA_BINARY_PACKED and
-BYTE_STREAM_SPLIT pages compute on its device)
+BYTE_STREAM_SPLIT pages compute on its device; or, for any leaf, a
+Python list of its values, coerced one by one as the JAX writer does)
 plus validity masks for optional columns (and for the struct groups
 above a nested leaf), and for a repeated column its row offsets and
 null-row, null-element and null-element-group masks, and writes one row
@@ -90,7 +91,7 @@ from ..stats import current_stats, worker_stats
 from .chunk import write_chunk
 from .pages import SUPPORTED_DATA_ENCODINGS, page_crc_default
 from .store import attach_stores, shred_record
-from .values import is_unsigned
+from .values import handler_for, is_unsigned
 
 __all__ = ["FileWriter"]
 
@@ -131,7 +132,12 @@ def _on_device_of(column):
 
 def _column_values(leaf, values):
     """A leaf's values in its physical representation; raises on a
-    column of the wrong kind or out of the type's range."""
+    column of the wrong kind or out of the type's range.  A Python list
+    is coerced value by value (str to UTF-8 bytes, 12-byte INT96, ...),
+    as the JAX writer takes one."""
+    if isinstance(values, list):
+        h = handler_for(leaf.element)
+        values = h.finalize([h.coerce_one(v) for v in values])
     if leaf.type == Type.BYTE_ARRAY:
         if not isinstance(values, ByteArrayColumn):
             raise TypeError(f"column {leaf.name!r}: expected a "
