@@ -374,7 +374,7 @@
    ``remote_bytes`` the spans' bytes, ``remote_retry`` the faults the
    emulator fired in the pass, a disk hit a chunk; warm, no fetch and a
    disk hit a chunk.  14b: the same through ``HttpByteRangeSource`` from
-   ``tools/httpfault.FaultHTTPServer`` on 127.0.0.1, every 5th request
+   ``ThrottlingOrigin`` on 127.0.0.1, every 5th request
    answered 429 with ``Retry-After`` (``remote_retry`` the 429s).  14c:
    two processes (``--remote-child``) over one ``TPQ_CACHE_DISK_SHARED``
    directory at once: each one's row-group checksums equal the local
@@ -435,6 +435,20 @@
    10,000 objects, and ``write_many``'s columns against the columnar
    path's.  Each read must launch K1-K4, and K5 and K7 where its
    routing counters say a page took byte planes or delta lanes.
+17. The lock-order recorder and the port's analyzer over config 2's file
+   (``check_lockcheck``).  17a: a child (``--lockcheck-child``, a
+   timeout of its own) under ``TPQ_LOCKCHECK=strict``,
+   ``TPQ_LOCKCHECK_OUT`` and ``TPQ_PROFILE=1`` reads config 2 at 8 plan
+   workers (best of 3 passes), runs a ``ShardedScan`` of it over
+   ``emu://`` with the disk tier (``PHASE14_EMU_KNOBS``) and one
+   ``ScanServer`` job at ``TPQ_PREFETCH_DEPTH=2``, each checked against
+   the generator and launching K1-K5 and K7.  The dump must hold no
+   violation and a ``tpuparquet_torch/`` site, and ``python -m
+   tpuparquet_torch.analyze --verify-lockcheck`` must find it a subgraph
+   of the static lock graph.  The recorded sites and edges, the
+   profiler's ``[lock-wait <site>]`` samples by site, and the armed
+   pass's wall beside the same pass unarmed in this process are printed.
+   17b: ``parquet_tool analyze --json`` exits 0 with 0 findings.
 
 Before phase 1 it prints the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit`` gives them), the host's
@@ -461,7 +475,7 @@ for an A/B of another checkout's read passes in the same way, and
 ``host_gathers`` times phase 6's gathers onto the host likewise, and
 ``multihost_ab`` phase 7c against one process's ``run()``, in turns.
 Every kernel must have launched on the paths of phases 3 to 3i, 5, 5b,
-6, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 16;
+6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17;
 the counts are set to 0 just before each path's read or write and read
 just after.  Exits non-zero, printing no result, when CUDA is
 unavailable or any phase fails.  The last line is
@@ -476,6 +490,7 @@ import argparse
 import contextlib
 import dataclasses
 import datetime
+import hashlib
 import io
 import json
 import os
@@ -485,6 +500,8 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.parse
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from typing import Optional
 
@@ -8144,9 +8161,123 @@ def check_arbiter(blob, results, mesh, dev, wrappers,
 # response on every 7th, 11th and 13th request of a source
 PHASE14_EMU = {"latency_ms": 2.0, "throttle_every": 7, "reset_every": 11,
                "short_every": 13}
+# the same settings as the environment knobs a URI's source reads
+PHASE14_EMU_KNOBS = {"TPQ_EMU_LATENCY_MS": "2.0", "TPQ_EMU_THROTTLE_EVERY": "7",
+                     "TPQ_EMU_RESET_EVERY": "11", "TPQ_EMU_SHORT_EVERY": "13"}
 # phase 14b's origin answers every 5th request with 429 and Retry-After
 PHASE14_HTTP_THROTTLE = 5
 PHASE14_RETRY_AFTER_S = 0.05
+
+
+class ThrottlingOrigin(ThreadingHTTPServer):
+    """Phase 14b's HTTP origin over a directory: ranged GETs and HEADs
+    with an ETag, every ``throttle_every``-th request (counted over the
+    server) answered 429 with ``Retry-After`` (the throttle of the repo's
+    ``tools/httpfault.py`` fault server, kept here so this script needs
+    nothing outside the port)."""
+
+    daemon_threads = True
+
+    def __init__(self, addr, root: str, throttle_every: int,
+                 retry_after_s: float):
+        super().__init__(addr, _OriginHandler)
+        self.root = os.path.abspath(root)
+        self.throttle_every = throttle_every
+        self.retry_after_s = retry_after_s
+        self._lock = threading.Lock()  # guards _requests
+        self._requests = 0
+
+    def next_request(self) -> int:
+        with self._lock:
+            self._requests += 1
+            return self._requests
+
+    @property
+    def base_url(self) -> str:
+        host, port = self.server_address[:2]
+        return f"http://{host}:{port}"
+
+
+class _OriginHandler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, fmt, *args):
+        pass
+
+    def _object(self):
+        """(path, size, etag) of the request's file, or None (404 sent)."""
+        fs = os.path.abspath(os.path.join(
+            self.server.root,
+            urllib.parse.unquote(urllib.parse.urlsplit(self.path).path)
+            .lstrip("/")))
+        if not fs.startswith(self.server.root + os.sep) \
+                or not os.path.isfile(fs):
+            self.send_error(404, "no such object")
+            return None
+        st = os.stat(fs)
+        tag = hashlib.sha1(f"{fs}|{st.st_size}|{st.st_mtime_ns}".encode())
+        return fs, st.st_size, f'"{tag.hexdigest()[:20]}"'
+
+    def _throttled(self) -> bool:
+        n = self.server.next_request()
+        if n % self.server.throttle_every:
+            return False
+        self.send_response(429)
+        self.send_header("Retry-After", f"{self.server.retry_after_s:g}")
+        self.send_header("Content-Length", "0")
+        self.end_headers()
+        return True
+
+    def do_HEAD(self):
+        obj = self._object()
+        if obj is None or self._throttled():
+            return
+        _fs, size, etag = obj
+        self.send_response(200)
+        self.send_header("ETag", etag)
+        self.send_header("Accept-Ranges", "bytes")
+        self.send_header("Content-Length", str(size))
+        self.end_headers()
+
+    def do_GET(self):
+        obj = self._object()
+        if obj is None or self._throttled():
+            return
+        fs, size, etag = obj
+        cond = self.headers.get("If-Match")
+        if cond is not None and cond.strip() not in (etag, "*"):
+            self.send_response(412)
+            self.send_header("ETag", etag)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+            return
+        start, length, status = 0, size, 200
+        hdr = self.headers.get("Range") or ""
+        if hdr.startswith("bytes="):
+            first, _, last = hdr[6:].split(",")[0].strip().partition("-")
+            if first:
+                start = int(first)
+                end = min(int(last) if last else size - 1, size - 1)
+            else:
+                start, end = max(0, size - int(last)), size - 1
+            if start >= size or end < start:
+                self.send_response(416)
+                self.send_header("Content-Range", f"bytes */{size}")
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return
+            length, status = end - start + 1, 206
+        self.send_response(status)
+        self.send_header("ETag", etag)
+        self.send_header("Accept-Ranges", "bytes")
+        self.send_header("Content-Length", str(length))
+        if status == 206:
+            self.send_header("Content-Range",
+                             f"bytes {start}-{start + length - 1}/{size}")
+        self.end_headers()
+        with open(fs, "rb") as f:
+            f.seek(start)
+            self.wfile.write(f.read(length))
 # phase 14d's hive partitions, config 2's row groups two a partition, and
 # the two its filter keeps
 PHASE14_REGIONS = ("ap", "eu", "sa", "us")
@@ -8357,7 +8488,6 @@ def check_remote(blob, groups, reader, mesh, dev, wrappers,
     from tpuparquet_torch.io.source import EmulatedStoreSource, \
         HttpByteRangeSource
     from tpuparquet_torch.stats import collect_stats
-    from tools.httpfault import FaultHTTPServer, FaultPlan
 
     t14 = time.perf_counter()
     total: dict = {}
@@ -8400,13 +8530,13 @@ def check_remote(blob, groups, reader, mesh, dev, wrappers,
                     _add(total, launches)
 
             # 14b: http:// from an origin on 127.0.0.1 that throttles
-            srv = FaultHTTPServer(("127.0.0.1", 0), tmp)
+            srv = ThrottlingOrigin(("127.0.0.1", 0), tmp,
+                                   PHASE14_HTTP_THROTTLE,
+                                   PHASE14_RETRY_AFTER_S)
             th = threading.Thread(target=srv.serve_forever, daemon=True)
             th.start()
             try:
                 url = f"{srv.base_url}/config2.parquet"
-                srv.plan = FaultPlan(throttle_every=PHASE14_HTTP_THROTTLE,
-                                     retry_after_s=PHASE14_RETRY_AFTER_S)
 
                 def open_http():
                     return FileReader(HttpByteRangeSource(url))
@@ -8692,7 +8822,7 @@ def check_server_prefetch(path, results, reader, mesh, dev, wrappers,
     cache = os.path.join(tmp, "cache")
     n, n_spans, span_bytes = _chunk_spans(reader)
     # phase 14's emulator knobs, as the sources a URI opens read them
-    knobs = {f"TPQ_EMU_{k.upper()}": str(v) for k, v in PHASE14_EMU.items()}
+    knobs = dict(PHASE14_EMU_KNOBS)
     want = {"remote_ranges_fetched": n_spans, "ranges_coalesced": n - n_spans,
             "remote_bytes": span_bytes, "cache_hits_disk": n,
             "cache_misses_disk": 0, "cache_evictions_disk": 0}
@@ -9474,6 +9604,216 @@ def check_floor(groups, dev, wrappers, n_objects: int = 1_000_000,
     return launches
 
 
+# ----------------------------------------------------------------------
+# Phase 17: the lock-order recorder and the port's analyzer
+# ----------------------------------------------------------------------
+
+PHASE17_PLAN_THREADS = 8
+PHASE17_CHILD_S = 600.0
+
+
+def _lock_waits(state: dict) -> dict:
+    """``[lock-wait <site>]`` samples of a profiler state, by site."""
+    out: dict = {}
+    for stages in (state.get("buckets") or {}).values():
+        for b in stages.values():
+            for stack, n in b["stacks"].items():
+                leaf = stack.rsplit(";", 1)[-1]
+                if leaf.startswith("[lock-wait ") and leaf.endswith("]"):
+                    site = leaf[len("[lock-wait "):-1]
+                    out[site] = out.get(site, 0) + int(n)
+    return out
+
+
+def _armed_walls(reader, dev, wrappers, g2, label, reps: int = 3):
+    """``reps`` passes of config 2 at phase 17's plan workers, the first
+    checked against the generator (and, on a card, for K1-K5 and K7);
+    (best wall, the first's launches)."""
+    walls, first = [], None
+    with _plan_threads_env(PHASE17_PLAN_THREADS):
+        for i in range(reps):
+            t0 = time.perf_counter()
+            got, launches, _st = _drive(reader, dev, wrappers)
+            walls.append(time.perf_counter() - t0)
+            if i == 0:
+                _check_values(label, got, g2)
+                _need_on(dev, label, launches)
+                first = launches
+            del got
+    return min(walls), first
+
+
+def _need_on(dev, label, launches) -> None:
+    """Config 2's kernels launched, on a card (a CPU rehearsal runs the
+    plain versions, which count nothing)."""
+    if dev.type == "cuda":
+        _need(label, launches, CONFIG2_KERNELS)
+
+
+def lockcheck_child(argv) -> int:
+    """Phase 17a's child (``chip_smoke.py --lockcheck-child OUT PATH
+    VALUES GROUPS CACHE DEVICE``), under ``TPQ_LOCKCHECK=strict``,
+    ``TPQ_LOCKCHECK_OUT`` and ``TPQ_PROFILE=1``: config 2 from PATH at 8
+    plan workers, a ``ShardedScan`` over ``emu://`` with the disk tier in
+    CACHE and one ``ScanServer`` job at prefetch depth 2, each on DEVICE
+    (``cuda``: this process's card) against the generator
+    (``config2_groups(VALUES, GROUPS)``); writes to OUT the pass's best
+    wall, the launches and the lock-wait samples by site."""
+    out, path, n_values, n_groups, cache, device = argv
+    if device == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from tpuparquet_torch import ShardedScan, lockcheck, make_mesh
+    from tpuparquet_torch.io.reader import FileReader
+    from tpuparquet_torch.obs import profiler
+
+    if not (lockcheck.installed() and lockcheck._strict):
+        raise AssertionError("17a: the recorder is not installed strict")
+    if profiler.profiler() is None:
+        raise AssertionError("17a: the profiler is not armed")
+    dev = torch.device(device, 0) if device == "cuda" \
+        else torch.device(device)
+    g2 = [(c, {"payment_type": m})
+          for c, m in config2_groups(int(n_values), int(n_groups))]
+    wrappers = kernel_wrappers()
+    total: dict = {}
+    with FileReader(path) as reader:
+        wall, launches = _armed_walls(reader, dev, wrappers, g2,
+                                      "17a armed read")
+    _add(total, launches)
+    mesh = make_mesh() if dev.type == "cuda" else make_mesh(
+        1, devices=[dev.type])
+    with _env(TPQ_CACHE_DISK_DIR=cache, TPQ_CACHE_DISK_MB=None,
+              TPQ_CACHE_DISK_SHARED=None, **PHASE14_EMU_KNOBS):
+        _fresh_tier(cache)
+        _zero(wrappers)
+        with ShardedScan(["emu://" + path], mesh=mesh) as scan:
+            units = scan.run()
+        _sync(dev)
+        launches = _launches_of(wrappers)
+        _need_on(dev, "17a emu:// scan", launches)
+        _add(total, launches)
+        _check_values("17a emu:// scan", list(enumerate(units)), g2)
+        del units
+        _fresh_tier(cache)
+        with _env(TPQ_PREFETCH_DEPTH=2):
+            _zero(wrappers)
+            srv = _server(mesh)
+            try:
+                job = srv.submit("light", ["emu://" + path])
+                _done("17a server job", [job])
+                _sync(dev)
+            finally:
+                srv.shutdown()
+        launches = _launches_of(wrappers)
+        _need_on(dev, "17a server job", launches)
+        _add(total, launches)
+        _check_values("17a server job", sorted(job.outputs.items()), g2)
+        del job
+    state = profiler.profiler().to_state()
+    with open(out, "w") as f:
+        json.dump({"wall": wall, "launches": total,
+                   "lock_waits": _lock_waits(state),
+                   "samples": state["counters"]}, f)
+    return 0
+
+
+def check_lockcheck(blob, groups, n_values: int, n_groups: int, dev,
+                    wrappers, smi: str) -> dict:
+    """Phase 17 (17a, 17b; see the module docstring); returns the
+    child's launches."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t17 = time.perf_counter()
+    g2 = [(c, {"payment_type": m}) for c, m in groups]
+    with tempfile.TemporaryDirectory(prefix=".smoke-", dir=here) as tmp:
+        path = os.path.join(tmp, "config2.parquet")
+        with open(path, "wb") as f:
+            f.write(blob)
+        from tpuparquet_torch.io.reader import FileReader
+
+        with FileReader(path) as reader:
+            plain_wall, _l = _armed_walls(reader, dev, wrappers, g2,
+                                          "17a unarmed read")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out = os.path.join(tmp, "child.json")
+        dump = os.path.join(tmp, "locks.json")
+        env = dict(os.environ, TPQ_LOCKCHECK="strict",
+                   TPQ_LOCKCHECK_OUT=dump, TPQ_PROFILE="1")
+        for k in ("TPQ_PROFILE_EXPORT", "TPQ_PLAN_THREADS"):
+            env.pop(k, None)
+        t0 = time.perf_counter()
+        try:
+            child = subprocess.run(
+                [sys.executable, os.path.abspath(__file__),
+                 "--lockcheck-child", out, path, str(n_values),
+                 str(n_groups), os.path.join(tmp, "cache"), dev.type],
+                env=env, cwd=here, capture_output=True, text=True,
+                timeout=PHASE17_CHILD_S)
+        except subprocess.TimeoutExpired as e:
+            raise AssertionError(f"17a: the child ran past "
+                                 f"{PHASE17_CHILD_S} s") from e
+        child_s = time.perf_counter() - t0
+        if child.returncode != 0:
+            raise AssertionError(f"17a: the child exited "
+                                 f"{child.returncode}: "
+                                 f"{child.stderr[-3000:]}")
+        with open(out) as f:
+            got = json.load(f)
+        with open(dump) as f:
+            doc = json.load(f)
+        sites = doc["locks"]
+        edges = doc["edges"]
+        ours = [x for x in sites if x.startswith("tpuparquet_torch/")]
+        if doc["violations"]:
+            raise AssertionError(f"17a: violations {doc['violations']}")
+        if not ours:
+            raise AssertionError("17a: no tpuparquet_torch/ lock recorded")
+        verify = subprocess.run(
+            [sys.executable, "-m", "tpuparquet_torch.analyze",
+             "--verify-lockcheck", dump, "--json"], cwd=here,
+            capture_output=True, text=True, timeout=300)
+        res = json.loads(verify.stdout)
+        if verify.returncode != 0 or res["problems"]:
+            raise AssertionError(f"17a: --verify-lockcheck: "
+                                 f"{res['problems']}")
+    repo_edges = [e for e in edges if e[0].startswith("tpuparquet_torch/")
+                  and e[1].startswith("tpuparquet_torch/")]
+    print(f"17a lockcheck (strict): {len(sites)} sites ({len(ours)} in "
+          f"tpuparquet_torch/), {len(edges)} edges ({len(repo_edges)} "
+          f"between package locks), no violation; --verify-lockcheck "
+          f"against the static graph: 0 problems; the child "
+          f"{child_s:.2f} s with its start", flush=True)
+    waits = got["lock_waits"]
+    print(f"17a [lock-wait <site>] samples by site: "
+          f"{waits if waits else 'none (0 samples: no repo lock waited long enough to be sampled)'}; "
+          f"profiler counters {got['samples']}", flush=True)
+    print(f"17a config 2 at {PHASE17_PLAN_THREADS} plan workers, best of "
+          f"3: armed (recorder strict, profiler on) {got['wall']:.4f} s, "
+          f"unarmed {plain_wall:.4f} s, ratio "
+          f"{got['wall'] / plain_wall:.3f} ({smi})", flush=True)
+
+    # 17b: the analyzer's gate through the command-line tool
+    t0 = time.perf_counter()
+    tool = subprocess.run(
+        [sys.executable, "-m", "tpuparquet_torch.cli.parquet_tool",
+         "analyze", "--json"], cwd=here, capture_output=True, text=True,
+        timeout=300)
+    gate = json.loads(tool.stdout) if tool.stdout.strip() else {}
+    if tool.returncode != 0 or gate.get("findings") or not gate.get("ok"):
+        raise AssertionError(f"17b: parquet_tool analyze exited "
+                             f"{tool.returncode}: "
+                             f"{gate.get('findings')} "
+                             f"{tool.stderr[-2000:]}")
+    print(f"17b parquet_tool analyze: 0 findings, "
+          f"{len(gate['suppressed'])} allowlisted, 0 stale, "
+          f"{time.perf_counter() - t0:.2f} s with its start; passes "
+          f"{gate['timings_s']}", flush=True)
+    print(f"phase 17 (lockcheck, the analyzer): "
+          f"{time.perf_counter() - t17:.2f} s", flush=True)
+    return got["launches"]
+
+
 def kernel_wrappers() -> dict:
     """Every kernel's wrapper by name; each counts its launches in its
     ``launches`` attribute."""
@@ -9510,6 +9850,8 @@ def main(argv=None) -> int:
         return multihost_child(argv[1:])
     if argv[:1] == ["--remote-child"]:
         return remote_child(argv[1:])
+    if argv[:1] == ["--lockcheck-child"]:
+        return lockcheck_child(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--values", type=int, default=50_000_000)
     ap.add_argument("--groups", type=int, default=8)
@@ -9532,8 +9874,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else "nvidia-smi: no output", flush=True)
+    smi_line = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+                else "nvidia-smi: no output")
+    print(smi_line, flush=True)
     print(f"host: {len(os.sched_getaffinity(0))} usable CPUs "
           "(os.sched_getaffinity)", flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -9991,6 +10334,14 @@ def main(argv=None) -> int:
                      check_floor(groups, dev, wrappers)):
         for k, c in launches.items():
             total_launches[k] += c
+
+    # phase 17: config 2 read, scanned over emu:// and served in a child
+    # under the strict lock-order recorder and the profiler (17a), and
+    # the port's analyzer through parquet_tool (17b)
+    launches = check_lockcheck(blob, groups, args.values, g, dev, wrappers,
+                               smi_line)
+    for k, c in launches.items():
+        total_launches[k] += c
 
     # phase 4: kernel times at the main paths' shapes
     kernels = time_kernels(groups, mix_groups, groups4, groups_s, groups_t,

@@ -322,3 +322,36 @@ class TestHttpSource:
         got = [outcome(lambda P=P: P.src.HttpByteRangeSource("ftp://x/y"))
                for P in PKGS]
         assert got[0] == got[1] and got[0][0] == "ValueError"
+
+
+@pytest.mark.parametrize("every", [3, 5])
+def test_card_script_origin_as_fault_server(tmp_path, monkeypatch, every):
+    """``chip_smoke.ThrottlingOrigin`` (phase 14b's origin, which keeps
+    the card script free of ``tools``) serves the port's reads as the
+    fault server's throttle plan does: the same arrays, counters and
+    request count."""
+    import chip_smoke
+
+    p = write_file(tmp_path, rows=600, groups=3, seed=every)
+    local = read_all(JAX, p)
+    got = []
+    for make in (lambda: FaultHTTPServer(
+            ("127.0.0.1", 0), str(tmp_path),
+            FaultPlan(throttle_every=every, retry_after_s=0.001)),
+            lambda: chip_smoke.ThrottlingOrigin(
+                ("127.0.0.1", 0), str(tmp_path), every, 0.001)):
+        srv = make()
+        t = threading.Thread(target=srv.serve_forever, daemon=True)
+        t.start()
+        try:
+            PORT.rc.reset_range_caches()
+            with PORT.collect_stats() as st:
+                arrays = read_all(PORT, f"{srv.base_url}/f0.parquet")
+            got.append((counters(st), srv._requests))
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            t.join(10.0)
+        same_arrays(arrays, local)
+    assert got[1] == got[0]
+    assert got[1][0]["remote_retry"] > 0

@@ -37,7 +37,7 @@ def _imported_modules(path: Path) -> set:
 def test_no_jax_or_tpuparquet_import(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "tpuparquet"), (path, mod)
+        assert top not in ("jax", "jaxlib", "tpuparquet", "tools"), (path, mod)
 
 
 def _file() -> bytes:

@@ -553,3 +553,96 @@ def test_profiler_off_is_never_called(corpus, monkeypatch):
     list(port_device.read_row_groups_device(FileReader(corpus[0]),
                                             device="cpu"))
     port_scan.ShardedScan(corpus, **PORT.scan_kw).run()
+
+
+# ----------------------------------------------------------------------
+# lock-wait samples through the lock-order recorder's wrappers
+# ----------------------------------------------------------------------
+
+def _repo_lock(side):
+    """A lock created at a site of ``side``'s package, wrapped by its
+    recorder: the reference's at a synthetic site (its own test's form),
+    the port's at a real one, the reader's handle lock."""
+    if side is JAX:
+        from tpuparquet import lockcheck as jax_lockcheck
+
+        site = "tpuparquet/io/reader.py:67"
+        return jax_lockcheck._CheckedLock(threading.Lock(), site), site
+    import io as _io
+
+    from tpuparquet_torch import lockcheck
+    from tpuparquet_torch.io.reader import _IoHandle
+
+    lockcheck.install(strict=False)
+    try:
+        lk = _IoHandle(_io.BytesIO(), False).lock
+    finally:
+        lockcheck.uninstall()
+        lockcheck.reset()
+    assert isinstance(lk, lockcheck._CheckedLock)
+    return lk, lk._site
+
+
+@pytest.mark.parametrize("side", SIDES, ids=["jax", "port"])
+def test_contended_lock_samples_as_lock_wait(side):
+    """Arming installs the wait hooks into the recorder's wrappers: a
+    contended acquire brackets the blocking wait, so samples taken while
+    a thread queues on the lock land on the lock's creation site."""
+    lk, site = _repo_lock(side)
+    if side is PORT:
+        assert site.startswith("tpuparquet_torch/io/reader.py:")
+    p = side.profiler.set_profiling(True, hz=50, start=False)
+    held = threading.Event()
+    release = threading.Event()
+
+    def holder():
+        lk.acquire()
+        held.set()
+        release.wait(5)
+        lk.release()
+
+    def contender():
+        lk.acquire()
+        lk.release()
+
+    t1 = threading.Thread(target=holder)
+    t1.start()
+    assert held.wait(2)
+    t2 = threading.Thread(target=contender)
+    t2.start()
+    leaf = f"[lock-wait {site}]"
+    found = False
+    try:
+        deadline = time.monotonic() + 5.0
+        while time.monotonic() < deadline and not found:
+            p.sample_once()
+            for stages in p.to_state()["buckets"].values():
+                for b in stages.values():
+                    if any(s.endswith(leaf) for s in b["stacks"]):
+                        found = True
+            if not found:
+                time.sleep(0.005)
+    finally:
+        release.set()
+        t2.join(5)
+        t1.join(5)
+    assert found, "no off-CPU sample landed on the lock site"
+    assert p.to_state()["counters"]["profile_samples_offcpu"] >= 1
+
+
+@pytest.mark.parametrize("side", SIDES, ids=["jax", "port"])
+def test_uncontended_acquire_never_marks_offcpu(side):
+    lk, _site = _repo_lock(side)
+    p = side.profiler.set_profiling(True, hz=50, start=False)
+    lk.acquire()
+    lk.release()
+    assert p._waits == {}
+
+
+def test_arming_installs_and_disarming_clears_wait_hooks():
+    from tpuparquet_torch import lockcheck
+
+    profiler.set_profiling(True, start=False)
+    assert lockcheck._wait_hooks == (profiler.wait_begin, profiler.wait_end)
+    profiler.set_profiling(False)
+    assert lockcheck._wait_hooks is None

@@ -340,3 +340,60 @@ def test_footer_logical_types_kept(tmp_path, rescue):
         assert mod.main(["rescue", str(src), str(dst)]) == 0
         got.append(dst.read_bytes())
     assert got[1] == got[0]
+
+
+@pytest.mark.parametrize("rescue", [False, True], ids=["footer", "rescue"])
+def test_footer_encryption_members_kept(tmp_path, rescue):
+    """A footer's encryption members (the file's algorithm and signing
+    key metadata, a chunk's crypto metadata and encrypted column
+    metadata) survive the port's metadata: re-encoded, the footer is
+    the file's own bytes, and a rescue copies them as the reference's
+    does."""
+    import struct
+
+    from tpuparquet.format.footer import read_file_metadata, write_footer
+    from tpuparquet.format.metadata import (AesGcmV1, ColumnCryptoMetaData,
+                                            EncryptionAlgorithm,
+                                            EncryptionWithColumnKey,
+                                            EncryptionWithFooterKey)
+
+    buf = io.BytesIO()
+    w = JaxFileWriter(buf, "message m { required int32 a; optional "
+                           "binary s (STRING); }")
+    for i in range(5):
+        w.add_data({"a": i, "s": b"v%d" % i})
+    w.close()
+    meta = read_file_metadata(io.BytesIO(buf.getvalue()))
+    meta.encryption_algorithm = EncryptionAlgorithm(AES_GCM_V1=AesGcmV1(
+        aad_prefix=b"pre", aad_file_unique=b"\x01\x02", supply_aad_prefix=True))
+    meta.footer_signing_key_metadata = b"signing-key"
+    cols = meta.row_groups[0].columns
+    cols[0].crypto_metadata = ColumnCryptoMetaData(
+        ENCRYPTION_WITH_FOOTER_KEY=EncryptionWithFooterKey())
+    cols[1].crypto_metadata = ColumnCryptoMetaData(
+        ENCRYPTION_WITH_COLUMN_KEY=EncryptionWithColumnKey(
+            path_in_schema=["s"], key_metadata=b"col-key"))
+    cols[1].encrypted_column_metadata = b"\x00sealed"
+    data = buf.getvalue()
+    (flen,) = struct.unpack("<I", data[-8:-4])
+    out = io.BytesIO()
+    out.write(data[: len(data) - 8 - flen])
+    write_footer(out, meta)
+    blob = out.getvalue()
+    (flen,) = struct.unpack("<I", blob[-8:-4])
+    if not rescue:
+        ours = FileReader(blob).meta
+        assert ours.footer_signing_key_metadata == b"signing-key"
+        assert ours.to_bytes() == blob[-8 - flen: -8]
+        return
+    from tpuparquet.cli import parquet_tool as jax_pt
+    from tpuparquet_torch.cli import parquet_tool as pt
+
+    src = tmp_path / "f.parquet"
+    src.write_bytes(blob)
+    got = []
+    for name, mod in (("jax", jax_pt), ("port", pt)):
+        dst = tmp_path / f"{name}.parquet"
+        assert mod.main(["rescue", str(src), str(dst)]) == 0
+        got.append(dst.read_bytes())
+    assert got[1] == got[0]

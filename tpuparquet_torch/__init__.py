@@ -55,9 +55,20 @@ writer, the format's enums, the schema DSL, the error taxonomy, the fault
 harness, the filter DSL, the counters, the codec registry, the source and
 range-cache hooks, the schema builders (``new_*``, ``logical_*``), the
 dataset writer, scan and compaction, and ``obs``.
+
+Under ``TPQ_LOCKCHECK`` the lock-order recorder (``lockcheck.py``) is
+installed before anything else is imported, ``torch`` included, so every
+lock the package creates is wrapped.
 """
 
-from . import obs  # noqa: F401
+import os as _os
+
+if _os.environ.get("TPQ_LOCKCHECK", "") not in ("", "0"):
+    from . import lockcheck as _lockcheck
+
+    _lockcheck.install()
+
+from . import obs  # noqa: F401,E402
 from .compress import BlockCompressor, register_block_compressor  # noqa: F401
 from .errors import (  # noqa: F401
     CorruptChunkError,

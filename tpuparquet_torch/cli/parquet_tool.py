@@ -12,9 +12,10 @@ scan's progress file), ``watch`` (the RED view of a time-series ring),
 ``slo report``, ``serve`` (a :class:`~tpuparquet_torch.serve.ScanServer`
 from a JSON spec), ``tenants`` (a server's status export), ``flame``
 (a sampling profile), ``doctor`` (a scan trace's bound stage),
-``rescue`` (a torn file's recoverable row groups into a clean file) and
+``rescue`` (a torn file's recoverable row groups into a clean file),
 ``compact`` (a partitioned dataset's small files merged through its
-atomic manifest commit, ``dataset/compact.py``).
+atomic manifest commit, ``dataset/compact.py``) and ``analyze`` (the
+port's static invariant passes, ``tpuparquet_torch/analyze``).
 
 ``verify``, ``profile`` and ``serve`` decode on ``--device`` (default
 ``cuda``, the current card; ``cpu`` runs every kernel's plain version):
@@ -1303,6 +1304,60 @@ def _rescue(args, like, out, CompressionCodec, created: list) -> int:
     return 0
 
 
+def cmd_analyze(args, out=None) -> int:
+    """Run the port's tpq-analyze invariant passes
+    (``tpuparquet_torch/analyze``) over ``--root`` and report findings:
+    the gate ``python -m tpuparquet_torch.analyze`` runs, with ``--json``
+    output consistent with ``profile --json``.  ``--root`` defaults to
+    the checkout that holds the package.  Exits 0 when the gate passes,
+    1 when it fails."""
+    import json as _json
+
+    from ..analyze import (DEFAULT_ALLOWLIST, Allowlist, RepoTree,
+                           run_analysis)
+
+    out = out or sys.stdout
+    root = args.root or os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    if getattr(args, "allowlist_audit", False):
+        tree = RepoTree.from_disk(root)
+        report = Allowlist.load(DEFAULT_ALLOWLIST).audit(tree)
+        if getattr(args, "json", False):
+            report["root"] = root
+            _json.dump(report, out, sort_keys=True)
+            print(file=out)
+        else:
+            for e in report["entries"]:
+                mark = (" MISSING-TARGET"
+                        if not e["target_exists"] else "")
+                print(f"{e['added']}  {e['pass']:20s} {e['file']}::"
+                      f"{e['key']}{mark}", file=out)
+            print(f"allowlist-audit: {len(report['entries'])} "
+                  f"entr(y/ies), {len(report['missing_target'])} "
+                  f"with missing target file — "
+                  + ("PASSED" if report["ok"] else "FAILED"),
+                  file=out)
+        return 0 if report["ok"] else 1
+
+    res = run_analysis(root=root, passes=args.passes or None)
+    if getattr(args, "json", False):
+        res["root"] = root
+        _json.dump(res, out, sort_keys=True)
+        print(file=out)
+    else:
+        for f in res["findings"]:
+            print(f"{f['file']}:{f['line']}: [{f['pass']}/"
+                  f"{f['code']}] {f['key']}: {f['why']}", file=out)
+        for e in res["stale_allowlist"]:
+            print(f"allowlist: stale entry ({e['pass']}, {e['file']}, "
+                  f"{e['key']}) suppresses nothing — drop it",
+                  file=out)
+        print(f"analyze: {len(res['findings'])} finding(s), "
+              f"{len(res['suppressed'])} allowlisted — gate "
+              + ("PASSED" if res["ok"] else "FAILED"), file=out)
+    return 0 if res["ok"] else 1
+
+
 def cmd_split(args, out=None) -> int:
     """Re-shard into multiple files of ~--file-size each
     through the row API."""
@@ -1593,6 +1648,26 @@ def build_parser() -> argparse.ArgumentParser:
     rs.add_argument("file")
     rs.add_argument("output")
     rs.set_defaults(fn=cmd_rescue)
+
+    an = sub.add_parser(
+        "analyze",
+        help="run the port's tpq-analyze static invariant passes over "
+             "the source tree (tpuparquet_torch/analyze)")
+    an.add_argument("--json", action="store_true",
+                    help="emit the full findings digest as "
+                         "machine-readable JSON (like profile --json)")
+    an.add_argument("--pass", dest="passes", action="append",
+                    metavar="NAME",
+                    help="run only this pass (repeatable)")
+    an.add_argument("--root", default="",
+                    help="repo root (default: the checkout this "
+                         "module ships in)")
+    an.add_argument("--allowlist-audit", action="store_true",
+                    dest="allowlist_audit",
+                    help="audit the allowlist instead of running the "
+                         "passes: list entries by age/pass, fail on "
+                         "entries whose target file no longer exists")
+    an.set_defaults(fn=cmd_analyze)
 
     sp = sub.add_parser("split", help="split into multiple parquet files")
     sp.add_argument("-s", "--file-size", default="100MB",

@@ -8,6 +8,11 @@ the device decompressor (:func:`snappy_scan_tokens`).  Neither has a
 pure-Python mirror: without a compiler, SNAPPY and LZ4_RAW raise, and
 ``TPQ_NATIVE_CODECS=0`` does not move them.  (The JAX package's mirrors
 write the same bytes as its C codecs, so files are the same either way.)
+The reference's block helpers are here as well: :func:`lz4_compress`,
+:func:`lz4_decompress` and :func:`snappy_decompress` run the C codecs,
+:func:`snappy_parse_tokens` is the reference's op-list parser, and
+:func:`snappy_compress` its greedy encoder, kept byte for byte: the C
+encoder that pages go through makes other (equally valid) token choices.
 
 GZIP and ZSTD bind the system libz and libzstd (``syslibs.py``), with
 the stdlib ``zlib`` module and the optional ``zstandard`` wheel as
@@ -50,10 +55,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from .errors import KernelBuildError
 from .format.metadata import CompressionCodec
 from .stats import current_stats
 from .syslibs import zlib_native, zstd_native
-from .varint import read_uvarint
+from .varint import read_uvarint, write_uvarint
 
 __all__ = ["BlockCompressor", "CompressionError",
            "builtin_uncompressed_registered", "compress_block",
@@ -61,7 +67,9 @@ __all__ = ["BlockCompressor", "CompressionError",
            "native_codecs_enabled", "page_codec_settings", "page_compress",
            "page_compress_bound", "page_compress_into",
            "register_block_compressor", "registered_codecs",
-           "snappy_scan_tokens", "snappy_single_literal_view"]
+           "snappy_scan_tokens", "snappy_single_literal_view",
+           "snappy_compress", "snappy_decompress", "snappy_parse_tokens",
+           "lz4_compress", "lz4_decompress"]
 
 # the format's shortest copy; the JAX package's writer uses the same
 # floor, which keeps numeric pages' 4..7-byte matches
@@ -172,7 +180,7 @@ def _c_codec(stem: str):
 
             cc = shutil.which("cc") or shutil.which("gcc")
             if cc is None:
-                raise RuntimeError(
+                raise KernelBuildError(
                     f"csrc/{stem}.c needs a C compiler to build")
             (path,) = build([(CSRC / f"{stem}.c",
                               [cc, "-O3", "-shared", "-fPIC"])])
@@ -508,6 +516,177 @@ def snappy_single_literal_view(block) -> np.ndarray | None:
     if ln != total or pos + ln != buf.size:
         return None  # not a single literal covering the whole block
     return buf[pos : pos + ln]
+
+
+def snappy_parse_tokens(block: bytes):
+    """Parse a snappy block into ``(total_len, ops)``, as the reference
+    does: ``ops`` is a list of ``(dst, length, src)`` triples, ``src >=
+    0`` a copy from absolute output offset ``src`` and ``src < 0`` a
+    literal whose bytes start at input position ``-1 - src``."""
+    try:
+        total, pos = read_uvarint(block, pos=0)
+    except ValueError as e:
+        raise CompressionError(f"snappy: bad size header: {e}") from None
+    n = len(block)
+    ops = []
+    out_pos = 0
+    while pos < n:
+        tag = block[pos]
+        kind = tag & 3
+        pos += 1
+        if kind == 0:  # literal
+            ln = tag >> 2
+            if ln >= 60:
+                extra = ln - 59
+                if pos + extra > n:
+                    raise CompressionError("snappy: truncated literal length")
+                ln = int.from_bytes(block[pos : pos + extra], "little")
+                pos += extra
+            ln += 1
+            if pos + ln > n:
+                raise CompressionError("snappy: literal overruns input")
+            ops.append((out_pos, ln, -1 - pos))
+            pos += ln
+            out_pos += ln
+            continue
+        if kind == 1:  # copy with 1-byte offset extension
+            if pos >= n:
+                raise CompressionError("snappy: truncated copy-1")
+            ln = ((tag >> 2) & 0x7) + 4
+            off = ((tag >> 5) << 8) | block[pos]
+            pos += 1
+        elif kind == 2:  # 2-byte offset
+            if pos + 2 > n:
+                raise CompressionError("snappy: truncated copy-2")
+            ln = (tag >> 2) + 1
+            off = int.from_bytes(block[pos : pos + 2], "little")
+            pos += 2
+        else:  # 4-byte offset
+            if pos + 4 > n:
+                raise CompressionError("snappy: truncated copy-4")
+            ln = (tag >> 2) + 1
+            off = int.from_bytes(block[pos : pos + 4], "little")
+            pos += 4
+        if off == 0 or off > out_pos:
+            raise CompressionError(
+                f"snappy: copy offset {off} out of range at output {out_pos}"
+            )
+        ops.append((out_pos, ln, out_pos - off))
+        out_pos += ln
+    if out_pos != total:
+        raise CompressionError(
+            f"snappy: stream produced {out_pos} bytes, header says {total}"
+        )
+    return total, ops
+
+
+def snappy_decompress(block: bytes, expected_size: int | None = None) -> bytes:
+    """A snappy block decoded by the C codec; ``expected_size`` (None:
+    the block's own header) must match the header."""
+    src = _u8(block)
+    if expected_size is None:
+        total = ctypes.c_uint64()
+        if _snappy().tpq_snappy_uncompressed_length(
+                src.ctypes.data, src.size, ctypes.byref(total)) != 0:
+            raise CompressionError("snappy: bad size header")
+        expected_size = int(total.value)
+    return decompress_block(CompressionCodec.SNAPPY, src,
+                            expected_size).tobytes()
+
+
+def _emit_literal(out: bytearray, data, lo: int, hi: int) -> None:
+    # one token per literal stretch, however long (the tag takes up to 4
+    # length bytes), as the reference's encoder emits it
+    n = hi - lo
+    if n <= 0:
+        return
+    ln = n - 1
+    if ln < 60:
+        out.append(ln << 2)
+    elif ln < 256:
+        out.append(60 << 2)
+        out.append(ln)
+    elif ln < 65536:
+        out.append(61 << 2)
+        out += ln.to_bytes(2, "little")
+    elif ln < 1 << 24:
+        out.append(62 << 2)
+        out += ln.to_bytes(3, "little")
+    else:
+        out.append(63 << 2)
+        out += ln.to_bytes(4, "little")
+    out += data[lo:hi]
+
+
+def _emit_copy(out: bytearray, offset: int, ln: int) -> None:
+    # 2-byte-offset copies (tag 0b10) cover offset <= 65535, len 1..64
+    off = offset.to_bytes(2, "little")
+    while ln > 64:
+        out.append((63 << 2) | 2)
+        out += off
+        ln -= 64
+    out.append(((ln - 1) << 2) | 2)
+    out += off
+
+
+def snappy_compress(data: bytes, min_match: int = 4) -> bytes:
+    """The reference's greedy hash-match snappy encoder (golang-snappy
+    style, with the miss-skip acceleration), byte for byte; valid snappy
+    that any decoder reads back.  ``min_match`` (at least 4) is the
+    shortest back-reference it emits."""
+    data = bytes(data)
+    n = len(data)
+    min_match = max(min_match, 4)
+    out = bytearray()
+    write_uvarint(out, n)
+    if n < 4:
+        if n:
+            _emit_literal(out, data, 0, n)
+        return bytes(out)
+    table: dict[int, int] = {}
+    pos = 0
+    lit_start = 0
+    misses = 0
+    while pos + 4 <= n:
+        key = int.from_bytes(data[pos : pos + 4], "little")
+        cand = table.get(key)
+        table[key] = pos
+        if cand is not None and pos - cand <= 65535:
+            # the hit is exact: the key is the 4 bytes themselves
+            length = 4
+            limit = n - pos
+            while (
+                length < limit
+                and data[cand + length] == data[pos + length]
+            ):
+                length += 1
+            if length < min_match:
+                misses += 1
+                pos += 1 + (misses >> 5)
+                continue
+            _emit_literal(out, data, lit_start, pos)
+            _emit_copy(out, pos - cand, length)
+            pos += length
+            lit_start = pos
+            misses = 0
+        else:
+            misses += 1
+            pos += 1 + (misses >> 5)  # faster through incompressible data
+    _emit_literal(out, data, lit_start, n)
+    return bytes(out)
+
+
+def lz4_compress(data) -> bytes:
+    """An LZ4 block by the C encoder (``csrc/lz4raw.c``), the
+    reference's bytes; empty input is the one-zero-token block."""
+    return _c_compress("lz4", _u8(bytes(data)))
+
+
+def lz4_decompress(block, expected_size: int) -> bytes:
+    """An LZ4 block decoded by the C codec to exactly ``expected_size``
+    bytes; raises :class:`CompressionError` on a malformed stream."""
+    return decompress_block(CompressionCodec.LZ4_RAW, block,
+                            expected_size).tobytes()
 
 
 def _c_bound(stem: str, n: int) -> int:

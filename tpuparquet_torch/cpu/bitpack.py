@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["unpack", "unpack_msb", "pack"]
+__all__ = ["unpack", "unpack_msb", "pack", "pack_msb"]
 
 
 def _out_dtype(width: int):
@@ -89,6 +89,19 @@ def unpack_msb(data, count: int, width: int) -> np.ndarray:
                                          dtype=np.uint64)).astype(
         _out_dtype(width))
     return lanes @ weights if width > 1 else lanes[:, 0]
+
+
+def pack_msb(values, width: int) -> bytes:
+    """Pack into the deprecated BIT_PACKED (MSB-first) encoding, the
+    inverse of :func:`unpack_msb`; raises ValueError on a value wider
+    than ``width`` bits."""
+    if width == 0:
+        return b""
+    v = np.asarray(values).astype(np.uint64, copy=False)
+    _check_fits(v, width)
+    shifts = np.arange(width - 1, -1, -1, dtype=np.uint64)
+    bits = ((v[:, None] >> shifts) & np.uint64(1)).astype(np.uint8)
+    return np.packbits(bits.reshape(-1), bitorder="big").tobytes()
 
 
 def _check_fits(v: np.ndarray, width: int) -> None:

@@ -13,18 +13,29 @@ soon as the distinct count passes the caller's cap.
 
 :func:`decode_dict_indices` and :func:`gather` are the host decode of a
 dictionary-encoded page (the degraded device read, ``kernels/device.py``
-``cpu_fallback_values``), as the reference's.
+``cpu_fallback_values``), and :func:`encode_dict_indices` the writer's
+index stream, as the reference's.  :data:`row_hash_func` replaces the
+row hash of ``(N, L)`` rows (the reference's hook); byte columns intern
+in C and do not consult it.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .hybrid import decode_hybrid
+from .hybrid import as_uint32, decode_hybrid, encode_hybrid
 from .plain import ByteArrayColumn
 
-__all__ = ["build_dictionary", "decode_dict_indices", "gather",
-           "intern_byte_column"]
+__all__ = ["build_dictionary", "decode_dict_indices", "encode_dict_indices",
+           "gather", "intern_byte_column", "row_hash_func"]
+
+#: Pluggable row hash for the ``(N, L)`` row path of
+#: :func:`build_dictionary`: a callable taking the (k, L) u8 row matrix
+#: and returning k u64 hashes, or None for the built-in FNV-style one.
+#: Every row is still compared byte for byte with its slot's first
+#: occupant, and a collision takes the exact path, so the hook changes
+#: speed, never the dictionary.
+row_hash_func = None
 
 
 def decode_dict_indices(data, count: int) -> np.ndarray:
@@ -40,6 +51,12 @@ def decode_dict_indices(data, count: int) -> np.ndarray:
     if width == 0:
         return np.zeros(count, dtype=np.int32)
     return decode_hybrid(data, count, width, pos=1).astype(np.int32)
+
+
+def encode_dict_indices(indices, dict_size: int) -> bytes:
+    """Dictionary indices as (bit-width byte + hybrid stream)."""
+    width = max(int(dict_size - 1).bit_length(), 1) if dict_size > 1 else 1
+    return bytes([width]) + encode_hybrid(as_uint32(indices), width)
 
 
 def gather(dictionary, indices: np.ndarray):
@@ -129,10 +146,16 @@ def _unique_rows_table(rows: np.ndarray, h: np.ndarray):
 def _unique_rows(rows: np.ndarray):
     """``(first_idx, inverse)`` over the distinct rows of a (k, L) u8
     matrix, in some order (callers re-rank by first occurrence): the
-    hash table at 4,096 rows and up, else, or on a collision, an exact
-    memcmp unique."""
-    if rows.shape[0] >= 4096:
-        out = _unique_rows_table(rows, _hash_rows(rows))
+    hash table at 4,096 rows and up (or always, under a
+    :data:`row_hash_func`), else, or on a collision, an exact memcmp
+    unique."""
+    k = rows.shape[0]
+    if k >= 4096 or row_hash_func is not None:
+        h = np.asarray((row_hash_func or _hash_rows)(rows), dtype=np.uint64)
+        if h.shape != (k,):
+            raise ValueError(
+                f"row_hash_func must return shape ({k},) u64, got {h.shape}")
+        out = _unique_rows_table(rows, h)
         if out is not None:
             return out
     view = np.ascontiguousarray(rows).view(

@@ -33,6 +33,7 @@ __all__ = [
     "expand_scan",
     "decode_hybrid",
     "decode_hybrid_prefixed",
+    "slice_prefixed",
     "encode_hybrid",
     "encode_hybrid_prefixed",
 ]
@@ -156,15 +157,23 @@ def decode_hybrid(data, count: int, width: int, pos: int = 0) -> np.ndarray:
                        width)
 
 
-def decode_hybrid_prefixed(data, count: int, width: int, pos: int = 0):
-    """The 4-byte-length-prefixed form: ``(values, end_pos)``."""
+def slice_prefixed(data, pos: int = 0):
+    """A 4-byte-LE-length-prefixed hybrid stream at ``pos``, checked
+    against the buffer: ``(stream, end_pos)``, ``stream`` exactly the
+    prefixed bytes."""
     if pos + 4 > len(data):
         raise ValueError("truncated hybrid length prefix")
     (size,) = struct.unpack_from("<I", data, pos)
     end = pos + 4 + size
     if end > len(data):
         raise ValueError(f"hybrid stream length {size} exceeds buffer")
-    return decode_hybrid(data[pos + 4 : end], count, width), end
+    return data[pos + 4 : end], end
+
+
+def decode_hybrid_prefixed(data, count: int, width: int, pos: int = 0):
+    """The 4-byte-length-prefixed form: ``(values, end_pos)``."""
+    stream, end = slice_prefixed(data, pos)
+    return decode_hybrid(stream, count, width), end
 
 
 def encode_hybrid(values, width: int) -> bytes:

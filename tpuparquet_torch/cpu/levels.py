@@ -1,7 +1,7 @@
 """Repetition and definition levels of a LIST column from offsets, and
-the host decoders of level streams: the hybrid RLE stream of a V1 page
-(4-byte length prefix) or of a V2 page (no prefix), and the deprecated
-BIT_PACKED encoding.
+the host decoders and encoders of level streams: the hybrid RLE stream
+of a V1 page (4-byte length prefix) or of a V2 page (no prefix), and the
+deprecated BIT_PACKED encoding.
 
 The columnar form of one repeated level (the standard 3-level ``optional
 group f (LIST) { repeated group list { element } }``, or a bare repeated
@@ -22,10 +22,17 @@ from __future__ import annotations
 import numpy as np
 
 from .bitpack import unpack_msb
-from .hybrid import decode_hybrid, decode_hybrid_prefixed
+from .hybrid import (as_uint32, decode_hybrid, decode_hybrid_prefixed,
+                     encode_hybrid, encode_hybrid_prefixed)
 
-__all__ = ["decode_levels_bitpacked", "decode_levels_raw",
-           "decode_levels_v1", "list_levels"]
+__all__ = ["bit_width", "decode_levels_bitpacked", "decode_levels_raw",
+           "decode_levels_v1", "encode_levels_v1", "encode_levels_v2",
+           "list_levels", "null_mask"]
+
+
+def bit_width(max_level: int) -> int:
+    """Bits needed for levels ``0..max_level``."""
+    return int(max_level).bit_length()
 
 
 def _checked(levels: np.ndarray, max_level: int) -> np.ndarray:
@@ -54,6 +61,28 @@ def decode_levels_raw(data, count: int, max_level: int) -> np.ndarray:
         return np.zeros(count, dtype=np.int32)
     return _checked(decode_hybrid(data, count, int(max_level).bit_length()),
                     max_level)
+
+
+def encode_levels_v1(levels, max_level: int) -> bytes:
+    """A V1 page's level stream: hybrid, with its 4-byte length prefix
+    (empty when ``max_level == 0``)."""
+    if max_level == 0:
+        return b""
+    return encode_hybrid_prefixed(as_uint32(levels), bit_width(max_level))
+
+
+def encode_levels_v2(levels, max_level: int) -> bytes:
+    """A V2 page's level stream: hybrid, no prefix."""
+    if max_level == 0:
+        return b""
+    return encode_hybrid(as_uint32(levels), bit_width(max_level))
+
+
+def null_mask(def_levels: np.ndarray, max_def: int) -> np.ndarray:
+    """True where a value is present (non-null) at this leaf."""
+    if max_def == 0:
+        return np.ones(len(def_levels), dtype=bool)
+    return np.asarray(def_levels) == max_def
 
 
 def decode_levels_bitpacked(data, count: int, max_level: int) -> np.ndarray:

@@ -360,6 +360,7 @@ def hedged_call(fns, *, delay: float, site: str,
     fns = list(fns)
     if len(fns) == 1 and (budget is None or budget <= 0):
         return fns[0]()
+    from .obs import recorder as _flightrec
     from .obs import trace as _trace
     from .obs.recorder import flight
     from .serve import arbiter as _arbiter
@@ -454,7 +455,9 @@ def hedged_call(fns, *, delay: float, site: str,
             for j in list(branch_spans):
                 close_branch(j, "cancelled")  # the abandoned losers
             if i > 0:
-                flight("hedge_won", site=site, replica=i, **coords)
+                if _flightrec._active is not None:
+                    _flightrec.flight("hedge_won", site=site, replica=i,
+                                      **coords)
                 if st is not None:
                     st.hedges_won += 1
                     if st.events is not None:

@@ -22,6 +22,7 @@ __all__ = [
     "DispatchDeadlineError",
     "KernelBuildError",
     "KernelLaunchError",
+    "LibraryLoadError",
     "ServeStateError",
     "AdmissionRejected",
     "QUARANTINE_ERRORS",
@@ -174,6 +175,12 @@ class KernelLaunchError(RuntimeError):
     error (``kernels/_lib.py`` ``launch``)."""
 
 
+class LibraryLoadError(OSError):
+    """A system library that an override knob names (``TPQ_ZLIB_LIB``,
+    ``TPQ_ZSTD_LIB``) does not load.  A configuration error: it carries
+    no errno, so it is never retried, and no unit may hide it."""
+
+
 class ServeStateError(RuntimeError):
     """An operation out of the serve layer's order, e.g. activating a
     second process-wide :class:`~tpuparquet_torch.serve.ResourceArbiter`
@@ -209,9 +216,11 @@ QUARANTINE_ERRORS = (ValueError, EOFError, TypeError,
 
 def never_quarantine(exc: BaseException) -> bool:
     """Errors that must propagate although they subclass a member of
-    :data:`QUARANTINE_ERRORS`: a RecursionError (a crash), and a kernel
-    that did not build or did not launch (:class:`KernelBuildError`,
-    :class:`KernelLaunchError`: the port's own fault, which no unit may
-    hide by being dropped or by decoding on the host instead)."""
+    :data:`QUARANTINE_ERRORS`: a RecursionError (a crash), a kernel or
+    C helper that did not build or did not launch
+    (:class:`KernelBuildError`, :class:`KernelLaunchError`: the port's
+    own fault, which no unit may hide by being dropped or by decoding on
+    the host instead), and an override library that does not load
+    (:class:`LibraryLoadError`)."""
     return isinstance(exc, (RecursionError, KernelBuildError,
-                            KernelLaunchError))
+                            KernelLaunchError, LibraryLoadError))

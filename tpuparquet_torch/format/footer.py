@@ -6,7 +6,8 @@
 little-endian footer length at EOF-8, then compact-thrift-decodes
 ``FileMetaData``.  Every framing failure raises
 :class:`~tpuparquet_torch.errors.CorruptFooterError` with the rejecting
-byte offset.  The two reads are the fault sites ``format.footer.tail``
+byte offset; ``FormatError`` is the same class under the reference's
+older name.  The two reads are the fault sites ``format.footer.tail``
 and ``format.footer.blob`` (``faults.py``).
 """
 
@@ -22,7 +23,10 @@ from .metadata import FileMetaData, encode_struct
 
 MAGIC = b"PAR1"
 
-__all__ = ["MAGIC", "read_file_metadata", "write_footer"]
+__all__ = ["MAGIC", "read_file_metadata", "write_footer", "FormatError"]
+
+#: the reference's older name of the footer's error class
+FormatError = CorruptFooterError
 
 
 def _file_size(f) -> int:

@@ -7,9 +7,10 @@ Unknown fields are skipped on read (forward compatibility), absent
 optional fields are omitted on write.  This copy declares the structs the
 read and write paths touch, with every logical type of the union, the
 page encoding stats and a row group's sorting columns (which a rescue
-copies), the page index (``ColumnIndex``, ``OffsetIndex``) and the bloom
-filter header; fields it does not declare (encryption) are skipped on
-read and never written.
+copies), the page index (``ColumnIndex``, ``OffsetIndex``), the bloom
+filter header and the encryption members (``EncryptionAlgorithm``, a
+chunk's ``ColumnCryptoMetaData``, ``FileCryptoMetaData``), which a
+re-encoded footer keeps though nothing here decrypts.
 
 Enums carry the exact numeric values from the spec (``parquet.thrift``:
 ``Type`` block at :32, ``ConvertedType`` :48, ``FieldRepetitionType`` :182,
@@ -37,6 +38,9 @@ __all__ = [
     "BloomFilterHeader", "PageHeader", "KeyValue", "ColumnMetaData",
     "ColumnChunk", "RowGroup", "PageLocation", "OffsetIndex",
     "ColumnIndex", "TypeDefinedOrder", "ColumnOrder", "FileMetaData",
+    "EncryptionWithFooterKey", "EncryptionWithColumnKey",
+    "ColumnCryptoMetaData", "AesGcmV1", "AesGcmCtrV1",
+    "EncryptionAlgorithm", "FileCryptoMetaData",
     "decode_struct", "encode_struct",
 ]
 
@@ -640,6 +644,24 @@ class ColumnMetaData(ThriftStruct):
     ]
 
 
+class EncryptionWithFooterKey(ThriftStruct):
+    FIELDS = []
+
+
+class EncryptionWithColumnKey(ThriftStruct):
+    FIELDS = [
+        (1, "path_in_schema", _TList(STRING)),
+        (2, "key_metadata", BINARY),
+    ]
+
+
+class ColumnCryptoMetaData(ThriftStruct):
+    FIELDS = [
+        (1, "ENCRYPTION_WITH_FOOTER_KEY", _S(EncryptionWithFooterKey)),
+        (2, "ENCRYPTION_WITH_COLUMN_KEY", _S(EncryptionWithColumnKey)),
+    ]
+
+
 class ColumnChunk(ThriftStruct):
     FIELDS = [
         (1, "file_path", STRING),
@@ -649,6 +671,8 @@ class ColumnChunk(ThriftStruct):
         (5, "offset_index_length", I32),
         (6, "column_index_offset", I64),
         (7, "column_index_length", I32),
+        (8, "crypto_metadata", _S(ColumnCryptoMetaData)),
+        (9, "encrypted_column_metadata", BINARY),
     ]
 
 
@@ -694,6 +718,29 @@ class ColumnOrder(ThriftStruct):
     FIELDS = [(1, "TYPE_ORDER", _S(TypeDefinedOrder))]
 
 
+class AesGcmV1(ThriftStruct):
+    FIELDS = [
+        (1, "aad_prefix", BINARY),
+        (2, "aad_file_unique", BINARY),
+        (3, "supply_aad_prefix", BOOL),
+    ]
+
+
+class AesGcmCtrV1(ThriftStruct):
+    FIELDS = [
+        (1, "aad_prefix", BINARY),
+        (2, "aad_file_unique", BINARY),
+        (3, "supply_aad_prefix", BOOL),
+    ]
+
+
+class EncryptionAlgorithm(ThriftStruct):
+    FIELDS = [
+        (1, "AES_GCM_V1", _S(AesGcmV1)),
+        (2, "AES_GCM_CTR_V1", _S(AesGcmCtrV1)),
+    ]
+
+
 class FileMetaData(ThriftStruct):
     FIELDS = [
         (1, "version", I32),
@@ -703,4 +750,13 @@ class FileMetaData(ThriftStruct):
         (5, "key_value_metadata", _TList(_S(KeyValue))),
         (6, "created_by", STRING),
         (7, "column_orders", _TList(_S(ColumnOrder))),
+        (8, "encryption_algorithm", _S(EncryptionAlgorithm)),
+        (9, "footer_signing_key_metadata", BINARY),
+    ]
+
+
+class FileCryptoMetaData(ThriftStruct):
+    FIELDS = [
+        (1, "encryption_algorithm", _S(EncryptionAlgorithm)),
+        (2, "key_metadata", BINARY),
     ]

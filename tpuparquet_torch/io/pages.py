@@ -63,7 +63,7 @@ from ..cpu.delta import decode_delta_binary_packed, \
     encode_delta_length_byte_array
 from ..cpu.hybrid import as_uint32, decode_hybrid_prefixed, encode_hybrid, \
     encode_hybrid_prefixed, scan_hybrid
-from ..cpu.dictionary import decode_dict_indices
+from ..cpu.dictionary import decode_dict_indices, encode_dict_indices
 from ..cpu.levels import decode_levels_bitpacked, decode_levels_raw, \
     decode_levels_v1
 from ..cpu.plain import PHYSICAL_DTYPES, ByteArrayColumn, decode_plain, \
@@ -215,12 +215,6 @@ def scan_levels_v2(payload, h: DataPageHeaderV2, n: int, max_rep: int,
         dl = scan_hybrid(payload[rl_len : rl_len + dl_len], n,
                          int(max_def).bit_length())
     return rl, dl, rl_len + dl_len
-
-
-def encode_dict_indices(indices, dict_size: int) -> bytes:
-    """Dictionary indices as (bit-width byte + hybrid stream)."""
-    width = max(int(dict_size - 1).bit_length(), 1) if dict_size > 1 else 1
-    return bytes([width]) + encode_hybrid(as_uint32(indices), width)
 
 
 def decode_values(ptype: Type, encoding: Encoding, data, count: int,

@@ -136,7 +136,8 @@ class _IoHandle:
 
     __slots__ = ("f", "lock", "owns", "name", "inflight")
 
-    def __init__(self, f, owns: bool, name=None):
+    def __init__(self, f: "RangeSourceFile | io.BufferedIOBase",
+                 owns: bool, name=None):
         self.f = f
         self.lock = threading.Lock()
         self.owns = owns

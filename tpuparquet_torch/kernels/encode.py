@@ -471,9 +471,9 @@ def lanes_min_max(flat: torch.Tensor, lanes: int, order: str):
     with st.lock:
         launch("min_max", flat.data_ptr(), n, lanes, _ORDERS[order],
                st.scratch.data_ptr(), st.out_ptr, stream)
-        count_launch(lanes_min_max)
         launch("min_max_wait", stream)
         kmin, kmax = int(st.keys[0]), int(st.keys[1])
+    count_launch(lanes_min_max)
     if kmin > kmax:
         return None
     bits = 32 * lanes

@@ -28,6 +28,8 @@ import threading
 
 import numpy as np
 
+from .errors import KernelBuildError
+
 __all__ = ["NativeBytes", "NativeDelta", "NativeHybrid", "NativeIntern",
            "NativePack", "NativePage", "NativePlane", "TOO_MANY_DISTINCT",
            "bytes_native", "delta_native", "hybrid_native", "intern_native",
@@ -49,7 +51,7 @@ def _native(stem: str, cls):
 
             cc = shutil.which("cc") or shutil.which("gcc")
             if cc is None:
-                raise RuntimeError(
+                raise KernelBuildError(
                     f"tpuparquet_torch needs a C compiler to build "
                     f"csrc/{stem}.c")
             (path,) = build([(CSRC / f"{stem}.c",

@@ -20,10 +20,11 @@ the work runs.
 mark a thread as blocked, and the sampler appends a synthetic leaf
 frame.  The chunk read marks its fetch as an ``io`` wait, so a hung read
 (the ``io.chunk.hang`` fault included) samples as ``[io-wait
-io.reader.chunk_read]`` under the ``read`` stage.  The reference also
-samples contended locks as ``[lock-wait <site>]`` through its lock
-checker's wrappers; the port has no lock checker, so it takes no such
-sample.
+io.reader.chunk_read]`` under the ``read`` stage.  Arming installs
+:func:`wait_begin`/:func:`wait_end` into the lock-order recorder's
+wrappers (``lockcheck.py``, under ``TPQ_LOCKCHECK``), so a thread that
+queues on a contended repo lock samples as ``[lock-wait
+tpuparquet_torch/<file>:<line>]``, the lock's creation site.
 
 Counts are integers: the buckets and the ``profile_samples``,
 ``profile_samples_offcpu`` and ``profile_drops`` counters fold by
@@ -450,12 +451,22 @@ def profiler() -> Profiler | None:
     return _active
 
 
+def _install_hooks(p: Profiler | None) -> None:
+    from .. import lockcheck as _lockcheck
+
+    if p is None:
+        _lockcheck.set_wait_hooks(None, None)
+    else:
+        _lockcheck.set_wait_hooks(wait_begin, wait_end)
+
+
 def set_profiling(on: bool = True, *, hz: float | None = None,
                   start: bool = True) -> Profiler | None:
     """Runtime reconfigure: ``True`` installs a FRESH profiler (and
     starts its sampler thread unless ``start=False`` — tests drive
     ``sample_once`` by hand), ``False`` disarms and stops the sampler.
-    Arming registers the atexit flush; returns the new profiler."""
+    Arming installs the lockcheck wait hooks and registers the atexit
+    flush; returns the new profiler."""
     global _active, _atexit_registered
     with _lock:
         old = _active
@@ -463,9 +474,11 @@ def set_profiling(on: bool = True, *, hz: float | None = None,
             _active = None
             old.stop()
         if not on:
+            _install_hooks(None)
             return None
         p = Profiler(hz if hz is not None else profile_hz_default())
         _active = p
+        _install_hooks(p)
         if not _atexit_registered:
             import atexit
 
@@ -481,8 +494,9 @@ def _init_from_env() -> None:
         set_profiling(True)
 
 
-# (the env arming itself happens at the end of the module, once every
-# hook is defined)
+# (the env arming itself happens at the end of the module: arming
+# installs wait_begin/wait_end into lockcheck, so every hook must be
+# defined first)
 
 
 # ----------------------------------------------------------------------

@@ -7,8 +7,9 @@ Without an override, an accessor gives None when its library is absent,
 and ``compress.py`` falls back to the stdlib ``zlib`` module (GZIP: the
 same libz with the same parameters, so the same bytes) or the
 ``zstandard`` wheel (ZSTD).  An override that does not load raises
-:class:`OSError` naming the path: the user asked for that library, and a
-silent fallback would hide the mistake.  (The JAX package swallows that
+:class:`~tpuparquet_torch.errors.LibraryLoadError` (an OSError) naming
+the path: the user asked for that library, and a silent fallback would
+hide the mistake.  (The JAX package swallows that
 error and falls back; this is a known difference.)
 
 Every entry point releases the GIL across the library call (ctypes CDLL
@@ -25,6 +26,8 @@ import threading
 
 import numpy as np
 
+from .errors import LibraryLoadError
+
 __all__ = ["NativeZlib", "NativeZstd", "zlib_native", "zstd_native"]
 
 
@@ -37,14 +40,15 @@ def _as_u8(block) -> np.ndarray:
 
 def _dlopen(env_var: str, candidates: tuple[str, ...]):
     """The first loadable library among the override and the sonames, or
-    None.  An override that fails to load raises OSError naming it."""
+    None.  An override that fails to load raises LibraryLoadError naming
+    it."""
     override = os.environ.get(env_var)
     if override:
         try:
             return ctypes.CDLL(override)
         except OSError as e:
-            raise OSError(f"{env_var}={override}: the library does not "
-                          f"load ({e})") from e
+            raise LibraryLoadError(f"{env_var}={override}: the library "
+                                   f"does not load ({e})") from e
     for name in candidates:
         try:
             return ctypes.CDLL(name)
@@ -351,7 +355,8 @@ _zstd_inst: "NativeZstd | None | bool" = False
 
 def zlib_native() -> NativeZlib | None:
     """The process-wide libz binding, or None when no libz loads; raises
-    OSError when ``TPQ_ZLIB_LIB`` names a library that does not load."""
+    LibraryLoadError when ``TPQ_ZLIB_LIB`` names a library that does not
+    load."""
     global _zlib_inst
     with _lock:
         if _zlib_inst is False:
@@ -366,8 +371,8 @@ def zlib_native() -> NativeZlib | None:
 
 def zstd_native() -> NativeZstd | None:
     """The process-wide libzstd binding, or None when no libzstd loads;
-    raises OSError when ``TPQ_ZSTD_LIB`` names a library that does not
-    load."""
+    raises LibraryLoadError when ``TPQ_ZSTD_LIB`` names a library that
+    does not load."""
     global _zstd_inst
     with _lock:
         if _zstd_inst is False:
